@@ -3,18 +3,26 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed):
-  1. environment: the card's name and power limit; the five CUDA kernels of
-     the main path are built from wgsparkl_tpu_torch/csrc (set-up);
-  2. the main path at full size (sand_box_3d with the paddle, 1,002,001
+  1. environment: the card's name and power limit; the nine CUDA kernels'
+     eight sources are built from wgsparkl_tpu_torch/csrc, one nvcc each,
+     all started together (set-up);
+  2. the 3D main path at full size (sand_box_3d with the paddle, 1,002,001
      particles, 4 x 8 x 4 blocks, 1024 particles per job): one warm frame of
      20 substeps, then timed frames; no job-table overflow in any frame,
-     finite positions, and every kernel launched by that run;
-  3. each kernel against its plain PyTorch version at full size, on the
-     inputs of a substep of the same scene with its lattice lowered onto
-     the paddle (so kernel A's CPIC impulses carry load), with its stated
-     tolerance and times (CUDA events);
-  4. the kernel path against the plain path on small scenes (10 substeps
-     of the sand box, 5 of a lattice lowered onto the paddle): equal bit
+     finite positions, and every kernel of the path (A-E) launched by that
+     run;
+  3. the 2D path at full size (sand_column_2d, 490,000 particles, 8 x 8
+     blocks, 512 particles per job): one warm frame of 10 substeps, then
+     timed frames, with the same checks for its kernels (G, H, I, the dim=2
+     entry of C, and D, E);
+  4. each kernel against its plain PyTorch version at full size, on the
+     inputs of a substep of each scene with its lattice lowered into a
+     collider (onto the paddle in 3D, 1.5 cells into the floor in 2D), so
+     that the CPIC impulses carry load; with its stated tolerance, its time
+     and its bound (CUDA events);
+  5. the kernel path against the plain path on small scenes (3D: 10
+     substeps of the sand box, 5 of a lattice lowered onto the paddle; 2D:
+     10 substeps of the sand column and of the elastic blocks): equal bit
      for bit to the plain path on the card, and within tolerance of the
      plain path on the CPU (affinity words exact).
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -28,14 +36,18 @@ import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 
 SUBSTEPS = 20
 TIMED_FRAMES = 3
 NXZ, NY = 77, 169           # 1,002,001 particles (the reference bench sizing)
 BY, GROUP = 8, 1024
+# The 2D throughput scene: sand_column_2d at 700 x 700 (490,000 particles),
+# the sizing of tools/profile_bench.py and tools/measure_configs.py.
+NX2, NY2, H2, GROUP2, SUBSTEPS2 = 700, 700, 0.2, 512, 10
 DEVICE = "cuda:0"
+# The H100 SXM's published peaks (fp32 outside the tensor cores, HBM3).
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
 # TPU kernel each CUDA kernel replaces (the pallas_call site).
 REPLACES = {
@@ -44,7 +56,19 @@ REPLACES = {
     "update_rows": "wgsparkl_tpu/ops/update_rows.py:191",
     "permute": "wgsparkl_tpu/ops/permute.py:216",
     "compact": "wgsparkl_tpu/ops/compact.py:102",
+    "pcdf2d": "wgsparkl_tpu/ops/pallas_transfer2d.py:820",
+    "p2g2d": "wgsparkl_tpu/ops/pallas_transfer2d.py:402",
+    "g2p2d": "wgsparkl_tpu/ops/pallas_transfer2d.py:584",
+    "update_rows2d": "wgsparkl_tpu/ops/update_rows.py:191",
 }
+SOURCE = {"update_rows2d": "update_rows"}
+# The rows of the [PCHAN, NPAD] input matrix that kernel C reads (csrc/
+# update_rows.cu, update_kernel and update2d_kernel); it replaces the others
+# with G2P rows, particle-CDF rows or new values.
+C_ROWS_READ_3D = (*range(0, 3), 6, *range(21, 40), *range(44, 48))
+C_ROWS_READ_2D = (0, 1, 4, *range(13, 24), *range(27, 32))
+KERNELS_3D = ("p2g_cdf", "g2p", "update_rows", "permute", "compact")
+KERNELS_2D = ("pcdf2d", "p2g2d", "g2p2d", "update_rows2d", "permute", "compact")
 
 
 def fail(msg: str) -> None:
@@ -65,18 +89,40 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def bound(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    to move nbytes and do flops f32 operations."""
+    tb, tf = nbytes / PEAK_BYTES, flops / PEAK_FLOPS
+    return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
+
+
+def c_cost(rows_read, krows, pcdf_rows, pchan, npad, ce, flops_per_lane):
+    """(bytes, flops) of kernel C: on every lane it reads rows_read of the
+    row matrix and the sorted id and writes all pchan rows; only the ce
+    covered lanes read their krows G2P rows and pcdf_rows particle-CDF
+    rows."""
+    return (4 * ((len(rows_read) + 1 + pchan) * npad + (krows + pcdf_rows) * ce),
+            ce * flops_per_lane)
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """Route the main path's five kernel calls to their plain versions (on
-    any device) for the duration of the block."""
+    """Route both paths' kernel calls to their plain versions (on any
+    device) for the duration of the block."""
     from wgsparkl_tpu_torch import pipeline
-    from wgsparkl_tpu_torch.ops import compact, g2p, p2g_cdf, permute, update_rows
+    from wgsparkl_tpu_torch.ops import (
+        compact, g2p, p2g_cdf, permute, transfer2d, update_rows,
+    )
 
     swaps = [(pipeline, "p2g_cdf_tiles", p2g_cdf.p2g_cdf_plain),
              (pipeline, "g2p_rows", g2p.g2p_plain),
              (pipeline, "update_rows", update_rows.update_plain),
              (pipeline, "permute_lanes", permute.permute_plain),
-             (compact, "compact_flagged", compact.compact_plain)]
+             (compact, "compact_flagged", compact.compact_plain),
+             (pipeline, "pcdf_rows2d", transfer2d.pcdf_plain),
+             (pipeline, "p2g_tiles2d", transfer2d.p2g_plain),
+             (pipeline, "g2p_rows2d", transfer2d.g2p_plain),
+             (pipeline, "update_rows2d", update_rows.update2d_plain)]
     saved = [getattr(m, a) for m, a, _ in swaps]
     for m, a, f in swaps:
         setattr(m, a, f)
@@ -85,6 +131,24 @@ def plain_versions():
     finally:
         for (m, a, _), f in zip(swaps, saved):
             setattr(m, a, f)
+
+
+def full_scene(dev):
+    """The 3D main path at full size: 1,002,001 particles."""
+    from wgsparkl_tpu_torch import scenes
+
+    n_est = NXZ * NXZ * NY
+    max_jobs = (n_est // (100 * BY) + 256) // 128 * 128
+    return scenes.sand_box_3d(nxz=NXZ, ny=NY, cell_width=1.0, with_paddle=True,
+                              device=dev, by=BY, group=GROUP, max_jobs=max_jobs)
+
+
+def full_scene_2d(dev):
+    """The 2D path at full size: 490,000 particles."""
+    from wgsparkl_tpu_torch import scenes
+
+    return scenes.sand_column_2d(nx=NX2, ny=NY2, cell_width=H2, device=dev,
+                                 group=GROUP2)
 
 
 def _to(state, device):
@@ -104,7 +168,48 @@ def _to(state, device):
                                models=mv(state.models), bodies=mv(state.bodies))
 
 
+def run_frames(wt, data, substeps, kernels, what, card, kind):
+    """One warm and TIMED_FRAMES timed frames through step_with_diag, with
+    the launch counts set to 0 just before and read just after."""
+    from wgsparkl_tpu_torch.pipeline import step_with_diag
+
+    cfg, n = data.config, data.num_particles
+    print(f"{what}: {n} particles, grid {cfg.grid.shape}, max_jobs "
+          f"{cfg.max_jobs}, static slots {cfg.static_slots}", flush=True)
+    wt.reset_launch_counts()
+    state, diags = data.state, []
+    t0 = time.time()
+    state, diag = step_with_diag(state, data.params, cfg, substeps)
+    diags.append(diag)
+    torch.cuda.synchronize()
+    print(f"{what}: warm frame ({substeps} substeps) {time.time() - t0:.2f} s",
+          flush=True)
+    t0 = time.time()
+    for _ in range(TIMED_FRAMES):
+        state, diag = step_with_diag(state, data.params, cfg, substeps)
+        diags.append(diag)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    counts = wt.launch_counts()
+    pos = state.particles.pos
+    if tuple(pos.shape) != (n, cfg.grid.dim) or not bool(torch.isfinite(pos).all()):
+        fail(f"{what}: non-finite or misshapen positions")
+    for i, d in enumerate(diags):
+        if d.any_overflow():
+            fail(f"{what}: step diagnostics of frame {i} (0 = warm): {d.summary()}")
+    if min(counts[k] for k in kernels) <= 0:
+        fail(f"{what}: a kernel of the path never launched: {counts}")
+    steps = TIMED_FRAMES * substeps
+    sps = steps / elapsed
+    print(f"{what} on {kind} ({card}): {n} particles, {steps} substeps in "
+          f"{elapsed:.3f} s -> {sps:.3f} steps/s, {sps * n / 1e6:.2f} M "
+          f"particle-updates/s; diag of all {len(diags)} frames OK; launches "
+          f"{ {k: counts[k] for k in kernels} }", flush=True)
+    return counts
+
+
 def main() -> None:
+    t_start = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
     smi = subprocess.run(
@@ -117,7 +222,9 @@ def main() -> None:
     except ImportError as e:
         fail(f"the port package is not importable here: {e}")
     from wgsparkl_tpu_torch import _cuda, scenes
-    from wgsparkl_tpu_torch.ops import compact, g2p, p2g_cdf, permute, update_rows
+    from wgsparkl_tpu_torch.ops import (
+        compact, g2p, p2g_cdf, permute, transfer2d, update_rows,
+    )
     from wgsparkl_tpu_torch.pipeline import step_pallas, step_with_diag
 
     dev = torch.device(DEVICE)
@@ -127,101 +234,32 @@ def main() -> None:
 
     # ---- 1. build ----
     t0 = time.time()
-    for name in ("p2g_cdf", "g2p", "update_rows", "permute", "compact"):
+    _cuda.build(_cuda.sources())
+    for name in _cuda.sources():
         _cuda.load(name)
-    print(f"built 5 kernels in {time.time() - t0:.1f} s", flush=True)
+    print(f"built {len(_cuda.sources())} kernel sources in {time.time() - t0:.1f} s",
+          flush=True)
 
-    # ---- the full-size scene ----
-    def full_scene():
-        n_est = NXZ * NXZ * NY
-        max_jobs = (n_est // (100 * BY) + 256) // 128 * 128
-        return scenes.sand_box_3d(nxz=NXZ, ny=NY, cell_width=1.0,
-                                  with_paddle=True, device=dev, by=BY,
-                                  group=GROUP, max_jobs=max_jobs)
-
-    data = full_scene()
-    cfg = data.config
-    n = data.num_particles
-    print(f"scene: {n} particles, grid {cfg.grid.shape}, max_jobs "
-          f"{cfg.max_jobs}, static slots {cfg.static_slots}", flush=True)
-    # ---- 2. the main path at full size ----
-    wt.reset_launch_counts()
-    state = data.state
-    diags = []
-    t0 = time.time()
-    state, diag = step_with_diag(state, data.params, cfg, SUBSTEPS)
-    diags.append(diag)
-    torch.cuda.synchronize()
-    print(f"warm frame ({SUBSTEPS} substeps): {time.time() - t0:.2f} s", flush=True)
-    t0 = time.time()
-    for _ in range(TIMED_FRAMES):
-        state, diag = step_with_diag(state, data.params, cfg, SUBSTEPS)
-        diags.append(diag)
-    torch.cuda.synchronize()
-    elapsed = time.time() - t0
-    counts = wt.launch_counts()
-    pos = state.particles.pos
-    if tuple(pos.shape) != (n, 3) or not bool(torch.isfinite(pos).all()):
-        fail("non-finite or misshapen positions after the main-path run")
-    for i, d in enumerate(diags):
-        if d.any_overflow():
-            fail(f"step diagnostics of frame {i} (0 = warm): {d.summary()}")
-    if min(counts.values()) <= 0:
-        fail(f"a kernel of the main path never launched: {counts}")
-    steps = TIMED_FRAMES * SUBSTEPS
-    sps = steps / elapsed
-    print(f"main path on {kind} ({card}): {n} particles, {steps} substeps in "
-          f"{elapsed:.3f} s -> {sps:.3f} steps/s, {sps * n / 1e6:.2f} M "
-          f"particle-updates/s; diag of all {len(diags)} frames OK; launches "
-          f"{counts}", flush=True)
-    del data, state, diags
+    # ---- 2. the 3D main path at full size ----
+    counts3 = run_frames(wt, full_scene(dev), SUBSTEPS, KERNELS_3D, "3D main path",
+                         card, kind)
     torch.cuda.empty_cache()
-
-    # ---- 3. kernels vs plain versions at full size, under contact load ----
-    # The same scene with its lattice lowered 3 cells onto the paddle: the
-    # main path's shapes, with gated jobs whose CPIC impulses are nonzero.
-    data = full_scene()
-    cfg = data.config
-    data.state.particles.pos += torch.tensor([0.0, -3.0, 0.0], device=dev)
-    state, diag = step_with_diag(data.state, data.params, cfg, 2)
-    rec = {}
-    step_pallas(state, data.params, cfg, 1, record=rec)
-    torch.cuda.synchronize()
-    if diag.any_overflow():
-        fail(f"step diagnostics of the lowered scene: {diag.summary()}")
-    h, npad = cfg.grid.cell_width, rec["rows"].shape[1]
-    nc = cfg.num_colliders
-    args_a = (rec["pdata"], rec["ntiles"], rec["btable"], rec["jobs"],
-              rec["bcells"], rec["jbody"], h, BY, GROUP, npad, nc, rec["moving"])
-    # The substep patched the particle CDF into pdata after kernel A ran:
-    # kernel A reads the rows as they were before (rows 0..23 of the sorted
-    # matrix), kernel B the patched ones.
-    pdata_a = rec["rows"][:24].contiguous()
-    args_a = (pdata_a,) + args_a[1:]
-    args_b = (rec["pdata"], rec["ftiles"], rec["ntiles"], rec["btable"],
-              rec["jobs"], rec["bcells"], rec["jbody"], h, BY, GROUP, npad, nc,
-              rec["moving"])
-    dt = data.params.dt
-    args_c = (rec["rows"], rec["krows"], rec["pcdf"], rec["sorted_ids"],
-              rec["covered_end"], rec["btable"], rec["mtable"], dt, h, nc,
-              max(cfg.n_materials, 1), int(np.prod([s // b for s, b in zip(
-                  cfg.grid.shape, (4, BY, 4))])))
-    nb_total = args_c[-1]
-    sids = rec["sorted_ids"]
-    is_first = torch.ones_like(sids, dtype=torch.bool)
-    is_first[1:] = sids[1:] != sids[:-1]
-    vals_e = torch.clamp(sids, max=nb_total + 1).to(torch.float32)[None, :]
-    cap_e = min(nb_total + 3, npad)
-    ce = int(rec["covered_end"])
+    # ---- 3. the 2D path at full size ----
+    counts2 = run_frames(wt, full_scene_2d(dev), SUBSTEPS2, KERNELS_2D, "2D path",
+                         card, kind)
+    torch.cuda.empty_cache()
 
     checks = []
 
-    def check(name, src, run_k, run_p, pairs, exact=(), require=None):
+    def check(name, run_k, run_p, pairs, exact=(), require=None, cost=None,
+              library=None):
         """The kernel must give the same bits on two launches.
         pairs(k, p) -> [(label, kernel tensor, plain tensor, rtol)]: each
         must agree within rtol * max(1, max |plain|); exact(k, p) -> pairs
-        of integer-valued tensors that must be equal; require(p) -> an
-        error message when the plain output does not exercise the kernel."""
+        that must be equal bit for bit; require(p) -> an error message when
+        the plain output does not exercise the kernel; cost -> (bytes,
+        flops) the function needs on these inputs; library -> one PyTorch
+        call computing the same function, timed as a yardstick."""
         out_k = run_k()
         again = run_k()
         out_p = run_p()
@@ -234,7 +272,8 @@ def main() -> None:
             fail(f"{name}: two launches on the same inputs differ")
         for label, a, b in (exact(out_k, out_p) if exact else ()):
             if not torch.equal(a, b):
-                fail(f"{name}: {label} differs from the plain version")
+                e = float((a.double() - b.double()).abs().max())
+                fail(f"{name}: {label} differs from the plain version (max {e:.3e})")
         err, bad, lines = 0.0, [], []
         for label, a, b, rtol in pairs(out_k, out_p):
             e = float((a.double() - b.double()).abs().max())
@@ -251,17 +290,72 @@ def main() -> None:
             fail(f"{name} disagrees with its plain version: " + "; ".join(bad))
         ms = cuda_ms(run_k)
         plain_ms = cuda_ms(run_p, reps=2)
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
-        checks.append({"name": name, "route": "cuda", "source": src,
+        library_ms = cuda_ms(library) if library else None
+        bound_ms, bound_by = bound(*cost)
+        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"{library_ms if library_ms is None else round(library_ms, 4)} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}; {cost[0] / 1e6:.1f} MB, "
+              f"{cost[1] / 1e9:.3f} GFLOP)", flush=True)
+        checks.append({"name": name, "route": "cuda",
+                       "source": f"wgsparkl_tpu_torch/csrc/{SOURCE.get(name, name)}.cu",
                        "replaces": REPLACES[name], "max_abs_err": err,
-                       "ms": ms, "plain_ms": plain_ms})
+                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "library_ms": library_ms})
 
+    def job_stats(rec):
+        """(covered particles, of them in gated jobs, live jobs, gated live
+        jobs) of a recorded substep."""
+        ln, jb = rec["jobs"]["len"], rec["jbody"]
+        live = ln > 0
+        return (int(rec["covered_end"]), int(ln[live & (jb > 0)].sum()),
+                int(live.sum()), int((live & (jb > 0)).sum()))
+
+    # ---- 4a. 3D kernels vs plain versions at full size, under contact load ----
+    # The 3D scene with its lattice lowered 3 cells onto the paddle: the
+    # main path's shapes, with gated jobs whose CPIC impulses are nonzero.
+    data = full_scene(dev)
+    cfg = data.config
+    data.state.particles.pos += torch.tensor([0.0, -3.0, 0.0], device=dev)
+    state, diag = step_with_diag(data.state, data.params, cfg, 2)
+    rec = {}
+    step_pallas(state, data.params, cfg, 1, record=rec)
+    torch.cuda.synchronize()
+    if diag.any_overflow():
+        fail(f"step diagnostics of the lowered scene: {diag.summary()}")
+    h, npad = cfg.grid.cell_width, rec["rows"].shape[1]
+    nc = cfg.num_colliders
+    # The substep patched the particle CDF into pdata after kernel A ran:
+    # kernel A reads the rows as they were before (rows 0..23 of the sorted
+    # matrix), kernel B the patched ones.
+    args_a = (rec["rows"][:24].contiguous(), rec["ntiles"], rec["btable"],
+              rec["jobs"], rec["bcells"], rec["jbody"], h, BY, GROUP, npad, nc,
+              rec["moving"])
+    args_b = (rec["pdata"], rec["ftiles"], rec["ntiles"], rec["btable"],
+              rec["jobs"], rec["bcells"], rec["jbody"], h, BY, GROUP, npad, nc,
+              rec["moving"])
+    nb_total = rec["nb_total"]
+    args_c = (rec["rows"], rec["krows"], rec["pcdf"], rec["sorted_ids"],
+              rec["covered_end"], rec["btable"], rec["mtable"], data.params.dt,
+              h, nc, max(cfg.n_materials, 1), nb_total)
+    sids = rec["sorted_ids"]
+    is_first = torch.ones_like(sids, dtype=torch.bool)
+    is_first[1:] = sids[1:] != sids[:-1]
+    vals_e = torch.clamp(sids, max=nb_total + 1).to(torch.float32)[None, :]
+    cap_e = min(nb_total + 3, npad)
+    ce, pg, nj, njg = job_stats(rec)
+    wv = rec["ntiles"].shape[1]
+    n_first = int(is_first.sum())
+    print(f"3D kernel inputs: {ce} covered particles ({pg} in gated jobs), "
+          f"{nj} live jobs ({njg} gated), NPAD {npad}", flush=True)
+
+    # Costs, counted from these inputs: 4 bytes a float read or written once;
+    # f32 operations per particle and stencil node from the kernel sources.
     # Tolerances: kernel A sums its impulses over nodes in another order
     # than the plain version; its window tiles and the per-particle outputs
-    # of A and B follow the plain operation order; C differs from its plain version
-    # only through libm (expf, logf, sinf); D and E move integers and must
-    # be exact.
-    check("p2g_cdf", "wgsparkl_tpu_torch/csrc/p2g_cdf.cu",
+    # of A and B follow the plain operation order; C differs from its plain
+    # version only through libm (expf, logf, sinf); D and E move integers
+    # and must be exact.
+    check("p2g_cdf",
           lambda: p2g_cdf.p2g_cdf_tiles(*args_a),
           lambda: p2g_cdf.p2g_cdf_plain(*args_a),
           lambda k, p: [("mm tiles", k[0], p[0], 1e-5),
@@ -269,35 +363,97 @@ def main() -> None:
                         ("particle cdf", k[2][:, :ce], p[2][:, :ce], 1e-5)],
           lambda k, p: [("affinity rows", k[2][[0, 5]], p[2][[0, 5]])],
           lambda p: (None if float(p[1].abs().max()) > 1.0
-                     else "the plain impulses are ~0: no contact load"))
-    check("g2p", "wgsparkl_tpu_torch/csrc/g2p.cu",
+                     else "the plain impulses are ~0: no contact load"),
+          cost=(4 * (24 * ce + nj * wv * 4 + nj * wv * 8 + 8 * ce + njg * 8 * 128),
+                ce * (30 + 27 * 13 * 2) + pg * (27 * (3 * nc + 58) + 200)))
+    check("g2p",
           lambda: g2p.g2p_rows(*args_b), lambda: g2p.g2p_plain(*args_b),
-          lambda k, p: [("rows", k[:, :ce], p[:, :ce], 1e-5)])
-    check("update_rows", "wgsparkl_tpu_torch/csrc/update_rows.cu",
+          lambda k, p: [("rows", k[:, :ce], p[:, :ce], 1e-5)],
+          cost=(4 * (11 * ce + nj * wv * 4 + njg * wv * 4 + 12 * ce),
+                ce * (30 + 27 * 24) + pg * 27 * 40))
+    check("update_rows",
           lambda: update_rows.update_rows(*args_c),
           lambda: update_rows.update_plain(*args_c),
           lambda k, p: [(f"row {r}", k[r], p[r], 1e-4) for r in range(k.shape[0])],
-          lambda k, p: [(f"row {r}", k[r], p[r]) for r in (16, 20, 21, 22)])
-    check("permute", "wgsparkl_tpu_torch/csrc/permute.cu",
+          lambda k, p: [(f"row {r}", k[r], p[r]) for r in (16, 20, 21, 22)],
+          cost=c_cost(C_ROWS_READ_3D, 12, 6, rec["rows"].shape[0], npad, ce, 6000))
+    check("permute",
           lambda: permute.permute_lanes(rec["unsorted"], rec["perm"]),
           lambda: permute.permute_plain(rec["unsorted"], rec["perm"]),
-          lambda k, p: [], lambda k, p: [("rows", k, p)])
-    check("compact", "wgsparkl_tpu_torch/csrc/compact.cu",
+          lambda k, p: [], lambda k, p: [("rows", k, p)],
+          cost=(4 * (2 * rec["unsorted"].shape[0] * npad + npad), 0),
+          library=lambda: rec["unsorted"].index_select(1, rec["perm"]))
+    check("compact",
           lambda: compact.compact_flagged(vals_e, is_first, cap_e),
           lambda: compact.compact_plain(vals_e, is_first, cap_e),
-          lambda k, p: [], lambda k, p: [("values", k[0], p[0]), ("ok", k[1], p[1])])
-    for c in checks:
-        c["launches"] = counts[c["name"]]
-    del rec, args_a, args_b, args_c
+          lambda k, p: [], lambda k, p: [("values", k[0], p[0]), ("ok", k[1], p[1])],
+          cost=(4 * npad + npad + 4 * 2 * n_first, 0),
+          library=lambda: vals_e[:, is_first])
+    del rec, args_a, args_b, args_c, data, state
     torch.cuda.empty_cache()
 
-    # ---- 4. kernel path vs plain path on small scenes ----
-    def small(device, shift=None):
-        d = scenes.sand_box_3d(nxz=8, ny=16, device=device, by=BY, group=256)
-        if shift is not None:
-            d.state.particles.pos += torch.tensor(shift, device=device)
-        return d
+    # ---- 4b. 2D kernels vs plain versions at full size, under contact load ----
+    # The 2D scene with its lattice lowered 1.5 cells into the floor: gated
+    # jobs whose incompatible pairs give kernel H nonzero impulses.
+    data = full_scene_2d(dev)
+    cfg = data.config
+    data.state.particles.pos += torch.tensor([0.0, -1.5 * H2], device=dev)
+    state, diag = step_with_diag(data.state, data.params, cfg, 2)
+    rec = {}
+    step_pallas(state, data.params, cfg, 1, record=rec)
+    torch.cuda.synchronize()
+    if diag.any_overflow():
+        fail(f"step diagnostics of the lowered 2D scene: {diag.summary()}")
+    h, npad, nc = H2, rec["rows"].shape[1], cfg.num_colliders
+    jobs = (rec["jobs"], rec["bcells"], rec["jbody"], h)
+    args_g = (rec["rows"], rec["ntiles"]) + jobs + (GROUP2, npad, nc)
+    args_h = (rec["pdata"], rec["ntiles"], rec["btable"]) + jobs + (nc,)
+    args_i = ((rec["pdata"], rec["ftiles"], rec["ntiles"], rec["btable"]) + jobs
+              + (GROUP2, npad, nc))
+    args_c2 = (rec["rows"], rec["krows"], rec["pcdf"], rec["sorted_ids"],
+               rec["covered_end"], rec["btable"], rec["mtable"], data.params.dt,
+               h, nc, max(cfg.n_materials, 1), rec["nb_total"])
+    ce, pg, nj, njg = job_stats(rec)
+    wv = 100
+    print(f"2D kernel inputs: {ce} covered particles ({pg} in gated jobs), "
+          f"{nj} live jobs ({njg} gated), NPAD {npad}", flush=True)
+    # G, H and I sum in the plain versions' order: bit for bit.  The dim=2
+    # entry of C differs from its plain version only through libm.
+    check("pcdf2d",
+          lambda: transfer2d.pcdf_rows(*args_g),
+          lambda: transfer2d.pcdf_plain(*args_g),
+          lambda k, p: [], lambda k, p: [("rows", k, p)],
+          lambda p: (None if int((p[0] != 0).sum()) > 100
+                     else "few particles near a collider"),
+          cost=(4 * (4 * pg + njg * wv * 3 + 5 * pg),
+                pg * (9 * (3 * nc + 22) + 80)))
+    check("p2g2d",
+          lambda: transfer2d.p2g_tiles(*args_h),
+          lambda: transfer2d.p2g_plain(*args_h),
+          lambda k, p: [], lambda k, p: [("mm tiles", k[0], p[0]),
+                                         ("impulses", k[1], p[1])],
+          lambda p: (None if float(p[1].abs().max()) > 1e-3
+                     else "the plain impulses are ~0: no contact load"),
+          cost=(4 * (13 * ce + njg * wv * 3 + nj * wv * 3 + njg * 3 * nc),
+                ce * (20 + 9 * 7 * 2) + pg * 9 * 31))
+    check("g2p2d",
+          lambda: transfer2d.g2p_rows(*args_i),
+          lambda: transfer2d.g2p_plain(*args_i),
+          lambda k, p: [], lambda k, p: [("rows", k, p)],
+          cost=(4 * (8 * ce + nj * wv * 2 + njg * wv * 3 + 6 * ce),
+                ce * (12 + 9 * 16) + pg * 9 * 37))
+    check("update_rows2d",
+          lambda: update_rows.update_rows2d(*args_c2),
+          lambda: update_rows.update2d_plain(*args_c2),
+          lambda k, p: [(f"row {r}", k[r], p[r], 1e-4) for r in range(k.shape[0])],
+          lambda k, p: [(f"row {r}", k[r], p[r]) for r in (9, 12, 13, 14)],
+          cost=c_cost(C_ROWS_READ_2D, 6, 5, rec["rows"].shape[0], npad, ce, 400))
+    del rec, args_g, args_h, args_i, args_c2, data, state
+    torch.cuda.empty_cache()
+    for c in checks:
+        c["launches"] = (counts3 if c["name"] in KERNELS_3D else counts2)[c["name"]]
 
+    # ---- 5. kernel path vs plain path on small scenes ----
     def agree(sk, sp, what):
         ik = torch.argsort(sk.particles.ids.cpu())
         ip = torch.argsort(sp.particles.ids.cpu())
@@ -321,6 +477,12 @@ def main() -> None:
             if not torch.equal(getattr(sk.bodies, name), getattr(sg.bodies, name)):
                 fail(f"{what}: body {name} differs from the plain path on the card")
 
+    def small(device, shift=None):
+        d = scenes.sand_box_3d(nxz=8, ny=16, device=device, by=BY, group=256)
+        if shift is not None:
+            d.state.particles.pos += torch.tensor(shift, device=device)
+        return d
+
     dk, dp = small(dev), small("cpu")
     sk = step_pallas(dk.state, dk.params, dk.config, 10)
     with plain_versions():
@@ -339,8 +501,23 @@ def main() -> None:
         sp_next = step_pallas(sp, dp.params, dp.config, 1)
         agree(sk, sp_next, "contact scene")
         sp = sp_next
-    print("small scenes: kernel path equals the plain path on the card and "
-          "agrees with it on the CPU", flush=True)
+    # The two small 2D scenes: 10 substeps each.
+    small_2d = {
+        "2D sand column": lambda device: scenes.sand_column_2d(
+            nx=24, ny=48, cell_width=0.5, group=128, device=device),
+        "2D elastic blocks": lambda device: scenes.elastic_blocks_2d(
+            n_side=24, cell_width=0.5, group=128, device=device),
+    }
+    for what, make in small_2d.items():
+        dk, dp = make(dev), make("cpu")
+        sk = step_pallas(dk.state, dk.params, dk.config, 10)
+        with plain_versions():
+            same(sk, step_pallas(dk.state, dk.params, dk.config, 10), what)
+        agree(sk, step_pallas(dp.state, dp.params, dp.config, 10), what)
+    print("small scenes (3D sand box and contact, 2D sand column and elastic "
+          "blocks): kernel path equals the plain path on the card and agrees "
+          "with it on the CPU", flush=True)
+    print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
 
     print(json.dumps({"kernels": checks}), flush=True)
     print(f"card (nvidia-smi name, power.limit): {card}", flush=True)

@@ -1,14 +1,18 @@
-"""The five CUDA kernels against their plain PyTorch versions on the card,
-on the recorded inputs of one substep of the coupled sand box lowered onto
-the paddle (so kernel A's impulse path carries load).  Marked
-`cuda`: they skip where torch sees no CUDA device (run them on a GPU host
-with `python -m pytest tests/test_torch_cuda_kernels.py -m cuda`)."""
+"""The nine CUDA kernels against their plain PyTorch versions on the card:
+the 3D path's five on the recorded inputs of one substep of the coupled sand
+box lowered onto the paddle (so kernel A's impulse path carries load), the
+2D path's four on a substep of each small 2D scene lowered into its floor
+(so kernel H's impulses carry load).  Marked `cuda`: they skip where torch
+sees no CUDA device (run them on a GPU host with
+`python -m pytest tests/test_torch_cuda_kernels.py -m cuda`)."""
 
 import pytest
 import torch
 
 from wgsparkl_tpu_torch import scenes
-from wgsparkl_tpu_torch.ops import compact, g2p, p2g_cdf, permute, update_rows
+from wgsparkl_tpu_torch.ops import (
+    compact, g2p, p2g_cdf, permute, transfer2d, update_rows,
+)
 from wgsparkl_tpu_torch.pipeline import step_pallas
 
 pytestmark = pytest.mark.cuda
@@ -83,3 +87,64 @@ def test_permute_and_compact_kernels_are_exact(rec):
         k, p = (compact.compact_flagged(vals, flag, cap),
                 compact.compact_plain(vals, flag, cap))
         assert torch.equal(k[0], p[0]) and bool(k[1]) == bool(p[1])
+
+
+@pytest.fixture(scope="module", params=["sand_column", "elastic_blocks"])
+def rec2d(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if request.param == "sand_column":
+        d = scenes.sand_column_2d(nx=24, ny=48, cell_width=0.5, group=128,
+                                  device="cuda")
+    else:
+        d = scenes.elastic_blocks_2d(n_side=24, cell_width=0.5, group=128,
+                                     device="cuda")
+    # Lattice lowered 1.5 cells: the bottom rows start inside the floor.
+    d.state.particles.pos += torch.tensor([0.0, -0.75], device="cuda")
+    state = step_pallas(d.state, d.params, d.config, 2)
+    r = {}
+    step_pallas(state, d.params, d.config, 1, record=r)
+    r["cfg"], r["dt"] = d.config, d.params.dt
+    return r
+
+
+def _jobs2d(r):
+    return (r["jobs"], r["bcells"], r["jbody"], r["cfg"].grid.cell_width)
+
+
+def test_pcdf2d_kernel_matches_plain(rec2d):
+    r, cfg = rec2d, rec2d["cfg"]
+    args = ((r["rows"], r["ntiles"]) + _jobs2d(r)
+            + (cfg.group, r["rows"].shape[1], cfg.num_colliders))
+    k, p = transfer2d.pcdf_rows(*args), transfer2d.pcdf_plain(*args)
+    assert torch.equal(k, p)
+    assert torch.equal(k, transfer2d.pcdf_rows(*args))
+
+
+def test_p2g2d_kernel_matches_plain(rec2d):
+    r, cfg = rec2d, rec2d["cfg"]
+    args = ((r["pdata"], r["ntiles"], r["btable"]) + _jobs2d(r)
+            + (cfg.num_colliders,))
+    k, p = transfer2d.p2g_tiles(*args), transfer2d.p2g_plain(*args)
+    assert float(p[1].abs().max()) > 0.0
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    k2 = transfer2d.p2g_tiles(*args)
+    assert torch.equal(k[0], k2[0]) and torch.equal(k[1], k2[1])
+
+
+def test_g2p2d_kernel_matches_plain(rec2d):
+    r, cfg = rec2d, rec2d["cfg"]
+    args = ((r["pdata"], r["ftiles"], r["ntiles"], r["btable"]) + _jobs2d(r)
+            + (cfg.group, r["rows"].shape[1], cfg.num_colliders))
+    assert torch.equal(transfer2d.g2p_rows(*args), transfer2d.g2p_plain(*args))
+
+
+def test_update_rows2d_kernel_matches_plain(rec2d):
+    r, cfg = rec2d, rec2d["cfg"]
+    nb = r["grid_mm"].shape[0] - 1
+    args = (r["rows"], r["krows"], r["pcdf"], r["sorted_ids"],
+            r["covered_end"], r["btable"], r["mtable"], r["dt"],
+            cfg.grid.cell_width, cfg.num_colliders, cfg.n_materials, nb)
+    k, p = update_rows.update_rows2d(*args), update_rows.update2d_plain(*args)
+    for row in range(k.shape[0]):
+        _close(k[row], p[row], 1e-4)

@@ -1,6 +1,7 @@
 """Foundations of the PyTorch port against the JAX package: channel SVD,
 Drucker-Prager return map, material-table dedupe, analytic node CDF, rigid
-integration, row packing, and the main-path configuration it resolves."""
+integration, row packing, the main-path configuration it resolves, and the
+card as every constructor's default device."""
 
 import dataclasses
 
@@ -22,8 +23,10 @@ from wgsparkl_tpu_torch.collision import cdf_channel as cch
 from wgsparkl_tpu_torch.math import svd
 from wgsparkl_tpu_torch.models import drucker_prager as dp
 from wgsparkl_tpu_torch.ops import rows as R
+from wgsparkl_tpu_torch.params import SimulationParams
+from wgsparkl_tpu_torch.pipeline import build_rigid_world
 from wgsparkl_tpu_torch.rigid import body as body_mod
-from wgsparkl_tpu_torch.solver import attach_material_table
+from wgsparkl_tpu_torch.solver import Models, Particles, attach_material_table
 
 torch.set_num_threads(2)
 
@@ -86,7 +89,7 @@ def test_drucker_prager_matches_jax_and_disabled_is_noop():
 
 def test_material_table_and_row_packing_match_jax():
     j = jscenes.sand_box_3d(nxz=4, ny=6, transfer="pallas", by=8)
-    t = interop.state_from_reference(j.state)
+    t = interop.state_from_reference(j.state, "cpu")
     models, n_mat = attach_material_table(t.particles, t.models)
     jm, jn = j_attach(j.state.particles, j.state.models)
     assert n_mat == jn == j.config.n_materials
@@ -112,7 +115,7 @@ def test_node_cdf_channels_match_jax():
     dj, aj, cj = jcch.node_cdf_channels(types, b.shape_params, b.rot, b.pos,
                                         [jnp.asarray(pos[:, a]) for a in range(3)],
                                         1.0)
-    t = interop.state_from_reference(j.state).bodies
+    t = interop.state_from_reference(j.state, "cpu").bodies
     dt_, at, ct = cch.node_cdf_channels(types, t.shape_params, t.rot, t.pos,
                                         [torch.as_tensor(pos[:, a]) for a in range(3)],
                                         1.0)
@@ -126,7 +129,7 @@ def test_rigid_integration_matches_jax_and_rest_is_bit_exact():
     j = jscenes.sand_box_3d(nxz=4, ny=6, transfer="pallas", by=8)
     jb = jbody.update_world_mass_properties(j.state.bodies)
     tb = body_mod.update_world_mass_properties(
-        interop.state_from_reference(j.state).bodies)
+        interop.state_from_reference(j.state, "cpu").bodies)
     dt = float(np.float32(j.params.dt))
     rj, pj = jbody.integrate_velocity(jb, jb.linvel, jb.angvel, jnp.float32(dt))
     rt, pt = body_mod.integrate_velocity(tb, tb.linvel, tb.angvel, dt)
@@ -141,7 +144,7 @@ def test_main_path_configuration_matches_jax():
     j = jscenes.sand_box_3d(nxz=8, ny=16)
     jd = JMpmData(j.params, j.state.particles, j.state.models, j.bodies_desc,
                   1.0, grid=j.config.grid, transfer="pallas", by=8)
-    t = scenes.sand_box_3d(nxz=8, ny=16, by=8)
+    t = scenes.sand_box_3d(nxz=8, ny=16, by=8, device="cpu")
     jc, tc = jd.config, t.config
     assert tc.grid == interop.config_from_reference(jc).grid
     assert tc.grid.shape == (36, 32, 36) and t.num_particles == 1024
@@ -158,7 +161,7 @@ def test_main_path_configuration_matches_jax():
     dict(spatial_devices=2)])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scenes.sand_box_3d(nxz=4, ny=6, by=8, **kw)
+        scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
 
 
 def test_unported_reference_config_raises():
@@ -174,3 +177,29 @@ def test_one_way_coupling_reference_config_raises():
     with pytest.raises(NotImplementedError, match="coupling"):
         interop.config_from_reference(dataclasses.replace(j.config,
                                                           coupling=one_way))
+
+
+# Each call builds with no device and returns one tensor it made.
+_DEFAULT_DEVICE_CALLS = {
+    "sand_box_3d": lambda: scenes.sand_box_3d(nxz=2, ny=2).state.particles.pos,
+    "sand_column_2d": lambda: scenes.sand_column_2d(nx=2, ny=2).state.particles.pos,
+    "elastic_blocks_2d": lambda: scenes.elastic_blocks_2d(n_side=2).state.bodies.rot,
+    "SimulationParams.new": lambda: SimulationParams.new(0.01, [0.0, -9.81]).gravity,
+    "Particles.from_arrays": lambda: Particles.from_arrays(
+        np.zeros((4, 2)), density=1.0, radius=0.1).mass,
+    "Models.from_arrays": lambda: Models.from_arrays(4, 1.0, 1.0).lam,
+    "build_rigid_world": lambda: build_rigid_world([]).rot,
+    "params_from_reference": lambda: interop.params_from_reference(
+        jscenes.sand_column_2d(nx=2, ny=2).params).gravity,
+}
+
+
+@pytest.mark.parametrize("call", sorted(_DEFAULT_DEVICE_CALLS))
+def test_default_device_is_the_card(call):
+    """Called with no device, a constructor builds on the card; without
+    one it raises and never falls back to the CPU."""
+    if torch.cuda.is_available():
+        assert _DEFAULT_DEVICE_CALLS[call]().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            _DEFAULT_DEVICE_CALLS[call]()

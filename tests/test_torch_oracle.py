@@ -41,9 +41,10 @@ def test_step_pallas_matches_cpic_oracle():
                       body_type="kinematic", linvel=(0.4, 0.0, 0.0)),
     ]
     data = MpmData(
-        SimulationParams.new(DT, [0.0, -9.81, 0.0]),
-        Particles.from_arrays(pos, density=1200.0, radius=cw / 4),
-        Models.from_arrays(n, elast.lam, elast.mu, dp=dp, phase=phase),
+        SimulationParams.new(DT, [0.0, -9.81, 0.0], device="cpu"),
+        Particles.from_arrays(pos, density=1200.0, radius=cw / 4, device="cpu"),
+        Models.from_arrays(n, elast.lam, elast.mu, dp=dp, phase=phase,
+                           device="cpu"),
         bodies, cw,
         grid=GridConfig.from_bounds(np.array([-4.0, -2.0, -4.0]),
                                     np.array([4.0, 4.0, 4.0]), cw),

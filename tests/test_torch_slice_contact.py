@@ -21,11 +21,11 @@ _j_step = jax.jit(j_step, static_argnums=(2, 3))
 
 def test_step_pallas_contact_matches_jax_per_substep():
     data = H.jax_scene(H.SHIFTS["on_paddle"])
-    params = interop.params_from_reference(data.params)
+    params = interop.params_from_reference(data.params, "cpu")
     cfg = interop.config_from_reference(data.config)
     state = data.state
     for _ in range(10):
         ref = _j_step(state, data.params, data.config, 1)
-        out = step_pallas(interop.state_from_reference(state), params, cfg, 1)
+        out = step_pallas(interop.state_from_reference(state, "cpu"), params, cfg, 1)
         H.compare_states(ref, out)
         state = ref

@@ -167,3 +167,124 @@ def compare_states(ref, out):
         np.testing.assert_allclose(getattr(out.bodies, f).numpy(),
                                    np.asarray(getattr(ref.bodies, f)),
                                    rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------------------------- 2D
+GROUP_2D = 128
+SCENES_2D = ("sand_column", "elastic_blocks")
+# Lattice placements of the 2D scenes: as built, and lowered 1.5 cells into
+# the floor (incompatible pairs in gated jobs, so nonzero CPIC impulses).
+SHIFTS_2D = {"as_built": 0.0, "in_floor": -0.75}
+
+
+def jax_scene_2d(kind: str, shift: float = 0.0) -> MpmData:
+    """sand_column_2d(nx=24, ny=48) or elastic_blocks_2d(n_side=24) at cell
+    width 0.5 on the bounded pallas path (group 128); `shift` moves the
+    particle lattice in y (the grid and the colliders stay)."""
+    build = {"sand_column": lambda **kw: scenes.sand_column_2d(nx=24, ny=48, **kw),
+             "elastic_blocks": lambda **kw: scenes.elastic_blocks_2d(n_side=24, **kw)}
+    d2 = build[kind](cell_width=0.5, transfer="pallas", group=GROUP_2D)
+    if not shift:
+        return d2
+    p = d2.state.particles
+    p = p.replace(pos=p.pos + jnp.asarray([0.0, shift], jnp.float32))
+    return MpmData(d2.params, p, d2.state.models, d2.bodies_desc, 0.5,
+                   grid=d2.config.grid, transfer="pallas", group=GROUP_2D,
+                   chan_free=False)
+
+
+def _phases_2d(rows_all, bodies, params, cfg, n, static_chan, mtable):
+    """One JAX 2D substep (the gathered all-static branch of
+    _substep_pallas_rows_2d), returning every phase's arrays."""
+    from wgsparkl_tpu.ops import blocked as bk
+    from wgsparkl_tpu.ops import pallas_transfer2d as ptf
+    from wgsparkl_tpu.ops.kernel import inv_d
+    from wgsparkl_tpu.ops.permute import permute_lanes
+    from wgsparkl_tpu.ops.update_rows import update_rows
+    from wgsparkl_tpu.pipeline import (
+        StepDiag, _bounded_job_phase, _cdf_mode, _grid_velocity, _jbody_gate,
+        _split_impulses, rigid_bodies_update)
+    from wgsparkl_tpu.rigid import body as body_mod
+
+    grid, group, nc = cfg.grid, cfg.group, cfg.num_colliders
+    npad = rows_all.shape[1]
+    nb_total = int(np.prod(bk.num_blocks(grid)))
+    bodies = body_mod.update_world_mass_properties(bodies)
+    lane = jnp.arange(npad, dtype=jnp.int32)
+    keys = bk.particle_sort_keys_ch([rows_all[0], rows_all[1]], grid)
+    keys = jnp.where(lane < n, keys, nb_total + 1)
+    sids, perm = jax.lax.sort((keys, lane), num_keys=1)
+    rows = permute_lanes(rows_all, perm)
+    jobs, bcells, covered_end, gather_tiles, scatter_mm, _, _ = (
+        _bounded_job_phase(sids, grid, 2, 4, group, cfg, npad,
+                           StepDiag.zeros()))
+    mode = _cdf_mode(cfg)
+    alldesc = tuple(sorted(mode[1] + mode[2]))
+    btable = jnp.zeros((16, 128), jnp.float32)
+    btable = btable.at[0:2, :bodies.count].set(bodies.world_com.T)
+    btable = btable.at[2:4, :bodies.count].set(bodies.linvel.T)
+    btable = btable.at[4:5, :bodies.count].set(bodies.angvel.T)
+    btable = btable.at[5:7, :bodies.count].set(bodies.rot.T)
+    btable = btable.at[7:9, :bodies.count].set(bodies.pos.T)
+    btable = btable.at[9:12, :bodies.count].set(bodies.shape_params[:, :3].T)
+    btable = btable.at[13, :2].set(params.gravity * params.dt)
+    btable = btable.at[13, 2].set(grid.cell_width / params.dt)
+    ntiles = gather_tiles(static_chan, out=(ptf.WPAD, 4), c=4)
+    jbody = _jbody_gate(ntiles, ptf.WVOL)
+    pdata0 = rows[:ptf.NCHAN]
+    pcdf = ptf.pcdf_rows(pdata0, ntiles, btable, jobs, bcells, grid, group,
+                         npad, nc, jbody, alldesc=alldesc)
+    pdata = jax.lax.dynamic_update_slice(
+        pdata0, jnp.concatenate([pcdf[0:1, :npad], pcdf[2:4, :npad],
+                                 pcdf[4:5, :npad]], axis=0), (ptf.AFF, 0))
+    itiles = jnp.stack([(ntiles[..., 1].astype(jnp.int32) << 16)
+                        | ntiles[..., 0].astype(jnp.int32),
+                        ntiles[..., 2].astype(jnp.int32)], axis=-1)
+    mm, imp = ptf.p2g_tiles(pdata, itiles, btable, jobs, bcells, grid, group,
+                            nc, jbody, alldesc=alldesc)
+    grid_mm = jnp.zeros((nb_total + 1, 8, 8, 3), jnp.float32)
+    grid_mm = scatter_mm(grid_mm, mm)
+    lin, ang = _split_impulses(imp, bodies.count, 2)
+    grid_mm = grid_mm.at[..., :2].set(_grid_velocity(grid_mm, params, grid, 2))
+    ftiles = gather_tiles(grid_mm, out=(ptf.WPAD, 4))
+    krows = ptf.g2p_rows(pdata, ftiles, itiles, btable, jobs, bcells, grid,
+                         group, npad, nc, jbody, alldesc=alldesc)
+    rows_out = update_rows(rows, krows, pcdf, sids, covered_end, btable, mtable,
+                           params, cfg, nc, inv_d(grid.cell_width),
+                           live_below=nb_total, dim=2)
+    new_bodies = rigid_bodies_update(bodies, lin, ang, params, cfg)
+    out = dict(unsorted=rows_all, perm=perm, rows=rows, sorted_ids=sids,
+               start=jobs["start"], len=jobs["len"], block=jobs["block"],
+               bcells=bcells, covered_end=covered_end, ntiles=ntiles,
+               jbody=jbody, btable=btable, mm=mm, imp=imp, pcdf=pcdf,
+               pdata=pdata, grid_mm=grid_mm, ftiles=ftiles, krows=krows,
+               rows_out=rows_out)
+    return rows_out, new_bodies, out
+
+
+@functools.lru_cache(maxsize=None)
+def jax_dump_2d(kind: str, shift: float = 0.0, substeps_before: int = 2):
+    """(MpmData, dict of numpy arrays) of the JAX 2D path's phases in the
+    substep after `substeps_before` substeps of the scene."""
+    from wgsparkl_tpu.ops import blocked as bk
+    from wgsparkl_tpu.ops import pallas_transfer2d as ptf
+    from wgsparkl_tpu.pipeline import _cdf_chan_grid, _node_cdf_static, pallas_npad
+
+    data = jax_scene_2d(kind, shift)
+    cfg, st = data.config, data.state
+    n = st.particles.count
+    npad = pallas_npad(n, cfg.group)
+    rows = ptf.pack_rows_padded(st.particles, st.models, npad)
+    nb_total = int(np.prod(bk.num_blocks(cfg.grid)))
+    static_chan = _cdf_chan_grid(*_node_cdf_static(st.bodies, cfg,
+                                                   block_major=True),
+                                 nb_total, 2)
+    fn = jax.jit(_phases_2d, static_argnums=(3, 4))
+    bodies = st.bodies
+    for _ in range(substeps_before + 1):
+        rows, bodies, out = fn(rows, bodies, data.params, cfg, n, static_chan,
+                               st.models.mat_table)
+    out = {k: np.asarray(v) for k, v in out.items()}
+    out["static_chan"] = np.asarray(static_chan)
+    out["mtable"] = np.asarray(st.models.mat_table)
+    return data, out

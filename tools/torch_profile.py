@@ -1,0 +1,91 @@
+"""Where a frame's time goes in the PyTorch/CUDA port, on one GPU.
+
+    python3 tools/torch_profile.py 3d|2d
+
+Builds the full-size scene of chip_smoke.py (3d: the 1,002,001-particle
+sand box with the paddle, 20 substeps a frame; 2d: the 490,000-particle
+sand column, 10 substeps a frame), runs one warm frame and
+chip_smoke.TIMED_FRAMES (3) unprofiled frames (host clock around
+synchronised frames), then one frame under torch.profiler.  Prints the
+frame wall times, the device time of the
+profiled frame, the device's idle share against the median unprofiled
+frame, and the kernels by device time per substep.  Fails without a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
+
+import chip_smoke  # noqa: E402
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("path", choices=("3d", "2d"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("FAIL: torch.cuda.is_available() is False")
+    from wgsparkl_tpu_torch import _cuda
+    from wgsparkl_tpu_torch.pipeline import step_pallas
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    _cuda.build(_cuda.sources())
+    dev = torch.device("cuda:0")
+    if args.path == "3d":
+        data, substeps = chip_smoke.full_scene(dev), chip_smoke.SUBSTEPS
+    else:
+        data, substeps = chip_smoke.full_scene_2d(dev), chip_smoke.SUBSTEPS2
+    state, params, cfg = data.state, data.params, data.config
+    state = step_pallas(state, params, cfg, substeps)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(chip_smoke.TIMED_FRAMES):
+        t0 = time.time()
+        state = step_pallas(state, params, cfg, substeps)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.time() - t0))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        state = step_pallas(state, params, cfg, substeps)
+        torch.cuda.synchronize()
+    # Device-side events only (kernels, copies, fills): the CPU operators
+    # that launched them carry the same device time again.
+    rows = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0.0)
+        if dt > 0:
+            rows.append((dt / 1e3, e.count, e.key))
+    if not rows:
+        sys.exit("FAIL: the profiler recorded no device events")
+    rows.sort(reverse=True)
+    device_ms = sum(r[0] for r in rows)
+    median = statistics.median(walls)
+    print(f"{args.path} path, {data.num_particles} particles, {substeps} substeps "
+          f"a frame, on {torch.cuda.get_device_name(0)} ({card})")
+    print("unprofiled frame wall ms: " + ", ".join(f"{w:.3f}" for w in walls))
+    print(f"profiled frame: device time {device_ms:.3f} ms "
+          f"({device_ms / substeps:.3f} ms a substep); idle share against the "
+          f"median unprofiled frame {1.0 - device_ms / median:.3f}")
+    print("device ms a substep, calls a substep, kernel:")
+    for ms, count, key in rows[:40]:
+        print(f"  {ms / substeps:8.4f}  {count / substeps:6.1f}  {key[:110]}")
+
+
+if __name__ == "__main__":
+    main()

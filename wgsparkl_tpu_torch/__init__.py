@@ -1,9 +1,10 @@
 """wgsparkl_tpu_torch — the PyTorch/CUDA port of wgsparkl_tpu for NVIDIA Hopper.
 
 The JAX package ``wgsparkl_tpu`` stays the reference; this package runs the
-same MLS-MPM main path (3D sand with two-way CPIC rigid coupling on the
-bounded block grid) in PyTorch, with the five Pallas kernels of that path
-rewritten as hand-written CUDA C++ kernels for sm_90a (``csrc/``).
+same MLS-MPM paths in PyTorch: the 3D sand box and the 2D scenes with
+two-way CPIC rigid coupling on the bounded block grid.  The Pallas kernels
+of those paths are rewritten as hand-written CUDA C++ kernels for sm_90a
+(``csrc/``).
 
 Every kernel wrapper dispatches on the device of its tensors: a CPU tensor
 takes the module's plain PyTorch version, a CUDA tensor launches the kernel
@@ -23,12 +24,14 @@ _torch.set_float32_matmul_precision("highest")
 
 
 def kernel_wrappers():
-    """{name: wrapper} of the five hand-written kernels of the main path."""
+    """{name: wrapper} of the nine hand-written kernels: the 3D path's five
+    (A-E), the 2D path's three (G-I) and the dim=2 entry of kernel C."""
+    from wgsparkl_tpu_torch.ops import transfer2d
     from wgsparkl_tpu_torch.ops.compact import compact_flagged
     from wgsparkl_tpu_torch.ops.g2p import g2p_rows
     from wgsparkl_tpu_torch.ops.p2g_cdf import p2g_cdf_tiles
     from wgsparkl_tpu_torch.ops.permute import permute_lanes
-    from wgsparkl_tpu_torch.ops.update_rows import update_rows
+    from wgsparkl_tpu_torch.ops.update_rows import update_rows, update_rows2d
 
     return {
         "p2g_cdf": p2g_cdf_tiles,
@@ -36,6 +39,10 @@ def kernel_wrappers():
         "update_rows": update_rows,
         "permute": permute_lanes,
         "compact": compact_flagged,
+        "pcdf2d": transfer2d.pcdf_rows,
+        "p2g2d": transfer2d.p2g_tiles,
+        "g2p2d": transfer2d.g2p_rows,
+        "update_rows2d": update_rows2d,
     }
 
 

@@ -39,25 +39,50 @@ def _nvcc() -> str:
     return found
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu (built on first use)."""
-    if name in _LIBS:
-        return _LIBS[name]
+def _lib_path(name: str) -> pathlib.Path:
     src = _SRC / f"{name}.cu"
     h = hashlib.sha1()
     for p in [src, *sorted(_SRC.glob("*.cuh"))]:
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    return _BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def sources():
+    """The kernel sources of csrc/ by name (csrc/<name>.cu)."""
+    return sorted(p.stem for p in _SRC.glob("*.cu"))
+
+
+def build(names) -> None:
+    """Compile csrc/<name>.cu for every name not built yet, one nvcc per
+    source, all started together."""
     _BUILD.mkdir(exist_ok=True)
-    lib = _BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
-    if not lib.exists():
+    jobs = []
+    for name in dict.fromkeys(names):
+        lib = _lib_path(name)
+        if lib.exists():
+            continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_SRC), "-o", str(tmp), str(src)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{res.stderr}")
-        os.replace(tmp, lib)
-    _LIBS[name] = ctypes.CDLL(str(lib))
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(_SRC), "-o", str(tmp),
+               str(_SRC / f"{name}.cu")]
+        jobs.append((name, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for name, lib, tmp, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu:\n{err}")
+        else:
+            os.replace(tmp, lib)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (built on first use)."""
+    if name not in _LIBS:
+        build([name])
+        _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
     return _LIBS[name]
 
 

@@ -1,10 +1,10 @@
 """Channel-form analytic node CDF (port of
 wgsparkl_tpu/collision/cdf_channel.py).
 
-Cuboid colliders only: the other analytic shapes are not on the main path
-and raise NotImplementedError (ROADMAP queue 1, item 8).  Node positions are
-lists of [M] channels; body poses enter as 0-d tensors.  Affinity words are
-int32 holding the uint32 bit pattern.
+Cuboid colliders only, in 2D and 3D: the other analytic shapes are not on
+the ported paths and raise NotImplementedError (ROADMAP queue 1, item 8).
+Node positions are lists of [M] channels; body poses enter as 0-d tensors.
+Affinity words are int32 holding the uint32 bit pattern.
 """
 
 from __future__ import annotations
@@ -33,24 +33,36 @@ def _quat_rotate_ch(q, v):
     ]
 
 
+def _rot2_ch(r, v, inv=False):
+    c, s = r[0], (-r[1] if inv else r[1])
+    return [c * v[0] - s * v[1], s * v[0] + c * v[1]]
+
+
 def _to_local(rot, trans, p):
-    rel = [p[a] - trans[a] for a in range(3)]
+    rel = [p[a] - trans[a] for a in range(len(p))]
+    if len(p) == 2:
+        return _rot2_ch(rot, rel, inv=True)
     return _quat_rotate_ch([rot[0], -rot[1], -rot[2], -rot[3]], rel)
 
 
 def _to_world_vec(rot, v):
-    return _quat_rotate_ch(rot, v)
+    return _rot2_ch(rot, v) if len(v) == 2 else _quat_rotate_ch(rot, v)
 
 
 def _proj_cuboid(he, q):
+    d = len(q)
     clamped = [torch.minimum(torch.maximum(q[a], -he[a]), he[a])
-               for a in range(3)]
-    inside = (q[0].abs() < he[0]) & (q[1].abs() < he[1]) & (q[2].abs() < he[2])
-    gaps = [he[a] - q[a].abs() for a in range(3)]
-    min_gap = torch.minimum(torch.minimum(gaps[0], gaps[1]), gaps[2])
+               for a in range(d)]
+    inside = q[0].abs() < he[0]
+    for a in range(1, d):
+        inside = inside & (q[a].abs() < he[a])
+    gaps = [he[a] - q[a].abs() for a in range(d)]
+    min_gap = gaps[0]
+    for a in range(1, d):
+        min_gap = torch.minimum(min_gap, gaps[a])
     proj = []
     snapped = torch.zeros_like(inside)
-    for a in range(3):
+    for a in range(d):
         sgn = torch.where(q[a] >= 0.0, 1.0, -1.0)
         is_min = (gaps[a] == min_gap) & ~snapped
         snapped = snapped | is_min
@@ -59,25 +71,29 @@ def _proj_cuboid(he, q):
 
 
 def collider_cdf(shape_type, rot, trans, params, pos, cap):
-    """One posed collider at node channels: (within, inside, world distance)."""
+    """One posed collider at d node channels (d = 2 or 3; rot a unit
+    complex or a quaternion): (within, inside, world distance)."""
     if shape_type != shp.SHAPE_CUBOID:
         raise NotImplementedError(
             "only cuboid colliders are ported (ROADMAP queue 1, item 8)")
+    d = len(pos)
     q = _to_local(rot, trans, pos)
-    proj, inside = _proj_cuboid([params[0], params[1], params[2]], q)
-    dl = [proj[a] - q[a] for a in range(3)]
+    proj, inside = _proj_cuboid([params[a] for a in range(d)], q)
+    dl = [proj[a] - q[a] for a in range(d)]
     dw = _to_world_vec(rot, dl)
-    box = (dw[0].abs() <= cap) & (dw[1].abs() <= cap) & (dw[2].abs() <= cap)
-    within = inside | box
-    di = torch.sqrt(dw[0] * dw[0] + dw[1] * dw[1] + dw[2] * dw[2])
-    return within, inside, di
+    box = dw[0].abs() <= cap
+    sq = dw[0] * dw[0]
+    for a in range(1, d):
+        box = box & (dw[a].abs() <= cap)
+        sq = sq + dw[a] * dw[a]
+    return inside | box, inside, torch.sqrt(sq)
 
 
 def node_cdf_channels(collider_types, shape_params, rot, trans, pos,
                       cell_width, only=None):
-    """pos: 3 node channels [M].  Returns (dist f32, aff int32, closest int32)
-    over the colliders in `only` (None = all), index order, strictly closer
-    wins."""
+    """pos: d node channels [M].  Returns (dist f32, aff int32, closest
+    int32) over the colliders in `only` (None = all), index order, strictly
+    closer wins."""
     m = pos[0].shape[0]
     dev = pos[0].device
     dist = torch.full((m,), BIG, dtype=torch.float32, device=dev)

@@ -1,14 +1,10 @@
-// Device helpers shared by the transfer kernels (p2g_cdf.cu, g2p.cu).
+// Device helpers shared by the 3D transfer kernels (p2g_cdf.cu, g2p.cu).
 // Each follows its plain PyTorch counterpart in wgsparkl_tpu_torch/ops/rows.py
 // and collision/cdf_channel.py operation by operation.
 #pragma once
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "cpic.cuh"
 
 #define WV_MAX 360          // window nodes of a 4 x 8 x 4 block (6 x 10 x 6)
-#define BIG 1.0e10f
-#define FRICTION 20.0f
-#define NTHREADS 256
 
 // Rows of the particle matrix and of the body table.
 #define PX 0
@@ -18,20 +14,6 @@
 #define AFF 16
 #define NX 17
 #define AFF_SPARE 20
-
-__device__ __forceinline__ float nr_recip(float x) {
-  float r = 1.0f / x;
-  return r * (2.0f - x * r);
-}
-
-__device__ __forceinline__ uint32_t aff_word(float lo, float hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-__device__ __forceinline__ bool compat(uint32_t naff, uint32_t paff) {
-  uint32_t common = naff & paff & 0xFFFFu;
-  return (((naff >> 16) & 0xFFFFu) & common) == (((paff >> 16) & 0xFFFFu) & common);
-}
 
 // v rotated by quaternion (w, x, y, z) -- cdf_channel._quat_rotate_ch.
 __device__ __forceinline__ void quat_rot(float w, float x, float y, float z,
@@ -149,9 +131,10 @@ __device__ void ghost_velocity(const float vp[3], const float bv[3],
 }
 
 // Quadratic B-spline stencil of a particle inside its job window.
-// A stencil node past the window's high edge (a base cell rounded up at an
-// exact half-cell tie) is dropped, as the TPU kernels drop it: weight 0,
-// index 0, its bit in `valid` clear.
+// A stencil node outside the window (past its high edge when the base cell
+// rounds up at an exact half-cell tie; below its low edge when p * (1/h)
+// rounds below the p / h of the block sort key) is dropped, as the TPU
+// kernels drop it: weight 0, index 0, its bit in `valid` clear.
 struct Stencil {
   float w[27];
   int n[27];
@@ -187,7 +170,8 @@ __device__ void stencil(const float p[3], const int bc[3], float inv_h,
     for (int oy = 0; oy < 3; ++oy) {
       float wxy = wa[0][ox] * wa[1][oy];
       for (int oz = 0; oz < 3; ++oz, ++o) {
-        bool ok = bl[0] + ox < wsh[0] && bl[1] + oy < wsh[1] && bl[2] + oz < wsh[2];
+        bool ok = bl[0] + ox >= 0 && bl[0] + ox < wsh[0] && bl[1] + oy >= 0 &&
+                  bl[1] + oy < wsh[1] && bl[2] + oz >= 0 && bl[2] + oz < wsh[2];
         s->w[o] = ok ? wxy * wa[2][oz] : 0.0f;
         s->n[o] = ok ? (bl[0] + ox) * (wsh1 * wsh2) + (bl[1] + oy) * wsh2 + bl[2] + oz : 0;
         if (ok) s->valid |= 1u << o;

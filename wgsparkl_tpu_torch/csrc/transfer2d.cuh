@@ -1,0 +1,77 @@
+// Device helpers shared by the 2D transfer kernels (pcdf2d.cu, p2g2d.cu,
+// g2p2d.cu).  Each follows its plain PyTorch counterpart in
+// wgsparkl_tpu_torch/ops/rows2d.py operation by operation.
+#pragma once
+#include "cpic.cuh"
+
+#define WSH 10              // window nodes per axis: an 8 x 8 block + 2-node halo
+#define WVOL 100            // window nodes, node index wx * 10 + wy
+#define WPAD 104            // rows of a window tile
+
+// Rows of the 2D particle matrix (ops/rows2d.py).
+#define PX 0
+#define VX 2
+#define PM 4
+#define A0 5
+#define AFF 9
+#define NX 10
+#define AFF_SPARE 12
+
+// World position of window node n of a job whose block origin cell is bc.
+__device__ __forceinline__ void node_pos2(int n, const int bc[2], float h, float xw[2]) {
+  xw[0] = ((float)(n / WSH) + (float)bc[0]) * h;
+  xw[1] = ((float)(n % WSH) + (float)bc[1]) * h;
+}
+
+// Velocity at xw of body `closest` from the 2D body table (rows 0-1 COM, 2-3
+// linvel, 4 scalar angvel); zero when closest < 0.
+__device__ void node_body_velocity2(float closest, const float xw[2],
+                                    const float* bt, int nc, float bv[2]) {
+  bv[0] = bv[1] = 0.0f;
+  for (int b = 0; b < nc; ++b) {
+    if (closest != (float)b) continue;
+    float r0 = xw[0] - bt[b], r1 = xw[1] - bt[128 + b];
+    float ang = bt[4 * 128 + b];
+    bv[0] = bt[2 * 128 + b] - ang * r1;
+    bv[1] = bt[3 * 128 + b] + ang * r0;
+  }
+}
+
+// CPIC ghost velocity of particle velocity vp against body velocity bv.
+__device__ void ghost_velocity2(const float vp[2], const float bv[2],
+                                const float nrm[2], float g[2]) {
+  float u0 = vp[0] - bv[0], u1 = vp[1] - bv[1];
+  float nv = u0 * nrm[0] + u1 * nrm[1];
+  float t0 = u0 - nrm[0] * nv, t1 = u1 - nrm[1] * nv;
+  float tl = sqrtf(t0 * t0 + t1 * t1);
+  float inv_tl = tl > 1e-8f ? nr_recip(fmaxf(tl, 1e-30f)) : 0.0f;
+  float scale = fmaxf(tl + FRICTION * nv, 0.0f) * inv_tl;
+  bool sliding = nv < 0.0f;
+  g[0] = bv[0] + (sliding ? t0 * scale : u0);
+  g[1] = bv[1] + (sliding ? t1 * scale : u1);
+}
+
+// Quadratic B-spline weights wa[axis][offset] of a particle and the base
+// cell of its 3 x 3 stencil relative to the block origin bc.  Stencil node
+// (ox, oy) is window node (bl[0] + ox) * 10 + bl[1] + oy with weight
+// wa[0][ox] * wa[1][oy] when it lies in the window; a node outside it (past
+// the high edge at an exact half-cell tie, below the low edge when p * (1/h)
+// rounds below the p / h of the sort key) is dropped, as the TPU kernels'
+// window weight rows drop it.
+__device__ void stencil_axes2(const float p[2], const int bc[2], float inv_h,
+                              float wa[2][3], int bl[2]) {
+  for (int a = 0; a < 2; ++a) {
+    float u = p[a] * inv_h;
+    int base = (int)floorf(u + 0.5f) - 1;
+    float xf = u - (float)base;
+    float t0 = 1.5f - xf, t1 = xf - 1.0f, t2 = xf - 0.5f;
+    wa[a][0] = 0.5f * (t0 * t0);
+    wa[a][1] = 0.75f - t1 * t1;
+    wa[a][2] = 0.5f * (t2 * t2);
+    bl[a] = base - bc[a];
+  }
+}
+
+__device__ __forceinline__ bool in_window(int wx, int wy) {
+  return wx >= 0 && wx < WSH && wy >= 0 && wy < WSH;
+}

@@ -1,14 +1,21 @@
-// Fused per-particle update and row rebuild, one thread per lane.
+// Fused per-particle update and row rebuild, one thread per lane; one entry
+// point per dimension (update_rows_cuda, update_rows2d_cuda).
 //
 // Replaces: wgsparkl_tpu/ops/update_rows.py `_update_kernel` (launched by
-// `update_rows`), whose body is wgsparkl_tpu/ops/particle_update.py
-// `particle_update_channels`: rigid contact velocity, contact projection,
-// velocity clamp, advection, penalty, F update, fracture check (Jacobi SVD),
-// Drucker-Prager return map, corotated stress, APIC affine, and the rebuild
-// of the next [48, NPAD] row matrix.
-// Bound on the H100: arithmetic.  Per lane it moves (48 + 12 + 6) * 4 B in
-// and 48 * 4 B out (~0.25 GB per substep at 1M lanes) but runs three 8-sweep 3x3 Jacobi SVDs (~1.5k flops each) plus exp/log/sin:
-// a few GFLOP, FP32 pipe bound.
+// `update_rows`, dim=3 and dim=2), whose body is
+// wgsparkl_tpu/ops/particle_update.py `particle_update_channels` /
+// `particle_update_channels_2d`: rigid contact velocity, contact projection,
+// velocity clamp, advection, penalty, F update, fracture check, Drucker-Prager
+// return map, corotated stress, APIC affine, and the rebuild of the next
+// [48, NPAD] (3D) or [32, NPAD] (2D) row matrix.
+// Bound on the H100, both dimensions: device memory, in 3D only just.  Per
+// lane 3D reads 27 of the 48 input rows (0-2, 6, 21-39, 44-47), the sorted
+// id, 12 G2P rows and 6 particle-CDF rows, and writes 48 rows (~0.39 GB per
+// substep at 1M lanes, ~0.12 ms), against three 8-sweep 3x3 Jacobi SVDs
+// (~1.5k flops each) plus exp/log/sin (~6 GFLOP, ~0.09 ms).  2D reads 19 of
+// the 32 input rows (0, 1, 4, 13-23, 27-31), the sorted id, 6 G2P rows and
+// 5 particle-CDF rows, and writes 32 rows (~0.1 GB at 490k lanes), against
+// three closed-form 2x2 SVDs (~60 flops each) plus exp/log/sin.
 // Design: scalar per-thread code that follows the plain version operation
 // by operation (the translation unit is built with -fmad=false and IEEE
 // division / sqrt), so kernel and plain version differ only where libm does
@@ -367,6 +374,237 @@ __global__ void update_kernel(
   put(40, sd);
   for (int k = 0; k < 3; ++k) put(R_RV0 + k, rv[k]);
   for (int r = R_RV0 + 3; r < PCHAN; ++r) put(r, row(r));
+}
+
+// ------------------------------------------------------------------ 2D
+// Rows of the 2D matrix (ops/rows2d.py).
+#define R2_PCHAN 32
+#define R2_MID 14
+#define R2_DPS0 16
+#define R2_PHASE 19
+#define R2_F0 20
+#define R2_RV0 25
+
+// Signed 2x2 SVD (math/svd.py svd2x2_ch): polar rotation in closed form,
+// one Givens rotation of the symmetric factor.  uc[k][i] = U[i][k],
+// vc[k][i] = V[i][k]; sig[1] carries sign(det F).
+__device__ void svd2(const float f[2][2], float uc[2][2], float sig[2],
+                     float vc[2][2]) {
+  float a = f[0][0], b = f[0][1], c = f[1][0], d = f[1][1];
+  float det = a * d - b * c;
+  float sgn = det < 0.0f ? -1.0f : 1.0f;
+  float b01 = b * sgn, b11 = d * sgn;
+  float x = a + b11;
+  float y = c - b01;
+  float h2 = x * x + y * y;
+  bool ok = h2 > 1e-30f;
+  float inv_h = ok ? 1.0f / sqrtf(fmaxf(h2, 1e-30f)) : 0.0f;
+  float cr = ok ? x * inv_h : 1.0f;
+  float sr = y * inv_h;
+  float p00 = cr * a + sr * c;
+  float p01 = cr * b01 + sr * b11;
+  float p11 = -sr * b01 + cr * b11;
+  float cv, sv;
+  givens(p00, p11, p01, &cv, &sv);
+  float l0 = cv * cv * p00 + 2.0f * cv * sv * p01 + sv * sv * p11;
+  float l1 = sv * sv * p00 - 2.0f * cv * sv * p01 + cv * cv * p11;
+  bool swap = l0 < l1;
+  float cs = swap ? -sv : cv, ss = swap ? cv : sv;
+  float cu = cr * cs - sr * ss;
+  float su = sr * cs + cr * ss;
+  uc[0][0] = cu; uc[0][1] = su;
+  uc[1][0] = -su; uc[1][1] = cu;
+  vc[0][0] = cs; vc[0][1] = ss * sgn;
+  vc[1][0] = -ss * sgn; vc[1][1] = cs;
+  sig[0] = swap ? l1 : l0;
+  sig[1] = (swap ? l0 : l1) * sgn;
+}
+
+__global__ void update2d_kernel(
+    const float* __restrict__ rows, const float* __restrict__ krows,
+    const float* __restrict__ pcdf, const int* __restrict__ sids,
+    const int* __restrict__ ce, const float* __restrict__ btable,
+    const float* __restrict__ mtable, long long npad, long long kstride,
+    long long pstride, int nc, int n_mat, int live_below, float dt, float h,
+    float invd, float limit, float pen_thresh, float corr_min,
+    float* __restrict__ out) {
+  long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (l >= npad) return;
+  auto row = [&](int r) { return rows[(long long)r * npad + l]; };
+  auto put = [&](int r, float x) { out[(long long)r * npad + l] = x; };
+  bool ig = sids[l] < live_below && l < (long long)ce[0];
+
+  float pos[2], v[2];
+  for (int k = 0; k < 2; ++k) {
+    pos[k] = row(k);
+    v[k] = ig ? krows[k * kstride + l] : 0.0f;
+  }
+  float grad[2][2], f[2][2];
+  for (int i = 0; i < 2; ++i)
+    for (int k = 0; k < 2; ++k) {
+      grad[i][k] = ig ? invd * (krows[(2 + 2 * i + k) * kstride + l] - v[i] * pos[k])
+                      : 0.0f;
+      f[i][k] = row(R2_F0 + 2 * i + k);
+    }
+  float aff_lo = ig ? pcdf[l] : 0.0f;
+  float aff_hi = ig ? pcdf[4 * pstride + l] : 0.0f;
+  uint32_t aff = (uint32_t)aff_lo | ((uint32_t)aff_hi << 16);
+  float sd = ig ? pcdf[pstride + l] : 0.0f;
+  float nrm[2];
+  for (int k = 0; k < 2; ++k) nrm[k] = ig ? pcdf[(2 + k) * pstride + l] : 0.0f;
+
+  // Rigid contact velocity: 2D body table rows 0-1 COM, 2-3 linvel, 4 angvel.
+  float rv[2] = {0.f, 0.f};
+  for (int b = 0; b < nc; ++b) {
+    bool has = (aff >> b) & 1u;
+    float rel0 = pos[0] - btable[b], rel1 = pos[1] - btable[128 + b];
+    float ang = btable[4 * 128 + b];
+    float bvb[2] = {btable[2 * 128 + b] - ang * rel1, btable[3 * 128 + b] + ang * rel0};
+    for (int k = 0; k < 2; ++k) rv[k] = rv[k] + (has ? bvb[k] : 0.0f);
+  }
+  int mid = (int)row(R2_MID);
+  mid = mid < 0 ? 0 : (mid > n_mat - 1 ? n_mat - 1 : mid);
+  auto mval = [&](int r) { return mtable[r * 128 + mid]; };
+  float mass = row(4);
+
+  // Contact projection, clamp, advection, penalty.
+  bool penetrating = sd < pen_thresh;
+  float rel[2] = {v[0] - rv[0], v[1] - rv[1]};
+  float nv = rel[0] * nrm[0] + rel[1] * nrm[1];
+  float tang[2] = {rel[0] - nrm[0] * nv, rel[1] - nrm[1] * nv};
+  float tl = sqrtf(tang[0] * tang[0] + tang[1] * tang[1]);
+  float inv_tl = tl > 1e-8f ? 1.0f / fmaxf(tl, 1e-30f) : 0.0f;
+  float scale = fmaxf(tl + DEFAULT_FRICTION * nv, 0.0f) * inv_tl;
+  float nvel[2];
+  for (int i = 0; i < 2; ++i) {
+    float proj = nv < 0.0f ? tang[i] * scale : rel[i];
+    nvel[i] = penetrating ? rv[i] + proj : v[i];
+  }
+  float speed = sqrtf(nvel[0] * nvel[0] + nvel[1] * nvel[1]);
+  float cl = speed > limit ? limit / fmaxf(speed, 1e-30f) : 1.0f;
+  float npos[2];
+  for (int i = 0; i < 2; ++i) {
+    nvel[i] = nvel[i] * cl;
+    npos[i] = pos[i] + nvel[i] * dt;
+  }
+  float corrected = fmaxf(sd, corr_min);
+  float pen = dt * -corrected * PENALTY_COEFF;
+  for (int i = 0; i < 2; ++i)
+    nvel[i] = penetrating ? nvel[i] + pen * nrm[i] : nvel[i];
+
+  // F += dt grad F.
+  float nf[2][2];
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 2; ++j) {
+      float acc = grad[i][0] * f[0][j];
+      acc = acc + grad[i][1] * f[1][j];
+      nf[i][j] = f[i][j] + dt * acc;
+    }
+
+  // Fracture check on the signed singular values.
+  float uc[2][2], sig[2], vc[2][2];
+  svd2(nf, uc, sig, vc);
+  float phase = row(R2_PHASE), stretch = mval(8);
+  bool check = phase > 0.0f && stretch > 0.0f;
+  bool over = sig[0] > stretch || sig[1] > stretch;
+  float new_phase = (check && over) ? 0.0f : phase;
+
+  // Drucker-Prager (the same SVD of the updated F).
+  float dps[3] = {row(R2_DPS0), row(R2_DPS0 + 1), row(R2_DPS0 + 2)};
+  float ndps[3] = {dps[0], dps[1], dps[2]};
+  {
+    float h0 = mval(2), h1 = mval(3), h2 = mval(4), h3 = mval(5);
+    float lam = mval(6), mu = mval(7);
+    bool enabled = lam > 0.0f;
+    const float df = 2.0f;
+    float angle = h0 + (h1 * dps[1] - h3) * expf(-h2 * dps[1]);
+    float s = sinf(angle);
+    float alpha = 0.8164966106414795f * (2.0f * s) / (3.0f - s);
+    float strain[2];
+    for (int k = 0; k < 2; ++k)
+      strain[k] = logf(fmaxf(sig[k], 1e-12f)) + dps[2] / df;
+    float trace = strain[0] + strain[1];
+    float dev[2];
+    for (int k = 0; k < 2; ++k) dev[k] = strain[k] - trace / df;
+    float dev_norm = sqrtf(dev[0] * dev[0] + dev[1] * dev[1]);
+    bool case_a = trace > 0.0f || dev_norm == 0.0f;
+    float hard_a = sqrtf(strain[0] * strain[0] + strain[1] * strain[1]);
+    float gamma = dev_norm + (df * lam + 2.0f * mu) / (2.0f * mu) * trace * alpha;
+    bool case_b = !case_a && gamma <= 0.0f;
+    float sc = gamma / fmaxf(dev_norm, 1e-20f);
+    float nsig[2];
+    for (int k = 0; k < 2; ++k)
+      nsig[k] = case_a ? 1.0f : expf(strain[k] - dev[k] * sc);
+    float plastic_h = case_a ? hard_a : gamma;
+    float prev_det = sig[0] * sig[1];
+    float new_det = nsig[0] * nsig[1];
+    bool apply = enabled && !case_b;
+    bool granular = new_phase == 0.0f;
+    if (apply && granular) {
+      ndps[0] = dps[0] * prev_det / (new_det != 0.0f ? new_det : 1.0f);
+      ndps[1] = dps[1] + plastic_h;
+      ndps[2] = dps[2] + logf(fmaxf(prev_det, 1e-20f)) - logf(fmaxf(new_det, 1e-20f));
+      for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 2; ++j) {
+          float p = uc[0][i] * nsig[0] * vc[0][j];
+          p = p + uc[1][i] * nsig[1] * vc[1][j];
+          nf[i][j] = p;
+        }
+    }
+  }
+
+  // Corotated Kirchhoff stress and APIC affine.
+  float aff_out[2][2];
+  {
+    float lam = mval(0), mu = mval(1), vol0 = mval(9);
+    svd2(nf, uc, sig, vc);
+    float j = sig[0] * sig[1];
+    float diag = lam * (j - 1.0f) * j;
+    float two_mu = 2.0f * mu;
+    float scale_a = vol0 * invd * dt;
+    for (int i = 0; i < 2; ++i)
+      for (int jj = 0; jj < 2; ++jj) {
+        float acc = 0.0f;
+        for (int k = 0; k < 2; ++k) {
+          float sh = uc[0][i] * (sig[0] - 1.0f) * vc[0][k];
+          sh = sh + uc[1][i] * (sig[1] - 1.0f) * vc[1][k];
+          float term = sh * nf[jj][k];
+          acc = k == 0 ? term : acc + term;
+        }
+        float stress = i == jj ? two_mu * acc + diag : two_mu * acc;
+        aff_out[i][jj] = grad[i][jj] * mass - stress * scale_a;
+      }
+  }
+
+  for (int k = 0; k < 2; ++k) { put(k, npos[k]); put(2 + k, nvel[k]); }
+  put(4, mass);
+  for (int i = 0; i < 2; ++i)
+    for (int k = 0; k < 2; ++k) put(5 + 2 * i + k, aff_out[i][k]);
+  put(9, aff_lo);
+  for (int k = 0; k < 2; ++k) put(10 + k, nrm[k]);
+  put(12, aff_hi);
+  for (int r = 13; r < 16; ++r) put(r, row(r));
+  for (int k = 0; k < 3; ++k) put(R2_DPS0 + k, ndps[k]);
+  put(R2_PHASE, new_phase);
+  for (int i = 0; i < 2; ++i)
+    for (int k = 0; k < 2; ++k) put(R2_F0 + 2 * i + k, nf[i][k]);
+  put(24, sd);
+  for (int k = 0; k < 2; ++k) put(R2_RV0 + k, rv[k]);
+  for (int r = R2_RV0 + 2; r < R2_PCHAN; ++r) put(r, row(r));
+}
+
+extern "C" int update_rows2d_cuda(
+    const float* rows, const float* krows, const float* pcdf, const int* sids,
+    const int* ce, const float* btable, const float* mtable, long long npad,
+    long long kstride, long long pstride, long long nc, long long n_mat,
+    long long live_below, float dt, float h, float invd, float limit,
+    float pen_thresh, float corr_min, float* out, cudaStream_t stream) {
+  unsigned blocks = (unsigned)((npad + 127) / 128);
+  update2d_kernel<<<blocks, 128, 0, stream>>>(
+      rows, krows, pcdf, sids, ce, btable, mtable, npad, kstride, pstride,
+      (int)nc, (int)n_mat, (int)live_below, dt, h, invd, limit, pen_thresh,
+      corr_min, out);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int update_rows_cuda(

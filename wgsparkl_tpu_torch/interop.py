@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from wgsparkl_tpu_torch.device import resolve
 from wgsparkl_tpu_torch.grid import GridConfig
 from wgsparkl_tpu_torch.params import SimulationParams
 from wgsparkl_tpu_torch.pipeline import MpmConfig, SimState
@@ -25,10 +26,10 @@ def _t(x, device):
     return torch.as_tensor(np.array(a), device=device)
 
 
-def params_from_reference(params, device="cpu") -> SimulationParams:
+def params_from_reference(params, device=None) -> SimulationParams:
     return SimulationParams(dt=float(np.asarray(params.dt, np.float32)),
                             gravity=_t(np.asarray(params.gravity, np.float32),
-                                       device))
+                                       resolve(device)))
 
 
 def config_from_reference(cfg) -> MpmConfig:
@@ -52,7 +53,10 @@ def config_from_reference(cfg) -> MpmConfig:
         n_materials=int(cfg.n_materials), static_slots=tuple(cfg.static_slots))
 
 
-def state_from_reference(state, device="cpu") -> SimState:
+def state_from_reference(state, device=None) -> SimState:
+    """2D or 3D state, as the reference holds it (2D bodies: rot (cos, sin),
+    angvel [B, 1], inertia [B, 1, 1])."""
+    device = resolve(device)
     p, m, b = state.particles, state.models, state.bodies
     particles = Particles(**{f: _t(getattr(p, f), device) for f in (
         "pos", "vel", "def_grad", "affine", "init_volume", "init_radius", "mass",

@@ -1,7 +1,8 @@
-"""Batched quaternion poses (port of wgsparkl_tpu/math/pose.py, 3D part).
+"""Batched poses (port of wgsparkl_tpu/math/pose.py).
 
-Rotation: quaternion [..., 4] ordered (w, x, y, z); translation [..., 3].
-Norms are sqrt(sum of squares), as jnp.linalg.norm computes them.
+Rotation: quaternion [..., 4] ordered (w, x, y, z) in 3D, unit complex
+[..., 2] ordered (cos, sin) in 2D; translation [..., d].  Norms are
+sqrt(sum of squares), as jnp.linalg.norm computes them.
 """
 
 import torch
@@ -27,8 +28,7 @@ def quat_normalize(q):
 
 
 def quat_conj(q):
-    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype,
-                            device=q.device)
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def _cross(a, b):
@@ -45,6 +45,10 @@ def quat_rotate(q, v):
     w = q[..., :1]
     t = 2.0 * _cross(qv, v)
     return v + w * t + _cross(qv, t)
+
+
+def quat_inv_rotate(q, v):
+    return quat_rotate(quat_conj(q), v)
 
 
 def quat_from_scaled_axis(w):
@@ -69,5 +73,38 @@ def quat_to_matrix(q):
     return m.reshape(*q.shape[:-1], 3, 3)
 
 
+def rot2_from_angle(angle):
+    return torch.stack([torch.cos(angle), torch.sin(angle)], dim=-1)
+
+
+def rot2_mul(r1, r2):
+    c1, s1 = r1[..., 0], r1[..., 1]
+    c2, s2 = r2[..., 0], r2[..., 1]
+    return torch.stack([c1 * c2 - s1 * s2, c1 * s2 + s1 * c2], dim=-1)
+
+
+def rot2_rotate(r, v):
+    c, s = r[..., :1], r[..., 1:2]
+    x, y = v[..., :1], v[..., 1:2]
+    return torch.cat([c * x - s * y, s * x + c * y], dim=-1)
+
+
+def rot2_inv_rotate(r, v):
+    return rot2_rotate(torch.stack([r[..., 0], -r[..., 1]], dim=-1), v)
+
+
+def rot2_normalize(r):
+    return r / torch.clamp(_norm(r), min=1e-12)
+
+
+def rotate(rot, v):
+    """Rotate v [..., d] by a quaternion (d = 3) or unit complex (d = 2)."""
+    return quat_rotate(rot, v) if v.shape[-1] == 3 else rot2_rotate(rot, v)
+
+
+def inv_rotate(rot, v):
+    return quat_inv_rotate(rot, v) if v.shape[-1] == 3 else rot2_inv_rotate(rot, v)
+
+
 def transform_point(rot, trans, p):
-    return quat_rotate(rot, p) + trans
+    return rotate(rot, p) + trans

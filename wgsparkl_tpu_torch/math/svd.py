@@ -1,10 +1,12 @@
-"""Channel-form signed 3x3 SVD (port of wgsparkl_tpu/math/svd.py, 3D part).
+"""Channel-form signed 2x2 and 3x3 SVD (port of wgsparkl_tpu/math/svd.py:
+svd2x2_ch and the 3D part).
 
-Cyclic Jacobi on F^T F with trig-free Givens rotations, 8 sweeps of the
-(0,1), (0,2), (1,2) planes in that order, exactly as the JAX package does;
-channels are [N] tensors.  The Givens cosine is 1/sqrt(1 + t^2) computed
-with an IEEE divide and sqrt (the JAX code's rsqrt), so the plain version
-and the CUDA kernel of ops/update_rows.py agree operation for operation.
+3x3: cyclic Jacobi on F^T F with trig-free Givens rotations, 8 sweeps of
+the (0,1), (0,2), (1,2) planes in that order, exactly as the JAX package
+does.  2x2: closed-form polar decomposition, then one Givens rotation of
+the symmetric factor.  Channels are [N] tensors.  Every JAX rsqrt is an
+IEEE divide of a sqrt here, so the plain versions and the CUDA kernels of
+ops/update_rows.py agree operation for operation.
 
 Convention: F = U diag(S) V^T with U, V proper rotations, S sorted by
 decreasing value, and the last singular value carrying sign(det F).
@@ -23,6 +25,43 @@ def _givens(app, aqq, apq):
     t = torch.where(nonzero, t, 0.0)
     c = 1.0 / torch.sqrt(1.0 + t * t)
     return c, t * c
+
+
+def svd2x2_ch(fc):
+    """fc: dict (i, j) -> [N] of a 2x2 F.  Returns (uc, sig, vc): uc[k] /
+    vc[k] the two channels of the k-th column of U / V, sig = [s0, s1]
+    with s0 >= |s1| and sign(s1) = sign(det F)."""
+    a, b = fc[(0, 0)], fc[(0, 1)]
+    c, d = fc[(1, 0)], fc[(1, 1)]
+    det = a * d - b * c
+    sgn = torch.where(det < 0.0, -1.0, 1.0)
+    # Reflect so that det(B) >= 0: B = F diag(1, sgn).
+    b01, b11 = b * sgn, d * sgn
+    # Polar rotation R of B: [[x, -y], [y, x]] / hypot(x, y).
+    x = a + b11
+    y = c - b01
+    h2 = x * x + y * y
+    ok = h2 > 1e-30
+    inv_h = torch.where(ok, 1.0 / torch.sqrt(torch.clamp(h2, min=1e-30)), 0.0)
+    cr = torch.where(ok, x * inv_h, 1.0)
+    sr = y * inv_h
+    # Symmetric factor P = R^T B, diagonalised by V = [[cv, -sv], [sv, cv]].
+    p00 = cr * a + sr * c
+    p01 = cr * b01 + sr * b11
+    p11 = -sr * b01 + cr * b11
+    cv, sv = _givens(p00, p11, p01)
+    l0 = cv * cv * p00 + 2.0 * cv * sv * p01 + sv * sv * p11
+    l1 = sv * sv * p00 - 2.0 * cv * sv * p01 + cv * cv * p11
+    # Sort descending; the 90-degree turn keeps V in SO(2).
+    swap = l0 < l1
+    cv, sv = torch.where(swap, -sv, cv), torch.where(swap, cv, sv)
+    s0 = torch.where(swap, l1, l0)
+    s1 = torch.where(swap, l0, l1)
+    cu = cr * cv - sr * sv
+    su = sr * cv + cr * sv
+    uc = [[cu, su], [-su, cu]]
+    vc = [[cv, sv * sgn], [-sv * sgn, cv]]
+    return uc, [s0, s1 * sgn], vc
 
 
 def _key(i, j):

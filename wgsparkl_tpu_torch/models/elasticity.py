@@ -1,12 +1,12 @@
 """Corotated elastic stress, channel form (port of
 wgsparkl_tpu/models/elasticity.py: lame_lambda_mu, ElasticCoefficients,
-kirchoff_stress_corotated_ch)."""
+kirchoff_stress_corotated_ch and _ch2)."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from wgsparkl_tpu_torch.math.svd import svd3x3_ch
+from wgsparkl_tpu_torch.math.svd import svd2x2_ch, svd3x3_ch
 
 
 def lame_lambda_mu(young_modulus, poisson_ratio):
@@ -27,21 +27,32 @@ class ElasticCoefficients:
         return ElasticCoefficients(lam=float(lam), mu=float(mu))
 
 
-def kirchoff_stress_corotated_ch(lam, mu, fc):
-    """tau = 2 mu U diag(S - 1) V^T F^T + lam J (J - 1) I on [N] channels."""
-    uc, sig, vc = svd3x3_ch(fc)
-    j = sig[0] * sig[1] * sig[2]
+def _corotated(lam, mu, fc, uc, sig, vc):
+    d = len(sig)
+    j = sig[0] * sig[1]
+    for m in range(2, d):
+        j = j * sig[m]
     diag = lam * (j - 1.0) * j
     two_mu = 2.0 * mu
     out = {}
-    for i in range(3):
-        for jj in range(3):
+    for i in range(d):
+        for jj in range(d):
             acc = None
-            for k in range(3):
+            for k in range(d):
                 shifted = uc[0][i] * (sig[0] - 1.0) * vc[0][k]
-                for m in range(1, 3):
+                for m in range(1, d):
                     shifted = shifted + uc[m][i] * (sig[m] - 1.0) * vc[m][k]
                 term = shifted * fc[(jj, k)]
                 acc = term if acc is None else acc + term
             out[(i, jj)] = two_mu * acc + diag if i == jj else two_mu * acc
     return out
+
+
+def kirchoff_stress_corotated_ch(lam, mu, fc):
+    """tau = 2 mu U diag(S - 1) V^T F^T + lam J (J - 1) I on [N] channels."""
+    return _corotated(lam, mu, fc, *svd3x3_ch(fc))
+
+
+def kirchoff_stress_corotated_ch2(lam, mu, fc):
+    """2D twin of kirchoff_stress_corotated_ch (closed-form 2x2 SVD)."""
+    return _corotated(lam, mu, fc, *svd2x2_ch(fc))

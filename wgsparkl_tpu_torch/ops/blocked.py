@@ -1,10 +1,11 @@
 """Block-grid addressing, sort keys, job tables and window tile moves
 (port of the bounded-grid subset of wgsparkl_tpu/ops/blocked.py).
 
-Blocks are 4 x by x 4 nodes; flat block ids enumerate blocks in (x, z, y)
-order, gravity (y) fastest, and double as the particle sort keys.  Grid
-storage is [NB + 1, 4, by, 4, C]: slot NB is the ghost block that dead jobs
-and out-of-range window neighbours read and write.  The TPU's one-hot
+Blocks are 4 x by x 4 nodes in 3D, 8 x 8 in 2D; flat block ids enumerate
+blocks gravity (y) fastest ((x, z, y) order in 3D, (x, y) in 2D, x
+slowest in both) and double as the particle sort keys.  Grid storage is
+[NB + 1, bsd, C] (bsd nodes per block): slot NB is the ghost block that dead
+jobs and out-of-range window neighbours read and write.  The TPU's one-hot
 matmul tile moves (banded slabs, two-level dispatch, Dekker selection
 splits) become a plain indexed gather and an ordered row add (add_rows) here.
 """
@@ -21,14 +22,23 @@ from wgsparkl_tpu_torch.grid import GridConfig
 from wgsparkl_tpu_torch.math import div
 
 
+BLOCK2D = 8   # nodes per axis of a 2D block
+
+
 def block_shape(dim: int, by: int = 4) -> Tuple[int, ...]:
-    if dim != 3:
-        raise NotImplementedError("2D is not ported (ROADMAP queue 1, item 9)")
-    return (4, by, 4)
+    return (BLOCK2D, BLOCK2D) if dim == 2 else (4, by, 4)
+
+
+def window_shape(dim: int, by: int = 4) -> Tuple[int, ...]:
+    """A block plus a 2-node halo on the high side of each axis."""
+    return tuple(b + 2 for b in block_shape(dim, by))
 
 
 def storage_strides(nb: Tuple[int, ...]) -> Tuple[int, ...]:
-    """Per-axis strides of the flat block id: (x, z, y) order, y fastest."""
+    """Per-axis strides of the flat block id, y fastest: (x, y) order in
+    2D, (x, z, y) in 3D."""
+    if len(nb) == 2:
+        return (nb[1], 1)
     return (nb[1] * nb[2], 1, nb[1])
 
 
@@ -41,12 +51,13 @@ def num_blocks(cfg: GridConfig, by: int = 4) -> Tuple[int, ...]:
 
 def particle_sort_keys_ch(pch, cfg: GridConfig, by: int = 4):
     """Flat home-block id per particle (block of the stencil base cell,
-    round(p / h) - 1); out-of-grid lanes get NB (the overflow bucket)."""
-    bsh = block_shape(3, by)
+    round(p / h) - 1); out-of-grid lanes get NB (the overflow bucket).
+    pch: d position channels [N]."""
+    bsh = block_shape(len(pch), by)
     nb = num_blocks(cfg, by)
     st = storage_strides(nb)
     flat, ok = None, None
-    for a in range(3):
+    for a in range(len(pch)):
         base = torch.round(div(pch[a], cfg.cell_width)).to(torch.int32) - 1
         blk = torch.div(base - int(cfg.origin_cell[a]), bsh[a],
                         rounding_mode="floor")
@@ -110,55 +121,78 @@ def build_jobs(sorted_ids, nb_total: int, group: int, max_jobs: int):
 
 
 def block_coords_of(flat, nb):
-    """Flat block id -> [J, 3] coords (overflow ids wrap; callers mask)."""
+    """Flat block id -> [J, d] coords (overflow ids wrap; callers mask)."""
     st = storage_strides(nb)
     return torch.stack([torch.remainder(torch.div(flat, st[a],
                                                   rounding_mode="floor"),
-                                        nb[a]) for a in range(3)], dim=-1)
+                                        nb[a]) for a in range(len(nb))], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _cell_tables(bsh: Tuple[int, ...], origin: Tuple[int, ...],
+                 device: torch.device):
+    return (torch.tensor(bsh, dtype=torch.int32, device=device),
+            torch.tensor(origin, dtype=torch.int32, device=device))
+
+
+def block_origin_cells(flat, nb, by: int, origin_cell):
+    """Flat block id -> [J, d] int32 grid cell of the block's first node."""
+    bsh, origin = _cell_tables(block_shape(len(nb), by),
+                               tuple(int(o) for o in origin_cell), flat.device)
+    return (block_coords_of(flat, nb) * bsh + origin).to(torch.int32)
 
 
 @functools.lru_cache(maxsize=None)
 def neighbor_block_table(nb: Tuple[int, ...]) -> np.ndarray:
-    """[NB + 1, 8] flat ids of each block's {0,1}^3 neighbours, octants in
-    np.ndindex order; out-of-range neighbours and the overflow row -> NB."""
+    """[NB + 1, 2^d] flat ids of each block's {0,1}^d neighbours, octants
+    in np.ndindex order; out-of-range neighbours and the overflow row -> NB."""
+    d = len(nb)
     st = storage_strides(nb)
     mesh = np.stack(np.meshgrid(*[np.arange(s) for s in nb], indexing="ij"),
-                    -1).reshape(-1, 3)
-    order = np.argsort(sum(mesh[:, a] * st[a] for a in range(3)))
+                    -1).reshape(-1, d)
+    order = np.argsort(sum(mesh[:, a] * st[a] for a in range(d)))
     coords = mesh[order]
     out = []
-    for e in np.ndindex(2, 2, 2):
+    for e in np.ndindex(*((2,) * d)):
         nbr = coords + np.asarray(e)
         ok = np.all(nbr < np.asarray(nb), axis=-1)
-        out.append(np.where(ok, sum(nbr[:, a] * st[a] for a in range(3)),
+        out.append(np.where(ok, sum(nbr[:, a] * st[a] for a in range(d)),
                             np.prod(nb)))
     table = np.stack(out, axis=-1).astype(np.int64)
-    return np.concatenate([table, np.full((1, 8), np.prod(nb), np.int64)])
+    return np.concatenate([table, np.full((1, 2 ** d), np.prod(nb), np.int64)])
 
 
 @functools.lru_cache(maxsize=None)
-def window_map(by: int):
-    """(octant [wvol], cell [wvol]) of each window node: which {0,1}^3
-    neighbour block it lies in and its cell index (x, y, z order) there."""
-    bsh = block_shape(3, by)
-    wsh = tuple(b + 2 for b in bsh)
+def window_map(by: int, dim: int = 3):
+    """(octant [wvol], cell [wvol]) of each window node, window nodes in
+    row-major order: which {0,1}^d neighbour block it lies in (np.ndindex
+    order) and its row-major cell index there."""
+    bsh = block_shape(dim, by)
     octs, cells = [], []
-    for w in np.ndindex(*wsh):
-        e = [int(w[a] >= bsh[a]) for a in range(3)]
-        c = [w[a] - e[a] * bsh[a] for a in range(3)]
-        octs.append(e[0] * 4 + e[1] * 2 + e[2])
-        cells.append((c[0] * bsh[1] + c[1]) * bsh[2] + c[2])
+    for w in np.ndindex(*window_shape(dim, by)):
+        e = [int(w[a] >= bsh[a]) for a in range(dim)]
+        c = [w[a] - e[a] * bsh[a] for a in range(dim)]
+        octs.append(int(np.ravel_multi_index(e, (2,) * dim)))
+        cells.append(int(np.ravel_multi_index(c, bsh)))
     return np.asarray(octs, np.int64), np.asarray(cells, np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _window_tables(nb: Tuple[int, ...], by: int, device: torch.device):
+    """neighbor_block_table(nb) and window_map(by, d) as tensors on
+    `device`, copied there once."""
+    octs, cells = window_map(by, len(nb))
+    return (torch.as_tensor(neighbor_block_table(nb), device=device),
+            torch.as_tensor(octs, device=device),
+            torch.as_tensor(cells, device=device))
 
 
 def window_sources(job_block, nb, by: int):
     """[J, wvol] flat (block * bsd + cell) grid row of every window node."""
-    octs, cells = window_map(by)
-    dev = job_block.device
-    nbr = torch.as_tensor(neighbor_block_table(tuple(nb)), device=dev)
-    blk = nbr[job_block.to(torch.int64)][:, torch.as_tensor(octs, device=dev)]
-    bsd = 16 * by
-    return blk * bsd + torch.as_tensor(cells, device=dev)[None, :]
+    nbr, octs, cells = _window_tables(tuple(nb), by, job_block.device)
+    blk = nbr[job_block.to(torch.int64)][:, octs]
+    bsd = int(np.prod(block_shape(len(nb), by)))
+    return blk * bsd + cells[None, :]
 
 
 def add_rows(dst, index, src):
@@ -197,7 +231,7 @@ def scatter_tiles(grid_blocks, tiles, src):
 
 def block_major_node_positions_ch(cfg: GridConfig, by: int, device):
     """Node world-position channels in block-major storage order."""
-    bsh = block_shape(3, by)
+    bsh = block_shape(cfg.dim, by)
     nb = num_blocks(cfg, by)
     bsd = int(np.prod(bsh))
     i = torch.arange(int(np.prod(nb)) * bsd, dtype=torch.int32, device=device)
@@ -205,7 +239,7 @@ def block_major_node_positions_ch(cfg: GridConfig, by: int, device):
     b = i // bsd
     st = storage_strides(nb)
     out = []
-    for a in range(3):
+    for a in range(cfg.dim):
         inner_stride = int(np.prod(bsh[a + 1:]))
         cell = ((b // st[a]) % nb[a] * bsh[a] + (inner // inner_stride) % bsh[a]
                 + int(cfg.origin_cell[a]))

@@ -219,9 +219,11 @@ def p2g_cdf_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width,
 
 
 def job_table(jobs, bcells, jbody):
-    """[6, MAXJ] int32: start, len, block cell x/y/z, gate level."""
+    """[6, MAXJ] int32: start, len, block cell x/y/z (z = 0 in 2D), gate
+    level."""
+    bz = bcells[:, 2] if bcells.shape[1] == 3 else torch.zeros_like(bcells[:, 0])
     return torch.stack([jobs["start"], jobs["len"], bcells[:, 0], bcells[:, 1],
-                        bcells[:, 2], jbody]).to(torch.int32).contiguous()
+                        bz, jbody]).to(torch.int32).contiguous()
 
 
 def moving_mask(moving) -> int:

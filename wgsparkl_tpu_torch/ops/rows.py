@@ -13,6 +13,7 @@ masks after every right shift.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
@@ -140,10 +141,10 @@ def nr_recip(x):
 
 # ------------------------------------------------ window helpers (plain path)
 def window_offsets(wsh, device):
-    """[wvol, 3] int64 node offsets of the window from the block origin
+    """[wvol, d] int64 node offsets of the window from the block origin
     (flat index wx * wsh[1] * wsh[2] + wy * wsh[2] + wz)."""
     g = np.stack(np.meshgrid(*[np.arange(s) for s in wsh], indexing="ij"), -1)
-    return torch.as_tensor(g.reshape(-1, 3), device=device)
+    return torch.as_tensor(g.reshape(-1, len(wsh)), device=device)
 
 
 def window_positions(bcells, cell_width, wsh):
@@ -153,15 +154,18 @@ def window_positions(bcells, cell_width, wsh):
 
 
 def stencil(pos, bcell, inv_h, wsh):
-    """Per-particle 3^3 stencil inside its job window.
+    """Per-particle 3^d stencil inside its job window (d = len(pos)).
 
-    pos: 3 channels [P]; bcell [P, 3] int.  Returns (w [P, 27] weights in
-    (ox, oy, oz) order, oz fastest; nidx [P, 27] int64 window node index;
-    valid [P, 27]).  A stencil node past the window's high edge (a base
-    cell rounded up at an exact half-cell tie) is dropped, as the TPU
-    kernels' window weight rows drop it: weight 0, index 0, valid False."""
+    pos: d channels [P]; bcell [P, d] int; wsh the window shape.  Returns
+    (w [P, 3^d] weights in offset order, last axis fastest; nidx [P, 3^d]
+    int64 row-major window node index; valid [P, 3^d]).  A stencil node
+    outside the window (past its high edge when the base cell rounds up at
+    an exact half-cell tie, below its low edge when p * (1/h) rounds below
+    the p / h of the block sort key) is dropped, as the TPU kernels' window
+    weight rows drop it: weight 0, index 0, valid False."""
+    d = len(pos)
     ws, bls, oks = [], [], []
-    for a in range(3):
+    for a in range(d):
         u = pos[a] * inv_h
         base = torch.floor(u + 0.5).to(torch.int32) - 1
         xf = u - base.to(torch.float32)
@@ -169,17 +173,17 @@ def stencil(pos, bcell, inv_h, wsh):
         ws.append((0.5 * (t0 * t0), 0.75 - t1 * t1, 0.5 * (t2 * t2)))
         bl = (base - bcell[:, a]).to(torch.int64)
         bls.append(bl)
-        oks.append([bl + o < wsh[a] for o in range(3)])
+        oks.append([(bl + o >= 0) & (bl + o < wsh[a]) for o in range(3)])
     w, nidx, valid = [], [], []
-    for ox in range(3):
-        for oy in range(3):
-            wxy = ws[0][ox] * ws[1][oy]
-            for oz in range(3):
-                ok = oks[0][ox] & oks[1][oy] & oks[2][oz]
-                valid.append(ok)
-                w.append(torch.where(ok, wxy * ws[2][oz], 0.0))
-                nidx.append(torch.where(ok, (bls[0] + ox) * (wsh[1] * wsh[2])
-                                        + (bls[1] + oy) * wsh[2] + bls[2] + oz, 0))
+    for off in itertools.product(range(3), repeat=d):
+        ok, wt, idx = oks[0][off[0]], ws[0][off[0]], bls[0] + off[0]
+        for a in range(1, d):
+            ok = ok & oks[a][off[a]]
+            wt = wt * ws[a][off[a]]
+            idx = idx * wsh[a] + bls[a] + off[a]
+        valid.append(ok)
+        w.append(torch.where(ok, wt, 0.0))
+        nidx.append(torch.where(ok, idx, 0))
     return torch.stack(w, 1), torch.stack(nidx, 1), torch.stack(valid, 1)
 
 
@@ -191,15 +195,21 @@ def compat(naff, paff):
 
 def ghost_velocity(vp, bv, nrm, friction=DEFAULT_FRICTION):
     """CPIC ghost velocity of a particle velocity vp against body velocity
-    bv with contact normal nrm (p2g.wgsl:200-231); lists of 3 tensors."""
-    u = [vp[i] - bv[i] for i in range(3)]
-    nv = u[0] * nrm[0] + u[1] * nrm[1] + u[2] * nrm[2]
-    tang = [u[i] - nrm[i] * nv for i in range(3)]
-    tl = torch.sqrt(tang[0] * tang[0] + tang[1] * tang[1] + tang[2] * tang[2])
+    bv with contact normal nrm (p2g.wgsl:200-231); lists of d tensors."""
+    d = len(vp)
+    u = [vp[i] - bv[i] for i in range(d)]
+    nv = u[0] * nrm[0]
+    for i in range(1, d):
+        nv = nv + u[i] * nrm[i]
+    tang = [u[i] - nrm[i] * nv for i in range(d)]
+    tl = tang[0] * tang[0]
+    for i in range(1, d):
+        tl = tl + tang[i] * tang[i]
+    tl = torch.sqrt(tl)
     inv_tl = torch.where(tl > 1e-8, nr_recip(torch.clamp(tl, min=1e-30)), 0.0)
     scale = torch.clamp(tl + friction * nv, min=0.0) * inv_tl
     sliding = nv < 0.0
-    return [bv[i] + torch.where(sliding, tang[i] * scale, u[i]) for i in range(3)]
+    return [bv[i] + torch.where(sliding, tang[i] * scale, u[i]) for i in range(d)]
 
 
 def moving_node_cdf(xw, btable, moving, cell_width):

@@ -6,6 +6,8 @@ import dataclasses
 
 import torch
 
+from wgsparkl_tpu_torch.device import resolve
+
 
 @dataclasses.dataclass
 class SimulationParams:
@@ -13,9 +15,9 @@ class SimulationParams:
     gravity: torch.Tensor  # [d] f32
 
     @staticmethod
-    def new(dt: float, gravity, device="cpu") -> "SimulationParams":
+    def new(dt: float, gravity, device=None) -> "SimulationParams":
         return SimulationParams(
             dt=float(torch.tensor(dt, dtype=torch.float32)),
             gravity=torch.as_tensor(gravity, dtype=torch.float32,
-                                    device=device).clone(),
+                                    device=resolve(device)).clone(),
         )

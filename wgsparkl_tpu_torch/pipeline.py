@@ -1,19 +1,22 @@
-"""The MPM step on the bounded block grid (port of the main-path subset of
+"""The MPM step on the bounded block grid (port of the kernel-path subset of
 wgsparkl_tpu/pipeline.py: MpmConfig, MpmData, RigidBodyDesc,
-build_rigid_world, StepDiag, step / step_pallas / step_with_diag and the
-bounded 3D branch of `_substep_pallas_rows`).
+build_rigid_world, StepDiag, step / step_pallas / step_with_diag, the
+bounded 3D branch of `_substep_pallas_rows` and the gathered all-static
+branch of `_substep_pallas_rows_2d`).
 
-One substep, in order: block sort keys; stable sort and row permute
+One 3D substep, in order: block sort keys; stable sort and row permute
 (kernel D); job table (kernel E inside build_jobs); window gather of the
 frame-static node-CDF channels; fused particle CDF + P2G (kernel A);
 scatter to the grid; grid velocity; window gather; G2P (kernel B); fused
-particle update (kernel C); rigid-body update.
+particle update (kernel C); rigid-body update.  A 2D substep has the same
+phases with the particle CDF (kernel G) and P2G (kernel H) apart, G2P
+kernel I and the dim=2 branch of kernel C.
 
 The CDF mode is the JAX package's "gathered hybrid": the never-moving
-colliders' node-CDF channel grid is built once per frame, and moving
-colliders are merged in-kernel at the windows of jobs a conservative reach
-test marks (gate level 2).  Options the JAX package has beyond this path
-raise NotImplementedError naming their ROADMAP item.
+colliders' node-CDF channel grid is built once per frame, and (3D only)
+moving colliders are merged in-kernel at the windows of jobs a
+conservative reach test marks (gate level 2).  Options the JAX package has
+beyond these paths raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,14 +29,19 @@ import torch
 
 from wgsparkl_tpu_torch.collision import cdf_channel as cch
 from wgsparkl_tpu_torch.collision import shapes as shp
+from wgsparkl_tpu_torch.device import resolve
 from wgsparkl_tpu_torch.grid import GridConfig
 from wgsparkl_tpu_torch.math import div
 from wgsparkl_tpu_torch.ops import blocked as bk
 from wgsparkl_tpu_torch.ops import rows as R
+from wgsparkl_tpu_torch.ops import rows2d as R2
 from wgsparkl_tpu_torch.ops.g2p import g2p_rows
 from wgsparkl_tpu_torch.ops.p2g_cdf import p2g_cdf_tiles
 from wgsparkl_tpu_torch.ops.permute import permute_lanes
-from wgsparkl_tpu_torch.ops.update_rows import update_rows
+from wgsparkl_tpu_torch.ops.transfer2d import g2p_rows as g2p_rows2d
+from wgsparkl_tpu_torch.ops.transfer2d import p2g_tiles as p2g_tiles2d
+from wgsparkl_tpu_torch.ops.transfer2d import pcdf_rows as pcdf_rows2d
+from wgsparkl_tpu_torch.ops.update_rows import update_rows, update_rows2d
 from wgsparkl_tpu_torch.params import SimulationParams
 from wgsparkl_tpu_torch.rigid import body as body_mod
 from wgsparkl_tpu_torch.rigid.body import RigidWorld
@@ -88,7 +96,8 @@ class StepDiag:
 
 @dataclasses.dataclass(frozen=True)
 class RigidBodyDesc:
-    """Host-side body + collider (rotation: scaled-axis vector)."""
+    """Host-side body + collider (rotation: an angle in 2D, a scaled-axis
+    vector in 3D)."""
 
     collider: shp.Collider
     translation: Tuple[float, ...]
@@ -99,37 +108,47 @@ class RigidBodyDesc:
     angvel: object = None
 
 
-def build_rigid_world(descs: Sequence[RigidBodyDesc], device="cpu") -> RigidWorld:
+def build_rigid_world(descs: Sequence[RigidBodyDesc], dim: int = 3,
+                      device=None) -> RigidWorld:
+    """The bodies of `descs` (fixed or kinematic) as a RigidWorld on
+    `device` (None: the card)."""
+    device = resolve(device)
     b = max(len(descs), 1)
+    na = 3 if dim == 3 else 1
     rots, poss, lin, ang, params = [], [], [], [], []
     for d in descs:
         if d.body_type == "dynamic":
             raise _unported("dynamic bodies", "queue 1, item 8")
         poss.append(np.asarray(d.translation, np.float32))
-        rvec = (np.zeros(3, np.float32) if d.rotation is None
-                else np.asarray(d.rotation, np.float32))
-        angle = float(np.linalg.norm(rvec))
-        axis = rvec / angle if angle > 1e-12 else np.array([1.0, 0, 0], np.float32)
-        rots.append(np.array([np.cos(0.5 * angle), *(np.sin(0.5 * angle) * axis)],
-                             np.float32))
-        lin.append(np.zeros(3, np.float32) if d.linvel is None
+        if dim == 2:
+            a = 0.0 if d.rotation is None else float(d.rotation)
+            rots.append(np.array([np.cos(a), np.sin(a)], np.float32))
+        else:
+            rvec = (np.zeros(3, np.float32) if d.rotation is None
+                    else np.asarray(d.rotation, np.float32))
+            angle = float(np.linalg.norm(rvec))
+            axis = (rvec / angle if angle > 1e-12
+                    else np.array([1.0, 0, 0], np.float32))
+            rots.append(np.array([np.cos(0.5 * angle),
+                                  *(np.sin(0.5 * angle) * axis)], np.float32))
+        lin.append(np.zeros(dim, np.float32) if d.linvel is None
                    else np.asarray(d.linvel, np.float32))
-        ang.append(np.zeros(3, np.float32) if d.angvel is None
-                   else np.asarray(d.angvel, np.float32))
+        ang.append(np.zeros(na, np.float32) if d.angvel is None
+                   else np.atleast_1d(np.asarray(d.angvel, np.float32)))
         params.append(d.collider.padded_params())
     t = lambda x: torch.as_tensor(np.stack(x), device=device)  # noqa: E731
-    z3 = torch.zeros((b, 3), device=device)
-    z33 = torch.zeros((b, 3, 3), device=device)
+    zd = torch.zeros((b, dim), device=device)
+    zi = torch.zeros((b, na, na), device=device)
     if not descs:
-        rot = torch.zeros((b, 4), device=device)
+        rot = torch.zeros((b, 4 if dim == 3 else 2), device=device)
         rot[:, 0] = 1.0
-        return RigidWorld(rot, z3, z3.clone(), z3.clone(), z3.clone(), z3.clone(),
-                          z3.clone(), z33, z33.clone(),
+        return RigidWorld(rot, zd, zd.clone(), torch.zeros((b, na), device=device),
+                          zd.clone(), zd.clone(), zd.clone(), zi, zi.clone(),
                           torch.zeros((b, 8), device=device))
     return RigidWorld(rot=t(rots), pos=t(poss), linvel=t(lin), angvel=t(ang),
-                      local_com=z3.clone(), world_com=z3.clone(),
-                      inv_mass=z3.clone(), inv_inertia_local=z33,
-                      inv_inertia_world=z33.clone(), shape_params=t(params))
+                      local_com=zd.clone(), world_com=zd.clone(),
+                      inv_mass=zd.clone(), inv_inertia_local=zi,
+                      inv_inertia_world=zi.clone(), shape_params=t(params))
 
 
 def pallas_npad(n: int, group: int) -> int:
@@ -151,7 +170,25 @@ def _body_table(bodies: RigidWorld, params: SimulationParams, grid: GridConfig):
     bt[13:16, :nb] = bodies.pos.T
     bt[16:24, :nb] = bodies.shape_params.T
     bt[24, :3] = params.gravity * params.dt
-    bt[24, 3] = grid.cell_width / params.dt
+    bt[24, 3].fill_(grid.cell_width / params.dt)   # fill_: no host copy
+    return bt
+
+
+def _body_table_2d(bodies: RigidWorld, params: SimulationParams,
+                   grid: GridConfig):
+    """[16, 128] 2D body table, lanes = slots: rows 0-1 world COM, 2-3
+    linvel, 4 angvel, 5-6 rotation (cos, sin), 7-8 translation, 9-11 shape
+    params; row 13 lanes 0-1 gravity * dt, lane 2 the velocity clamp."""
+    nb = bodies.count
+    bt = torch.zeros((16, 128), dtype=torch.float32, device=bodies.pos.device)
+    bt[0:2, :nb] = bodies.world_com.T
+    bt[2:4, :nb] = bodies.linvel.T
+    bt[4:5, :nb] = bodies.angvel.T
+    bt[5:7, :nb] = bodies.rot.T
+    bt[7:9, :nb] = bodies.pos.T
+    bt[9:12, :nb] = bodies.shape_params[:, :3].T
+    bt[13, :2] = params.gravity * params.dt
+    bt[13, 2].fill_(grid.cell_width / params.dt)
     return bt
 
 
@@ -163,10 +200,9 @@ def _node_cdf_static(bodies: RigidWorld, cfg: MpmConfig):
                                  only=frozenset(cfg.static_slots))
 
 
-def _cdf_chan_grid(node_dist, node_aff, node_closest, nrows: int, by: int):
+def _cdf_chan_grid(node_dist, node_aff, node_closest, nrows: int, bsd: int):
     """Node CDF -> channel grid [nrows + 1, bsd, 4] (aff low, aff high,
     closest, dist); row nrows is the ghost block (closest = -1)."""
-    bsd = 16 * by
     lo, hi = R.aff_halves(node_aff)
     g = torch.stack([lo, hi, node_closest.to(torch.float32), node_dist], -1)
     ghost = torch.zeros((1, bsd, 4), dtype=torch.float32, device=g.device)
@@ -174,13 +210,16 @@ def _cdf_chan_grid(node_dist, node_aff, node_closest, nrows: int, by: int):
     return torch.cat([g.reshape(nrows, bsd, 4), ghost], 0)
 
 
-def _jbody_gate(ntiles, wvol: int, static_slots):
+def _jbody_gate(ntiles, wvol: int, static_slots=None):
     """Per-job CPIC gate level: 0 no collider node in the window, 1 only
-    static closest bodies, 2 some node's closest body can move."""
+    static closest bodies, 2 some node's closest body can move.  Without
+    static_slots (the 2D path) only 0 and 2."""
     wmask = (torch.arange(ntiles.shape[1], device=ntiles.device) < wvol)[None, :]
     closest = ntiles[..., 2]
     any_c = torch.any(((ntiles[..., 0] + ntiles[..., 1] > 0.0) | (closest >= 0.0))
                       & wmask, dim=1)
+    if static_slots is None:
+        return any_c.to(torch.int32) * 2
     is_static = torch.zeros_like(closest, dtype=torch.bool)
     for s in static_slots:
         is_static = is_static | (closest == float(s))
@@ -192,20 +231,23 @@ def _moving_reach_gate(bcells, bodies: RigidWorld, moving, wsh, h: float):
     """[J] bool: the job window may lie within node-CDF reach (1.5 cells)
     of a moving collider (window-centre surface distance against the reach
     plus the window half-diagonal; false positives only promote the gate)."""
+    dim = bcells.shape[1]
     ctr = [(bcells[:, a].to(torch.float32) + (wsh[a] - 1) * 0.5) * h
-           for a in range(3)]
+           for a in range(dim)]
     thresh = 1.5 * h + 0.5 * h * float(np.sqrt(sum((s - 1) ** 2 for s in wsh)))
     hit = torch.zeros(bcells.shape[0], dtype=torch.bool, device=bcells.device)
     for slot, st in moving:
         if st != shp.SHAPE_CUBOID:
             raise _unported("non-cuboid colliders", "queue 1, item 8")
-        q = cch._to_local([bodies.rot[slot, k] for k in range(4)],
-                          [bodies.pos[slot, k] for k in range(3)], ctr)
+        q = cch._to_local([bodies.rot[slot, k] for k in range(bodies.rot.shape[1])],
+                          [bodies.pos[slot, k] for k in range(dim)], ctr)
         proj, inside = cch._proj_cuboid(
-            [bodies.shape_params[slot, a] for a in range(3)], q)
-        d = [proj[a] - q[a] for a in range(3)]
-        di = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
-        hit = hit | inside | (di <= thresh)
+            [bodies.shape_params[slot, a] for a in range(dim)], q)
+        d = [proj[a] - q[a] for a in range(dim)]
+        sq = d[0] * d[0]
+        for a in range(1, dim):
+            sq = sq + d[a] * d[a]
+        hit = hit | inside | (torch.sqrt(sq) <= thresh)
     return hit
 
 
@@ -215,11 +257,12 @@ def _auto_chan_free(grid, by, desc, bodies, pos, gravity) -> bool:
     reach and no collider catches the settling matter."""
     if not desc:
         return False
+    dim = grid.dim
     nb = bk.num_blocks(grid, by)
-    bsh = bk.block_shape(3, by)
-    wsh = R.window_geom(by)[0]
+    bsh = bk.block_shape(dim, by)
+    wsh = bk.window_shape(dim, by)
     coords = np.stack(np.meshgrid(*(np.arange(n, dtype=np.int32) for n in nb),
-                                  indexing="ij"), -1).reshape(-1, 3)
+                                  indexing="ij"), -1).reshape(-1, dim)
     bcells = torch.as_tensor(coords * np.asarray(bsh, np.int32)
                              + np.asarray(grid.origin_cell, np.int32))
     cpu = dataclasses.replace(bodies, **{f.name: getattr(bodies, f.name).cpu()
@@ -235,7 +278,7 @@ def _auto_chan_free(grid, by, desc, bodies, pos, gravity) -> bool:
         ctr = (ctr + np.asarray(grid.origin_cell)) * grid.cell_width
         margin = 0.5 * grid.cell_width * max(bsh) + 2 * grid.cell_width
         lateral = np.ones(len(ctr), bool)
-        for a in range(3):
+        for a in range(dim):
             if a != ax:
                 lateral &= (ctr[:, a] >= lo[a] - margin) & (ctr[:, a] <= hi[a] + margin)
         downstream = (ctr[:, ax] <= hi[ax] + margin if g[ax] < 0
@@ -246,10 +289,12 @@ def _auto_chan_free(grid, by, desc, bodies, pos, gravity) -> bool:
 
 
 def _grid_velocity(grid_mm, params: SimulationParams, grid: GridConfig):
-    """Momentum -> velocity + gravity + one-cell-per-step clamp."""
-    mass = grid_mm[..., 3:]
+    """Momentum -> velocity + gravity + one-cell-per-step clamp on grid rows
+    [..., d + 1] (momentum, mass)."""
+    d = grid.dim
+    mass = grid_mm[..., d:]
     inv_mass = torch.where(mass > 0.0, 1.0 / torch.clamp(mass, min=1e-30), 0.0)
-    vel = (grid_mm[..., :3] + mass * params.gravity * params.dt) * inv_mass
+    vel = (grid_mm[..., :d] + mass * params.gravity * params.dt) * inv_mass
     lim = grid.cell_width / params.dt
     return torch.clamp(vel, -lim, lim)
 
@@ -277,34 +322,24 @@ def rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg: MpmConfig):
                                angvel=new_ang)
 
 
-def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
-             mtable, diag: StepDiag, record: Optional[dict] = None):
-    """One substep on the [PCHAN, NPAD] rows (lanes >= n are padding).
-
-    record: when a dict is given, the inputs and outputs of the five
-    kernels are stored in it (kernel checks and tests read them)."""
-    grid = cfg.grid
-    by, group, nc = cfg.by, cfg.group, cfg.num_colliders
-    h = grid.cell_width
-    bsh = bk.block_shape(3, by)
-    wsh, wvol, wpad = R.window_geom(by)
+def _job_phase(rows_all, cfg: MpmConfig, n: int, diag: StepDiag):
+    """Sort and job table of one substep (both dimensions): the sorted rows
+    and their ids, the permutation, the job table (starts masked into the
+    padded lanes), the jobs' block origin cells and window sources, and the
+    covered rank prefix.  Counts the job-table overflow into diag."""
+    grid, by, group = cfg.grid, cfg.by, cfg.group
+    dim = grid.dim
     npad = rows_all.shape[1]
     dev = rows_all.device
     nb = bk.num_blocks(grid, by)
-    nb_total = live_key = int(np.prod(nb))
-    bodies = body_mod.update_world_mass_properties(bodies)
-
+    nb_total = int(np.prod(nb))
     # Sort: gravity-fastest block keys, padding lanes to the very tail.
     lane = torch.arange(npad, device=dev)
-    keys = bk.particle_sort_keys_ch([rows_all[0], rows_all[1], rows_all[2]],
-                                    grid, by)
-    keys = torch.where(lane < n, keys, live_key + 1).to(torch.int32)
+    keys = bk.particle_sort_keys_ch([rows_all[a] for a in range(dim)], grid, by)
+    keys = torch.where(lane < n, keys, nb_total + 1).to(torch.int32)
     sorted_ids, perm = torch.sort(keys, stable=True)
     perm = perm.to(torch.int32)
-    unsorted = rows_all
-    rows_all = permute_lanes(rows_all, perm)
-
-    # Job table.
+    rows = permute_lanes(rows_all, perm)
     jobs = bk.build_jobs(sorted_ids, nb_total, group, cfg.max_jobs)
     diag.job_overflow = torch.maximum(diag.job_overflow,
                                       (jobs["needed"] - cfg.max_jobs).to(torch.int32))
@@ -313,12 +348,29 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     starts = torch.where(live, torch.clamp(jobs["start"], max=npad - group),
                          npad - group).to(torch.int32)
     jobs = {"start": starts, "len": jobs["len"],
-            "block": bk.key_to_block(jobs["block"], nb, 3)}
-    bcells = (bk.block_coords_of(jobs["block"], nb)
-              * torch.tensor(bsh, dtype=torch.int32, device=dev)
-              + torch.tensor(grid.origin_cell, dtype=torch.int32, device=dev)
-              ).to(torch.int32)
-    src = bk.window_sources(jobs["block"], nb, by)
+            "block": bk.key_to_block(jobs["block"], nb, dim)}
+    bcells = bk.block_origin_cells(jobs["block"], nb, by, grid.origin_cell)
+    return dict(unsorted=rows_all, perm=perm, rows=rows, sorted_ids=sorted_ids,
+                jobs=jobs, bcells=bcells, covered_end=covered_end,
+                src=bk.window_sources(jobs["block"], nb, by), nb_total=nb_total)
+
+
+def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
+             mtable, diag: StepDiag, record: Optional[dict] = None):
+    """One 3D substep on the [PCHAN, NPAD] rows (lanes >= n are padding).
+
+    record: when a dict is given, the inputs and outputs of the five
+    kernels are stored in it (kernel checks and tests read them)."""
+    grid = cfg.grid
+    by, group, nc = cfg.by, cfg.group, cfg.num_colliders
+    h = grid.cell_width
+    wsh, wvol, wpad = R.window_geom(by)
+    npad = rows_all.shape[1]
+    dev = rows_all.device
+    bodies = body_mod.update_world_mass_properties(bodies)
+    ph = _job_phase(rows_all, cfg, n, diag)
+    rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
+    nb_total = ph["nb_total"]
     pdata = rows_all[:R.NCHAN].clone()
 
     # Particle CDF + P2G against the frame-static channels, moving
@@ -336,8 +388,8 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     pdata[R.AFF] = pcdf[0, :npad]
     pdata[R.NX:R.NZ + 1] = pcdf[2:5, :npad]
     pdata[R.AFF_SPARE] = pcdf[5, :npad]
-    grid_mm = torch.zeros((nb_total + 1, int(np.prod(bsh)), 4),
-                          dtype=torch.float32, device=dev)
+    grid_mm = torch.zeros((nb_total + 1, 16 * by, 4), dtype=torch.float32,
+                          device=dev)
     bk.scatter_tiles(grid_mm, mm, src)
     lin_imp = imp[0, 0:3, :bodies.count].T
     ang_imp = imp[0, 3:6, :bodies.count].T
@@ -347,17 +399,62 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     ftiles = bk.gather_tiles(grid_mm, src, wpad, 4)
     krows = g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, h, by,
                      group, npad, nc, moving)
-    rows_out = update_rows(rows_all, krows, pcdf, sorted_ids, covered_end, btable,
-                           mtable, params.dt, h, nc, max(cfg.n_materials, 1),
-                           live_key)
+    rows_out = update_rows(rows_all, krows, pcdf, ph["sorted_ids"],
+                           ph["covered_end"], btable, mtable, params.dt, h, nc,
+                           max(cfg.n_materials, 1), nb_total)
     if record is not None:
-        record.update(
-            unsorted=unsorted, perm=perm, rows=rows_all,
-            sorted_ids=sorted_ids, jobs=jobs, bcells=bcells, jbody=jbody,
-            ntiles=ntiles, btable=btable, moving=moving, pdata=pdata, mm=mm,
-            imp=imp, pcdf=pcdf, ftiles=ftiles, krows=krows,
-            covered_end=covered_end, mtable=mtable, rows_out=rows_out,
-            grid_mm=grid_mm)
+        record.update(ph, jbody=jbody, ntiles=ntiles, btable=btable,
+                      moving=moving, pdata=pdata, mm=mm, imp=imp, pcdf=pcdf,
+                      ftiles=ftiles, krows=krows, mtable=mtable,
+                      rows_out=rows_out, grid_mm=grid_mm)
+    bodies = rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg)
+    return rows_out, bodies
+
+
+def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
+                mtable, diag: StepDiag, record: Optional[dict] = None):
+    """One 2D substep on the [32, NPAD] rows, every collider frame-static
+    (the gathered branch of the JAX package's _substep_pallas_rows_2d).
+    record: as for _substep (the four 2D kernels' inputs and outputs)."""
+    grid = cfg.grid
+    group, nc = cfg.group, cfg.num_colliders
+    h = grid.cell_width
+    npad = rows_all.shape[1]
+    dev = rows_all.device
+    bodies = body_mod.update_world_mass_properties(bodies)
+    ph = _job_phase(rows_all, cfg, n, diag)
+    rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
+    nb_total = ph["nb_total"]
+    btable = _body_table_2d(bodies, params, grid)
+    ntiles = bk.gather_tiles(static_chan, src, R2.WPAD, 4)
+    jbody = _jbody_gate(ntiles, R2.WVOL)
+    pcdf = pcdf_rows2d(rows_all, ntiles, jobs, bcells, jbody, h, group, npad, nc)
+    # Rows AFF..AFF_SPARE (aff low, normal xy, aff high) take the fresh
+    # particle CDF for P2G and G2P.
+    pdata = rows_all[:R2.NCHAN].clone()
+    pdata[R2.AFF] = pcdf[0, :npad]
+    pdata[R2.NX:R2.NY + 1] = pcdf[2:4, :npad]
+    pdata[R2.AFF_SPARE] = pcdf[4, :npad]
+    mm, imp = p2g_tiles2d(pdata, ntiles, btable, jobs, bcells, jbody, h, nc)
+    grid_mm = torch.zeros((nb_total + 1, 64, 3), dtype=torch.float32, device=dev)
+    bk.scatter_tiles(grid_mm, mm, src)
+    # The jobs' impulses in one fixed-order reduction (_split_impulses).
+    imp_sum = imp.sum(0)
+    lin_imp = imp_sum[0:2, :bodies.count].T
+    ang_imp = imp_sum[2:3, :bodies.count].T
+
+    grid_mm[..., :2] = _grid_velocity(grid_mm, params, grid)
+    ftiles = bk.gather_tiles(grid_mm, src, R2.WPAD, 4)
+    krows = g2p_rows2d(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, h,
+                       group, npad, nc)
+    rows_out = update_rows2d(rows_all, krows, pcdf, ph["sorted_ids"],
+                             ph["covered_end"], btable, mtable, params.dt, h, nc,
+                             max(cfg.n_materials, 1), nb_total)
+    if record is not None:
+        record.update(ph, jbody=jbody, ntiles=ntiles, btable=btable,
+                      pdata=pdata, mm=mm, imp=imp, pcdf=pcdf, ftiles=ftiles,
+                      krows=krows, mtable=mtable, rows_out=rows_out,
+                      grid_mm=grid_mm)
     bodies = rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg)
     return rows_out, bodies
 
@@ -368,24 +465,29 @@ def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
     """A frame of substeps carrying the [PCHAN, NPAD] row matrix; the
     static colliders' channel grid is built once per frame.  record: see
     _substep (filled by the frame's last substep)."""
+    dim = cfg.grid.dim
     if cfg.num_colliders == 0:
         raise _unported("the collider-free P2G kernel (p2g_tiles)",
-                        "queue 2, item 6")
+                        "queue 2, item 6" if dim == 3 else "queue 1, item 9")
     if not cfg.static_slots:
         raise _unported("the per-substep dense node CDF (no static colliders)",
                         "queue 1, item 8")
+    if dim == 2 and len(cfg.static_slots) != cfg.num_colliders:
+        raise _unported("2D moving colliders (the per-substep dense node CDF)",
+                        "queue 1, item 9")
+    L, substep = (R, _substep) if dim == 3 else (R2, _substep_2d)
     n = state.particles.count
     npad = pallas_npad(n, cfg.group)
-    rows = R.pack_rows_padded(state.particles, state.models, npad)
+    rows = L.pack_rows_padded(state.particles, state.models, npad)
     nb_total = int(np.prod(bk.num_blocks(cfg.grid, cfg.by)))
     static_chan = _cdf_chan_grid(*_node_cdf_static(state.bodies, cfg), nb_total,
-                                 cfg.by)
+                                 int(np.prod(bk.block_shape(dim, cfg.by))))
     bodies = state.bodies
     diag = StepDiag.zeros(rows.device)
     for _ in range(num_substeps):
-        rows, bodies = _substep(rows, bodies, params, cfg, n, static_chan,
-                                state.models.mat_table, diag, record)
-    particles, models = R.unpack_state_rows(rows[:, :n], state.particles,
+        rows, bodies = substep(rows, bodies, params, cfg, n, static_chan,
+                               state.models.mat_table, diag, record)
+    particles, models = L.unpack_state_rows(rows[:, :n], state.particles,
                                             state.models,
                                             n_mat=max(cfg.n_materials, 1))
     out = SimState(particles=particles, models=models, bodies=bodies)
@@ -402,7 +504,8 @@ def step_with_diag(state, params, cfg: MpmConfig, num_substeps: int):
 
 class MpmData:
     """Owns one scene's state and static configuration (port of the
-    pallas / bounded-grid / 3D branch of wgsparkl_tpu.pipeline.MpmData)."""
+    pallas / bounded-grid branch of wgsparkl_tpu.pipeline.MpmData, 3D and
+    2D).  The state lives on the particles' device."""
 
     def __init__(self, params: SimulationParams, particles: Particles,
                  models: Models, bodies: Sequence[RigidBodyDesc],
@@ -412,8 +515,9 @@ class MpmData:
                  max_jobs: int = 0, sparse: bool = False,
                  by: int = 4, joints=(), chan_free: Optional[bool] = None,
                  fold_vel: Optional[bool] = None, spatial_devices: int = 0):
-        if particles.dim != 3:
-            raise _unported("2D", "queue 1, item 9")
+        dim = particles.dim
+        if dim == 2 and by != 4:
+            raise ValueError("2D blocks are 8 x 8: by must be 4")
         if transfer != "pallas":
             raise _unported(f"transfer={transfer!r}", "queue 1, items 4 and 12")
         if sparse:
@@ -441,7 +545,7 @@ class MpmData:
                 pos = particles.pos.cpu().numpy()
                 lo, hi = pos.min(0) - 8 * cell_width, pos.max(0) + 8 * cell_width
             grid = GridConfig.from_bounds(lo, hi, cell_width)
-        if grid.shape[1] % by:
+        if dim == 3 and grid.shape[1] % by:
             grid = dataclasses.replace(
                 grid, shape=(grid.shape[0], grid.shape[1] + by - grid.shape[1] % by,
                              grid.shape[2]))
@@ -461,15 +565,18 @@ class MpmData:
         static_slots = tuple(i for i, b in enumerate(bodies)
                              if b.body_type == "fixed" and zero(b.linvel)
                              and zero(b.angvel))
-        world = build_rigid_world(bodies, device)
+        item = "queue 1, item 8" if dim == 3 else "queue 1, item 9"
+        if dim == 2 and len(static_slots) != len(bodies):
+            raise _unported("2D moving colliders (the per-substep dense node CDF)",
+                            item)
+        world = build_rigid_world(bodies, dim, device)
         if chan_free is None:
             adesc = tuple(enumerate(collider_types))
             chan_free = _auto_chan_free(grid, by, adesc, world,
                                         particles.pos.cpu().numpy(),
                                         params.gravity.cpu().numpy())
         if chan_free:
-            raise _unported("the chan-free (in-kernel analytic) CDF mode",
-                            "queue 1, item 8")
+            raise _unported("the chan-free (in-kernel analytic) CDF mode", item)
         models, n_mat = attach_material_table(particles, models)
         self.params = params
         self.bodies_desc = tuple(bodies)

@@ -1,6 +1,10 @@
 """Rigid-body state and the coupling ops (port of wgsparkl_tpu/rigid/body.py:
 RigidWorld, update_world_mass_properties, apply_impulse,
-integrate_velocity).  3D only; slots <= 16 (the CPIC affinity word)."""
+integrate_velocity).  Slots <= 16 (the CPIC affinity word).
+
+3D: rot a quaternion [B, 4], angvel [B, 3], inertia [B, 3, 3].
+2D: rot a unit complex [B, 2] (cos, sin), angvel [B, 1], inertia [B, 1, 1].
+"""
 
 from __future__ import annotations
 
@@ -13,26 +17,33 @@ from wgsparkl_tpu_torch.math import pose as pose_math
 
 @dataclasses.dataclass
 class RigidWorld:
-    rot: torch.Tensor               # [B, 4] quaternion (w, x, y, z)
-    pos: torch.Tensor               # [B, 3]
-    linvel: torch.Tensor            # [B, 3]
-    angvel: torch.Tensor            # [B, 3]
-    local_com: torch.Tensor         # [B, 3]
-    world_com: torch.Tensor         # [B, 3]
-    inv_mass: torch.Tensor          # [B, 3]
-    inv_inertia_local: torch.Tensor  # [B, 3, 3]
-    inv_inertia_world: torch.Tensor  # [B, 3, 3]
+    rot: torch.Tensor               # [B, 4] or [B, 2]
+    pos: torch.Tensor               # [B, d]
+    linvel: torch.Tensor            # [B, d]
+    angvel: torch.Tensor            # [B, 3] or [B, 1]
+    local_com: torch.Tensor         # [B, d]
+    world_com: torch.Tensor         # [B, d]
+    inv_mass: torch.Tensor          # [B, d]
+    inv_inertia_local: torch.Tensor  # [B, 3, 3] or [B, 1, 1]
+    inv_inertia_world: torch.Tensor
     shape_params: torch.Tensor      # [B, 8]
 
     @property
     def count(self) -> int:
         return self.pos.shape[0]
 
+    @property
+    def dim(self) -> int:
+        return self.pos.shape[-1]
+
 
 def update_world_mass_properties(bodies: RigidWorld) -> RigidWorld:
     world_com = pose_math.transform_point(bodies.rot, bodies.pos, bodies.local_com)
-    r = pose_math.quat_to_matrix(bodies.rot)
-    inv_i = torch.einsum("bik,bkl,bjl->bij", r, bodies.inv_inertia_local, r)
+    if bodies.dim == 3:
+        r = pose_math.quat_to_matrix(bodies.rot)
+        inv_i = torch.einsum("bik,bkl,bjl->bij", r, bodies.inv_inertia_local, r)
+    else:
+        inv_i = bodies.inv_inertia_local
     return dataclasses.replace(bodies, world_com=world_com, inv_inertia_world=inv_i)
 
 
@@ -48,9 +59,13 @@ def integrate_velocity(bodies: RigidWorld, linvel, angvel, dt):
     velocity keeps its pose bit for bit (the frame-hoisted static CDF relies
     on it)."""
     new_com = bodies.world_com + linvel * dt
-    dq = pose_math.quat_from_scaled_axis(angvel * dt)
-    new_rot = pose_math.quat_normalize(pose_math.quat_mul(dq, bodies.rot))
-    new_pos = new_com - pose_math.quat_rotate(new_rot, bodies.local_com)
+    if bodies.dim == 3:
+        dq = pose_math.quat_from_scaled_axis(angvel * dt)
+        new_rot = pose_math.quat_normalize(pose_math.quat_mul(dq, bodies.rot))
+    else:
+        dr = pose_math.rot2_from_angle(angvel[..., 0] * dt)
+        new_rot = pose_math.rot2_normalize(pose_math.rot2_mul(dr, bodies.rot))
+    new_pos = new_com - pose_math.rotate(new_rot, bodies.local_com)
     still = (torch.all(angvel == 0.0, dim=-1, keepdim=True)
              & torch.all(linvel == 0.0, dim=-1, keepdim=True))
     return (torch.where(still, bodies.rot, new_rot),

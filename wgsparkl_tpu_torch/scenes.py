@@ -1,4 +1,6 @@
-"""Scene builders (port of wgsparkl_tpu/scenes.py: `sand_box_3d`)."""
+"""Scene constructors (port of wgsparkl_tpu/scenes.py: `sand_box_3d`,
+`elastic_blocks_2d`, `sand_column_2d`).  Each builds on `device`, the card
+unless the caller asks for another (None: cuda:0)."""
 
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ def _lattice(counts, cell_width, origin, spacing_div=2):
 
 def sand_box_3d(nxz: int = 45, ny: int = 100, cell_width: float = 1.0,
                 num_substeps: int = 20, gravity_factor: float = 1.0,
-                with_paddle: bool = True, device="cpu", **mpm_kw) -> MpmData:
+                with_paddle: bool = True, device=None, **mpm_kw) -> MpmData:
     """3D Drucker-Prager sand in a box of five static walls, with an optional
     kinematic paddle spinning about y (the reference's sand3 example)."""
     pos = _lattice((nxz, ny, nxz), cell_width,
@@ -53,4 +55,53 @@ def sand_box_3d(nxz: int = 45, ny: int = 100, cell_width: float = 1.0,
     return MpmData(params, particles, models, bodies, cell_width,
                    grid_bounds=(np.array([-half, -2 * cell_width, -half]),
                                 np.array([half, (ny + 30) * cell_width / 2, half])),
+                   **mpm_kw)
+
+
+def elastic_blocks_2d(n_side: int = 700, cell_width: float = 0.2,
+                      num_substeps: int = 15, device=None, **mpm_kw) -> MpmData:
+    """2D elastic lattice (E = 5e6) falling onto a floor between two walls
+    tilted by +-0.4 rad (the reference's elasticity2 example)."""
+    pos = _lattice((n_side, n_side), cell_width, (-n_side * cell_width / 4, 1.0))
+    n = len(pos)
+    particles = Particles.from_arrays(pos, density=1000.0, radius=cell_width / 4,
+                                      device=device)
+    elast = ElasticCoefficients.from_young_modulus(5.0e6, 0.2)
+    models = Models.from_arrays(n, elast.lam, elast.mu, phase=1.0,
+                                max_stretch=-1.0, device=device)
+    extent = n_side * cell_width / 2
+    bodies = [
+        RigidBodyDesc(Collider.cuboid(extent * 4, 1.0), (0.0, -1.0)),
+        RigidBodyDesc(Collider.cuboid(extent, 0.2), (-extent * 0.75, extent * 0.3),
+                      rotation=0.4),
+        RigidBodyDesc(Collider.cuboid(extent, 0.2), (extent * 0.75, extent * 0.3),
+                      rotation=-0.4),
+    ]
+    params = SimulationParams.new(dt=(1.0 / 60.0) / num_substeps,
+                                  gravity=[0.0, -9.81], device=device)
+    return MpmData(params, particles, models, bodies, cell_width,
+                   grid_bounds=(np.array([-extent * 2.5, -0.5]),
+                                np.array([extent * 2.5, 1.5 + extent * 1.2])),
+                   **mpm_kw)
+
+
+def sand_column_2d(nx: int = 256, ny: int = 256, cell_width: float = 0.2,
+                   num_substeps: int = 10, device=None, **mpm_kw) -> MpmData:
+    """2D Drucker-Prager sand column collapsing on a flat floor (density
+    1000, E = 1e7, nu = 0.2: the reference's sand2 example)."""
+    pos = _lattice((nx, ny), cell_width, (-nx * cell_width / 4, cell_width))
+    n = len(pos)
+    particles = Particles.from_arrays(pos, density=1000.0, radius=cell_width / 4,
+                                      device=device)
+    elast = ElasticCoefficients.from_young_modulus(1.0e7, 0.2)
+    dp = drucker_prager_arrays([DruckerPrager.new(1.0e7, 0.2)])
+    dp = {k: np.full(n, v[0]) for k, v in dp.items()}
+    models = Models.from_arrays(n, elast.lam, elast.mu, dp=dp, device=device)
+    extent = max(nx, ny) * cell_width
+    bodies = [RigidBodyDesc(Collider.cuboid(extent * 8, 1.0), (0.0, -1.0))]
+    params = SimulationParams.new(dt=(1.0 / 60.0) / num_substeps,
+                                  gravity=[0.0, -9.81], device=device)
+    return MpmData(params, particles, models, bodies, cell_width,
+                   grid_bounds=(np.array([-extent * 2, -0.2]),
+                                np.array([extent * 2, extent * 1.5])),
                    **mpm_kw)

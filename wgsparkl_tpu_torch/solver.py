@@ -14,6 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from wgsparkl_tpu_torch.device import resolve
+
 
 def _f32(x, device, shape=None):
     t = torch.as_tensor(np.asarray(x, np.float32), device=device)
@@ -22,15 +24,15 @@ def _f32(x, device, shape=None):
 
 @dataclasses.dataclass
 class Particles:
-    pos: torch.Tensor          # [N, 3]
-    vel: torch.Tensor          # [N, 3]
-    def_grad: torch.Tensor     # [N, 3, 3]
-    affine: torch.Tensor       # [N, 3, 3]
+    pos: torch.Tensor          # [N, d], d = 2 or 3
+    vel: torch.Tensor          # [N, d]
+    def_grad: torch.Tensor     # [N, d, d]
+    affine: torch.Tensor       # [N, d, d]
     init_volume: torch.Tensor  # [N]
     init_radius: torch.Tensor  # [N]
     mass: torch.Tensor         # [N]
-    cdf_normal: torch.Tensor   # [N, 3]
-    cdf_rigid_vel: torch.Tensor  # [N, 3]
+    cdf_normal: torch.Tensor   # [N, d]
+    cdf_rigid_vel: torch.Tensor  # [N, d]
     cdf_signed_distance: torch.Tensor  # [N]
     cdf_affinity: torch.Tensor  # [N] int32 (uint32 bit pattern)
     ids: torch.Tensor          # [N] int32 scene-construction index
@@ -44,16 +46,18 @@ class Particles:
         return self.pos.shape[0]
 
     @staticmethod
-    def from_arrays(positions, *, density, radius, device="cpu") -> "Particles":
-        """Lattice builder from positions, a density and a radius (the
-        (density, radius) form of the JAX builder)."""
+    def from_arrays(positions, *, density, radius, device=None) -> "Particles":
+        """Particles at positions [N, d] from a density and a radius (the
+        (density, radius) form of the JAX package's constructor): square particles
+        of side 2 radius, volume side^d."""
+        device = resolve(device)
         pos = _f32(positions, device)
         n, d = pos.shape
-        if d != 3:
-            raise NotImplementedError("2D is not ported (ROADMAP queue 1, item 9)")
+        if d not in (2, 3):
+            raise ValueError(f"positions must be [N, 2] or [N, 3], got {pos.shape}")
         radius = _f32(radius, device, (n,))
         side = 2.0 * radius
-        init_volume = side * side * side
+        init_volume = side * side * side if d == 3 else side * side
         mass = init_volume * _f32(density, device, (n,))
         z3 = torch.zeros((n, d), dtype=torch.float32, device=device)
         return Particles(
@@ -85,7 +89,8 @@ class Models:
 
     @staticmethod
     def from_arrays(n, lam, mu, dp=None, phase=None, max_stretch=None,
-                    device="cpu") -> "Models":
+                    device=None) -> "Models":
+        device = resolve(device)
         if dp is None:
             dp = {k: -1.0 for k in DP_KEYS}
         return Models(
