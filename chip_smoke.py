@@ -3,34 +3,43 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed):
-  1. environment: the card's name and power limit; the nine CUDA kernels'
-     eight sources are built from wgsparkl_tpu_torch/csrc, one nvcc each,
-     all started together (set-up);
+  1. environment: the card's name and power limit; the CUDA kernels' ten
+     sources are built from wgsparkl_tpu_torch/csrc, one nvcc each, all
+     started together (set-up);
   2. the 3D main path at full size (sand_box_3d with the paddle, 1,002,001
      particles, 4 x 8 x 4 blocks, 1024 particles per job): one warm frame of
      20 substeps, then timed frames; no job-table overflow in any frame,
      finite positions, and every kernel of the path (A-E) launched by that
      run;
-  3. the 2D path at full size (sand_column_2d, 490,000 particles, 8 x 8
+  3. the 3D collider-free path at full size (the same lattice, models and
+     grid with no body, spinning at 1 rad/s about its vertical centre
+     line), the same checks for its kernels (F, B, C, D, E);
+  4. the 2D path at full size (sand_column_2d, 490,000 particles, 8 x 8
      blocks, 512 particles per job): one warm frame of 10 substeps, then
      timed frames, with the same checks for its kernels (G, H, I, the dim=2
-     entry of C, and D, E);
-  4. each kernel against its plain PyTorch version at full size, on the
+     entry of C, and D, E); then the 2D neo-Hookean path at full size
+     (elastic_blocks_2d, 490,000 particles, 15 substeps a frame);
+  5. each kernel against its plain PyTorch version at full size, on the
      inputs of a substep of each scene with its lattice lowered into a
      collider (onto the paddle in 3D, 1.5 cells into the floor in 2D), so
-     that the CPIC impulses carry load; with its stated tolerance, its time
-     and its bound (CUDA events);
-  5. the kernel path against the plain path on small scenes (3D: 10
-     substeps of the sand box, 5 of a lattice lowered onto the paddle; 2D:
-     10 substeps of the sand column and of the elastic blocks): equal bit
-     for bit to the plain path on the card, and within tolerance of the
-     plain path on the CPU (affinity words exact).
+     that the CPIC impulses carry load, of the collider-free scene (F) and
+     of the 2D neo-Hookean scene (C-2D's neo-Hookean branch); C's 3D
+     neo-Hookean branch on the 3D inputs; the in-kernel math probe and its
+     table; each with its stated tolerance, its time and its bound (CUDA
+     events);
+  6. the kernel path against the plain path on small scenes (3D: 10
+     substeps of the sand box, 5 of a lattice lowered onto the paddle, 10
+     of the collider-free lattice and of the neo-Hookean sand box; 2D: 10
+     substeps of the sand column, the elastic blocks and the collider-free
+     column): equal bit for bit to the plain path on the card, and within
+     tolerance of the plain path on the CPU (affinity words exact).
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,6 +54,9 @@ BY, GROUP = 8, 1024
 # The 2D throughput scene: sand_column_2d at 700 x 700 (490,000 particles),
 # the sizing of tools/profile_bench.py and tools/measure_configs.py.
 NX2, NY2, H2, GROUP2, SUBSTEPS2 = 700, 700, 0.2, 512, 10
+# The 2D neo-Hookean scene: elastic_blocks_2d at 700 x 700 (490,000
+# particles), BASELINE config 1's constitutive model, 15 substeps a frame.
+SUBSTEPS_NEO2 = 15
 DEVICE = "cuda:0"
 # The H100 SXM's published peaks (fp32 outside the tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -60,8 +72,13 @@ REPLACES = {
     "p2g2d": "wgsparkl_tpu/ops/pallas_transfer2d.py:402",
     "g2p2d": "wgsparkl_tpu/ops/pallas_transfer2d.py:584",
     "update_rows2d": "wgsparkl_tpu/ops/update_rows.py:191",
+    "p2g": "wgsparkl_tpu/ops/pallas_transfer.py:723",
+    "update_rows_neo_hookean": "wgsparkl_tpu/ops/update_rows.py:191",
+    "update_rows2d_neo_hookean": "wgsparkl_tpu/ops/update_rows.py:191",
+    "math_probe": "tools/probe_mosaic_math.py:44",
 }
-SOURCE = {"update_rows2d": "update_rows"}
+SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_rows",
+          "update_rows2d_neo_hookean": "update_rows"}
 # The rows of the [PCHAN, NPAD] input matrix that kernel C reads (csrc/
 # update_rows.cu, update_kernel and update2d_kernel); it replaces the others
 # with G2P rows, particle-CDF rows or new values.
@@ -69,6 +86,7 @@ C_ROWS_READ_3D = (*range(0, 3), 6, *range(21, 40), *range(44, 48))
 C_ROWS_READ_2D = (0, 1, 4, *range(13, 24), *range(27, 32))
 KERNELS_3D = ("p2g_cdf", "g2p", "update_rows", "permute", "compact")
 KERNELS_2D = ("pcdf2d", "p2g2d", "g2p2d", "update_rows2d", "permute", "compact")
+KERNELS_FREE = ("p2g", "g2p", "update_rows", "permute", "compact")
 
 
 def fail(msg: str) -> None:
@@ -111,10 +129,11 @@ def plain_versions():
     device) for the duration of the block."""
     from wgsparkl_tpu_torch import pipeline
     from wgsparkl_tpu_torch.ops import (
-        compact, g2p, p2g_cdf, permute, transfer2d, update_rows,
+        compact, g2p, p2g, p2g_cdf, permute, transfer2d, update_rows,
     )
 
     swaps = [(pipeline, "p2g_cdf_tiles", p2g_cdf.p2g_cdf_plain),
+             (pipeline, "p2g_tiles", p2g.p2g_plain),
              (pipeline, "g2p_rows", g2p.g2p_plain),
              (pipeline, "update_rows", update_rows.update_plain),
              (pipeline, "permute_lanes", permute.permute_plain),
@@ -151,10 +170,44 @@ def full_scene_2d(dev):
                                  group=GROUP2)
 
 
+def collider_free(d, jitter: float = 0.0, elastic: bool = False, **mpm_kw):
+    """Scene d's lattice, models and grid with no body, spinning
+    (scenes.spin_velocities); elastic: elastic_blocks_2d's models (E = 5e6,
+    nu = 0.2, phase 1, no fracture) in place of d's."""
+    from wgsparkl_tpu_torch.models import ElasticCoefficients
+    from wgsparkl_tpu_torch.pipeline import MpmData
+    from wgsparkl_tpu_torch.scenes import spin_velocities
+    from wgsparkl_tpu_torch.solver import Models
+
+    p, models = d.state.particles, d.state.models
+    dev = p.pos.device
+    vel = spin_velocities(p.pos.cpu(), jitter)
+    p = dataclasses.replace(p, vel=torch.as_tensor(vel, device=dev))
+    if elastic:
+        e = ElasticCoefficients.from_young_modulus(5.0e6, 0.2)
+        models = Models.from_arrays(p.count, e.lam, e.mu, phase=1.0,
+                                    max_stretch=-1.0, device=dev)
+    return MpmData(d.params, p, models, [], d.config.grid.cell_width,
+                   grid=d.config.grid, **mpm_kw)
+
+
+def full_scene_free(dev):
+    """The 3D collider-free path at full size: the main path's 1,002,001-
+    particle lattice, models, grid and job table size with no body."""
+    d = full_scene(dev)
+    return collider_free(d, by=BY, group=GROUP, max_jobs=d.config.max_jobs)
+
+
+def full_scene_neo_2d(dev):
+    """The 2D neo-Hookean path at full size: 490,000 particles."""
+    from wgsparkl_tpu_torch import scenes
+
+    return scenes.elastic_blocks_2d(n_side=NX2, cell_width=H2, device=dev,
+                                    group=GROUP2, elastic_model="neo_hookean")
+
+
 def _to(state, device):
     """A copy of a SimState with every tensor on `device`."""
-    import dataclasses
-
     def mv(obj):
         return dataclasses.replace(obj, **{
             f.name: (getattr(obj, f.name).to(device)
@@ -170,7 +223,8 @@ def _to(state, device):
 
 def run_frames(wt, data, substeps, kernels, what, card, kind):
     """One warm and TIMED_FRAMES timed frames through step_with_diag, with
-    the launch counts set to 0 just before and read just after."""
+    the launch counts set to 0 just before and read just after.  Returns
+    (launch counts, the last state)."""
     from wgsparkl_tpu_torch.pipeline import step_with_diag
 
     cfg, n = data.config, data.num_particles
@@ -205,7 +259,7 @@ def run_frames(wt, data, substeps, kernels, what, card, kind):
           f"{elapsed:.3f} s -> {sps:.3f} steps/s, {sps * n / 1e6:.2f} M "
           f"particle-updates/s; diag of all {len(diags)} frames OK; launches "
           f"{ {k: counts[k] for k in kernels} }", flush=True)
-    return counts
+    return counts, state
 
 
 def main() -> None:
@@ -222,8 +276,9 @@ def main() -> None:
     except ImportError as e:
         fail(f"the port package is not importable here: {e}")
     from wgsparkl_tpu_torch import _cuda, scenes
+    from wgsparkl_tpu_torch.math import probe
     from wgsparkl_tpu_torch.ops import (
-        compact, g2p, p2g_cdf, permute, transfer2d, update_rows,
+        compact, g2p, p2g, p2g_cdf, permute, transfer2d, update_rows,
     )
     from wgsparkl_tpu_torch.pipeline import step_pallas, step_with_diag
 
@@ -240,13 +295,40 @@ def main() -> None:
     print(f"built {len(_cuda.sources())} kernel sources in {time.time() - t0:.1f} s",
           flush=True)
 
+    # Launches per kernel entry of the result line: each from the run of
+    # the path that drives it.
+    launches = {}
     # ---- 2. the 3D main path at full size ----
-    counts3 = run_frames(wt, full_scene(dev), SUBSTEPS, KERNELS_3D, "3D main path",
-                         card, kind)
+    counts, _ = run_frames(wt, full_scene(dev), SUBSTEPS, KERNELS_3D,
+                           "3D main path", card, kind)
+    launches.update((k, counts[k]) for k in KERNELS_3D)
     torch.cuda.empty_cache()
-    # ---- 3. the 2D path at full size ----
-    counts2 = run_frames(wt, full_scene_2d(dev), SUBSTEPS2, KERNELS_2D, "2D path",
-                         card, kind)
+    # ---- 3. the 3D collider-free path at full size ----
+    data = full_scene_free(dev)
+    counts, state = run_frames(wt, data, SUBSTEPS, KERNELS_FREE,
+                               "3D collider-free path", card, kind)
+    launches["p2g"] = counts["p2g"]
+    if counts["p2g_cdf"] or counts["pcdf2d"]:
+        fail(f"3D collider-free path: a particle-CDF kernel launched: {counts}")
+    # Kernel F's inputs: a substep after the timed frames.
+    rec_f = {}
+    step_pallas(state, data.params, data.config, 1, record=rec_f)
+    cfg_f = data.config
+    del data, state
+    torch.cuda.empty_cache()
+    # ---- 4. the 2D paths at full size: sand column, neo-Hookean blocks ----
+    counts, _ = run_frames(wt, full_scene_2d(dev), SUBSTEPS2, KERNELS_2D,
+                           "2D path", card, kind)
+    launches.update((k, counts[k]) for k in KERNELS_2D)
+    torch.cuda.empty_cache()
+    data = full_scene_neo_2d(dev)
+    counts, state = run_frames(wt, data, SUBSTEPS_NEO2, KERNELS_2D,
+                               "2D neo-Hookean path", card, kind)
+    launches["update_rows2d_neo_hookean"] = counts["update_rows2d"]
+    rec_n = {}
+    step_pallas(state, data.params, data.config, 1, record=rec_n)
+    rec_n["cfg"], rec_n["dt"] = data.config, data.params.dt
+    del data, state
     torch.cuda.empty_cache()
 
     checks = []
@@ -310,7 +392,7 @@ def main() -> None:
         return (int(rec["covered_end"]), int(ln[live & (jb > 0)].sum()),
                 int(live.sum()), int((live & (jb > 0)).sum()))
 
-    # ---- 4a. 3D kernels vs plain versions at full size, under contact load ----
+    # ---- 5a. 3D kernels vs plain versions at full size, under contact load ----
     # The 3D scene with its lattice lowered 3 cells onto the paddle: the
     # main path's shapes, with gated jobs whose CPIC impulses are nonzero.
     data = full_scene(dev)
@@ -377,6 +459,13 @@ def main() -> None:
           lambda k, p: [(f"row {r}", k[r], p[r], 1e-4) for r in range(k.shape[0])],
           lambda k, p: [(f"row {r}", k[r], p[r]) for r in (16, 20, 21, 22)],
           cost=c_cost(C_ROWS_READ_3D, 12, 6, rec["rows"].shape[0], npad, ce, 6000))
+    # The neo-Hookean branch (one SVD fewer, a determinant and a logf).
+    check("update_rows_neo_hookean",
+          lambda: update_rows.update_rows(*args_c, elastic_model="neo_hookean"),
+          lambda: update_rows.update_plain(*args_c, elastic_model="neo_hookean"),
+          lambda k, p: [(f"row {r}", k[r], p[r], 1e-4) for r in range(k.shape[0])],
+          lambda k, p: [(f"row {r}", k[r], p[r]) for r in (16, 20, 21, 22)],
+          cost=c_cost(C_ROWS_READ_3D, 12, 6, rec["rows"].shape[0], npad, ce, 4500))
     check("permute",
           lambda: permute.permute_lanes(rec["unsorted"], rec["perm"]),
           lambda: permute.permute_plain(rec["unsorted"], rec["perm"]),
@@ -392,7 +481,7 @@ def main() -> None:
     del rec, args_a, args_b, args_c, data, state
     torch.cuda.empty_cache()
 
-    # ---- 4b. 2D kernels vs plain versions at full size, under contact load ----
+    # ---- 5b. 2D kernels vs plain versions at full size, under contact load ----
     # The 2D scene with its lattice lowered 1.5 cells into the floor: gated
     # jobs whose incompatible pairs give kernel H nonzero impulses.
     data = full_scene_2d(dev)
@@ -450,10 +539,60 @@ def main() -> None:
           cost=c_cost(C_ROWS_READ_2D, 6, 5, rec["rows"].shape[0], npad, ce, 400))
     del rec, args_g, args_h, args_i, args_c2, data, state
     torch.cuda.empty_cache()
-    for c in checks:
-        c["launches"] = (counts3 if c["name"] in KERNELS_3D else counts2)[c["name"]]
 
-    # ---- 5. kernel path vs plain path on small scenes ----
+    # ---- 5c. C-2D's neo-Hookean branch on a substep of the neo-Hookean path ----
+    r = rec_n
+    args_n = (r["rows"], r["krows"], r["pcdf"], r["sorted_ids"], r["covered_end"],
+              r["btable"], r["mtable"], r["dt"], H2, r["cfg"].num_colliders,
+              max(r["cfg"].n_materials, 1), r["nb_total"])
+    ce = int(r["covered_end"])
+    check("update_rows2d_neo_hookean",
+          lambda: update_rows.update_rows2d(*args_n, elastic_model="neo_hookean"),
+          lambda: update_rows.update2d_plain(*args_n, elastic_model="neo_hookean"),
+          lambda k, p: [(f"row {r}", k[r], p[r], 1e-4) for r in range(k.shape[0])],
+          lambda k, p: [(f"row {r}", k[r], p[r]) for r in (9, 12, 13, 14)],
+          cost=c_cost(C_ROWS_READ_2D, 6, 5, r["rows"].shape[0], r["rows"].shape[1],
+                      ce, 340))
+    del rec_n, r, args_n
+    torch.cuda.empty_cache()
+
+    # ---- 5d. kernel F on a substep of the collider-free path ----
+    r = rec_f
+    args_f = (r["pdata"], r["ntiles"], r["btable"], r["jobs"], r["bcells"],
+              r["jbody"], cfg_f.grid.cell_width, BY, cfg_f.num_colliders)
+    ce, _, nj, _ = job_stats(r)
+    maxj, wv = r["jobs"]["len"].shape[0], r["mm"].shape[1]
+    print(f"3D collider-free kernel inputs: {ce} covered particles, {nj} live "
+          f"jobs of {maxj}", flush=True)
+    # Bit for bit: every node sums its pairs in particle order, each pair
+    # formed as the plain version forms it.
+    check("p2g",
+          lambda: p2g.p2g_tiles(*args_f), lambda: p2g.p2g_plain(*args_f),
+          lambda k, p: [], lambda k, p: [("mm tiles", k[0], p[0]),
+                                         ("impulses", k[1], p[1])],
+          lambda p: (None if float(p[0][..., 3].sum()) > 0.0
+                     else "no mass reached the grid"),
+          cost=(4 * (16 * ce + maxj * wv * 8), ce * (30 + 27 * 31)))
+    del rec_f, r, args_f
+    torch.cuda.empty_cache()
+
+    # ---- 5e. the in-kernel math probe (the H100 counterpart of the TPU's) ----
+    for line in probe.probe_table(dev):
+        print(f"math probe: {line}", flush=True)
+    px, py = probe.probe_inputs(dev)
+    wt.reset_launch_counts()
+    probe.math_probe(px, py)
+    launches["math_probe"] = wt.launch_counts()["math_probe"]
+    # Relative error: the kernel's logf, rsqrtf and sqrtf against PyTorch's
+    # CUDA calls, 4 ulps at most (the exp(log x / 2) chain's ulp of log x).
+    check("math_probe",
+          lambda: probe.math_probe(px, py), lambda: probe.math_probe_plain(px, py),
+          lambda k, p: [(f"{n} (relative)", k[i].double() / p[i].double(),
+                         torch.ones_like(p[i], dtype=torch.float64), 2.0 ** -21)
+                        for i, n in enumerate(probe.NAMES)],
+          cost=(4 * 11 * px.numel(), 30 * px.numel()))
+
+    # ---- 6. kernel path vs plain path on small scenes ----
     def agree(sk, sp, what):
         ik = torch.argsort(sk.particles.ids.cpu())
         ip = torch.argsort(sp.particles.ids.cpu())
@@ -501,22 +640,44 @@ def main() -> None:
         sp_next = step_pallas(sp, dp.params, dp.config, 1)
         agree(sk, sp_next, "contact scene")
         sp = sp_next
-    # The two small 2D scenes: 10 substeps each.
-    small_2d = {
+    # 10 substeps each: the two small 2D scenes, and the collider-free and
+    # neo-Hookean scenes of the CPU tests.  The collider-free 3D lattice
+    # carries elastic models: with the sand's, the jittered spin leaves
+    # particles at the Drucker-Prager cone tip, where roundoff picks the
+    # return map's branch.
+    small_10 = {
         "2D sand column": lambda device: scenes.sand_column_2d(
             nx=24, ny=48, cell_width=0.5, group=128, device=device),
         "2D elastic blocks": lambda device: scenes.elastic_blocks_2d(
             n_side=24, cell_width=0.5, group=128, device=device),
+        "3D collider-free lattice": lambda device: collider_free(
+            scenes.sand_box_3d(nxz=8, ny=16, with_paddle=False, device=device),
+            jitter=0.5, elastic=True, by=BY, group=256),
+        "2D collider-free column": lambda device: collider_free(
+            scenes.sand_column_2d(nx=24, ny=48, cell_width=0.5, device=device),
+            jitter=0.5, group=128),
+        "3D neo-Hookean sand box": lambda device: scenes.sand_box_3d(
+            nxz=8, ny=16, device=device, by=BY, group=256,
+            elastic_model="neo_hookean"),
     }
-    for what, make in small_2d.items():
+    for what, make in small_10.items():
         dk, dp = make(dev), make("cpu")
+        wt.reset_launch_counts()
         sk = step_pallas(dk.state, dk.params, dk.config, 10)
+        counts = wt.launch_counts()
+        if what == "3D neo-Hookean sand box":
+            launches["update_rows_neo_hookean"] = counts["update_rows"]
+        if dk.config.num_colliders == 0 and dk.config.grid.dim == 3 and not counts["p2g"]:
+            fail(f"{what}: kernel F never launched: {counts}")
         with plain_versions():
             same(sk, step_pallas(dk.state, dk.params, dk.config, 10), what)
         agree(sk, step_pallas(dp.state, dp.params, dp.config, 10), what)
-    print("small scenes (3D sand box and contact, 2D sand column and elastic "
-          "blocks): kernel path equals the plain path on the card and agrees "
-          "with it on the CPU", flush=True)
+    print("small scenes (3D sand box, contact, collider-free and neo-Hookean; "
+          "2D sand column, elastic blocks and collider-free column): kernel "
+          "path equals the plain path on the card and agrees with it on the "
+          "CPU", flush=True)
+    for c in checks:
+        c["launches"] = launches[c["name"]]
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
 
     print(json.dumps({"kernels": checks}), flush=True)

@@ -335,8 +335,7 @@ def _moving_floor_2d(**kw):
 @pytest.mark.parametrize("make", [
     lambda: scenes.sand_column_2d(nx=4, ny=4, cell_width=0.5, device="cpu",
                                   chan_free=True),
-    lambda: scenes.sand_column_2d(nx=4, ny=4, cell_width=0.5, device="cpu",
-                                  elastic_model="neo_hookean"),
+    None,
     lambda: scenes.sand_column_2d(nx=4, ny=4, cell_width=0.5, device="cpu",
                                   fold_vel=True),
     lambda: scenes.sand_column_2d(nx=4, ny=4, cell_width=0.5, device="cpu",
@@ -344,5 +343,12 @@ def _moving_floor_2d(**kw):
     _moving_floor_2d,
 ], ids=["chan_free", "neo_hookean", "fold_vel", "spatial", "moving_collider"])
 def test_unported_2d_options_raise(make):
+    """Each 2D option the port lacks raises naming its ROADMAP item.  2D
+    neo-Hookean is ported now: that case builds and carries the model."""
+    if make is None:
+        d = scenes.sand_column_2d(nx=4, ny=4, cell_width=0.5, device="cpu",
+                                  elastic_model="neo_hookean")
+        assert d.config.elastic_model == "neo_hookean"
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make()

@@ -1,19 +1,26 @@
-"""The nine CUDA kernels against their plain PyTorch versions on the card:
-the 3D path's five on the recorded inputs of one substep of the coupled sand
+"""The CUDA kernels against their plain PyTorch versions on the card: the
+3D path's five on the recorded inputs of one substep of the coupled sand
 box lowered onto the paddle (so kernel A's impulse path carries load), the
 2D path's four on a substep of each small 2D scene lowered into its floor
-(so kernel H's impulses carry load).  Marked `cuda`: they skip where torch
-sees no CUDA device (run them on a GPU host with
-`python -m pytest tests/test_torch_cuda_kernels.py -m cuda`)."""
+(so kernel H's impulses carry load), kernel F on a substep of the spinning
+collider-free sand box and on the coupled inputs, kernel C's neo-Hookean
+branch in 3D and 2D, and the math probe.  Marked `cuda`: they skip where
+torch sees no CUDA device (run them on a GPU host with
+`python -m pytest --noconftest tests/test_torch_cuda_kernels.py`)."""
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
 from wgsparkl_tpu_torch import scenes
+from wgsparkl_tpu_torch.math import probe
 from wgsparkl_tpu_torch.ops import (
-    compact, g2p, p2g_cdf, permute, transfer2d, update_rows,
+    compact, g2p, p2g, p2g_cdf, permute, transfer2d, update_rows,
 )
-from wgsparkl_tpu_torch.pipeline import step_pallas
+from wgsparkl_tpu_torch.ops import rows as R
+from wgsparkl_tpu_torch.pipeline import MpmData, step_pallas
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(2)
@@ -148,3 +155,90 @@ def test_update_rows2d_kernel_matches_plain(rec2d):
     k, p = update_rows.update_rows2d(*args), update_rows.update2d_plain(*args)
     for row in range(k.shape[0]):
         _close(k[row], p[row], 1e-4)
+
+
+def test_update_rows_neo_hookean_kernel_matches_plain(rec):
+    cfg = rec["cfg"]
+    nb = rec["grid_mm"].shape[0] - 1
+    args = (rec["rows"], rec["krows"], rec["pcdf"], rec["sorted_ids"],
+            rec["covered_end"], rec["btable"], rec["mtable"], rec["dt"],
+            cfg.grid.cell_width, cfg.num_colliders, cfg.n_materials, nb)
+    k = update_rows.update_rows(*args, elastic_model="neo_hookean")
+    p = update_rows.update_plain(*args, elastic_model="neo_hookean")
+    for r in (16, 20, 21, 22):
+        assert torch.equal(k[r], p[r])
+    for r in range(k.shape[0]):
+        _close(k[r], p[r], 1e-4)
+
+
+def test_update_rows2d_neo_hookean_kernel_matches_plain(rec2d):
+    r, cfg = rec2d, rec2d["cfg"]
+    nb = r["grid_mm"].shape[0] - 1
+    args = (r["rows"], r["krows"], r["pcdf"], r["sorted_ids"],
+            r["covered_end"], r["btable"], r["mtable"], r["dt"],
+            cfg.grid.cell_width, cfg.num_colliders, cfg.n_materials, nb)
+    k = update_rows.update_rows2d(*args, elastic_model="neo_hookean")
+    p = update_rows.update2d_plain(*args, elastic_model="neo_hookean")
+    for row in (9, 12, 13, 14):
+        assert torch.equal(k[row], p[row])
+    for row in range(k.shape[0]):
+        _close(k[row], p[row], 1e-4)
+
+
+@pytest.fixture(scope="module")
+def rec_free():
+    """A substep of the sand_box_3d(nxz=8, ny=16) lattice with no body,
+    spinning at 1 rad/s about its vertical centre line."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d = scenes.sand_box_3d(nxz=8, ny=16, with_paddle=False, device="cuda")
+    vel = scenes.spin_velocities(d.state.particles.pos.cpu())
+    p = dataclasses.replace(d.state.particles,
+                            vel=torch.as_tensor(vel, device="cuda"))
+    data = MpmData(d.params, p, d.state.models, [], 1.0, grid=d.config.grid,
+                   by=8, group=256)
+    state = step_pallas(data.state, data.params, data.config, 2)
+    out = {}
+    step_pallas(state, data.params, data.config, 1, record=out)
+    out["cfg"] = data.config
+    return out
+
+
+def test_p2g_kernel_matches_plain(rec_free):
+    """Kernel F at nc = 0: bit for bit, and the same bits twice."""
+    r, cfg = rec_free, rec_free["cfg"]
+    args = (r["pdata"], r["ntiles"], r["btable"], r["jobs"], r["bcells"],
+            r["jbody"], cfg.grid.cell_width, cfg.by, 0)
+    k, pl = p2g.p2g_tiles(*args), p2g.p2g_plain(*args)
+    assert float(pl[0][..., 3].sum()) > 0.0
+    assert torch.equal(k[0], pl[0]) and torch.equal(k[1], pl[1])
+    k2 = p2g.p2g_tiles(*args)
+    assert torch.equal(k[0], k2[0]) and torch.equal(k[1], k2[1])
+
+
+def test_p2g_kernel_cpic_branch_matches_plain(rec):
+    """Kernel F at nc > 0 on the coupled inputs, the paddle merged into the
+    window CDF: compatibility masks and impulses, bit for bit."""
+    cfg = rec["cfg"]
+    h = cfg.grid.cell_width
+    wsh, wvol, _ = R.window_geom(cfg.by)
+    naff, closest, dist = R.window_cdf(
+        rec["ntiles"], R.window_positions(rec["bcells"], h, wsh), rec["btable"],
+        rec["moving"], rec["jbody"], h, wvol)
+    tiles = torch.zeros_like(rec["ntiles"])
+    tiles[:, :wvol] = torch.stack([*R.aff_halves(naff), closest, dist], -1)
+    args = (rec["pdata"], tiles, rec["btable"], rec["jobs"], rec["bcells"],
+            rec["jbody"], h, cfg.by, cfg.num_colliders)
+    k, pl = p2g.p2g_tiles(*args), p2g.p2g_plain(*args)
+    assert float(pl[1].abs().max()) > 1.0
+    assert torch.equal(k[0], pl[0]) and torch.equal(k[1], pl[1])
+
+
+def test_math_probe_kernel_within_4_ulps_of_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x, y = probe.probe_inputs("cuda")
+    k, pl = probe.math_probe(x, y), probe.math_probe_plain(x, y)
+    ratio = (k.double() / pl.double() - 1.0).abs()
+    assert float(ratio.max()) <= 4 * 2.0 ** -23
+    assert np.isfinite(k.cpu().numpy()).all()

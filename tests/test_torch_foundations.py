@@ -20,7 +20,7 @@ from wgsparkl_tpu.rigid import body as jbody
 from wgsparkl_tpu.solver import attach_material_table as j_attach
 from wgsparkl_tpu_torch import interop, scenes
 from wgsparkl_tpu_torch.collision import cdf_channel as cch
-from wgsparkl_tpu_torch.math import svd
+from wgsparkl_tpu_torch.math import probe, svd
 from wgsparkl_tpu_torch.models import drucker_prager as dp
 from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.params import SimulationParams
@@ -191,6 +191,7 @@ _DEFAULT_DEVICE_CALLS = {
     "build_rigid_world": lambda: build_rigid_world([]).rot,
     "params_from_reference": lambda: interop.params_from_reference(
         jscenes.sand_column_2d(nx=2, ny=2).params).gravity,
+    "probe_inputs": lambda: probe.probe_inputs()[0],
 }
 
 

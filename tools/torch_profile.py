@@ -1,10 +1,12 @@
 """Where a frame's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 tools/torch_profile.py 3d|2d
+    python3 tools/torch_profile.py 3d|3d-free|2d|2d-neo
 
 Builds the full-size scene of chip_smoke.py (3d: the 1,002,001-particle
-sand box with the paddle, 20 substeps a frame; 2d: the 490,000-particle
-sand column, 10 substeps a frame), runs one warm frame and
+sand box with the paddle, 20 substeps a frame; 3d-free: the same lattice,
+models and grid with no body, spinning; 2d: the 490,000-particle sand
+column, 10 substeps a frame; 2d-neo: the 490,000-particle neo-Hookean
+elastic blocks, 15 substeps a frame), runs one warm frame and
 chip_smoke.TIMED_FRAMES (3) unprofiled frames (host clock around
 synchronised frames), then one frame under torch.profiler.  Prints the
 frame wall times, the device time of the
@@ -31,7 +33,7 @@ import chip_smoke  # noqa: E402
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("path", choices=("3d", "2d"))
+    ap.add_argument("path", choices=("3d", "3d-free", "2d", "2d-neo"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("FAIL: torch.cuda.is_available() is False")
@@ -43,10 +45,13 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip()
     _cuda.build(_cuda.sources())
     dev = torch.device("cuda:0")
-    if args.path == "3d":
-        data, substeps = chip_smoke.full_scene(dev), chip_smoke.SUBSTEPS
-    else:
-        data, substeps = chip_smoke.full_scene_2d(dev), chip_smoke.SUBSTEPS2
+    data, substeps = {
+        "3d": lambda: (chip_smoke.full_scene(dev), chip_smoke.SUBSTEPS),
+        "3d-free": lambda: (chip_smoke.full_scene_free(dev), chip_smoke.SUBSTEPS),
+        "2d": lambda: (chip_smoke.full_scene_2d(dev), chip_smoke.SUBSTEPS2),
+        "2d-neo": lambda: (chip_smoke.full_scene_neo_2d(dev),
+                           chip_smoke.SUBSTEPS_NEO2),
+    }[args.path]()
     state, params, cfg = data.state, data.params, data.config
     state = step_pallas(state, params, cfg, substeps)
     torch.cuda.synchronize()

@@ -2,7 +2,8 @@
 
 The JAX package ``wgsparkl_tpu`` stays the reference; this package runs the
 same MLS-MPM paths in PyTorch: the 3D sand box and the 2D scenes with
-two-way CPIC rigid coupling on the bounded block grid.  The Pallas kernels
+two-way CPIC rigid coupling, and scenes with no collider, on the bounded
+block grid, with corotated or neo-Hookean elasticity.  The Pallas kernels
 of those paths are rewritten as hand-written CUDA C++ kernels for sm_90a
 (``csrc/``).
 
@@ -24,11 +25,14 @@ _torch.set_float32_matmul_precision("highest")
 
 
 def kernel_wrappers():
-    """{name: wrapper} of the nine hand-written kernels: the 3D path's five
-    (A-E), the 2D path's three (G-I) and the dim=2 entry of kernel C."""
+    """{name: wrapper} of the hand-written kernels: the 3D path's five
+    (A-E), the collider-free P2G (F), the 2D path's three (G-I), the dim=2
+    entry of kernel C and the in-kernel math probe."""
+    from wgsparkl_tpu_torch.math.probe import math_probe
     from wgsparkl_tpu_torch.ops import transfer2d
     from wgsparkl_tpu_torch.ops.compact import compact_flagged
     from wgsparkl_tpu_torch.ops.g2p import g2p_rows
+    from wgsparkl_tpu_torch.ops.p2g import p2g_tiles
     from wgsparkl_tpu_torch.ops.p2g_cdf import p2g_cdf_tiles
     from wgsparkl_tpu_torch.ops.permute import permute_lanes
     from wgsparkl_tpu_torch.ops.update_rows import update_rows, update_rows2d
@@ -39,10 +43,12 @@ def kernel_wrappers():
         "update_rows": update_rows,
         "permute": permute_lanes,
         "compact": compact_flagged,
+        "p2g": p2g_tiles,
         "pcdf2d": transfer2d.pcdf_rows,
         "p2g2d": transfer2d.p2g_tiles,
         "g2p2d": transfer2d.g2p_rows,
         "update_rows2d": update_rows2d,
+        "math_probe": math_probe,
     }
 
 

@@ -37,8 +37,9 @@ __global__ void __launch_bounds__(NTHREADS) g2p2d_kernel(
     const float* t = ntiles + ((long long)j * WPAD + n) * 4;
     s_v[2 * n] = ft[0];
     s_v[2 * n + 1] = ft[1];
-    s_naff[n] = aff_word(t[0], t[1]);
-    s_cl[n] = t[2];
+    // No collider: no node tile to read (the caller may pass just one).
+    s_naff[n] = nc > 0 ? aff_word(t[0], t[1]) : 0u;
+    s_cl[n] = nc > 0 ? t[2] : -1.0f;
     float xw[2];
     node_pos2(n, bc, h, xw);
     node_body_velocity2(s_cl[n], xw, bt, nc, &s_bv[2 * n]);

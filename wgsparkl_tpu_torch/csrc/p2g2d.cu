@@ -56,11 +56,12 @@ __global__ void __launch_bounds__(NTHREADS) p2g2d_kernel(
   const bool gated = lvl > 0;
   const int bc[2] = {jt[2 * maxj + j], jt[3 * maxj + j]};
   for (int n = tid; n < WVOL; n += NTHREADS) {
+    // No collider: no node tile to read (the caller may pass just one).
     const float* t = ntiles + ((long long)j * WPAD + n) * 4;
     for (int f = 0; f < NFEAT; ++f) s_acc[n * NFEAT + f] = 0.0f;
     s_d[2 * n] = s_d[2 * n + 1] = 0.0f;
-    s_naff[n] = aff_word(t[0], t[1]);
-    s_cl[n] = t[2];
+    s_naff[n] = nc > 0 ? aff_word(t[0], t[1]) : 0u;
+    s_cl[n] = nc > 0 ? t[2] : -1.0f;
     float xw[2];
     node_pos2(n, bc, h, xw);
     node_body_velocity2(s_cl[n], xw, bt, nc, &s_bv[2 * n]);

@@ -307,15 +307,6 @@ __global__ void __launch_bounds__(NTHREADS) p2g_cdf_kernel(
   }
 }
 
-// imp[0, r, b] = sum over jobs (in job order) of part[j, r, b].
-__global__ void impulse_sum_kernel(const float* part, int maxj, float* imp) {
-  int t = threadIdx.x;
-  if (t >= 96) return;
-  float acc = 0.0f;
-  for (int j = 0; j < maxj; ++j) acc = acc + part[(long long)j * 96 + t];
-  imp[(t / 16) * 128 + t % 16] = acc;
-}
-
 extern "C" int p2g_cdf_cuda(const float* pdata, long long pstride,
                             const float* ntiles, const float* bt, const int* jt,
                             long long maxj, long long by, long long nc,

@@ -1,4 +1,5 @@
-// Device helpers shared by the 3D transfer kernels (p2g_cdf.cu, g2p.cu).
+// Device helpers shared by the 3D transfer kernels (p2g_cdf.cu, p2g.cu,
+// g2p.cu).
 // Each follows its plain PyTorch counterpart in wgsparkl_tpu_torch/ops/rows.py
 // and collision/cdf_channel.py operation by operation.
 #pragma once
@@ -177,4 +178,15 @@ __device__ void stencil(const float p[3], const int bc[3], float inv_h,
         if (ok) s->valid |= 1u << o;
       }
     }
+}
+
+// The P2G kernels' second launch, one block of 96 threads: imp[0, r, b] =
+// sum over jobs, in job order, of the per-job impulses part[j, r, b]
+// (part [MAXJ, 6, 16], imp [1, 8, 128]).
+__global__ void impulse_sum_kernel(const float* part, int maxj, float* imp) {
+  int t = threadIdx.x;
+  if (t >= 96) return;
+  float acc = 0.0f;
+  for (int j = 0; j < maxj; ++j) acc = acc + part[(long long)j * 96 + t];
+  imp[(t / 16) * 128 + t % 16] = acc;
 }

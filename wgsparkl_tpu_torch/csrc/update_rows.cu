@@ -6,8 +6,9 @@
 // wgsparkl_tpu/ops/particle_update.py `particle_update_channels` /
 // `particle_update_channels_2d`: rigid contact velocity, contact projection,
 // velocity clamp, advection, penalty, F update, fracture check, Drucker-Prager
-// return map, corotated stress, APIC affine, and the rebuild of the next
-// [48, NPAD] (3D) or [32, NPAD] (2D) row matrix.
+// return map, corotated or neo-Hookean stress (`elastic_model`, the integer
+// argument `model`), APIC affine, and the rebuild of the next [48, NPAD] (3D)
+// or [32, NPAD] (2D) row matrix.
 // Bound on the H100, both dimensions: device memory, in 3D only just.  Per
 // lane 3D reads 27 of the 48 input rows (0-2, 6, 21-39, 44-47), the sorted
 // id, 12 G2P rows and 6 particle-CDF rows, and writes 48 rows (~0.39 GB per
@@ -15,7 +16,8 @@
 // (~1.5k flops each) plus exp/log/sin (~6 GFLOP, ~0.09 ms).  2D reads 19 of
 // the 32 input rows (0, 1, 4, 13-23, 27-31), the sorted id, 6 G2P rows and
 // 5 particle-CDF rows, and writes 32 rows (~0.1 GB at 490k lanes), against
-// three closed-form 2x2 SVDs (~60 flops each) plus exp/log/sin.
+// three closed-form 2x2 SVDs (~60 flops each) plus exp/log/sin.  The
+// neo-Hookean stress replaces the stress SVD by a determinant and one logf.
 // Design: scalar per-thread code that follows the plain version operation
 // by operation (the translation unit is built with -fmad=false and IEEE
 // division / sqrt), so kernel and plain version differ only where libm does
@@ -32,6 +34,7 @@
 #define R_RV0 41
 #define DEFAULT_FRICTION 20.0f
 #define PENALTY_COEFF 1.0e3f
+#define NEO_HOOKEAN 1       // the model argument: 0 corotated, 1 neo-Hookean
 
 struct F3 { float m[3][3]; };
 
@@ -188,8 +191,8 @@ __global__ void update_kernel(
     const float* __restrict__ pcdf, const int* __restrict__ sids,
     const int* __restrict__ ce, const float* __restrict__ btable,
     const float* __restrict__ mtable, long long npad, long long kstride,
-    long long pstride, int nc, int n_mat, int live_below, float dt, float h,
-    float invd, float limit, float pen_thresh, float corr_min,
+    long long pstride, int nc, int n_mat, int live_below, int model, float dt,
+    float h, float invd, float limit, float pen_thresh, float corr_min,
     float* __restrict__ out) {
   long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= npad) return;
@@ -333,9 +336,21 @@ __global__ void update_kernel(
     }
   }
 
-  // Corotated Kirchhoff stress and APIC affine.
+  // Kirchhoff stress (corotated or neo-Hookean) and APIC affine.
   float aff_out[3][3];
-  {
+  if (model == NEO_HOOKEAN) {
+    float lam = mval(0), mu = mval(1), vol0 = mval(9);
+    float diag = lam * logf(fmaxf(det3(nf), 1e-10f)) - mu;
+    float scale_a = vol0 * invd * dt;
+    for (int i = 0; i < 3; ++i)
+      for (int jj = 0; jj < 3; ++jj) {
+        float fft = nf.m[i][0] * nf.m[jj][0];
+        fft = fft + nf.m[i][1] * nf.m[jj][1];
+        fft = fft + nf.m[i][2] * nf.m[jj][2];
+        float stress = i == jj ? mu * fft + diag : mu * fft;
+        aff_out[i][jj] = grad[i][jj] * mass - stress * scale_a;
+      }
+  } else {
     float lam = mval(0), mu = mval(1), vol0 = mval(9);
     float uc[3][3], sig[3], vc[3][3];
     svd3(nf, uc, sig, vc);
@@ -425,8 +440,8 @@ __global__ void update2d_kernel(
     const float* __restrict__ pcdf, const int* __restrict__ sids,
     const int* __restrict__ ce, const float* __restrict__ btable,
     const float* __restrict__ mtable, long long npad, long long kstride,
-    long long pstride, int nc, int n_mat, int live_below, float dt, float h,
-    float invd, float limit, float pen_thresh, float corr_min,
+    long long pstride, int nc, int n_mat, int live_below, int model, float dt,
+    float h, float invd, float limit, float pen_thresh, float corr_min,
     float* __restrict__ out) {
   long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= npad) return;
@@ -553,9 +568,21 @@ __global__ void update2d_kernel(
     }
   }
 
-  // Corotated Kirchhoff stress and APIC affine.
+  // Kirchhoff stress (corotated or neo-Hookean) and APIC affine.
   float aff_out[2][2];
-  {
+  if (model == NEO_HOOKEAN) {
+    float lam = mval(0), mu = mval(1), vol0 = mval(9);
+    float det = nf[0][0] * nf[1][1] - nf[0][1] * nf[1][0];
+    float diag = lam * logf(fmaxf(det, 1e-10f)) - mu;
+    float scale_a = vol0 * invd * dt;
+    for (int i = 0; i < 2; ++i)
+      for (int jj = 0; jj < 2; ++jj) {
+        float fft = nf[i][0] * nf[jj][0];
+        fft = fft + nf[i][1] * nf[jj][1];
+        float stress = i == jj ? mu * fft + diag : mu * fft;
+        aff_out[i][jj] = grad[i][jj] * mass - stress * scale_a;
+      }
+  } else {
     float lam = mval(0), mu = mval(1), vol0 = mval(9);
     svd2(nf, uc, sig, vc);
     float j = sig[0] * sig[1];
@@ -597,13 +624,14 @@ extern "C" int update_rows2d_cuda(
     const float* rows, const float* krows, const float* pcdf, const int* sids,
     const int* ce, const float* btable, const float* mtable, long long npad,
     long long kstride, long long pstride, long long nc, long long n_mat,
-    long long live_below, float dt, float h, float invd, float limit,
-    float pen_thresh, float corr_min, float* out, cudaStream_t stream) {
+    long long live_below, long long model, float dt, float h, float invd,
+    float limit, float pen_thresh, float corr_min, float* out,
+    cudaStream_t stream) {
   unsigned blocks = (unsigned)((npad + 127) / 128);
   update2d_kernel<<<blocks, 128, 0, stream>>>(
       rows, krows, pcdf, sids, ce, btable, mtable, npad, kstride, pstride,
-      (int)nc, (int)n_mat, (int)live_below, dt, h, invd, limit, pen_thresh,
-      corr_min, out);
+      (int)nc, (int)n_mat, (int)live_below, (int)model, dt, h, invd, limit,
+      pen_thresh, corr_min, out);
   return (int)cudaGetLastError();
 }
 
@@ -611,12 +639,13 @@ extern "C" int update_rows_cuda(
     const float* rows, const float* krows, const float* pcdf, const int* sids,
     const int* ce, const float* btable, const float* mtable, long long npad,
     long long kstride, long long pstride, long long nc, long long n_mat,
-    long long live_below, float dt, float h, float invd, float limit,
-    float pen_thresh, float corr_min, float* out, cudaStream_t stream) {
+    long long live_below, long long model, float dt, float h, float invd,
+    float limit, float pen_thresh, float corr_min, float* out,
+    cudaStream_t stream) {
   unsigned blocks = (unsigned)((npad + 127) / 128);
   update_kernel<<<blocks, 128, 0, stream>>>(
       rows, krows, pcdf, sids, ce, btable, mtable, npad, kstride, pstride,
-      (int)nc, (int)n_mat, (int)live_below, dt, h, invd, limit, pen_thresh,
-      corr_min, out);
+      (int)nc, (int)n_mat, (int)live_below, (int)model, dt, h, invd, limit,
+      pen_thresh, corr_min, out);
   return (int)cudaGetLastError();
 }

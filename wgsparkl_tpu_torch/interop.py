@@ -13,6 +13,7 @@ import torch
 
 from wgsparkl_tpu_torch.device import resolve
 from wgsparkl_tpu_torch.grid import GridConfig
+from wgsparkl_tpu_torch.ops.particle_update import ELASTIC_MODELS
 from wgsparkl_tpu_torch.params import SimulationParams
 from wgsparkl_tpu_torch.pipeline import MpmConfig, SimState
 from wgsparkl_tpu_torch.rigid.body import RigidWorld
@@ -38,7 +39,7 @@ def config_from_reference(cfg) -> MpmConfig:
         "spatial_devices": cfg.spatial_devices, "mesh_cids": cfg.mesh_cids,
         "dynamic_slots": cfg.dynamic_slots, "joints": cfg.joints,
         "chan_free": cfg.chan_free, "fold_vel": cfg.fold_vel,
-        "elastic_model": cfg.elastic_model != "corotated",
+        "elastic_model": cfg.elastic_model not in ELASTIC_MODELS,
         # Only two-way coupling (COUPLING_TWO_WAY = 2; empty means all).
         "coupling": any(int(c) != 2 for c in cfg.coupling),
     }
@@ -50,7 +51,8 @@ def config_from_reference(cfg) -> MpmConfig:
         grid=GridConfig(tuple(g.shape), float(g.cell_width), tuple(g.origin_cell)),
         collider_types=tuple(cfg.collider_types), group=int(cfg.group),
         max_jobs=int(cfg.max_jobs), by=int(cfg.by),
-        n_materials=int(cfg.n_materials), static_slots=tuple(cfg.static_slots))
+        n_materials=int(cfg.n_materials), static_slots=tuple(cfg.static_slots),
+        elastic_model=cfg.elastic_model)
 
 
 def state_from_reference(state, device=None) -> SimState:

@@ -1,12 +1,15 @@
-"""Corotated elastic stress, channel form (port of
+"""Corotated and neo-Hookean elastic stress, channel form (port of
 wgsparkl_tpu/models/elasticity.py: lame_lambda_mu, ElasticCoefficients,
-kirchoff_stress_corotated_ch and _ch2)."""
+kirchoff_stress_corotated_ch / _ch2 and kirchoff_stress_neo_hookean_ch /
+_ch2)."""
 
 from __future__ import annotations
 
 import dataclasses
 
-from wgsparkl_tpu_torch.math.svd import svd2x2_ch, svd3x3_ch
+import torch
+
+from wgsparkl_tpu_torch.math.svd import det3_ch, svd2x2_ch, svd3x3_ch
 
 
 def lame_lambda_mu(young_modulus, poisson_ratio):
@@ -56,3 +59,27 @@ def kirchoff_stress_corotated_ch(lam, mu, fc):
 def kirchoff_stress_corotated_ch2(lam, mu, fc):
     """2D twin of kirchoff_stress_corotated_ch (closed-form 2x2 SVD)."""
     return _corotated(lam, mu, fc, *svd2x2_ch(fc))
+
+
+def _neo_hookean(lam, mu, fc, d, det):
+    diag = lam * torch.log(torch.clamp(det, min=1e-10)) - mu
+    out = {}
+    for i in range(d):
+        for jj in range(d):
+            fft = fc[(i, 0)] * fc[(jj, 0)]
+            for k in range(1, d):
+                fft = fft + fc[(i, k)] * fc[(jj, k)]
+            out[(i, jj)] = mu * fft + diag if i == jj else mu * fft
+    return out
+
+
+def kirchoff_stress_neo_hookean_ch(lam, mu, fc):
+    """tau = mu F F^T + (lam log J - mu) I on [N] channels, J = det F
+    clamped below at 1e-10."""
+    return _neo_hookean(lam, mu, fc, 3, det3_ch(fc))
+
+
+def kirchoff_stress_neo_hookean_ch2(lam, mu, fc):
+    """2D twin of kirchoff_stress_neo_hookean_ch."""
+    return _neo_hookean(lam, mu, fc, 2,
+                        fc[(0, 0)] * fc[(1, 1)] - fc[(0, 1)] * fc[(1, 0)])

@@ -101,25 +101,26 @@ def g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, jbody,
     """Per-particle G2P rows [16, NPAD + G + 128] (see the module
     docstring).  pdata: rows with the fresh particle CDF patched in (rows
     0..23 are read); ftiles [MAXJ, wpad, 4] gathered grid velocity + mass;
-    ntiles as for p2g_cdf_tiles."""
+    ntiles as for p2g_cdf_tiles; not read at nc = 0."""
     if pdata.device.type == "cpu":
         return g2p_plain(pdata, ftiles, ntiles, btable, jobs, bcells, jbody,
                          cell_width, by, group, npad, nc, moving)
     wsh, wvol, wpad = R.window_geom(by)
     maxj = jobs["start"].shape[0]
-    if (wvol > R.WV_MAX or nc > 16 or ntiles.shape != (maxj, wpad, 4)
+    if (wvol > R.WV_MAX or nc > 16 or ntiles.shape[1:] != (wpad, 4)
+            or (nc > 0 and ntiles.shape[0] != maxj)
             or ftiles.shape != (maxj, wpad, 4)):
         raise ValueError("g2p_rows: by <= 8, <= 16 colliders and "
-                         "[MAXJ, wpad, 4] tiles")
+                         "[MAXJ, wpad, 4] tiles ([1, wpad, 4] node tiles will "
+                         "do at nc = 0)")
     jt = job_table(jobs, bcells, jbody)
     R.check_kernel_args(pdata, ftiles, ntiles, btable, jt)
     out = torch.zeros((16, npad + group + 128), dtype=torch.float32,
                       device=pdata.device)
-    f32 = lambda x: float(torch.tensor(x, dtype=torch.float32))  # noqa: E731
     _cuda.launch("g2p", "g2p_cuda", "pippppiiiifffpi",
                  pdata, pdata.shape[1], ftiles, ntiles, btable, jt, maxj, by,
-                 nc, moving_mask(moving), f32(cell_width),
-                 f32(1.0 / cell_width), f32(1.5 * cell_width), out,
+                 nc, moving_mask(moving), R.f32(cell_width),
+                 R.f32(1.0 / cell_width), R.f32(1.5 * cell_width), out,
                  out.shape[1])
     g2p_rows.launches += 1
     return out

@@ -259,11 +259,10 @@ def p2g_cdf_tiles(pdata, ntiles, btable, jobs, bcells, jbody, cell_width: float,
     part = torch.empty((maxj, 6, 16), dtype=torch.float32, device=dev)
     imp = torch.zeros((1, 8, 128), dtype=torch.float32, device=dev)
     pcdf = torch.zeros((8, npad + group + 128), dtype=torch.float32, device=dev)
-    f32 = lambda x: float(torch.tensor(x, dtype=torch.float32))  # noqa: E731
     _cuda.launch("p2g_cdf", "p2g_cdf_cuda", "pipppiiiifffppppi",
                  pdata, pdata.shape[1], ntiles, btable, jt, maxj, by, nc,
-                 moving_mask(moving), f32(cell_width), f32(1.0 / cell_width),
-                 f32(1.5 * cell_width), mm, part, imp, pcdf, pcdf.shape[1])
+                 moving_mask(moving), R.f32(cell_width), R.f32(1.0 / cell_width),
+                 R.f32(1.5 * cell_width), mm, part, imp, pcdf, pcdf.shape[1])
     p2g_cdf_tiles.launches += 1
     return mm, imp, pcdf
 

@@ -2,8 +2,8 @@
 wgsparkl_tpu/ops/particle_update.py:105-306, `particle_update_channels` and
 `particle_update_channels_2d`): contact projection, velocity clamp,
 advection, penalty impulse, F update, fracture check, Drucker-Prager
-projection, corotated stress and the APIC affine matrix.  The plain version
-of kernel C (ops/update_rows.py)."""
+projection, corotated or neo-Hookean stress and the APIC affine matrix.
+The plain version of kernel C (ops/update_rows.py)."""
 
 from __future__ import annotations
 
@@ -16,11 +16,17 @@ from wgsparkl_tpu_torch.models.drucker_prager import (
 )
 from wgsparkl_tpu_torch.models.elasticity import (
     kirchoff_stress_corotated_ch, kirchoff_stress_corotated_ch2,
+    kirchoff_stress_neo_hookean_ch, kirchoff_stress_neo_hookean_ch2,
 )
 from wgsparkl_tpu_torch.ops.kernel import inv_d
 from wgsparkl_tpu_torch.ops.rows import DEFAULT_FRICTION
 
 PENALTY_COEFF = 1.0e3
+ELASTIC_MODELS = ("corotated", "neo_hookean")   # index = kernel C's model id
+_STRESS = {("corotated", 3): kirchoff_stress_corotated_ch,
+           ("corotated", 2): kirchoff_stress_corotated_ch2,
+           ("neo_hookean", 3): kirchoff_stress_neo_hookean_ch,
+           ("neo_hookean", 2): kirchoff_stress_neo_hookean_ch2}
 
 
 def _dot(a, b):
@@ -48,12 +54,13 @@ def _fracture_2d(new_f, ch):
     return (sig[0] > ch["stretch"]) | (sig[1] > ch["stretch"])
 
 
-def particle_update_channels(ch, dt: float, h: float):
+def particle_update_channels(ch, dt: float, h: float,
+                             elastic_model: str = "corotated"):
     """ch: dict of [N] channels (pos[d], vel[d], grad{(i,j)}, F{(i,j)}, sd,
     normal[d], rigid_vel[d], mass, vol0, lam, mu, dp{}, dps{}, phase,
     stretch), d = 3, or d = 2 for particle_update_channels_2d.  Returns
-    dict(pos, vel, F, affine, phase, dps).  Corotated elasticity only
-    (neo-Hookean: ROADMAP queue 1, item 8)."""
+    dict(pos, vel, F, affine, phase, dps).  elastic_model: "corotated" or
+    "neo_hookean" (the stress of the elastic part)."""
     vel, nrm, rv, sd = ch["vel"], ch["normal"], ch["rigid_vel"], ch["sd"]
     d = len(vel)
     penetrating = sd < -0.05 * h
@@ -96,8 +103,7 @@ def particle_update_channels(ch, dt: float, h: float):
     new_f = {k: torch.where(granular, f_proj[k], new_f[k]) for k in new_f}
     new_dps = {k: torch.where(granular, dp_state[k], ch["dps"][k])
                for k in dp_state}
-    stress = (kirchoff_stress_corotated_ch if d == 3
-              else kirchoff_stress_corotated_ch2)(ch["lam"], ch["mu"], new_f)
+    stress = _STRESS[elastic_model, d](ch["lam"], ch["mu"], new_f)
     scale_a = ch["vol0"] * inv_d(h) * dt
     affine = {k: gc[k] * ch["mass"] - stress[k] * scale_a for k in new_f}
     return {"pos": new_pos, "vel": new_vel, "F": new_f, "affine": affine,

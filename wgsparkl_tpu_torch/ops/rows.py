@@ -132,6 +132,11 @@ def unpack_state_rows(rows, particles, models, n_mat: int = 1):
     return new_p, new_m
 
 
+def f32(x) -> float:
+    """A Python float rounded to f32, as a kernel argument takes it."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
 def nr_recip(x):
     """Newton-refined reciprocal, as the JAX kernels compute every in-kernel
     reciprocal of a physics quantity: r = 1/x, then r (2 - x r)."""

@@ -9,9 +9,11 @@ gathered node-CDF tiles ntiles [MAXJ, WPAD, 4] (affinity low half, high
 half, closest collider, distance) and its gate level jbody: 0 (no collider
 node in the window: no particle CDF, plain transfers) or 2 (CPIC
 compatibility masks, ghost velocities and impulses; the 2D path has no
-static-only level 1).  The TPU kernels write particle rows through a
-sequential-grid VMEM handoff; here each job writes exactly its own lanes
-[start, start + len) and the rest of the output stays zero.
+static-only level 1).  A scene with no collider (nc = 0) runs P2G and G2P
+only, and they read no node tile: the collider-free substep passes one zero
+[1, WPAD, 4] tile and zero gate levels.  The TPU kernels write particle
+rows through a sequential-grid VMEM handoff; here each job writes exactly
+its own lanes [start, start + len) and the rest of the output stays zero.
 
 Summation order: a particle's sums over its 3 x 3 stencil nodes run in node
 order (ox slowest), a window node's sums over particles in particle order,
@@ -31,10 +33,6 @@ from wgsparkl_tpu_torch.ops.blocked import add_rows
 from wgsparkl_tpu_torch.ops.p2g_cdf import _seqsum, job_table
 
 
-def _f32(x) -> float:
-    return float(torch.tensor(x, dtype=torch.float32))
-
-
 def _pairs(pdata, ntiles, jobs, bcells, cell_width, select=None):
     """Per covered particle (optionally only those of the jobs `select`
     [MAXJ] bool marks): job id, lane, its NCHAN rows, stencil weights,
@@ -47,9 +45,13 @@ def _pairs(pdata, ntiles, jobs, bcells, cell_width, select=None):
         jid, lane = jid[keep], lane[keep]
     pd = pdata[:R2.NCHAN, lane]
     bc = bcells.to(torch.int64)[jid]
-    w, nidx, valid = R.stencil([pd[0], pd[1]], bc, _f32(1.0 / cell_width),
+    w, nidx, valid = R.stencil([pd[0], pd[1]], bc, R.f32(1.0 / cell_width),
                                 R2.WSH)
-    t = ntiles.reshape(-1, 4)[jid[:, None] * R2.WPAD + nidx]
+    if ntiles is None:      # no collider: no node affinity, no closest body
+        t = torch.zeros(w.shape + (4,), dtype=torch.float32, device=w.device)
+        t[..., 2] = -1.0
+    else:
+        t = ntiles.reshape(-1, 4)[jid[:, None] * R2.WPAD + nidx]
     naff = torch.where(valid, R.aff_from_halves(t[..., 0], t[..., 1]), 0)
     node = torch.stack([nidx // R2.WSH[1], nidx % R2.WSH[1]], -1)
     xw = (node.to(torch.float32) + bc.to(torch.float32)[:, None, :]) * cell_width
@@ -141,7 +143,7 @@ def pcdf_plain(pdata, ntiles, jobs, bcells, jbody, cell_width, group, npad, nc):
 def p2g_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width, nc):
     dev = pdata.device
     maxj = jobs["start"].shape[0]
-    p = _pairs(pdata, ntiles, jobs, bcells, cell_width)
+    p = _pairs(pdata, ntiles if nc else None, jobs, bcells, cell_width)
     pd, w, jid = p["pd"], p["w"], p["jid"]
     gated = (jbody.to(torch.int64)[jid] > 0)[:, None]
     paff = R.aff_from_halves(pd[R2.AFF], pd[R2.AFF_SPARE])
@@ -195,7 +197,7 @@ def p2g_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width, nc):
 
 def g2p_plain(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, cell_width,
               group, npad, nc):
-    p = _pairs(pdata, ntiles, jobs, bcells, cell_width)
+    p = _pairs(pdata, ntiles if nc else None, jobs, bcells, cell_width)
     pd, w, jid = p["pd"], p["w"], p["jid"]
     ft = ftiles.reshape(-1, 4)[jid[:, None] * R2.WPAD + p["nidx"]]
     v = [ft[..., 0], ft[..., 1]]
@@ -222,8 +224,12 @@ def g2p_plain(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, cell_width,
 
 
 # ------------------------------------------------------------- the wrappers
-def _check_tiles(name, maxj, nc, *tiles):
-    if nc > 16 or any(t.shape != (maxj, R2.WPAD, 4) for t in tiles):
+def _check_tiles(name, maxj, nc, ntiles, *tiles):
+    """Node tiles [MAXJ, WPAD, 4] (any [., WPAD, 4] at nc = 0, where they
+    are not read) and grid tiles [MAXJ, WPAD, 4]."""
+    if (nc > 16 or ntiles.shape[1:] != (R2.WPAD, 4)
+            or (nc > 0 and ntiles.shape[0] != maxj)
+            or any(t.shape != (maxj, R2.WPAD, 4) for t in tiles)):
         raise ValueError(f"{name}: <= 16 colliders and [MAXJ, {R2.WPAD}, 4] tiles")
 
 
@@ -242,7 +248,7 @@ def pcdf_rows(pdata, ntiles, jobs, bcells, jbody, cell_width: float, group: int,
     out = torch.zeros((8, npad + group + 128), dtype=torch.float32,
                       device=pdata.device)
     _cuda.launch("pcdf2d", "pcdf2d_cuda", "pippiiffpi", pdata, pdata.shape[1],
-                 ntiles, jt, maxj, nc, _f32(cell_width), _f32(1.0 / cell_width),
+                 ntiles, jt, maxj, nc, R.f32(cell_width), R.f32(1.0 / cell_width),
                  out, out.shape[1])
     pcdf_rows.launches += 1
     return out
@@ -264,8 +270,8 @@ def p2g_tiles(pdata, ntiles, btable, jobs, bcells, jbody, cell_width: float,
     mm = torch.empty((maxj, R2.WPAD, 8), dtype=torch.float32, device=dev)
     imp = torch.zeros((maxj, 8, 128), dtype=torch.float32, device=dev)
     _cuda.launch("p2g2d", "p2g2d_cuda", "pipppiiffpp", pdata, pdata.shape[1],
-                 ntiles, btable, jt, maxj, nc, _f32(cell_width),
-                 _f32(1.0 / cell_width), mm, imp)
+                 ntiles, btable, jt, maxj, nc, R.f32(cell_width),
+                 R.f32(1.0 / cell_width), mm, imp)
     p2g_tiles.launches += 1
     return mm, imp
 
@@ -285,8 +291,8 @@ def g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, jbody,
     out = torch.zeros((8, npad + group + 128), dtype=torch.float32,
                       device=pdata.device)
     _cuda.launch("g2p2d", "g2p2d_cuda", "pippppiiffpi", pdata, pdata.shape[1],
-                 ftiles, ntiles, btable, jt, maxj, nc, _f32(cell_width),
-                 _f32(1.0 / cell_width), out, out.shape[1])
+                 ftiles, ntiles, btable, jt, maxj, nc, R.f32(cell_width),
+                 R.f32(1.0 / cell_width), out, out.shape[1])
     g2p_rows.launches += 1
     return out
 

@@ -5,8 +5,10 @@ kernel C, csrc/update_rows.cu, one entry point per dimension).
 From the sorted rows, the G2P rows, the particle-CDF rows and the sorted
 block ids it computes the next substep's [PCHAN, NPAD] row matrix: the rigid
 contact velocity from the body table, the material constants by id, and
-particle_update_channels.  Lanes are live iff id < live_below and rank <
-covered_end; dead lanes keep their position and get zero velocity inputs.
+particle_update_channels with the corotated or the neo-Hookean stress
+(`elastic_model`; the kernel takes its index in ELASTIC_MODELS).  Lanes
+are live iff id < live_below and rank < covered_end; dead lanes keep their
+position and get zero velocity inputs.
 `update_rows` is the 3D branch, `update_rows2d` the 2D one (rows of
 ops/rows2d.py); each counts its own launches.
 """
@@ -19,7 +21,9 @@ from wgsparkl_tpu_torch import _cuda
 from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.ops import rows2d as R2
 from wgsparkl_tpu_torch.ops.kernel import inv_d
-from wgsparkl_tpu_torch.ops.particle_update import particle_update_channels
+from wgsparkl_tpu_torch.ops.particle_update import (
+    ELASTIC_MODELS, particle_update_channels,
+)
 from wgsparkl_tpu_torch.solver import DP_KEYS, DPS_KEYS
 
 
@@ -46,7 +50,7 @@ def _rigid_velocity(pos, aff, btable, nc: int):
 
 
 def _update_plain(L, d, rows_all, krows, pcdf, sorted_ids, covered_end, btable,
-                  mtable, dt, h, nc, n_mat, live_below):
+                  mtable, dt, h, nc, n_mat, live_below, elastic_model):
     npad = rows_all.shape[1]
     lane = torch.arange(npad, device=rows_all.device)
     ig = (sorted_ids < live_below) & (lane < covered_end)
@@ -74,7 +78,7 @@ def _update_plain(L, d, rows_all, krows, pcdf, sorted_ids, covered_end, btable,
         "dps": {k: row(rows_all, L.R_DPS0 + i) for i, k in enumerate(DPS_KEYS)},
         "phase": row(rows_all, L.R_PHASE), "stretch": mval(R.MTAB_STRETCH),
     }
-    out = particle_update_channels(ch, dt, h)
+    out = particle_update_channels(ch, dt, h, elastic_model)
     new_rows = (
         out["pos"] + out["vel"] + [row(rows_all, L.PM)]
         + [out["affine"][(i, k)] for i in range(d) for k in range(d)]
@@ -91,20 +95,23 @@ def _update_plain(L, d, rows_all, krows, pcdf, sorted_ids, covered_end, btable,
 
 def update_plain(rows_all, krows, pcdf, sorted_ids, covered_end, btable,
                  mtable, dt: float, h: float, nc: int, n_mat: int,
-                 live_below: int):
+                 live_below: int, elastic_model: str = "corotated"):
     return _update_plain(R, 3, rows_all, krows, pcdf, sorted_ids, covered_end,
-                         btable, mtable, dt, h, nc, n_mat, live_below)
+                         btable, mtable, dt, h, nc, n_mat, live_below,
+                         elastic_model)
 
 
 def update2d_plain(rows_all, krows, pcdf, sorted_ids, covered_end, btable,
                    mtable, dt: float, h: float, nc: int, n_mat: int,
-                   live_below: int):
+                   live_below: int, elastic_model: str = "corotated"):
     return _update_plain(R2, 2, rows_all, krows, pcdf, sorted_ids, covered_end,
-                         btable, mtable, dt, h, nc, n_mat, live_below)
+                         btable, mtable, dt, h, nc, n_mat, live_below,
+                         elastic_model)
 
 
 def _launch(symbol, pchan, nkrows, rows_all, krows, pcdf, sorted_ids,
-            covered_end, btable, mtable, dt, h, nc, n_mat, live_below):
+            covered_end, btable, mtable, dt, h, nc, n_mat, live_below,
+            elastic_model):
     """Check the arguments of one dimension's entry and launch it."""
     npad = rows_all.shape[1]
     if (rows_all.shape[0] != pchan or krows.shape[0] != nkrows
@@ -121,24 +128,24 @@ def _launch(symbol, pchan, nkrows, rows_all, krows, pcdf, sorted_ids,
                          device=rows_all.device).reshape(1)
     R.check_kernel_args(rows_all, krows, pcdf, sorted_ids, ce, btable, mtable)
     out = torch.empty_like(rows_all)
-    f32 = lambda x: float(torch.tensor(x, dtype=torch.float32))  # noqa: E731
     _cuda.launch(
-        "update_rows", symbol, "pppppppiiiiiiffffffp",
+        "update_rows", symbol, "pppppppiiiiiiiffffffp",
         rows_all, krows, pcdf, sorted_ids, ce, btable, mtable,
         npad, krows.shape[1], pcdf.shape[1], nc, n_mat, live_below,
-        f32(dt), f32(h), f32(inv_d(h)), f32(h / dt), f32(-0.05 * h),
-        f32(-0.3 * h), out)
+        ELASTIC_MODELS.index(elastic_model),
+        R.f32(dt), R.f32(h), R.f32(inv_d(h)), R.f32(h / dt),
+        R.f32(-0.05 * h), R.f32(-0.3 * h), out)
     return out
 
 
 def update_rows(rows_all, krows, pcdf, sorted_ids, covered_end, btable,
                 mtable, dt: float, h: float, nc: int, n_mat: int,
-                live_below: int):
+                live_below: int, elastic_model: str = "corotated"):
     """Next-substep rows [PCHAN, NPAD] (see the module docstring).
     krows [16, >=NPAD] and pcdf [8, >=NPAD] are read on their first NPAD
     lanes; covered_end is a 0-d int tensor or an int."""
     args = (rows_all, krows, pcdf, sorted_ids, covered_end, btable, mtable,
-            dt, h, nc, n_mat, live_below)
+            dt, h, nc, n_mat, live_below, elastic_model)
     if rows_all.device.type == "cpu":
         return update_plain(*args)
     out = _launch("update_rows_cuda", R.PCHAN, 16, *args)
@@ -151,12 +158,12 @@ update_rows.launches = 0
 
 def update_rows2d(rows_all, krows, pcdf, sorted_ids, covered_end, btable,
                   mtable, dt: float, h: float, nc: int, n_mat: int,
-                  live_below: int):
+                  live_below: int, elastic_model: str = "corotated"):
     """The dim=2 branch: next-substep 2D rows [32, NPAD] from the rows, the
     2D G2P rows [8, >=NPAD] (velocity, moments), the 2D particle-CDF rows
     [8, >=NPAD] (aff low, sd, normal, aff high) and the 2D body table."""
     args = (rows_all, krows, pcdf, sorted_ids, covered_end, btable, mtable,
-            dt, h, nc, n_mat, live_below)
+            dt, h, nc, n_mat, live_below, elastic_model)
     if rows_all.device.type == "cpu":
         return update2d_plain(*args)
     out = _launch("update_rows2d_cuda", R2.PCHAN, 8, *args)

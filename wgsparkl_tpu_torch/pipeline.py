@@ -2,7 +2,7 @@
 wgsparkl_tpu/pipeline.py: MpmConfig, MpmData, RigidBodyDesc,
 build_rigid_world, StepDiag, step / step_pallas / step_with_diag, the
 bounded 3D branch of `_substep_pallas_rows` and the gathered all-static
-branch of `_substep_pallas_rows_2d`).
+and collider-free branches of `_substep_pallas_rows_2d`).
 
 One 3D substep, in order: block sort keys; stable sort and row permute
 (kernel D); job table (kernel E inside build_jobs); window gather of the
@@ -10,7 +10,10 @@ frame-static node-CDF channels; fused particle CDF + P2G (kernel A);
 scatter to the grid; grid velocity; window gather; G2P (kernel B); fused
 particle update (kernel C); rigid-body update.  A 2D substep has the same
 phases with the particle CDF (kernel G) and P2G (kernel H) apart, G2P
-kernel I and the dim=2 branch of kernel C.
+kernel I and the dim=2 branch of kernel C.  A scene with no collider (the
+world then holds one inert body slot) skips every CDF phase: P2G is kernel
+F in 3D and kernel H at nc = 0 in 2D, and the other kernels run with
+nc = 0, a zero gate level and zero particle-CDF rows.
 
 The CDF mode is the JAX package's "gathered hybrid": the never-moving
 colliders' node-CDF channel grid is built once per frame, and (3D only)
@@ -36,7 +39,9 @@ from wgsparkl_tpu_torch.ops import blocked as bk
 from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.ops import rows2d as R2
 from wgsparkl_tpu_torch.ops.g2p import g2p_rows
+from wgsparkl_tpu_torch.ops.p2g import p2g_tiles
 from wgsparkl_tpu_torch.ops.p2g_cdf import p2g_cdf_tiles
+from wgsparkl_tpu_torch.ops.particle_update import ELASTIC_MODELS
 from wgsparkl_tpu_torch.ops.permute import permute_lanes
 from wgsparkl_tpu_torch.ops.transfer2d import g2p_rows as g2p_rows2d
 from wgsparkl_tpu_torch.ops.transfer2d import p2g_tiles as p2g_tiles2d
@@ -69,6 +74,7 @@ class MpmConfig:
     by: int = 4
     n_materials: int = 1
     static_slots: Tuple[int, ...] = ()
+    elastic_model: str = "corotated"
 
     @property
     def num_colliders(self) -> int:
@@ -355,6 +361,16 @@ def _job_phase(rows_all, cfg: MpmConfig, n: int, diag: StepDiag):
                 src=bk.window_sources(jobs["block"], nb, by), nb_total=nb_total)
 
 
+def _collider_free_inputs(wpad: int, jobs, npad: int, dev):
+    """What the transfer and update kernels take in place of the CDF phase
+    when the scene has no collider (as the JAX package passes them): one
+    zero [1, wpad, 4] node tile that no kernel reads at nc = 0, gate level
+    0 for every job, and zero particle-CDF rows [8, NPAD]."""
+    return (torch.zeros((1, wpad, 4), dtype=torch.float32, device=dev),
+            torch.zeros_like(jobs["len"]),
+            torch.zeros((8, npad), dtype=torch.float32, device=dev))
+
+
 def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
              mtable, diag: StepDiag, record: Optional[dict] = None):
     """One 3D substep on the [PCHAN, NPAD] rows (lanes >= n are padding).
@@ -371,23 +387,29 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     ph = _job_phase(rows_all, cfg, n, diag)
     rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
     nb_total = ph["nb_total"]
-    pdata = rows_all[:R.NCHAN].clone()
-
-    # Particle CDF + P2G against the frame-static channels, moving
-    # colliders merged in-kernel where the reach gate says so.
     moving = tuple((i, t) for i, t in enumerate(cfg.collider_types)
                    if i not in cfg.static_slots)
     btable = _body_table(bodies, params, grid)
-    ntiles = bk.gather_tiles(static_chan, src, wpad, 4)
-    jbody = _jbody_gate(ntiles, wvol, cfg.static_slots)
-    if moving:
-        gate = _moving_reach_gate(bcells, bodies, moving, wsh, h)
-        jbody = torch.maximum(jbody, torch.where(gate, 2, 0).to(torch.int32))
-    mm, imp, pcdf = p2g_cdf_tiles(pdata, ntiles, btable, jobs, bcells, jbody,
-                                  h, by, group, npad, nc, moving)
-    pdata[R.AFF] = pcdf[0, :npad]
-    pdata[R.NX:R.NZ + 1] = pcdf[2:5, :npad]
-    pdata[R.AFF_SPARE] = pcdf[5, :npad]
+    if nc > 0:
+        # Particle CDF + P2G against the frame-static channels, moving
+        # colliders merged in-kernel where the reach gate says so.
+        pdata = rows_all[:R.NCHAN].clone()
+        ntiles = bk.gather_tiles(static_chan, src, wpad, 4)
+        jbody = _jbody_gate(ntiles, wvol, cfg.static_slots)
+        if moving:
+            gate = _moving_reach_gate(bcells, bodies, moving, wsh, h)
+            jbody = torch.maximum(jbody, torch.where(gate, 2, 0).to(torch.int32))
+        mm, imp, pcdf = p2g_cdf_tiles(pdata, ntiles, btable, jobs, bcells, jbody,
+                                      h, by, group, npad, nc, moving)
+        pdata[R.AFF] = pcdf[0, :npad]
+        pdata[R.NX:R.NZ + 1] = pcdf[2:5, :npad]
+        pdata[R.AFF_SPARE] = pcdf[5, :npad]
+    else:
+        # No collider: plain APIC P2G (kernel F), no particle CDF.
+        pdata = rows_all[:R.NCHAN]
+        ntiles, jbody, pcdf = _collider_free_inputs(wpad, jobs, npad, dev)
+        mm, imp = p2g_tiles(pdata, ntiles, btable, jobs, bcells, jbody, h, by,
+                            nc)
     grid_mm = torch.zeros((nb_total + 1, 16 * by, 4), dtype=torch.float32,
                           device=dev)
     bk.scatter_tiles(grid_mm, mm, src)
@@ -401,7 +423,7 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
                      group, npad, nc, moving)
     rows_out = update_rows(rows_all, krows, pcdf, ph["sorted_ids"],
                            ph["covered_end"], btable, mtable, params.dt, h, nc,
-                           max(cfg.n_materials, 1), nb_total)
+                           max(cfg.n_materials, 1), nb_total, cfg.elastic_model)
     if record is not None:
         record.update(ph, jbody=jbody, ntiles=ntiles, btable=btable,
                       moving=moving, pdata=pdata, mm=mm, imp=imp, pcdf=pcdf,
@@ -414,8 +436,9 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
 def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
                 mtable, diag: StepDiag, record: Optional[dict] = None):
     """One 2D substep on the [32, NPAD] rows, every collider frame-static
-    (the gathered branch of the JAX package's _substep_pallas_rows_2d).
-    record: as for _substep (the four 2D kernels' inputs and outputs)."""
+    or none (the gathered and the collider-free branches of the JAX
+    package's _substep_pallas_rows_2d).  record: as for _substep (the 2D
+    kernels' inputs and outputs)."""
     grid = cfg.grid
     group, nc = cfg.group, cfg.num_colliders
     h = grid.cell_width
@@ -426,15 +449,21 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
     nb_total = ph["nb_total"]
     btable = _body_table_2d(bodies, params, grid)
-    ntiles = bk.gather_tiles(static_chan, src, R2.WPAD, 4)
-    jbody = _jbody_gate(ntiles, R2.WVOL)
-    pcdf = pcdf_rows2d(rows_all, ntiles, jobs, bcells, jbody, h, group, npad, nc)
-    # Rows AFF..AFF_SPARE (aff low, normal xy, aff high) take the fresh
-    # particle CDF for P2G and G2P.
-    pdata = rows_all[:R2.NCHAN].clone()
-    pdata[R2.AFF] = pcdf[0, :npad]
-    pdata[R2.NX:R2.NY + 1] = pcdf[2:4, :npad]
-    pdata[R2.AFF_SPARE] = pcdf[4, :npad]
+    if nc > 0:
+        ntiles = bk.gather_tiles(static_chan, src, R2.WPAD, 4)
+        jbody = _jbody_gate(ntiles, R2.WVOL)
+        pcdf = pcdf_rows2d(rows_all, ntiles, jobs, bcells, jbody, h, group,
+                           npad, nc)
+        # Rows AFF..AFF_SPARE (aff low, normal xy, aff high) take the fresh
+        # particle CDF for P2G and G2P.
+        pdata = rows_all[:R2.NCHAN].clone()
+        pdata[R2.AFF] = pcdf[0, :npad]
+        pdata[R2.NX:R2.NY + 1] = pcdf[2:4, :npad]
+        pdata[R2.AFF_SPARE] = pcdf[4, :npad]
+    else:
+        # No collider: no particle CDF (kernel G), H and I at nc = 0.
+        pdata = rows_all[:R2.NCHAN]
+        ntiles, jbody, pcdf = _collider_free_inputs(R2.WPAD, jobs, npad, dev)
     mm, imp = p2g_tiles2d(pdata, ntiles, btable, jobs, bcells, jbody, h, nc)
     grid_mm = torch.zeros((nb_total + 1, 64, 3), dtype=torch.float32, device=dev)
     bk.scatter_tiles(grid_mm, mm, src)
@@ -449,7 +478,8 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
                        group, npad, nc)
     rows_out = update_rows2d(rows_all, krows, pcdf, ph["sorted_ids"],
                              ph["covered_end"], btable, mtable, params.dt, h, nc,
-                             max(cfg.n_materials, 1), nb_total)
+                             max(cfg.n_materials, 1), nb_total,
+                             cfg.elastic_model)
     if record is not None:
         record.update(ph, jbody=jbody, ntiles=ntiles, btable=btable,
                       pdata=pdata, mm=mm, imp=imp, pcdf=pcdf, ftiles=ftiles,
@@ -466,10 +496,7 @@ def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
     static colliders' channel grid is built once per frame.  record: see
     _substep (filled by the frame's last substep)."""
     dim = cfg.grid.dim
-    if cfg.num_colliders == 0:
-        raise _unported("the collider-free P2G kernel (p2g_tiles)",
-                        "queue 2, item 6" if dim == 3 else "queue 1, item 9")
-    if not cfg.static_slots:
+    if cfg.num_colliders and not cfg.static_slots:
         raise _unported("the per-substep dense node CDF (no static colliders)",
                         "queue 1, item 8")
     if dim == 2 and len(cfg.static_slots) != cfg.num_colliders:
@@ -480,8 +507,11 @@ def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
     npad = pallas_npad(n, cfg.group)
     rows = L.pack_rows_padded(state.particles, state.models, npad)
     nb_total = int(np.prod(bk.num_blocks(cfg.grid, cfg.by)))
-    static_chan = _cdf_chan_grid(*_node_cdf_static(state.bodies, cfg), nb_total,
-                                 int(np.prod(bk.block_shape(dim, cfg.by))))
+    static_chan = None
+    if cfg.num_colliders:
+        static_chan = _cdf_chan_grid(*_node_cdf_static(state.bodies, cfg),
+                                     nb_total,
+                                     int(np.prod(bk.block_shape(dim, cfg.by))))
     bodies = state.bodies
     diag = StepDiag.zeros(rows.device)
     for _ in range(num_substeps):
@@ -528,8 +558,8 @@ class MpmData:
             raise _unported("joints", "queue 1, item 8")
         if fold_vel:
             raise _unported("fold_vel (in-kernel grid update)", "queue 2, item 2")
-        if elastic_model != "corotated":
-            raise _unported(f"elastic_model={elastic_model!r}", "queue 1, item 8")
+        if elastic_model not in ELASTIC_MODELS:
+            raise ValueError(f"unknown elastic model {elastic_model!r}")
         for b in bodies:
             if b.collider.shape_type != shp.SHAPE_CUBOID:
                 raise _unported("non-cuboid and mesh colliders", "queue 1, item 8")
@@ -583,7 +613,8 @@ class MpmData:
         self.config = MpmConfig(
             grid=grid, collider_types=collider_types,
             group=group, max_jobs=max_jobs, by=by,
-            n_materials=n_mat, static_slots=static_slots)
+            n_materials=n_mat, static_slots=static_slots,
+            elastic_model=elastic_model)
         self.state = SimState(particles=particles, models=models, bodies=world)
 
     @property

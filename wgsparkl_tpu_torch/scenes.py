@@ -1,6 +1,7 @@
 """Scene constructors (port of wgsparkl_tpu/scenes.py: `sand_box_3d`,
 `elastic_blocks_2d`, `sand_column_2d`).  Each builds on `device`, the card
-unless the caller asks for another (None: cuda:0)."""
+unless the caller asks for another (None: cuda:0).  `spin_velocities`
+gives a lattice the rigid spin of the collider-free scenes."""
 
 from __future__ import annotations
 
@@ -19,6 +20,23 @@ def _lattice(counts, cell_width, origin, spacing_div=2):
             for c, o in zip(counts, origin)]
     mesh = np.meshgrid(*axes, indexing="ij")
     return np.stack([m.ravel() for m in mesh], axis=-1)
+
+
+def spin_velocities(pos, jitter: float = 0.0, seed: int = 0) -> np.ndarray:
+    """[N, d] f32 velocities of a rigid spin at 1 rad/s: omega = (0, -1, 0)
+    (the paddle's) about the lattice's vertical centre line in 3D, -1 about
+    its centre in 2D; plus numpy default_rng(seed) jitter uniform in
+    [-jitter, jitter] m/s.  pos: [N, d] array-like."""
+    pos = np.asarray(pos, np.float64)
+    r = pos - 0.5 * (pos.min(0) + pos.max(0))
+    v = np.zeros_like(pos)
+    if pos.shape[1] == 3:
+        v[:, 0], v[:, 2] = -r[:, 2], r[:, 0]
+    else:
+        v[:, 0], v[:, 1] = r[:, 1], -r[:, 0]
+    if jitter:
+        v += np.random.default_rng(seed).uniform(-jitter, jitter, size=pos.shape)
+    return v.astype(np.float32)
 
 
 def sand_box_3d(nxz: int = 45, ny: int = 100, cell_width: float = 1.0,
