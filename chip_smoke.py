@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed):
-  1. environment: the card's name and power limit; the CUDA kernels' ten
-     sources are built from wgsparkl_tpu_torch/csrc, one nvcc each, all
-     started together (set-up);
+  1. environment: the card's name and power limit; the CUDA kernels'
+     eleven sources are built from wgsparkl_tpu_torch/csrc, one nvcc each,
+     all started together (set-up);
   2. the 3D main path at full size (sand_box_3d with the paddle, 1,002,001
      particles, 4 x 8 x 4 blocks, 1024 particles per job): one warm frame of
      20 substeps, then timed frames; no job-table overflow in any frame,
@@ -25,8 +25,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      that the CPIC impulses carry load, of the collider-free scene (F) and
      of the 2D neo-Hookean scene (C-2D's neo-Hookean branch); C's 3D
      neo-Hookean branch on the 3D inputs; the in-kernel math probe and its
-     table; each with its stated tolerance, its time and its bound (CUDA
-     events);
+     table; the P2G ablation probe at the TPU probe's sizes (1,002,001
+     particles, 1300 live jobs of 1536): its four stages for both
+     node-side cores (scan, lists), each stage's time, each core's full
+     stage equal to its plain version bit for bit; each kernel with its
+     stated tolerance, its time and its bound (CUDA events);
   6. the kernel path against the plain path on small scenes (3D: 10
      substeps of the sand box, 5 of a lattice lowered onto the paddle, 10
      of the collider-free lattice and of the neo-Hookean sand box; 2D: 10
@@ -76,6 +79,7 @@ REPLACES = {
     "update_rows_neo_hookean": "wgsparkl_tpu/ops/update_rows.py:191",
     "update_rows2d_neo_hookean": "wgsparkl_tpu/ops/update_rows.py:191",
     "math_probe": "tools/probe_mosaic_math.py:44",
+    "p2g_ablation": "tools/ablate_kernels.py:106",
 }
 SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_rows",
           "update_rows2d_neo_hookean": "update_rows"}
@@ -278,8 +282,9 @@ def main() -> None:
     from wgsparkl_tpu_torch import _cuda, scenes
     from wgsparkl_tpu_torch.math import probe
     from wgsparkl_tpu_torch.ops import (
-        compact, g2p, p2g, p2g_cdf, permute, transfer2d, update_rows,
+        ablation, compact, g2p, p2g, p2g_cdf, permute, transfer2d, update_rows,
     )
+    from wgsparkl_tpu_torch.ops import rows as R
     from wgsparkl_tpu_torch.pipeline import step_pallas, step_with_diag
 
     dev = torch.device(DEVICE)
@@ -433,17 +438,19 @@ def main() -> None:
     # Costs, counted from these inputs: 4 bytes a float read or written once;
     # f32 operations per particle and stencil node from the kernel sources.
     # Tolerances: kernel A sums its impulses over nodes in another order
-    # than the plain version; its window tiles and the per-particle outputs
-    # of A and B follow the plain operation order; C differs from its plain
-    # version only through libm (expf, logf, sinf); D and E move integers
-    # and must be exact.
+    # than the plain version; its window tiles follow the plain version's
+    # lists order of sums bit for bit; the per-particle outputs of A and B
+    # follow the plain operation order; C differs from its plain version
+    # only through libm (expf, logf, sinf); D and E move integers and must
+    # be exact.
     check("p2g_cdf",
           lambda: p2g_cdf.p2g_cdf_tiles(*args_a),
           lambda: p2g_cdf.p2g_cdf_plain(*args_a),
           lambda k, p: [("mm tiles", k[0], p[0], 1e-5),
                         ("impulses", k[1], p[1], 1e-4),
                         ("particle cdf", k[2][:, :ce], p[2][:, :ce], 1e-5)],
-          lambda k, p: [("affinity rows", k[2][[0, 5]], p[2][[0, 5]])],
+          lambda k, p: [("affinity rows", k[2][[0, 5]], p[2][[0, 5]]),
+                        ("mm tiles", k[0], p[0])],
           lambda p: (None if float(p[1].abs().max()) > 1.0
                      else "the plain impulses are ~0: no contact load"),
           cost=(4 * (24 * ce + nj * wv * 4 + nj * wv * 8 + 8 * ce + njg * 8 * 128),
@@ -476,8 +483,7 @@ def main() -> None:
           lambda: compact.compact_flagged(vals_e, is_first, cap_e),
           lambda: compact.compact_plain(vals_e, is_first, cap_e),
           lambda k, p: [], lambda k, p: [("values", k[0], p[0]), ("ok", k[1], p[1])],
-          cost=(4 * npad + npad + 4 * 2 * n_first, 0),
-          library=lambda: vals_e[:, is_first])
+          cost=(4 * npad + npad + 4 * 2 * n_first, 0))
     del rec, args_a, args_b, args_c, data, state
     torch.cuda.empty_cache()
 
@@ -591,6 +597,33 @@ def main() -> None:
                          torch.ones_like(p[i], dtype=torch.float64), 2.0 ** -21)
                         for i, n in enumerate(probe.NAMES)],
           cost=(4 * 11 * px.numel(), 30 * px.numel()))
+
+    # ---- 5f. the P2G ablation probe (the H100 counterpart of the TPU's) ----
+    # Its full-size synthetic jobs; every stage of both cores, the lists
+    # core's full stage held against its plain version bit for bit.
+    inputs = ablation.probe_inputs(device=dev)
+    wt.reset_launch_counts()
+    try:
+        lines, _ = ablation.stage_table(inputs)
+    except RuntimeError as e:
+        fail(str(e))
+    launches["p2g_ablation"] = wt.launch_counts()["p2g_ablation"]
+    for line in lines:
+        print(f"p2g ablation: {line}", flush=True)
+    lens_a = inputs[2]
+    ce_a, nj_a = int(lens_a.sum()), int((lens_a > 0).sum())
+    maxj_a = lens_a.shape[0]
+    wv_a = R.window_geom(ablation.BY)[2]
+    check("p2g_ablation",
+          lambda: ablation.p2g_ablation(*inputs),
+          lambda: ablation.p2g_ablation_plain(*inputs),
+          lambda k, p: [], lambda k, p: [("full tiles", k, p)],
+          lambda p: (None if float(p[..., 3].sum()) > 0.0
+                     else "no mass reached the grid"),
+          cost=(4 * (16 * ce_a + 5 * maxj_a + maxj_a * wv_a * 8),
+                ce_a * (40 + 27 * 28) + nj_a * wv_a * 20))
+    del inputs
+    torch.cuda.empty_cache()
 
     # ---- 6. kernel path vs plain path on small scenes ----
     def agree(sk, sp, what):

@@ -4,7 +4,8 @@ box lowered onto the paddle (so kernel A's impulse path carries load), the
 2D path's four on a substep of each small 2D scene lowered into its floor
 (so kernel H's impulses carry load), kernel F on a substep of the spinning
 collider-free sand box and on the coupled inputs, kernel C's neo-Hookean
-branch in 3D and 2D, and the math probe.  Marked `cuda`: they skip where
+branch in 3D and 2D, the math probe and both cores of the P2G ablation
+probe.  Marked `cuda`: they skip where
 torch sees no CUDA device (run them on a GPU host with
 `python -m pytest --noconftest tests/test_torch_cuda_kernels.py`)."""
 
@@ -17,7 +18,7 @@ import torch
 from wgsparkl_tpu_torch import scenes
 from wgsparkl_tpu_torch.math import probe
 from wgsparkl_tpu_torch.ops import (
-    compact, g2p, p2g, p2g_cdf, permute, transfer2d, update_rows,
+    ablation, compact, g2p, p2g, p2g_cdf, permute, transfer2d, update_rows,
 )
 from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.pipeline import MpmData, step_pallas
@@ -53,7 +54,8 @@ def test_p2g_cdf_kernel_matches_plain(rec):
     k, p = p2g_cdf.p2g_cdf_tiles(*args), p2g_cdf.p2g_cdf_plain(*args)
     assert float(p[1].abs().max()) > 1.0
     assert torch.equal(k[2][[0, 5]], p[2][[0, 5]])
-    _close(k[0], p[0], 1e-5)
+    # The window tiles: every node's pairs in the lists order, bit for bit.
+    assert torch.equal(k[0], p[0])
     _close(k[1], p[1], 1e-4)
     _close(k[2], p[2], 1e-5)
     # Fixed summation order: a second launch gives the same bits.
@@ -81,6 +83,19 @@ def test_update_rows_kernel_matches_plain(rec):
         assert torch.equal(k[r], p[r])
     for r in range(k.shape[0]):
         _close(k[r], p[r], 1e-4)
+
+
+def test_permute_kernel_is_exact_on_ragged_lanes():
+    """Lane counts that are not a multiple of the kernel's 4-lane groups
+    take its scalar loop."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(0)
+    for npad in (1001, 4096):
+        rows = torch.randn((5, npad), generator=g).cuda()
+        perm = torch.randperm(npad, generator=g).to(torch.int32).cuda()
+        assert torch.equal(permute.permute_lanes(rows, perm),
+                           permute.permute_plain(rows, perm))
 
 
 def test_permute_and_compact_kernels_are_exact(rec):
@@ -242,3 +257,23 @@ def test_math_probe_kernel_within_4_ulps_of_plain():
     ratio = (k.double() / pl.double() - 1.0).abs()
     assert float(ratio.max()) <= 4 * 2.0 ** -23
     assert np.isfinite(k.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("group,n,nlive", [(1024, 40_000, 52), (2048, 20_000, 12)],
+                         ids=["one_chunk", "two_chunks"])
+def test_p2g_ablation_cores_match_plain(group, n, nlive):
+    """Both cores of the probe: the full stage equal to its plain version
+    bit for bit and the same bits twice, every stage finite; jobs of 1666
+    particles at group 2048 sort in two chunks of 1024."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    inputs = ablation.probe_inputs(n=n, group=group, maxj=nlive + 8, nlive=nlive,
+                                   device="cuda")
+    for core in ablation.CORES:
+        full = ablation.p2g_ablation(*inputs, core=core, group=group)
+        assert float(full[..., 3].sum()) > 0.0
+        assert torch.equal(full, ablation.p2g_ablation_plain(*inputs, core=core))
+        assert torch.equal(full, ablation.p2g_ablation(*inputs, core=core, group=group))
+        for stage in ablation.STAGES[:3]:
+            out = ablation.p2g_ablation(*inputs, stage=stage, core=core, group=group)
+            assert bool(torch.isfinite(out).all())

@@ -2,13 +2,19 @@
 plain versions, against the JAX package's Pallas kernels (interpret mode on
 the CPU) fed the same inputs: one substep of the coupled sand box at by=8,
 group=256, in three lattice placements that together reach CPIC gate
-levels 0, 1 and 2."""
+levels 0, 1 and 2, and the window nodes whose pairs come from all 27
+stencil offsets."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 import torch_port_helpers as H
+from wgsparkl_tpu.grid import GridConfig
+from wgsparkl_tpu.ops import pallas_cdf
+from wgsparkl_tpu_torch.ops import ablation
+from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.ops.g2p import g2p_rows
 from wgsparkl_tpu_torch.ops.p2g_cdf import p2g_cdf_tiles
 
@@ -61,6 +67,48 @@ def test_p2g_cdf_matches_jax(scene):
                                atol=5e-4)
     if scene == "on_paddle":
         assert np.abs(d["imp"]).max() > 1.0
+
+
+def test_p2g_cdf_node_with_all_27_offsets_matches_jax():
+    """Kernel A sums each node's pairs offset by offset (the lists order).
+    Two jobs of 1024 particles filling their 4 x 8 x 4 blocks at ~8 a cell
+    (the P2G ablation probe's construction, with small affine rows) at gate
+    level 0: most interior window nodes receive pairs from all 27 stencil
+    offsets; their tile rows agree with the JAX kernel under the tolerance of
+    test_p2g_cdf_matches_jax."""
+    pdata, starts, lens, bcells = ablation.probe_inputs(n=2048, maxj=2, nlive=2,
+                                                         device="cpu")
+    rng = np.random.default_rng(2)
+    pdata[7:16, :2048] = torch.as_tensor(
+        rng.normal(size=(9, 2048)).astype(np.float32) * 0.01)
+    by, group = ablation.BY, ablation.G
+    npad = pdata.shape[1] - group - 128
+    wsh, wvol, wpad = R.window_geom(by)
+    jobs = {"start": starts, "len": lens}
+    jbody = torch.zeros(2, dtype=torch.int32)
+    ntiles = torch.zeros((2, wpad, 4))
+    btable = torch.zeros((32, 128))
+    mm, _, _ = p2g_cdf_tiles(pdata, ntiles, btable, jobs, bcells, jbody, 1.0, by,
+                             group, npad, 1, ())
+    ref, _, _ = pallas_cdf.p2g_cdf_tiles(
+        jnp.asarray(pdata.numpy()), jnp.asarray(ntiles.numpy()),
+        jnp.asarray(btable.numpy()),
+        {"start": jnp.asarray(starts.numpy()), "len": jnp.asarray(lens.numpy())},
+        jnp.asarray(bcells.numpy()),
+        GridConfig(shape=(108, 112, 108), cell_width=1.0, origin_cell=(-2, -2, -2)),
+        group, npad, 1, jnp.asarray(jbody.numpy()), by=by)
+    ref = np.asarray(ref)
+    jid, lane = R.job_lanes(jobs)
+    _, nidx, valid = R.stencil([pdata[k, lane] for k in range(3)],
+                               bcells.to(torch.int64)[jid], R.f32(1.0), wsh)
+    reached = torch.zeros((2 * wvol, 27), dtype=torch.bool)
+    fi = jid[:, None] * wvol + nidx
+    reached[fi[valid], torch.arange(27).expand_as(nidx)[valid]] = True
+    full = torch.nonzero(reached.all(1)).flatten()
+    assert full.numel() > 20                       # of 48 interior nodes
+    j, n = full // wvol, full % wvol
+    assert float(mm[j, n, 3].min()) > 0.0
+    np.testing.assert_allclose(mm.numpy(), ref, rtol=0, atol=2e-6 * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("scene", sorted(H.SHIFTS))

@@ -27,9 +27,11 @@ _torch.set_float32_matmul_precision("highest")
 def kernel_wrappers():
     """{name: wrapper} of the hand-written kernels: the 3D path's five
     (A-E), the collider-free P2G (F), the 2D path's three (G-I), the dim=2
-    entry of kernel C and the in-kernel math probe."""
+    entry of kernel C, the in-kernel math probe and the P2G ablation
+    probe."""
     from wgsparkl_tpu_torch.math.probe import math_probe
     from wgsparkl_tpu_torch.ops import transfer2d
+    from wgsparkl_tpu_torch.ops.ablation import p2g_ablation
     from wgsparkl_tpu_torch.ops.compact import compact_flagged
     from wgsparkl_tpu_torch.ops.g2p import g2p_rows
     from wgsparkl_tpu_torch.ops.p2g import p2g_tiles
@@ -49,6 +51,7 @@ def kernel_wrappers():
         "g2p2d": transfer2d.g2p_rows,
         "update_rows2d": update_rows2d,
         "math_probe": math_probe,
+        "p2g_ablation": p2g_ablation,
     }
 
 

@@ -8,26 +8,35 @@
 // momentum and mass into the job's window tile, and at gate level 2 the
 // merge of the moving colliders into the window CDF and the ghost-velocity
 // impulses reduced per collider.
-// Bound on the H100: arithmetic and shared-memory reads.  Device traffic is
-// small (24 rows in, 6 rows and one 360 x 8 tile out per job: ~0.15 GB per
-// substep at 1M particles); each particle runs ~27 x (nc + 14)
-// multiply-adds for the CDF, and each window node tests every particle of
-// its job for stencil membership (360 x group tests per job).
-// Design: the window's node channels (360 nodes at by = 8) and the 13 P2G
-// accumulators per node live in shared memory (~32 KB).  Particles go in
-// chunks of NTHREADS: one thread per particle walks its own 27 stencil
-// nodes for the CDF (not the TPU's dense [window x group] weight matrix) and
-// leaves a 30-word record (axis weights, P2G features, velocity, normal,
-// base cell, affinity) in shared memory; then one thread per node adds the
-// chunk's records that reach it, in particle order.  So every sum has a
-// fixed order (the plain version's accumulation order) and the kernel is
-// deterministic: shared-memory atomics would sum in a different order on
-// every run, and the Drucker-Prager return map near its cone tip turns that
-// f32 roundoff into ~1e-4 of F.  Each job writes only its own lanes
-// [start, start + len): CUDA blocks run in no order, so the TPU kernel's
-// sequential-grid handoff of each job's padded tail does not carry over.
-// Impulses go to per-job partials summed in job order by a second launch,
-// so the result does not depend on block scheduling either.
+// Bound on the H100: instruction throughput and shared-memory reads.  Device
+// traffic is small (24 rows in, 6 rows and one 360 x 8 tile out per job:
+// ~0.15 GB per substep at 1M particles); each particle runs ~27 x (nc + 14)
+// multiply-adds for the CDF and forms 27 (node, particle) pairs of 13
+// multiply-adds each, every pair reading its particle's 16-word record.
+// Design: one thread per window node (LIST_THREADS = 384 >= 360 nodes), so a
+// node's CDF channels, body velocity and 13 P2G accumulators stay in that
+// thread's registers for the whole job.  Particles go in chunks of up to
+// LIST_CHUNK (the whole job at group <= 1024): each is bucketed by its
+// stencil base cell and placed by a stable counting sort (transfer.cuh,
+// the `lists` core; one sort per job, so each bucket holds ~8 particles
+// at by = 8 and the walk's bucket overhead is paid once); one thread per
+// particle leaves a 24-word record at its sorted position in dynamic shared
+// memory (the P2G record of transfer.cuh, which the P2G ablation probe
+// times, then its affinity word and index in the chunk) and computes its
+// CDF on the same stencil; then each node walks its 27 offsets and their
+// buckets (`list_walk`).  The parent design tested every particle of a 256-particle
+// chunk at every node (360 x 1024 tests per job, 7.5% hits) in two passes of
+// 256 threads, the second with 104 working.  Every sum keeps a fixed order
+// (offsets in stencil order, particles in particle order within each), which
+// the plain version follows (ops/p2g_cdf.py), so the kernel is
+// deterministic and equal to it bit for bit: shared-memory atomics would sum
+// in a different order on every run, and the Drucker-Prager return map near
+// its cone tip turns that f32 roundoff into ~1e-4 of F.  Two blocks fit an
+// SM (~112 KB of shared memory each at group 1024).  Each job writes only
+// its own lanes [start, start + len): CUDA blocks run in no order, so the TPU
+// kernel's sequential-grid handoff of each job's padded tail does not carry
+// over.  Impulses go to per-job partials summed in job order by a second
+// launch, so the result does not depend on block scheduling either.
 #include "transfer.cuh"
 
 __device__ void inv4_solve(const float a[4][4], const float b[4], float x[4],
@@ -69,28 +78,24 @@ __device__ void inv4_solve(const float a[4][4], const float b[4], float x[4],
 }
 
 // Particle record of a chunk, field-major in dynamic shared memory
-// ([PREC][NTHREADS]): axis weights wa[a][o] at 3a + o, the 13 P2G features,
-// velocity, normal, the base cell relative to the block (+8 per axis,
-// packed 8 bits each) and the affinity word, both as raw bits.
-#define R_W 0
-#define R_F 9
-#define R_V 22
-#define R_N 25
-#define R_BASE 28
-#define R_AFF 29
-#define PREC 30
+// ([PREC][chunk], indexed by position in bucket order): the P2G record
+// (transfer.cuh: axis weights, the 13 P2G features), then the affinity word
+// (raw bits) and the particle's index in the chunk (raw bits; the level-2
+// pairs read its velocity from pdata and its normal back from pcdf).
+#define R_AFF REC_P2G
+#define R_IDX (REC_P2G + 1)
+#define PREC (REC_P2G + 2)
 
-__global__ void __launch_bounds__(NTHREADS) p2g_cdf_kernel(
+__global__ void __launch_bounds__(LIST_THREADS, 2) p2g_cdf_kernel(
     const float* __restrict__ pdata, long long pstride,
     const float* __restrict__ ntiles, const float* __restrict__ bt,
     const int* __restrict__ jt, int maxj, int wsh1, int wsh2, int wvol, int wpad,
-    int nc, unsigned moving, float h, float inv_h, float cap,
-    float* __restrict__ mm, float* __restrict__ part, float* __restrict__ pcdf,
+    int nc, unsigned moving, float h, float inv_h, float cap, int chunk,
+    float* __restrict__ mm, float* __restrict__ part, float* pcdf,
     long long ostride) {
   __shared__ uint32_t s_naff[WV_MAX];
-  __shared__ float s_cl[WV_MAX], s_dist[WV_MAX];
-  __shared__ float s_bv[WV_MAX * 3], s_d[WV_MAX * 3];
-  __shared__ float s_acc[WV_MAX * 13];
+  __shared__ float s_cl[WV_MAX], s_dist[WV_MAX], s_d[WV_MAX * 3];
+  __shared__ ListScratch s_list;
   extern __shared__ float s_rec[];
   const int j = blockIdx.x, tid = threadIdx.x;
   const int start = jt[j], len = jt[maxj + j], lvl = jt[5 * maxj + j];
@@ -98,42 +103,66 @@ __global__ void __launch_bounds__(NTHREADS) p2g_cdf_kernel(
   float* tile = mm + (long long)j * wpad * 8;
   float* pj = part + (long long)j * 96;
   if (len == 0) {
-    for (int k = tid; k < wpad * 8; k += NTHREADS) tile[k] = 0.0f;
-    for (int k = tid; k < 96; k += NTHREADS) pj[k] = 0.0f;
+    for (int k = tid; k < wpad * 8; k += LIST_THREADS) tile[k] = 0.0f;
+    for (int k = tid; k < 96; k += LIST_THREADS) pj[k] = 0.0f;
     return;
   }
-  for (int n = tid; n < wvol; n += NTHREADS) {
-    for (int c = 0; c < 13; ++c) s_acc[n * 13 + c] = 0.0f;
-    for (int k = 0; k < 3; ++k) { s_d[n * 3 + k] = 0.0f; s_bv[n * 3 + k] = 0.0f; }
+  // Window node `tid`: its CDF channels and body velocity.
+  const bool is_node = tid < wvol;
+  uint32_t naff = 0u;
+  float cl = -1.0f, xn[3] = {0.0f, 0.0f, 0.0f}, bv[3] = {0.0f, 0.0f, 0.0f};
+  if (is_node) {
+    node_pos(tid, wsh1, wsh2, bc, h, xn);
     if (lvl >= 1) {
-      float xw[3];
-      node_pos(n, wsh1, wsh2, bc, h, xw);
-      window_node_cdf(ntiles + ((long long)j * wpad + n) * 4, bt, lvl, moving, xw,
-                      cap, &s_naff[n], &s_cl[n], &s_dist[n]);
-      if (lvl >= 2) node_body_velocity(s_cl[n], xw, bt, nc, &s_bv[n * 3]);
+      float dist;
+      window_node_cdf(ntiles + ((long long)j * wpad + tid) * 4, bt, lvl, moving, xn,
+                      cap, &naff, &cl, &dist);
+      s_naff[tid] = naff;
+      s_cl[tid] = cl;
+      s_dist[tid] = dist;
+      if (lvl >= 2) node_body_velocity(cl, xn, bt, nc, bv);
     }
   }
-  __syncthreads();
+  float acc[13], d[3] = {0.0f, 0.0f, 0.0f};
+  for (int f = 0; f < 13; ++f) acc[f] = 0.0f;
 
   const float offs[3] = {(float)bc[0] * h, (float)bc[1] * h, (float)bc[2] * h};
-  for (int c0 = 0; c0 < len; c0 += NTHREADS) {
-    const int i = c0 + tid;
-    if (i < len) {
-      const long long lane = (long long)start + i;
-      auto row = [&](int r) { return pdata[r * pstride + lane]; };
-      float p[3] = {row(PX), row(PX + 1), row(PX + 2)};
-      float v[3] = {row(VX), row(VX + 1), row(VX + 2)};
-      float mass = row(PM);
-      float A[3][3];
-      for (int a = 0; a < 3; ++a)
-        for (int k = 0; k < 3; ++k) A[a][k] = row(A0 + 3 * a + k);
+  for (int c0 = 0; c0 < len; c0 += chunk) {
+    const int cnt = min(chunk, len - c0);
+    const long long lane0 = (long long)start + c0;
+    for (int i = tid; i < cnt; i += LIST_THREADS) {
+      const float p[3] = {pdata[PX * pstride + lane0 + i],
+                          pdata[(PX + 1) * pstride + lane0 + i],
+                          pdata[(PX + 2) * pstride + lane0 + i]};
+      int bl[3];
+      stencil_base(p, bc, inv_h, bl);
+      s_list.key[i] = (unsigned short)list_bucket(bl, wsh1, wsh2, wvol);
+    }
+    __syncthreads();
+    if (tid < 32) list_sort_warp(&s_list, cnt, wvol);
+    __syncthreads();
+
+    for (int i = tid; i < cnt; i += LIST_THREADS) {
+      const long long lane = lane0 + i;
+      // The particle's record for the node-side P2G, at its sorted
+      // position; its stencil serves the CDF.
+      float r16[16];
+      load_rows(pdata, pstride, lane, r16);
+      float* rec = s_rec + s_list.pos[i];
       Stencil st;
-      stencil(p, bc, inv_h, wsh1, wsh2, &st);
+      {
+        float wa[3][3];
+        int bl[3];
+        p2g_record(r16, bc, inv_h, rec, chunk, wa, bl);
+        stencil_from_axes(wa, bl, wsh1, wsh2, &st);
+      }
+      const float p[3] = {r16[PX], r16[PX + 1], r16[PX + 2]};
 
       uint32_t aff = 0;
       float sd = 0.0f, nrm[3] = {0.0f, 0.0f, 0.0f};
       if (lvl >= 1) {
-        uint32_t prev = aff_word(row(AFF), row(AFF_SPARE));
+        uint32_t prev = aff_word(pdata[AFF * pstride + lane],
+                                 pdata[AFF_SPARE * pstride + lane]);
         uint32_t p_bits = 0, sign_word = 0;
         for (int c = 0; c < nc; ++c) {
           bool present = false;
@@ -200,100 +229,66 @@ __global__ void __launch_bounds__(NTHREADS) p2g_cdf_kernel(
       for (int k = 0; k < 3; ++k) pcdf[(2 + k) * ostride + lane] = nrm[k];
       pcdf[5 * ostride + lane] = (float)((aff >> 16) & 0xFFFFu);
 
-      // The particle's record for the node-side P2G.
-      float feat[13];
-      for (int k = 0; k < 3; ++k) {
-        float ap = A[k][0] * p[0] + A[k][1] * p[1] + A[k][2] * p[2];
-        feat[k] = mass * v[k] - ap;
-      }
-      feat[3] = mass;
-      for (int k = 0; k < 3; ++k)
-        for (int a = 0; a < 3; ++a) feat[4 + 3 * k + a] = A[a][k];
-      float wa[3][3];
-      int bl[3];
-      stencil_axes(p, bc, inv_h, wa, bl);
-      float* r = s_rec + tid;
-      for (int k = 0; k < 9; ++k) r[(R_W + k) * NTHREADS] = wa[k / 3][k % 3];
-      for (int f = 0; f < 13; ++f) r[(R_F + f) * NTHREADS] = feat[f];
-      for (int k = 0; k < 3; ++k) {
-        r[(R_V + k) * NTHREADS] = v[k];
-        r[(R_N + k) * NTHREADS] = nrm[k];
-      }
-      r[R_BASE * NTHREADS] =
-          __int_as_float(((bl[0] + 8) << 16) | ((bl[1] + 8) << 8) | (bl[2] + 8));
-      r[R_AFF * NTHREADS] = __uint_as_float(aff);
+      rec[R_AFF * chunk] = __uint_as_float(aff);
+      rec[R_IDX * chunk] = __int_as_float(i);
     }
     __syncthreads();
 
-    // Compatibility-masked APIC P2G (+ level-2 impulse pairs): each node
-    // adds the chunk's particles that reach it, in particle order.
-    const int cnt = min(NTHREADS, len - c0);
-    for (int n = tid; n < wvol; n += NTHREADS) {
-      const int nx = n / (wsh1 * wsh2), ny = (n / wsh2) % wsh1, nz = n % wsh2;
-      const uint32_t naff = s_naff[n];
-      const float cl = s_cl[n];
-      float acc[13], d[3];
-      for (int f = 0; f < 13; ++f) acc[f] = s_acc[n * 13 + f];
-      for (int k = 0; k < 3; ++k) d[k] = s_d[n * 3 + k];
-      for (int q = 0; q < cnt; ++q) {
-        const float* r = s_rec + q;
-        const int pb = __float_as_int(r[R_BASE * NTHREADS]);
-        const unsigned dx = (unsigned)(nx - ((pb >> 16) - 8));
-        const unsigned dy = (unsigned)(ny - (((pb >> 8) & 255) - 8));
-        const unsigned dz = (unsigned)(nz - ((pb & 255) - 8));
-        if (dx > 2u || dy > 2u || dz > 2u) continue;
-        const float w = (r[(R_W + dx) * NTHREADS] * r[(R_W + 3 + dy) * NTHREADS])
-                        * r[(R_W + 6 + dz) * NTHREADS];
-        const uint32_t paff = __float_as_uint(r[R_AFF * NTHREADS]);
+    // Compatibility-masked APIC P2G (+ level-2 impulse pairs): node `tid`
+    // walks its lists.  The level-2 branch reads the particle's velocity
+    // from pdata and its normal from the pcdf rows written above (visible
+    // to the block after the barrier).
+    if (is_node) {
+      list_walk(tid, wsh1, wsh2, s_list.start, s_rec + REC_W * chunk, chunk,
+                [&](int k, float w) {
+        const uint32_t paff = __float_as_uint(s_rec[R_AFF * chunk + k]);
         if (lvl == 0 || compat(naff, paff)) {
-          for (int f = 0; f < 13; ++f) acc[f] = acc[f] + w * r[(R_F + f) * NTHREADS];
+          for (int f = 0; f < 13; ++f) acc[f] = acc[f] + w * s_rec[(REC_F + f) * chunk + k];
         } else if (lvl >= 2 && cl >= 0.0f) {
+          const long long q = lane0 + __float_as_int(s_rec[R_IDX * chunk + k]);
           float vq[3], nq[3], g[3];
-          for (int k = 0; k < 3; ++k) {
-            vq[k] = r[(R_V + k) * NTHREADS];
-            nq[k] = r[(R_N + k) * NTHREADS];
+          for (int a = 0; a < 3; ++a) {
+            vq[a] = pdata[(VX + a) * pstride + q];
+            nq[a] = pcdf[(2 + a) * ostride + q];
           }
-          const float wi = w * r[(R_F + 3) * NTHREADS];
-          ghost_velocity(vq, &s_bv[n * 3], nq, g);
-          for (int k = 0; k < 3; ++k) d[k] = d[k] + wi * (vq[k] - g[k]);
+          const float wi = w * s_rec[(REC_F + 3) * chunk + k];
+          ghost_velocity(vq, bv, nq, g);
+          for (int a = 0; a < 3; ++a) d[a] = d[a] + wi * (vq[a] - g[a]);
         }
-      }
-      for (int f = 0; f < 13; ++f) s_acc[n * 13 + f] = acc[f];
-      for (int k = 0; k < 3; ++k) s_d[n * 3 + k] = d[k];
+      });
     }
     __syncthreads();
   }
 
-  for (int k = tid; k < wpad * 8; k += NTHREADS) {
-    int n = k / 8, c = k % 8;
-    float val = 0.0f;
-    if (n < wvol && c < 4) {
-      const float* ac = &s_acc[n * 13];
-      if (c == 3) {
-        val = ac[3];
-      } else {
-        float xw[3];
-        node_pos(n, wsh1, wsh2, bc, h, xw);
-        val = ac[c] + xw[0] * ac[4 + c] + xw[1] * ac[7 + c] + xw[2] * ac[10 + c];
-      }
+  // Tile row `tid`: momentum recombined with the node position, mass.
+  if (tid < wpad) {
+    float row[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (is_node) {
+      for (int c = 0; c < 3; ++c)
+        row[c] = acc[c] + xn[0] * acc[4 + c] + xn[1] * acc[7 + c] + xn[2] * acc[10 + c];
+      row[3] = acc[3];
+      for (int k = 0; k < 3; ++k) s_d[tid * 3 + k] = d[k];
     }
-    tile[k] = val;
+    float4* out = reinterpret_cast<float4*>(tile + tid * 8);
+    out[0] = make_float4(row[0], row[1], row[2], row[3]);
+    out[1] = make_float4(row[4], row[5], row[6], row[7]);
   }
+  __syncthreads();
   if (tid < 16) {
     const int b = tid;
     float db[3] = {0.0f, 0.0f, 0.0f}, cb[3] = {0.0f, 0.0f, 0.0f};
     if (lvl >= 2 && b < nc) {
       for (int n = 0; n < wvol; ++n) {
         if (s_cl[n] != (float)b) continue;
-        const float* d = &s_d[n * 3];
+        const float* dn = &s_d[n * 3];
         float x[3];
         node_pos(n, wsh1, wsh2, bc, h, x);
-        db[0] = db[0] + d[0];
-        db[1] = db[1] + d[1];
-        db[2] = db[2] + d[2];
-        cb[0] = cb[0] + (d[1] * x[2] - d[2] * x[1]);
-        cb[1] = cb[1] + (d[2] * x[0] - d[0] * x[2]);
-        cb[2] = cb[2] + (d[0] * x[1] - d[1] * x[0]);
+        db[0] = db[0] + dn[0];
+        db[1] = db[1] + dn[1];
+        db[2] = db[2] + dn[2];
+        cb[0] = cb[0] + (dn[1] * x[2] - dn[2] * x[1]);
+        cb[1] = cb[1] + (dn[2] * x[0] - dn[0] * x[2]);
+        cb[2] = cb[2] + (dn[0] * x[1] - dn[1] * x[0]);
       }
     }
     float com[3] = {0.0f, 0.0f, 0.0f};
@@ -307,23 +302,33 @@ __global__ void __launch_bounds__(NTHREADS) p2g_cdf_kernel(
   }
 }
 
+// chunk: particles per list sort, min(group, LIST_CHUNK); a job of len <=
+// group then sorts in chunks of LIST_CHUNK, the plain version's order.
 extern "C" int p2g_cdf_cuda(const float* pdata, long long pstride,
                             const float* ntiles, const float* bt, const int* jt,
                             long long maxj, long long by, long long nc,
                             long long moving, float h, float inv_h, float cap,
-                            float* mm, float* part, float* imp, float* pcdf,
-                            long long ostride, cudaStream_t stream) {
+                            long long chunk, float* mm, float* part, float* imp,
+                            float* pcdf, long long ostride, cudaStream_t stream) {
   int wsh1 = (int)by + 2, wsh2 = 6;
   int wvol = 6 * wsh1 * wsh2, wpad = (wvol + 7) / 8 * 8;
-  const int shm = PREC * NTHREADS * (int)sizeof(float);
+  if (chunk < 1 || chunk > LIST_CHUNK || wpad > LIST_THREADS)
+    return (int)cudaErrorInvalidValue;
+  const int shm = PREC * (int)chunk * (int)sizeof(float);
   if (maxj > 0) {
-    // Static (~32 KB) plus dynamic shared memory passes the 48 KB default.
+    // Static (~14 KB) plus dynamic (96 KB at chunk 1024) shared memory
+    // passes the 48 KB default; two blocks an SM need the largest carveout.
     cudaError_t e = cudaFuncSetAttribute(
         p2g_cdf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shm);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(p2g_cdf_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
-    p2g_cdf_kernel<<<(unsigned)maxj, NTHREADS, shm, stream>>>(
+    p2g_cdf_kernel<<<(unsigned)maxj, LIST_THREADS, shm, stream>>>(
         pdata, pstride, ntiles, bt, jt, (int)maxj, wsh1, wsh2, wvol, wpad,
-        (int)nc, (unsigned)moving, h, inv_h, cap, mm, part, pcdf, ostride);
+        (int)nc, (unsigned)moving, h, inv_h, cap, (int)chunk, mm, part, pcdf,
+        ostride);
     impulse_sum_kernel<<<1, 96, 0, stream>>>(part, (int)maxj, imp);
   }
   return (int)cudaGetLastError();

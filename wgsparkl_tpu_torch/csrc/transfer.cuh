@@ -1,5 +1,5 @@
 // Device helpers shared by the 3D transfer kernels (p2g_cdf.cu, p2g.cu,
-// g2p.cu).
+// g2p.cu) and the P2G ablation probe (p2g_ablation.cu).
 // Each follows its plain PyTorch counterpart in wgsparkl_tpu_torch/ops/rows.py
 // and collision/cdf_channel.py operation by operation.
 #pragma once
@@ -159,12 +159,10 @@ __device__ void stencil_axes(const float p[3], const int bc[3], float inv_h,
   }
 }
 
-__device__ void stencil(const float p[3], const int bc[3], float inv_h,
-                        int wsh1, int wsh2, Stencil* s) {
+// The stencil of the axis weights and base cell that stencil_axes gives.
+__device__ void stencil_from_axes(const float wa[3][3], const int bl[3], int wsh1,
+                                  int wsh2, Stencil* s) {
   const int wsh[3] = {6, wsh1, wsh2};
-  float wa[3][3];
-  int bl[3];
-  stencil_axes(p, bc, inv_h, wa, bl);
   int o = 0;
   s->valid = 0u;
   for (int ox = 0; ox < 3; ++ox)
@@ -178,6 +176,166 @@ __device__ void stencil(const float p[3], const int bc[3], float inv_h,
         if (ok) s->valid |= 1u << o;
       }
     }
+}
+
+__device__ void stencil(const float p[3], const int bc[3], float inv_h,
+                        int wsh1, int wsh2, Stencil* s) {
+  float wa[3][3];
+  int bl[3];
+  stencil_axes(p, bc, inv_h, wa, bl);
+  stencil_from_axes(wa, bl, wsh1, wsh2, s);
+}
+
+// ---- The `lists` P2G core: per-node particle lists (kernel A, the probe) ----
+//
+// A chunk of up to LIST_CHUNK particles of a job is bucketed by its stencil
+// base cell relative to the block, bl + 1 per axis: that is the window's own
+// index space (bl runs over [-1, bsh], the window over [0, bsh + 2)), so
+// bucket b is the window index of bl + 1.  The block sort keeps bl there
+// (its round(p / h) and the stencil's floor(p * (1/h) + 1/2) differ by at
+// most one cell); bucket wvol, which no node walks, bounds the index of a
+// particle that lies outside.  A stable
+// counting sort gives every particle its position in bucket order; each
+// window node then walks its 27 stencil offsets in stencil order (oz
+// fastest) and, within each, the particles of bucket node - offset + 1 in
+// particle order: ~27 x 8 pairs per node at 8 particles a cell instead of a
+// membership test against every particle of the chunk.
+#define LIST_CHUNK 1024
+#define LIST_THREADS 384    // one thread per window node (wvol <= 360)
+
+struct ListScratch {
+  unsigned short key[LIST_CHUNK];    // bucket of particle i of the chunk
+  unsigned short pos[LIST_CHUNK];    // its position in bucket order
+  int start[WV_MAX + 2];             // bucket b holds positions [start[b], start[b + 1])
+};
+
+// The P2G record of a particle, field-major with stride rs in a chunk's
+// shared memory: axis weights wa[a][o] at REC_W + 3a + o, and at REC_F the
+// 13 features m v - A x_p (3), m, and A[a][k] at 4 + 3k + a.  A kernel's own
+// fields follow from REC_P2G.
+#define REC_W 0
+#define REC_F 9
+#define REC_P2G 22
+
+// The 16 P2G rows of one lane: position, velocity, mass, affine rows.
+__device__ __forceinline__ void load_rows(const float* __restrict__ pdata,
+                                          long long pstride, long long lane,
+                                          float r16[16]) {
+  for (int f = 0; f < 16; ++f) r16[f] = pdata[f * pstride + lane];
+}
+
+// Writes the record of the particle with rows r16 at r and gives its axis
+// weights and base cell (stencil_axes) to the caller.
+__device__ __forceinline__ void p2g_record(const float r16[16], const int bc[3],
+                                           float inv_h, float* r, int rs,
+                                           float wa[3][3], int bl[3]) {
+  const float p[3] = {r16[PX], r16[PX + 1], r16[PX + 2]};
+  stencil_axes(p, bc, inv_h, wa, bl);
+  for (int k = 0; k < 9; ++k) r[(REC_W + k) * rs] = wa[k / 3][k % 3];
+  const float mass = r16[PM];
+  for (int k = 0; k < 3; ++k) {
+    const float* A = r16 + A0 + 3 * k;
+    const float ap = A[0] * p[0] + A[1] * p[1] + A[2] * p[2];
+    r[(REC_F + k) * rs] = mass * r16[VX + k] - ap;
+  }
+  r[(REC_F + 3) * rs] = mass;
+  for (int k = 0; k < 3; ++k)
+    for (int a = 0; a < 3; ++a) r[(REC_F + 4 + 3 * k + a) * rs] = r16[A0 + 3 * a + k];
+}
+
+// Stencil base cell of p relative to the block origin bc (as stencil_axes).
+__device__ __forceinline__ void stencil_base(const float p[3], const int bc[3],
+                                             float inv_h, int bl[3]) {
+  for (int a = 0; a < 3; ++a) bl[a] = (int)floorf(p[a] * inv_h + 0.5f) - 1 - bc[a];
+}
+
+__device__ __forceinline__ int list_bucket(const int bl[3], int wsh1, int wsh2,
+                                           int wvol) {
+  const unsigned x = bl[0] + 1, y = bl[1] + 1, z = bl[2] + 1;
+  return (x < 6u && y < (unsigned)wsh1 && z < (unsigned)wsh2)
+             ? ((int)x * wsh1 + (int)y) * wsh2 + (int)z
+             : wvol;
+}
+
+// Stable counting sort of the chunk's cnt keys (s->key, set and published by
+// the caller) into s->pos and s->start; run by warp 0 alone, the caller
+// synchronises the block before and after.  The fill position of a particle
+// is its bucket's start plus the number of earlier particles in its bucket,
+// counted by one pass over 32-particle segments in particle order (a match
+// within the warp, a running count per bucket), so each bucket keeps
+// particle order and no atomic decides an order.
+__device__ void list_sort_warp(ListScratch* s, int cnt, int wvol) {
+  const int lane = threadIdx.x & 31;
+  const int nb = wvol + 1;                 // buckets, the discard bucket included
+  for (int b = lane; b <= nb; b += 32) s->start[b] = 0;
+  __syncwarp();
+  for (int s0 = 0; s0 < cnt; s0 += 32) {
+    const int i = s0 + lane;
+    const bool ok = i < cnt;
+    const int k = ok ? (int)s->key[i] : -1 - lane;
+    const unsigned m = __match_any_sync(0xFFFFFFFFu, k);
+    const int r = __popc(m & ((1u << lane) - 1u));
+    const int c = ok ? s->start[k + 1] : 0;
+    __syncwarp();
+    if (ok) {
+      s->pos[i] = (unsigned short)(c + r);
+      if (r == 0) s->start[k + 1] = c + __popc(m);
+    }
+    __syncwarp();
+  }
+  // start[1..nb] hold the counts: an inclusive scan makes start[b] the
+  // first position of bucket b.  Lane l sums a run of `per` buckets.
+  const int per = (nb + 31) / 32;
+  const int b0 = 1 + lane * per;
+  int run = 0;
+  for (int b = b0; b < b0 + per && b <= nb; ++b) run += s->start[b];
+  int incl = run;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d) incl += t;
+  }
+  int acc = incl - run;
+  for (int b = b0; b < b0 + per && b <= nb; ++b) {
+    acc += s->start[b];
+    s->start[b] = acc;
+  }
+  __syncwarp();
+  for (int i = lane; i < cnt; i += 32) s->pos[i] += (unsigned short)s->start[s->key[i]];
+}
+
+// Walks the pairs of window node n in the lists order: offsets (ox, oy, oz)
+// in stencil order, within each the particles of its bucket in particle
+// order.  wa: the records' axis weights wa[a][o] at field 3a + o, field
+// stride rs, indexed by position in bucket order.  pair(k, w) gets the
+// particle's position k and the pair's weight, rounded as stencil() rounds
+// it: (wa[0][ox] * wa[1][oy]) * wa[2][oz].
+template <typename Pair>
+__device__ __forceinline__ void list_walk(int n, int wsh1, int wsh2, const int* start,
+                                          const float* wa, int rs, Pair&& pair) {
+  const int nx = n / (wsh1 * wsh2), ny = (n / wsh2) % wsh1, nz = n % wsh2;
+  // Not unrolled: the pair's body is inlined once.
+#pragma unroll 1
+  for (int ox = 0; ox < 3; ++ox) {
+    const unsigned bx = (unsigned)(nx + 1 - ox);
+    if (bx >= 6u) continue;
+#pragma unroll 1
+    for (int oy = 0; oy < 3; ++oy) {
+      const unsigned by_ = (unsigned)(ny + 1 - oy);
+      if (by_ >= (unsigned)wsh1) continue;
+#pragma unroll 1
+      for (int oz = 0; oz < 3; ++oz) {
+        const unsigned bz = (unsigned)(nz + 1 - oz);
+        if (bz >= (unsigned)wsh2) continue;
+        const int b = ((int)bx * wsh1 + (int)by_) * wsh2 + (int)bz;
+        const int e = start[b + 1];
+        for (int k = start[b]; k < e; ++k) {
+          const float w =
+              (wa[ox * rs + k] * wa[(3 + oy) * rs + k]) * wa[(6 + oz) * rs + k];
+          pair(k, w);
+        }
+      }
+    }
+  }
 }
 
 // The P2G kernels' second launch, one block of 96 threads: imp[0, r, b] =

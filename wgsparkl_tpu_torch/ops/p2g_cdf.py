@@ -9,7 +9,10 @@ over its 3^3 stencil inside the job's window:
     per-collider sign votes with temporal persistence from the previous
     affinity word, and the MLS signed distance + normal from a 4x4 solve;
   * the CPIC-masked APIC P2G of momentum and mass into the job's window
-    tile [wpad, 8] (cols 0-2 momentum, 3 mass);
+    tile [wpad, 8] (cols 0-2 momentum, 3 mass), each node's pairs summed
+    in the lists order of csrc/transfer.cuh (rows.lists_order): offsets in
+    stencil order, each offset's particles in particle order, per chunk of
+    up to 1024 particles of a job;
   * at gate level 2 the impulses of incompatible (node, particle) pairs
     against the node's closest body, reduced per job and collider.
 
@@ -127,6 +130,33 @@ def particle_cdf(pd, prev_aff, naff, ndist, w, xl, pl_, nc: int):
     return (torch.where(ok, p_aff, 0), torch.where(ok, x[3], 0.0), normal)
 
 
+def p2g_features(pd):
+    """Kernel A's 13 P2G features of each particle (rows pd [>=16, P]):
+    m v - A x_p, m, and A[a][k] at 4 + 3k + a."""
+    mass = pd[R.PM]
+    A = [[pd[R.A0 + 3 * i + k] for k in range(3)] for i in range(3)]
+    feats = []
+    for i in range(3):
+        ap = A[i][0] * pd[R.PX] + A[i][1] * pd[R.PY] + A[i][2] * pd[R.PZ]
+        feats.append(mass * pd[R.VX + i] - ap)
+    feats.append(mass)
+    return feats + [A[i][k] for k in range(3) for i in range(3)]
+
+
+def window_tile(acc, xw, wpad: int):
+    """[J, wpad, 8] tiles from the node sums acc [J, wvol, 13] of
+    p2g_features: cols 0-2 momentum (recombined with the node positions xw
+    [J, wvol, 3]), 3 mass, 4-7 zero."""
+    maxj, wvol, _ = acc.shape
+    mm = torch.zeros((maxj, wpad, 8), dtype=torch.float32, device=acc.device)
+    for i in range(3):
+        mm[:, :wvol, i] = (acc[..., i] + xw[..., 0] * acc[..., 4 + i]
+                           + xw[..., 1] * acc[..., 7 + i]
+                           + xw[..., 2] * acc[..., 10 + i])
+    mm[:, :wvol, 3] = acc[..., 3]
+    return mm
+
+
 def p2g_cdf_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width,
                   by, group, npad, nc, moving):
     dev = pdata.device
@@ -161,24 +191,13 @@ def p2g_cdf_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width,
     comp = R.compat(naff, aff[:, None])
     wc = torch.where(gated[:, None] & ~comp, 0.0, w)
     mass = pd[R.PM]
-    A = [[pd[R.A0 + 3 * i + k] for k in range(3)] for i in range(3)]
-    feats = []
-    for i in range(3):
-        ap = A[i][0] * pd[R.PX] + A[i][1] * pd[R.PY] + A[i][2] * pd[R.PZ]
-        feats.append(mass * pd[R.VX + i] - ap)
-    feats.append(mass)
-    feats += [A[i][k] for k in range(3) for i in range(3)]
-    contrib = wc[:, :, None] * torch.stack(feats, 1)[:, None, :]
-    # Each node's pairs are added in particle order, as the kernel does.
+    contrib = wc[:, :, None] * torch.stack(p2g_features(pd), 1)[:, None, :]
+    # Each node's pairs are added in the kernel's lists order.
+    order = R.lists_order(jid, jobs["len"])
+    fi_o = fi.reshape(-1)[order]
     acc = torch.zeros((maxj * wvol, 13), dtype=torch.float32, device=dev)
-    add_rows(acc, fi.reshape(-1), contrib.reshape(-1, 13))
-    acc = acc.reshape(maxj, wvol, 13)
-    mm = torch.zeros((maxj, wpad, 8), dtype=torch.float32, device=dev)
-    for i in range(3):
-        mm[:, :wvol, i] = (acc[..., i] + xw[..., 0] * acc[..., 4 + i]
-                           + xw[..., 1] * acc[..., 7 + i]
-                           + xw[..., 2] * acc[..., 10 + i])
-    mm[:, :wvol, 3] = acc[..., 3]
+    add_rows(acc, fi_o, contrib.reshape(-1, 13)[order])
+    mm = window_tile(acc.reshape(maxj, wvol, 13), xw, wpad)
 
     # Level-2 impulses against each incompatible node's closest body.
     imp = torch.zeros((1, 8, 128), dtype=torch.float32, device=dev)
@@ -191,7 +210,7 @@ def p2g_cdf_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width,
         w_i = torch.where(comp | (closest < 0) | ~lv2, 0.0, w) * mass[:, None]
         d = torch.stack([w_i * (vp[k] - ghost[k]) for k in range(3)], -1)
         dsum = torch.zeros((maxj * wvol, 3), dtype=torch.float32, device=dev)
-        add_rows(dsum, fi.reshape(-1), d.reshape(-1, 3))
+        add_rows(dsum, fi_o, d.reshape(-1, 3)[order])
         dsum = dsum.reshape(maxj, wvol, 3)
         x = xw
         cr = torch.stack([
@@ -259,10 +278,11 @@ def p2g_cdf_tiles(pdata, ntiles, btable, jobs, bcells, jbody, cell_width: float,
     part = torch.empty((maxj, 6, 16), dtype=torch.float32, device=dev)
     imp = torch.zeros((1, 8, 128), dtype=torch.float32, device=dev)
     pcdf = torch.zeros((8, npad + group + 128), dtype=torch.float32, device=dev)
-    _cuda.launch("p2g_cdf", "p2g_cdf_cuda", "pipppiiiifffppppi",
+    _cuda.launch("p2g_cdf", "p2g_cdf_cuda", "pipppiiiifffippppi",
                  pdata, pdata.shape[1], ntiles, btable, jt, maxj, by, nc,
                  moving_mask(moving), R.f32(cell_width), R.f32(1.0 / cell_width),
-                 R.f32(1.5 * cell_width), mm, part, imp, pcdf, pcdf.shape[1])
+                 R.f32(1.5 * cell_width), min(group, R.LIST_CHUNK), mm, part, imp,
+                 pcdf, pcdf.shape[1])
     p2g_cdf_tiles.launches += 1
     return mm, imp, pcdf
 

@@ -2,7 +2,8 @@
 `permute_lanes`; kernel D, csrc/permute.cu).
 
 The TPU version moves rows[:, perm] as a banded one-hot matmul with shift
-classes and exception levels; on Hopper it is a column gather."""
+classes and exception levels; on Hopper it is a column gather that reads
+perm once, 16 bytes at a time, and stores 16 bytes per channel."""
 
 from __future__ import annotations
 
@@ -24,8 +25,9 @@ def permute_lanes(rows, perm):
         raise TypeError("permute_lanes takes f32 rows and an int32 perm")
     check_kernel_args(rows, perm)
     c, npad = rows.shape
-    if perm.shape != (npad,):
-        raise ValueError(f"perm shape {tuple(perm.shape)} != ({npad},)")
+    if perm.shape != (npad,) or perm.data_ptr() % 16:
+        raise ValueError(f"perm: a 16-byte aligned ({npad},) tensor, got shape "
+                         f"{tuple(perm.shape)}")
     out = torch.empty_like(rows)
     _cuda.launch("permute", "permute_lanes_cuda", "ppiip", rows, perm, c, npad,
                  out)

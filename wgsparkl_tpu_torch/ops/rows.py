@@ -192,6 +192,24 @@ def stencil(pos, bcell, inv_h, wsh):
     return torch.stack(w, 1), torch.stack(nidx, 1), torch.stack(valid, 1)
 
 
+LIST_CHUNK = 1024   # particles per list sort (csrc/transfer.cuh)
+
+
+def lists_order(jid, lens, chunk: int = LIST_CHUNK):
+    """Permutation of the row-major [P, 3^3] (particle, stencil offset) pairs
+    of job_lanes' particles into the lists core's order of sums: chunks of
+    `chunk` particles of each job, within a chunk the offsets in stencil
+    order, within an offset the particles in order.  A node meets each
+    offset once, so its pairs come offset by offset, each offset's bucket
+    in particle order, as the kernels walk them."""
+    lens = lens.to(torch.int64)
+    k = torch.arange(jid.shape[0], device=jid.device)
+    first = (torch.cumsum(lens, 0) - lens)[jid]
+    chunk_first = k - (k - first) % chunk
+    key = chunk_first[:, None] * 27 + torch.arange(27, device=jid.device)[None, :]
+    return torch.sort(key.reshape(-1), stable=True).indices
+
+
 def compat(naff, paff):
     """CPIC compatibility (grid.wgsl:250-255) of int32 affinity words."""
     common = naff & paff & 0xFFFF
