@@ -26,10 +26,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      of the 2D neo-Hookean scene (C-2D's neo-Hookean branch); C's 3D
      neo-Hookean branch on the 3D inputs; the in-kernel math probe and its
      table; the P2G ablation probe at the TPU probe's sizes (1,002,001
-     particles, 1300 live jobs of 1536): its four stages for both
-     node-side cores (scan, lists), each stage's time, each core's full
-     stage equal to its plain version bit for bit; each kernel with its
-     stated tolerance, its time and its bound (CUDA events);
+     particles, 1300 live jobs of 1536): its four stages for its three
+     node-side cores (scan, lists, pairs), each stage's time, each core's
+     full stage equal to its plain version bit for bit; each kernel with
+     its stated tolerance, its time and its bound (CUDA events); beside
+     kernel C, the share of lanes and of 32-lane warps whose F the
+     Drucker-Prager return map replaced (such a warp runs C's second SVD);
   6. the kernel path against the plain path on small scenes (3D: 10
      substeps of the sand box, 5 of a lattice lowered onto the paddle, 10
      of the collider-free lattice and of the neo-Hookean sand box; 2D: 10
@@ -460,6 +462,18 @@ def main() -> None:
           lambda k, p: [("rows", k[:, :ce], p[:, :ce], 1e-5)],
           cost=(4 * (11 * ce + nj * wv * 4 + njg * wv * 4 + 12 * ce),
                 ce * (30 + 27 * 24) + pg * 27 * 40))
+    # Lanes whose F the Drucker-Prager return map replaced: their plastic
+    # state rows change (the plain output against the input).  Kernel C
+    # decomposes such a lane's F a second time, and so does its whole warp.
+    plain_c = update_rows.update_plain(*args_c)
+    dps = slice(R.R_DPS0, R.R_DPS0 + 3)
+    proj = (plain_c[dps] != rec["rows"][dps]).any(0)
+    warps = proj[:npad // 32 * 32].reshape(-1, 32).any(1)
+    print(f"update_rows inputs: Drucker-Prager replaced F on "
+          f"{float(proj[:ce].float().mean()):.4f} of the covered lanes; "
+          f"{float(warps.float().mean()):.4f} of the 32-lane warps hold such a lane",
+          flush=True)
+    del plain_c, proj, warps
     check("update_rows",
           lambda: update_rows.update_rows(*args_c),
           lambda: update_rows.update_plain(*args_c),
@@ -570,15 +584,15 @@ def main() -> None:
     maxj, wv = r["jobs"]["len"].shape[0], r["mm"].shape[1]
     print(f"3D collider-free kernel inputs: {ce} covered particles, {nj} live "
           f"jobs of {maxj}", flush=True)
-    # Bit for bit: every node sums its pairs in particle order, each pair
-    # formed as the plain version forms it.
+    # Bit for bit: every node sums its pairs in the lists order, as the
+    # plain version does.
     check("p2g",
           lambda: p2g.p2g_tiles(*args_f), lambda: p2g.p2g_plain(*args_f),
           lambda k, p: [], lambda k, p: [("mm tiles", k[0], p[0]),
                                          ("impulses", k[1], p[1])],
           lambda p: (None if float(p[0][..., 3].sum()) > 0.0
                      else "no mass reached the grid"),
-          cost=(4 * (16 * ce + maxj * wv * 8), ce * (30 + 27 * 31)))
+          cost=(4 * (16 * ce + maxj * wv * 8), ce * (40 + 27 * 28) + nj * wv * 20))
     del rec_f, r, args_f
     torch.cuda.empty_cache()
 
@@ -599,8 +613,8 @@ def main() -> None:
           cost=(4 * 11 * px.numel(), 30 * px.numel()))
 
     # ---- 5f. the P2G ablation probe (the H100 counterpart of the TPU's) ----
-    # Its full-size synthetic jobs; every stage of both cores, the lists
-    # core's full stage held against its plain version bit for bit.
+    # Its full-size synthetic jobs; every stage of every core, each core's
+    # full stage held against its plain version bit for bit.
     inputs = ablation.probe_inputs(device=dev)
     wt.reset_launch_counts()
     try:

@@ -1,7 +1,7 @@
 """The P2G ablation probe's port (wgsparkl_tpu_torch.ops.ablation) on the
 CPU: its input construction against that of tools/ablate_kernels.py
 (its lines run at a small N; the script itself needs a TPU), the lists
-order of sums, and the full stage's plain version in both cores' orders
+order of sums, and the full stage's plain version in every core's order
 against the JAX package's `pallas_transfer.p2g_tiles` (interpret mode) at
 nc = 0, which computes the TPU probe's "full" function."""
 
@@ -103,3 +103,12 @@ def test_full_plain_cores_differ_only_in_order():
                                atol=1e-6 * float(scan.abs().max()))
     with pytest.raises(ValueError):
         ablation.p2g_ablation(*inputs, stage="accumulate")
+
+
+def test_pairs_plain_is_the_lists_plain():
+    """The pairs core walks two z-neighbour nodes at once, each in its own
+    lists order: its plain version is the lists core's, bit for bit."""
+    inputs = _small_inputs(True)
+    pairs = ablation.p2g_ablation(*inputs, core="pairs")
+    assert float(pairs[..., 3].sum()) > 0.0
+    assert torch.equal(pairs, ablation.p2g_ablation(*inputs, core="lists"))

@@ -36,10 +36,10 @@ def _jax_p2g(pdata, itiles, btable, start, length, bcells, cfg, jbody):
 
 
 def _assert_p2g_close(mm, imp, ref_mm, ref_imp):
-    # Each pair is formed as w (m v + A (x_node - x_p)), where the JAX
-    # kernel adds w (m v - A x_p) and (sum w A) x_node apart after a dense
-    # matrix product, and its sums run in another order: f32 roundoff
-    # relative to the largest entry (the kernel-A precedent).
+    # Both add w (m v - A x_p) and (sum w A) x_node apart, but the JAX
+    # kernel contracts a dense window x group matrix product where the port
+    # sums each node in the lists order: f32 roundoff relative to the
+    # largest entry (the kernel-A precedent).
     np.testing.assert_allclose(mm, ref_mm, rtol=0, atol=2e-6 * np.abs(ref_mm).max())
     np.testing.assert_allclose(imp, ref_imp, rtol=0,
                                atol=1e-5 * max(1.0, np.abs(ref_imp).max()))

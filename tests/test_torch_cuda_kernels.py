@@ -4,7 +4,7 @@ box lowered onto the paddle (so kernel A's impulse path carries load), the
 2D path's four on a substep of each small 2D scene lowered into its floor
 (so kernel H's impulses carry load), kernel F on a substep of the spinning
 collider-free sand box and on the coupled inputs, kernel C's neo-Hookean
-branch in 3D and 2D, the math probe and both cores of the P2G ablation
+branch in 3D and 2D, the math probe and every core of the P2G ablation
 probe.  Marked `cuda`: they skip where
 torch sees no CUDA device (run them on a GPU host with
 `python -m pytest --noconftest tests/test_torch_cuda_kernels.py`)."""
@@ -262,7 +262,7 @@ def test_math_probe_kernel_within_4_ulps_of_plain():
 @pytest.mark.parametrize("group,n,nlive", [(1024, 40_000, 52), (2048, 20_000, 12)],
                          ids=["one_chunk", "two_chunks"])
 def test_p2g_ablation_cores_match_plain(group, n, nlive):
-    """Both cores of the probe: the full stage equal to its plain version
+    """Every core of the probe: the full stage equal to its plain version
     bit for bit and the same bits twice, every stage finite; jobs of 1666
     particles at group 2048 sort in two chunks of 1024."""
     if not torch.cuda.is_available():

@@ -8,11 +8,12 @@ default_rng(0); 1,002,001 particles in 1300 live jobs of 1536 slots,
 group 1024, 4 x 8 x 4 blocks, h = 1), built by
 wgsparkl_tpu_torch.ops.ablation.probe_inputs, and the stages load,
 weights, accumulate and full of csrc/p2g_ablation.cu for the scan core
-(kernel F's node loop, kernel A's before its redesign) and the lists core
-(kernel A's per-node particle lists).  Prints the card's name and power
-limit, each stage's ms per launch (CUDA events) and checks each core's
-full stage against its plain version bit for bit.  Fails without a CUDA
-device.
+(the node loop of kernels A and F before their redesign), the lists core
+(their per-node particle lists, one thread per node) and the pairs core
+(the same lists, one thread per two z-neighbour nodes).  Prints the card's
+name and power limit, each stage's ms per launch (CUDA events) and checks
+each core's full stage against its plain version bit for bit.  Fails
+without a CUDA device.
 """
 
 from __future__ import annotations

@@ -8,51 +8,47 @@
 // particles' stored ones and reduces the impulses of its incompatible pairs
 // against each node's closest body per collider.  The collider-free substep
 // runs the nc = 0 branch; no pipeline path runs the other.
-// Bound on the H100: instruction issue.  Device traffic is small (16 rows in
-// per particle, a 360 x 8 tile out per job: ~0.08 GB per substep at 1M
-// particles, ~0.025 ms); each window node tests every particle of its job
-// for stencil membership (360 x group tests per job) and forms 27 pairs per
-// particle of ~30 flops each.
-// Design: kernel A's without the particle CDF.  The window's four
-// accumulators per node (and, for nc > 0, its affinity word, closest body,
-// body velocity and impulse sums) live in shared memory.  Particles go in
-// chunks of NTHREADS: one thread per particle leaves a 33-word record (axis
-// weights, m v, mass, affine rows, position, base cell, affinity, velocity,
-// normal) in dynamic shared memory; then one thread per node adds the
-// chunk's records that reach it, in particle order, each pair as
-// w (m v + A (x_node - x_p)) -- not the TPU's m v - A x_p per particle
-// recombined with (sum w A) x_node per node after an MXU product.  So every
-// sum has the plain version's order and the kernel is deterministic with no
-// atomics.  Dead jobs write zero tiles; with colliders, per-job impulses
-// are summed in job order by kernel A's second launch (impulse_sum_kernel,
-// transfer.cuh), which the collider-free path skips (35 us a substep at
-// 1408 job slots).
+// Bound on the H100: instruction issue and shared-memory reads.  Device
+// traffic is small (16 rows in per particle, a 360 x 8 tile out per job:
+// ~0.08 GB per substep at 1M particles, ~0.024 ms); each particle forms up
+// to 27 (node, particle) pairs of 13 multiply-adds, each pair reading 13
+// words of its particle's record from shared memory.
+// Design: kernel A's P2G without the particle CDF, on the `lists` core of
+// transfer.cuh.  Particles go in chunks of up to LIST_CHUNK (the whole job
+// at group <= 1024): each is bucketed by its stencil base cell and placed by
+// a stable counting sort; one thread per particle leaves its P2G record
+// (axis weights, m v - A x_p, m, A; in a gated job also its stored affinity
+// word and index in the chunk) at its sorted position in dynamic shared
+// memory; then one thread per window node walks its 27 offsets' buckets
+// (list_walk) with its 13 sums in registers, and the epilogue recombines
+// momentum with the node position, as kernel A does.  (Walking two
+// z-neighbour nodes a thread, list_walk_pair, doubles each thread's node
+// state and spills at two blocks an SM: slower in F, see PERF.md.)  Every
+// sum keeps a fixed order (offsets in stencil order, particles in particle
+// order within each), which the plain version follows (ops/p2g.py), so the
+// kernel is deterministic and equal to it bit for bit.  In a gated job the
+// compatible pairs go into the sums and the incompatible pairs of a node
+// with a body add w m (v - ghost) to its impulse, reading the particle's
+// velocity and normal back from device memory; the per-job impulses are
+// reduced per collider over window nodes in node order and summed in job
+// order by a second launch (impulse_sum_kernel, transfer.cuh), which the
+// collider-free path skips.  Dead jobs write zero tiles.
 #include "transfer.cuh"
 
-// Particle record of a chunk, field-major ([PREC][NTHREADS]): axis weights
-// wa[a][o] at 3a + o, m v, mass, the affine rows A[i][k] at 3i + k, the
-// position, the base cell relative to the block (+8 per axis, 8 bits each,
-// raw bits), the affinity word (raw bits), velocity and normal.
-#define R_W 0
-#define R_MV 9
-#define R_M 12
-#define R_A 13
-#define R_P 22
-#define R_BASE 25
-#define R_AFF 26
-#define R_V 27
-#define R_N 30
-#define PREC 33
+// Record fields after the P2G record (transfer.cuh), gated jobs only: the
+// stored affinity word and the particle's index in the chunk (raw bits).
+#define R_AFF REC_P2G
+#define R_IDX (REC_P2G + 1)
+#define PREC (REC_P2G + 2)
 
-__global__ void __launch_bounds__(NTHREADS) p2g_kernel(
+__global__ void __launch_bounds__(LIST_THREADS, 2) p2g_kernel(
     const float* __restrict__ pdata, long long pstride,
     const float* __restrict__ ntiles, const float* __restrict__ bt,
     const int* __restrict__ jt, int maxj, int wsh1, int wsh2, int wvol, int wpad,
-    int nc, float h, float inv_h, float* __restrict__ mm,
-    float* __restrict__ part) {
-  __shared__ float s_acc[WV_MAX * 4];
-  __shared__ uint32_t s_naff[WV_MAX];
-  __shared__ float s_cl[WV_MAX], s_bv[WV_MAX * 3], s_d[WV_MAX * 3];
+    int nc, float h, float inv_h, float* __restrict__ mm, float* __restrict__ part) {
+  constexpr int chunk = LIST_CHUNK;
+  __shared__ float s_cl[WV_MAX], s_d[WV_MAX * 3];
+  __shared__ ListScratch s_list;
   extern __shared__ float s_rec[];
   const int j = blockIdx.x, tid = threadIdx.x;
   const int start = jt[j], len = jt[maxj + j];
@@ -61,106 +57,97 @@ __global__ void __launch_bounds__(NTHREADS) p2g_kernel(
   float* tile = mm + (long long)j * wpad * 8;
   float* pj = part + (long long)j * 96;
   if (len == 0) {
-    for (int k = tid; k < wpad * 8; k += NTHREADS) tile[k] = 0.0f;
-    for (int k = tid; k < 96; k += NTHREADS) pj[k] = 0.0f;
+    for (int k = tid; k < wpad * 8; k += LIST_THREADS) tile[k] = 0.0f;
+    for (int k = tid; k < 96; k += LIST_THREADS) pj[k] = 0.0f;
     return;
   }
-  for (int n = tid; n < wvol; n += NTHREADS) {
-    for (int c = 0; c < 4; ++c) s_acc[n * 4 + c] = 0.0f;
+  // Window node `tid`: in a gated job its affinity word, closest body and
+  // that body's velocity.
+  const bool is_node = tid < wvol;
+  uint32_t naff = 0u;
+  float cl = -1.0f, xn[3] = {0.0f, 0.0f, 0.0f}, bv[3] = {0.0f, 0.0f, 0.0f};
+  if (is_node) {
+    node_pos(tid, wsh1, wsh2, bc, h, xn);
     if (gated) {
-      const float* t = ntiles + ((long long)j * wpad + n) * 4;
-      float xw[3];
-      node_pos(n, wsh1, wsh2, bc, h, xw);
-      s_naff[n] = aff_word(t[0], t[1]);
-      s_cl[n] = t[2];
-      node_body_velocity(s_cl[n], xw, bt, nc, &s_bv[n * 3]);
-      for (int k = 0; k < 3; ++k) s_d[n * 3 + k] = 0.0f;
+      const float* t = ntiles + ((long long)j * wpad + tid) * 4;
+      naff = aff_word(t[0], t[1]);
+      cl = t[2];
+      node_body_velocity(cl, xn, bt, nc, bv);
     }
   }
-  __syncthreads();
+  float acc[13], d[3] = {0.0f, 0.0f, 0.0f};
+  for (int f = 0; f < 13; ++f) acc[f] = 0.0f;
 
-  for (int c0 = 0; c0 < len; c0 += NTHREADS) {
-    const int i = c0 + tid;
-    if (i < len) {
-      const long long lane = (long long)start + i;
-      auto row = [&](int r) { return pdata[r * pstride + lane]; };
-      const float p[3] = {row(PX), row(PX + 1), row(PX + 2)};
-      const float mass = row(PM);
+  for (int c0 = 0; c0 < len; c0 += chunk) {
+    const int cnt = min(chunk, len - c0);
+    const long long lane0 = (long long)start + c0;
+    for (int i = tid; i < cnt; i += LIST_THREADS) {
+      const float p[3] = {pdata[PX * pstride + lane0 + i],
+                          pdata[(PX + 1) * pstride + lane0 + i],
+                          pdata[(PX + 2) * pstride + lane0 + i]};
+      int bl[3];
+      stencil_base(p, bc, inv_h, bl);
+      s_list.key[i] = (unsigned short)list_bucket(bl, wsh1, wsh2, wvol);
+    }
+    __syncthreads();
+    if (tid < 32) list_sort_warp(&s_list, cnt, wvol);
+    __syncthreads();
+    for (int i = tid; i < cnt; i += LIST_THREADS) {
+      const long long lane = lane0 + i;
+      float r16[16];
+      load_rows(pdata, pstride, lane, r16);
+      float* rec = s_rec + s_list.pos[i];
       float wa[3][3];
       int bl[3];
-      stencil_axes(p, bc, inv_h, wa, bl);
-      float* r = s_rec + tid;
-      for (int k = 0; k < 9; ++k) r[(R_W + k) * NTHREADS] = wa[k / 3][k % 3];
-      for (int k = 0; k < 3; ++k) {
-        const float v = row(VX + k);
-        r[(R_MV + k) * NTHREADS] = mass * v;
-        r[(R_P + k) * NTHREADS] = p[k];
-        r[(R_V + k) * NTHREADS] = v;
-        r[(R_N + k) * NTHREADS] = row(NX + k);
+      p2g_record(r16, bc, inv_h, rec, chunk, wa, bl);
+      if (gated) {
+        rec[R_AFF * chunk] = __uint_as_float(
+            aff_word(pdata[AFF * pstride + lane], pdata[AFF_SPARE * pstride + lane]));
+        rec[R_IDX * chunk] = __int_as_float(i);
       }
-      r[R_M * NTHREADS] = mass;
-      for (int k = 0; k < 9; ++k) r[(R_A + k) * NTHREADS] = row(A0 + k);
-      r[R_BASE * NTHREADS] =
-          __int_as_float(((bl[0] + 8) << 16) | ((bl[1] + 8) << 8) | (bl[2] + 8));
-      r[R_AFF * NTHREADS] = __uint_as_float(aff_word(row(AFF), row(AFF_SPARE)));
     }
     __syncthreads();
 
-    // Each node adds the chunk's particles that reach it, in particle order:
-    // compatible pairs (every pair of an ungated job) into momentum and
-    // mass, the incompatible pairs of a gated job into the node's impulse.
-    const int cnt = min(NTHREADS, len - c0);
-    for (int n = tid; n < wvol; n += NTHREADS) {
-      const int nx = n / (wsh1 * wsh2), ny = (n / wsh2) % wsh1, nz = n % wsh2;
-      float xn[3];
-      node_pos(n, wsh1, wsh2, bc, h, xn);
-      const uint32_t naff = gated ? s_naff[n] : 0u;
-      const bool has_body = gated && s_cl[n] >= 0.0f;
-      float acc[4], d[3] = {0.0f, 0.0f, 0.0f};
-      for (int c = 0; c < 4; ++c) acc[c] = s_acc[n * 4 + c];
-      if (gated)
-        for (int k = 0; k < 3; ++k) d[k] = s_d[n * 3 + k];
-      for (int q = 0; q < cnt; ++q) {
-        const float* r = s_rec + q;
-        const int pb = __float_as_int(r[R_BASE * NTHREADS]);
-        const unsigned dx = (unsigned)(nx - ((pb >> 16) - 8));
-        const unsigned dy = (unsigned)(ny - (((pb >> 8) & 255) - 8));
-        const unsigned dz = (unsigned)(nz - ((pb & 255) - 8));
-        if (dx > 2u || dy > 2u || dz > 2u) continue;
-        const float w = (r[(R_W + dx) * NTHREADS] * r[(R_W + 3 + dy) * NTHREADS])
-                        * r[(R_W + 6 + dz) * NTHREADS];
-        if (!gated || compat(naff, __float_as_uint(r[R_AFF * NTHREADS]))) {
-          float rel[3];
-          for (int k = 0; k < 3; ++k) rel[k] = xn[k] - r[(R_P + k) * NTHREADS];
-          for (int a = 0; a < 3; ++a) {
-            const float* A = r + (R_A + 3 * a) * NTHREADS;
-            const float ar = (A[0] * rel[0] + A[NTHREADS] * rel[1])
-                             + A[2 * NTHREADS] * rel[2];
-            acc[a] = acc[a] + w * (r[(R_MV + a) * NTHREADS] + ar);
-          }
-          acc[3] = acc[3] + w * r[R_M * NTHREADS];
-        } else if (has_body) {
+    // Compatible pairs (every pair of an ungated job) into the sums, the
+    // incompatible pairs of a gated job's node with a body into its impulse.
+    if (is_node) {
+      list_walk(tid, wsh1, wsh2, s_list.start, s_rec + REC_W * chunk, chunk,
+                [&](int k, float w) {
+        if (!gated || compat(naff, __float_as_uint(s_rec[R_AFF * chunk + k]))) {
+          for (int f = 0; f < 13; ++f) acc[f] = acc[f] + w * s_rec[(REC_F + f) * chunk + k];
+        } else if (cl >= 0.0f) {
+          const long long q = lane0 + __float_as_int(s_rec[R_IDX * chunk + k]);
           float vq[3], nq[3], g[3];
-          for (int k = 0; k < 3; ++k) {
-            vq[k] = r[(R_V + k) * NTHREADS];
-            nq[k] = r[(R_N + k) * NTHREADS];
+          for (int a = 0; a < 3; ++a) {
+            vq[a] = pdata[(VX + a) * pstride + q];
+            nq[a] = pdata[(NX + a) * pstride + q];
           }
-          const float wi = w * r[R_M * NTHREADS];
-          ghost_velocity(vq, &s_bv[n * 3], nq, g);
-          for (int k = 0; k < 3; ++k) d[k] = d[k] + wi * (vq[k] - g[k]);
+          const float wi = w * s_rec[(REC_F + 3) * chunk + k];
+          ghost_velocity(vq, bv, nq, g);
+          for (int a = 0; a < 3; ++a) d[a] = d[a] + wi * (vq[a] - g[a]);
         }
-      }
-      for (int c = 0; c < 4; ++c) s_acc[n * 4 + c] = acc[c];
-      if (gated)
-        for (int k = 0; k < 3; ++k) s_d[n * 3 + k] = d[k];
+      });
     }
     __syncthreads();
   }
 
-  for (int k = tid; k < wpad * 8; k += NTHREADS) {
-    const int n = k / 8, c = k % 8;
-    tile[k] = (n < wvol && c < 4) ? s_acc[n * 4 + c] : 0.0f;
+  // Tile row `tid`: momentum recombined with the node position, mass.
+  if (tid < wpad) {
+    float row[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (is_node) {
+      for (int c = 0; c < 3; ++c)
+        row[c] = acc[c] + xn[0] * acc[4 + c] + xn[1] * acc[7 + c] + xn[2] * acc[10 + c];
+      row[3] = acc[3];
+      if (gated) {
+        s_cl[tid] = cl;
+        for (int k = 0; k < 3; ++k) s_d[tid * 3 + k] = d[k];
+      }
+    }
+    float4* out = reinterpret_cast<float4*>(tile + tid * 8);
+    out[0] = make_float4(row[0], row[1], row[2], row[3]);
+    out[1] = make_float4(row[4], row[5], row[6], row[7]);
   }
+  __syncthreads();
   // Per-collider impulses of the job, window nodes in node order.
   if (tid < 16) {
     const int b = tid;
@@ -190,21 +177,27 @@ __global__ void __launch_bounds__(NTHREADS) p2g_kernel(
   }
 }
 
+// Jobs sort in chunks of LIST_CHUNK particles, the plain version's order.
 extern "C" int p2g_cuda(const float* pdata, long long pstride,
                         const float* ntiles, const float* bt, const int* jt,
                         long long maxj, long long by, long long nc, float h,
                         float inv_h, float* mm, float* part, float* imp,
                         cudaStream_t stream) {
-  int wsh1 = (int)by + 2, wsh2 = 6;
-  int wvol = 6 * wsh1 * wsh2, wpad = (wvol + 7) / 8 * 8;
-  const int shm = PREC * NTHREADS * (int)sizeof(float);
+  const int wsh1 = (int)by + 2, wsh2 = 6;
+  const int wvol = 6 * wsh1 * wsh2, wpad = (wvol + 7) / 8 * 8;
+  if (wpad > LIST_THREADS) return (int)cudaErrorInvalidValue;
+  const int shm = PREC * LIST_CHUNK * (int)sizeof(float);
   if (maxj > 0) {
-    // Static (~17 KB) plus dynamic (~34 KB) shared memory passes the 48 KB
-    // default.
+    // Static (~11 KB) plus dynamic (96 KB) shared memory passes the 48 KB
+    // default; two blocks an SM need the largest carveout.
     cudaError_t e = cudaFuncSetAttribute(
         p2g_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shm);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(p2g_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
-    p2g_kernel<<<(unsigned)maxj, NTHREADS, shm, stream>>>(
+    p2g_kernel<<<(unsigned)maxj, LIST_THREADS, shm, stream>>>(
         pdata, pstride, ntiles, bt, jt, (int)maxj, wsh1, wsh2, wvol, wpad,
         (int)nc, h, inv_h, mm, part);
     // With no collider the impulses are the wrapper's zeros.

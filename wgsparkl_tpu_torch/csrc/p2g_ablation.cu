@@ -15,19 +15,23 @@
 //                  chunk); the tile is made of the records;
 //   STAGE_ACC      + the 13 node sums; the tile is made of them;
 //   STAGE_FULL     + the recombination epilogue (kernel A's tile).
-// Two cores run the same stages on the same inputs:
-//   scan   kernel A's parent node loop, as kernel F still runs it: chunks
+// Three cores run the same stages on the same inputs:
+//   scan   the node loop kernels A and F ran before their redesign: chunks
 //          of 256 particles, 256 threads, every window node tests every
 //          particle of the chunk for stencil membership, its sums carried
 //          in shared memory from chunk to chunk;
-//   lists  kernel A's new core (transfer.cuh): a stable counting sort by
-//          base cell, 384 threads, one per window node, each walking its 27
-//          offsets' buckets with its sums in registers.
+//   lists  kernel A's core (transfer.cuh): a stable counting sort by base
+//          cell, 384 threads, one per window node, each walking its 27
+//          offsets' buckets (list_walk) with its sums in registers;
+//   pairs  the lists core's sort and records, with one thread per two
+//          z-neighbour window nodes walking their buckets together
+//          (list_walk_pair): each record read serves both nodes; 180 of the
+//          384 threads walk.
 // Bound on the H100: instruction throughput and shared-memory reads (the same
 // device bytes as kernel A's P2G: 16 rows in per particle, a 360 x 8 tile
 // out per job).  Each core's full stage sums every node in that core's
-// order, which the plain version follows (ops/ablation.py), so it equals
-// the plain version bit for bit.
+// order (lists and pairs: the same order), which the plain version follows
+// (ops/ablation.py), so it equals the plain version bit for bit.
 #include "transfer.cuh"
 
 #define STAGE_LOAD 0
@@ -38,7 +42,7 @@
 // Record fields, field-major with stride rs.  The load stage keeps the 16
 // rows as read; the later stages keep the P2G record (transfer.cuh), and
 // the scan core the base cell relative to the block after it (+8 per axis,
-// 8 bits each, raw bits).
+// 8 bits each, raw bits).  The lists kernel serves both list cores.
 #define R_BASE REC_P2G
 #define PREC_LISTS REC_P2G
 #define PREC_SCAN (REC_P2G + 1)
@@ -135,7 +139,9 @@ __global__ void __launch_bounds__(SCAN_THREADS) ablation_scan_kernel(
   }
 }
 
-template <int STAGE>
+// NPT window nodes per thread: 1 walks one node (list_walk, the lists
+// core), 2 walks two z-neighbours together (list_walk_pair, the pairs core).
+template <int STAGE, int NPT>
 __global__ void __launch_bounds__(LIST_THREADS, 2) ablation_lists_kernel(
     const float* __restrict__ pdata, long long pstride, const int* __restrict__ starts,
     const int* __restrict__ lens, const int* __restrict__ bcells, int wsh1, int wsh2,
@@ -150,8 +156,10 @@ __global__ void __launch_bounds__(LIST_THREADS, 2) ablation_lists_kernel(
     for (int k = tid; k < wpad * 8; k += LIST_THREADS) tile[k] = 0.0f;
     return;
   }
-  float acc[13];
-  for (int f = 0; f < 13; ++f) acc[f] = 0.0f;
+  const int n0 = tid * NPT;
+  float acc[NPT][13];
+  for (int i = 0; i < NPT; ++i)
+    for (int f = 0; f < 13; ++f) acc[i][f] = 0.0f;
   int cnt = 0;
   for (int c0 = 0; c0 < len; c0 += chunk) {
     cnt = min(chunk, len - c0);
@@ -185,54 +193,76 @@ __global__ void __launch_bounds__(LIST_THREADS, 2) ablation_lists_kernel(
     }
     __syncthreads();
     if (STAGE >= STAGE_ACC) {
-      if (tid < wvol)
-        list_walk(tid, wsh1, wsh2, s_list.start, s_rec + REC_W * chunk, chunk,
-                  [&](int k, float w) {
-          for (int f = 0; f < 13; ++f) acc[f] = acc[f] + w * s_rec[(REC_F + f) * chunk + k];
-        });
+      if (n0 < wvol) {
+        auto add = [&](float* a, int k, float w) {
+          for (int f = 0; f < 13; ++f) a[f] = a[f] + w * s_rec[(REC_F + f) * chunk + k];
+        };
+        if constexpr (NPT == 1) {
+          list_walk(n0, wsh1, wsh2, s_list.start, s_rec + REC_W * chunk, chunk,
+                    [&](int k, float w) { add(acc[0], k, w); });
+        } else {
+          list_walk_pair(n0, wsh1, wsh2, s_list.start, s_rec + REC_W * chunk, chunk,
+                         [&](int k, bool lo, float w_lo, bool hi, float w_hi) {
+            if (lo) add(acc[0], k, w_lo);
+            if (hi) add(acc[1], k, w_hi);
+          });
+        }
+      }
       __syncthreads();
     }
   }
-  if (tid < wpad) {
+  for (int i = 0; i < NPT; ++i) {
+    const int n = n0 + i;
+    if (n >= wpad) break;
     float row[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    if (tid < wvol) {
+    if (n < wvol) {
       float xn[3];
-      node_pos(tid, wsh1, wsh2, bc, h, xn);
-      tile_row<STAGE>(s_rec, chunk, tid % cnt, acc, xn, row);
+      node_pos(n, wsh1, wsh2, bc, h, xn);
+      tile_row<STAGE>(s_rec, chunk, n % cnt, acc[i], xn, row);
     }
-    float4* o = reinterpret_cast<float4*>(tile + tid * 8);
+    float4* o = reinterpret_cast<float4*>(tile + n * 8);
     o[0] = make_float4(row[0], row[1], row[2], row[3]);
     o[1] = make_float4(row[4], row[5], row[6], row[7]);
   }
 }
 
-template <int STAGE>
-static int launch_stage(int lists, const float* pdata, long long pstride,
-                        const int* starts, const int* lens, const int* bcells,
-                        int maxj, int wsh1, int wsh2, int wvol, int wpad, float h,
-                        float inv_h, int chunk, float* out, cudaStream_t stream) {
-  if (lists) {
-    const int shm = (STAGE == STAGE_LOAD ? 16 : PREC_LISTS) * chunk * (int)sizeof(float);
-    cudaError_t e = cudaFuncSetAttribute(
-        ablation_lists_kernel<STAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize, shm);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(ablation_lists_kernel<STAGE>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return (int)e;
-    ablation_lists_kernel<STAGE><<<(unsigned)maxj, LIST_THREADS, shm, stream>>>(
-        pdata, pstride, starts, lens, bcells, wsh1, wsh2, wvol, wpad, h, inv_h,
-        chunk, out);
-  } else {
-    // Static (~19 KB) plus dynamic (~24 KB) shared memory: under 48 KB.
-    const int shm = PREC_SCAN * SCAN_THREADS * (int)sizeof(float);
-    ablation_scan_kernel<STAGE><<<(unsigned)maxj, SCAN_THREADS, shm, stream>>>(
-        pdata, pstride, starts, lens, bcells, wsh1, wsh2, wvol, wpad, h, inv_h, out);
-  }
+template <int STAGE, int NPT>
+static int launch_lists(const float* pdata, long long pstride, const int* starts,
+                        const int* lens, const int* bcells, int maxj, int wsh1, int wsh2,
+                        int wvol, int wpad, float h, float inv_h, int chunk, float* out,
+                        cudaStream_t stream) {
+  const int shm = (STAGE == STAGE_LOAD ? 16 : PREC_LISTS) * chunk * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(ablation_lists_kernel<STAGE, NPT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, shm);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(ablation_lists_kernel<STAGE, NPT>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  ablation_lists_kernel<STAGE, NPT><<<(unsigned)maxj, LIST_THREADS, shm, stream>>>(
+      pdata, pstride, starts, lens, bcells, wsh1, wsh2, wvol, wpad, h, inv_h, chunk, out);
   return (int)cudaGetLastError();
 }
 
-// core: 0 scan, 1 lists; stage: STAGE_LOAD .. STAGE_FULL; chunk: the lists
+template <int STAGE>
+static int launch_stage(int core, const float* pdata, long long pstride,
+                        const int* starts, const int* lens, const int* bcells,
+                        int maxj, int wsh1, int wsh2, int wvol, int wpad, float h,
+                        float inv_h, int chunk, float* out, cudaStream_t stream) {
+  if (core == 1)
+    return launch_lists<STAGE, 1>(pdata, pstride, starts, lens, bcells, maxj, wsh1, wsh2,
+                                  wvol, wpad, h, inv_h, chunk, out, stream);
+  if (core == 2)
+    return launch_lists<STAGE, 2>(pdata, pstride, starts, lens, bcells, maxj, wsh1, wsh2,
+                                  wvol, wpad, h, inv_h, chunk, out, stream);
+  // Static (~19 KB) plus dynamic (~24 KB) shared memory: under 48 KB.
+  const int shm = PREC_SCAN * SCAN_THREADS * (int)sizeof(float);
+  ablation_scan_kernel<STAGE><<<(unsigned)maxj, SCAN_THREADS, shm, stream>>>(
+      pdata, pstride, starts, lens, bcells, wsh1, wsh2, wvol, wpad, h, inv_h, out);
+  return (int)cudaGetLastError();
+}
+
+// core: 0 scan, 1 lists, 2 pairs; stage: STAGE_LOAD .. STAGE_FULL; chunk: the lists
 // core's particles per sort, min(group, LIST_CHUNK).
 extern "C" int p2g_ablation_cuda(const float* pdata, long long pstride,
                                  const int* starts, const int* lens, const int* bcells,
@@ -246,7 +276,7 @@ extern "C" int p2g_ablation_cuda(const float* pdata, long long pstride,
                                      launch_stage<STAGE_ACC>, launch_stage<STAGE_FULL>};
   const int wsh1 = (int)by + 2, wsh2 = 6;
   const int wvol = 6 * wsh1 * wsh2, wpad = (wvol + 7) / 8 * 8;
-  if (wvol > WV_MAX || chunk < 1 || chunk > LIST_CHUNK || core < 0 || core > 1 ||
+  if (wvol > WV_MAX || chunk < 1 || chunk > LIST_CHUNK || core < 0 || core > 2 ||
       stage < 0 || stage > STAGE_FULL)
     return (int)cudaErrorInvalidValue;
   if (maxj == 0) return 0;

@@ -186,7 +186,7 @@ __device__ void stencil(const float p[3], const int bc[3], float inv_h,
   stencil_from_axes(wa, bl, wsh1, wsh2, s);
 }
 
-// ---- The `lists` P2G core: per-node particle lists (kernel A, the probe) ----
+// ---- The `lists` P2G core: per-node particle lists (kernels A and F, the probe) ----
 //
 // A chunk of up to LIST_CHUNK particles of a job is bucketed by its stencil
 // base cell relative to the block, bl + 1 per axis: that is the window's own
@@ -332,6 +332,46 @@ __device__ __forceinline__ void list_walk(int n, int wsh1, int wsh2, const int* 
           const float w =
               (wa[ox * rs + k] * wa[(3 + oy) * rs + k]) * wa[(6 + oz) * rs + k];
           pair(k, w);
+        }
+      }
+    }
+  }
+}
+
+// Walks the pairs of two z-neighbour window nodes n and n + 1 (n's z index
+// even; the window is 6 nodes deep in z) at once, each in its own lists
+// order.  For each (ox, oy) it walks buckets z = nz + 2, nz + 1, nz, nz - 1
+// once: the upper node n + 1 takes the first three (its oz = 0, 1, 2), the
+// lower node n the last three (its oz = 0, 1, 2), so a record read by both
+// is fetched once.  pair(k, lo, w_lo, hi, w_hi) gets the particle's
+// position k and, for the lower and the upper node, whether the node takes
+// it and the pair's weight, rounded as list_walk rounds it.
+template <typename Pair>
+__device__ __forceinline__ void list_walk_pair(int n, int wsh1, int wsh2,
+                                               const int* start, const float* wa,
+                                               int rs, Pair&& pair) {
+  const int nx = n / (wsh1 * wsh2), ny = (n / wsh2) % wsh1, nz = n % wsh2;
+#pragma unroll 1
+  for (int ox = 0; ox < 3; ++ox) {
+    const unsigned bx = (unsigned)(nx + 1 - ox);
+    if (bx >= 6u) continue;
+#pragma unroll 1
+    for (int oy = 0; oy < 3; ++oy) {
+      const unsigned by_ = (unsigned)(ny + 1 - oy);
+      if (by_ >= (unsigned)wsh1) continue;
+      const int row = ((int)bx * wsh1 + (int)by_) * wsh2;
+      // Bucket nz + 2 - t is the upper node's offset oz = t, the lower's t - 1.
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const unsigned bz = (unsigned)(nz + 2 - t);
+        if (bz >= (unsigned)wsh2) continue;
+        const int b = row + (int)bz;
+        const int e = start[b + 1];
+        for (int k = start[b]; k < e; ++k) {
+          const float wxy = wa[ox * rs + k] * wa[(3 + oy) * rs + k];
+          const float w_hi = t <= 2 ? wxy * wa[(6 + t) * rs + k] : 0.0f;
+          const float w_lo = t >= 1 ? wxy * wa[(5 + t) * rs + k] : 0.0f;
+          pair(k, t >= 1, w_lo, t <= 2, w_hi);
         }
       }
     }

@@ -9,20 +9,28 @@
 // return map, corotated or neo-Hookean stress (`elastic_model`, the integer
 // argument `model`), APIC affine, and the rebuild of the next [48, NPAD] (3D)
 // or [32, NPAD] (2D) row matrix.
-// Bound on the H100, both dimensions: device memory, in 3D only just.  Per
-// lane 3D reads 27 of the 48 input rows (0-2, 6, 21-39, 44-47), the sorted
-// id, 12 G2P rows and 6 particle-CDF rows, and writes 48 rows (~0.39 GB per
-// substep at 1M lanes, ~0.12 ms), against three 8-sweep 3x3 Jacobi SVDs
-// (~1.5k flops each) plus exp/log/sin (~6 GFLOP, ~0.09 ms).  2D reads 19 of
-// the 32 input rows (0, 1, 4, 13-23, 27-31), the sorted id, 6 G2P rows and
-// 5 particle-CDF rows, and writes 32 rows (~0.1 GB at 490k lanes), against
-// three closed-form 2x2 SVDs (~60 flops each) plus exp/log/sin.  The
-// neo-Hookean stress replaces the stress SVD by a determinant and one logf.
+// Bound on the H100, counted: device memory.  Per lane 3D reads 27 of the
+// 48 input rows (0-2, 6, 21-39, 44-47), the sorted id, 12 G2P rows and 6
+// particle-CDF rows, and writes 48 rows (~0.39 GB per substep at 1M lanes,
+// ~0.12 ms), against one 8-sweep 3x3 Jacobi SVD (~1.5k flops) plus
+// exp/log/sin.  What holds 3D in practice is the SVD's serial chain: 24
+// Givens rotations of two IEEE divisions and two IEEE square roots each.
+// 2D reads 19 of the 32 input rows (0, 1, 4, 13-23, 27-31), the sorted id,
+// 6 G2P rows and 5 particle-CDF rows, and writes 32 rows (~0.1 GB at 490k
+// lanes), against three closed-form 2x2 SVDs (~60 flops each) plus
+// exp/log/sin.  The neo-Hookean stress replaces the stress SVD by a
+// determinant and one logf.
 // Design: scalar per-thread code that follows the plain version operation
 // by operation (the translation unit is built with -fmad=false and IEEE
 // division / sqrt), so kernel and plain version differ only where libm does
 // (expf, logf, sinf).  Every read and write of a channel row is coalesced
-// across the warp.
+// across the warp.  The 3D entry computes what the plain version computes
+// three times once: one SVD of the updated F serves the fracture check (its
+// |sigma| are the plain version's eig33_sigma values in another order, and
+// the test does not depend on order), the Drucker-Prager return map and the
+// corotated stress; a second SVD runs only on lanes whose F the return map
+// replaced, and none on neo-Hookean lanes with plasticity disabled and no
+// fracture check, where no output reads it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,7 +68,8 @@ __device__ __forceinline__ int skey(int i, int j) {
   return i == 0 ? j : (i == 1 ? 2 + j : 5);
 }
 
-__device__ void jacobi_rot(float* sym, float (*v)[3], int p, int q) {
+// Inlined at every call, so that p and q fold and sym stays in registers.
+__device__ __forceinline__ void jacobi_rot(float* sym, float (*v)[3], int p, int q) {
   int r = 3 - p - q;
   float app = sym[skey(p, p)], aqq = sym[skey(q, q)], apq = sym[skey(p, q)];
   float c, s;
@@ -98,25 +107,15 @@ __device__ float det3(const F3& f) {
        + a[0][2] * (a[1][0] * a[2][1] - a[1][1] * a[2][0]);
 }
 
-__device__ void eig33_sigma(const F3& f, float* sig) {
-  float sym[6];
-  sym_ftf(f, sym);
-  for (int s = 0; s < 8; ++s) {
-    jacobi_rot(sym, nullptr, 0, 1);
-    jacobi_rot(sym, nullptr, 0, 2);
-    jacobi_rot(sym, nullptr, 1, 2);
-  }
-  sig[0] = sqrtf(fmaxf(sym[0], 0.0f));
-  sig[1] = sqrtf(fmaxf(sym[3], 0.0f));
-  sig[2] = sqrtf(fmaxf(sym[5], 0.0f));
-}
-
 __device__ __forceinline__ float norm3(float x, float y, float z) {
   return sqrtf(x * x + y * y + z * z);
 }
 
-// Signed SVD: uc[k][i] = U[i][k], vc[k][i] = V[i][k].
-__device__ void svd3(const F3& f, float uc[3][3], float* sig, float vc[3][3]) {
+// Signed SVD of f, whose determinant is det: uc[k][i] = U[i][k],
+// vc[k][i] = V[i][k]; sig sorted by decreasing value, sig[2] carrying
+// sign(det).
+__device__ __forceinline__ void svd3(const F3& f, float det, float uc[3][3], float* sig,
+                                     float vc[3][3]) {
   float sym[6];
   sym_ftf(f, sym);
   float v[3][3] = {{1.f, 0.f, 0.f}, {0.f, 1.f, 0.f}, {0.f, 0.f, 1.f}};
@@ -183,10 +182,15 @@ __device__ void svd3(const F3& f, float uc[3][3], float* sig, float vc[3][3]) {
   uc[2][0] = u0[1] * u1[2] - u0[2] * u1[1];
   uc[2][1] = u0[2] * u1[0] - u0[0] * u1[2];
   uc[2][2] = u0[0] * u1[1] - u0[1] * u1[0];
-  sig[2] = sig[2] * (det3(f) < 0.f ? -1.0f : 1.0f);
+  sig[2] = sig[2] * (det < 0.f ? -1.0f : 1.0f);
 }
 
-__global__ void update_kernel(
+// UPDATE_THREADS a block, four blocks an SM: the register cap of 64 costs
+// ~170 bytes of spills a lane and still beats the 102 registers the kernel
+// takes uncapped (16 warps an SM against 32; the SVD's serial chain of
+// divisions and square roots wants warps to hide its latency; PERF.md).
+#define UPDATE_THREADS 256
+__global__ void __launch_bounds__(UPDATE_THREADS, 4) update_kernel(
     const float* __restrict__ rows, const float* __restrict__ krows,
     const float* __restrict__ pcdf, const int* __restrict__ sids,
     const int* __restrict__ ce, const float* __restrict__ btable,
@@ -275,29 +279,39 @@ __global__ void update_kernel(
       nf.m[i][j] = f.m[i][j] + dt * acc;
     }
 
-  // Fracture check.
+  // One SVD of the updated F serves the fracture check, Drucker-Prager and
+  // the corotated stress; a neo-Hookean lane with neither of the first two
+  // needs none.
   float phase = row(R_PHASE), stretch = mval(8);
   bool check = phase > 0.0f && stretch > 0.0f;
-  float sg[3];
-  eig33_sigma(nf, sg);
-  float detf = det3(nf);
-  float smin = fminf(fminf(sg[0], sg[1]), sg[2]);
-  float sgn = detf < 0.0f ? -1.0f : 1.0f;
-  bool over = false;
-  for (int k = 0; k < 3; ++k)
-    over = over || (sg[k] * (sg[k] == smin ? sgn : 1.0f) > stretch);
-  float new_phase = (check && over) ? 0.0f : phase;
+  float dp_lam = mval(6), dp_mu = mval(7);
+  bool enabled = dp_lam > 0.0f;
+  const float detf = det3(nf);
+  float uc[3][3], sig[3], vc[3][3];
+  if (check || enabled || model != NEO_HOOKEAN) svd3(nf, detf, uc, sig, vc);
 
-  // Drucker-Prager.
+  // Fracture check on |sigma|, the values the plain version's eig33_sigma
+  // gives in another order (the same sweeps of the same F^T F): sign(det F)
+  // goes to every value equal to the least.
+  float new_phase = phase;
+  if (check) {
+    float sg[3];
+    for (int k = 0; k < 3; ++k) sg[k] = fabsf(sig[k]);
+    float smin = fminf(fminf(sg[0], sg[1]), sg[2]);
+    float sgn = detf < 0.0f ? -1.0f : 1.0f;
+    bool over = false;
+    for (int k = 0; k < 3; ++k)
+      over = over || (sg[k] * (sg[k] == smin ? sgn : 1.0f) > stretch);
+    new_phase = over ? 0.0f : phase;
+  }
+
+  // Drucker-Prager (disabled at lambda <= 0: F and the state stay).
   float dps[3] = {row(R_DPS0), row(R_DPS0 + 1), row(R_DPS0 + 2)};
   float ndps[3] = {dps[0], dps[1], dps[2]};
-  {
+  bool projected = false;
+  if (enabled) {
     float h0 = mval(2), h1 = mval(3), h2 = mval(4), h3 = mval(5);
-    float lam = mval(6), mu = mval(7);
-    bool enabled = lam > 0.0f;
     const float df = 3.0f;
-    float uc[3][3], sig[3], vc[3][3];
-    svd3(nf, uc, sig, vc);
     float angle = h0 + (h1 * dps[1] - h3) * expf(-h2 * dps[1]);
     float s = sinf(angle);
     float alpha = 0.8164966106414795f * (2.0f * s) / (3.0f - s);
@@ -311,7 +325,7 @@ __global__ void update_kernel(
     bool case_a = trace > 0.0f || dev_norm == 0.0f;
     float hard_a = sqrtf(strain[0] * strain[0] + strain[1] * strain[1]
                          + strain[2] * strain[2]);
-    float gamma = dev_norm + (df * lam + 2.0f * mu) / (2.0f * mu) * trace * alpha;
+    float gamma = dev_norm + (df * dp_lam + 2.0f * dp_mu) / (2.0f * dp_mu) * trace * alpha;
     bool case_b = !case_a && gamma <= 0.0f;
     float sc = gamma / fmaxf(dev_norm, 1e-20f);
     float nsig[3];
@@ -320,9 +334,8 @@ __global__ void update_kernel(
     float plastic_h = case_a ? hard_a : gamma;
     float prev_det = sig[0] * sig[1] * sig[2];
     float new_det = nsig[0] * nsig[1] * nsig[2];
-    bool apply = enabled && !case_b;
-    bool granular = new_phase == 0.0f;
-    if (apply && granular) {
+    projected = !case_b && new_phase == 0.0f;
+    if (projected) {
       ndps[0] = dps[0] * prev_det / (new_det != 0.0f ? new_det : 1.0f);
       ndps[1] = dps[1] + plastic_h;
       ndps[2] = dps[2] + logf(fmaxf(prev_det, 1e-20f)) - logf(fmaxf(new_det, 1e-20f));
@@ -352,8 +365,8 @@ __global__ void update_kernel(
       }
   } else {
     float lam = mval(0), mu = mval(1), vol0 = mval(9);
-    float uc[3][3], sig[3], vc[3][3];
-    svd3(nf, uc, sig, vc);
+    // The SVD above, unless Drucker-Prager replaced F.
+    if (projected) svd3(nf, det3(nf), uc, sig, vc);
     float j = sig[0] * sig[1] * sig[2];
     float diag = lam * (j - 1.0f) * j;
     float two_mu = 2.0f * mu;
@@ -642,8 +655,8 @@ extern "C" int update_rows_cuda(
     long long live_below, long long model, float dt, float h, float invd,
     float limit, float pen_thresh, float corr_min, float* out,
     cudaStream_t stream) {
-  unsigned blocks = (unsigned)((npad + 127) / 128);
-  update_kernel<<<blocks, 128, 0, stream>>>(
+  unsigned blocks = (unsigned)((npad + UPDATE_THREADS - 1) / UPDATE_THREADS);
+  update_kernel<<<blocks, UPDATE_THREADS, 0, stream>>>(
       rows, krows, pcdf, sids, ce, btable, mtable, npad, kstride, pstride,
       (int)nc, (int)n_mat, (int)live_below, (int)model, dt, h, invd, limit,
       pen_thresh, corr_min, out);

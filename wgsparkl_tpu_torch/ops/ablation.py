@@ -1,16 +1,18 @@
 """The P2G ablation probe (port of tools/ablate_kernels.py; csrc/
 p2g_ablation.cu): one P2G pass cut into stages, timed on synthetic jobs at
-the main path's size, with two node-side cores.
+the main path's size, with three node-side cores.
 
 Stages (each includes the ones before): "load" (the job's 16 P2G rows into
 shared memory), "weights" (+ stencil weights and the particle records),
 "accumulate" (+ the 13 node sums) and "full" (+ the recombination with the
 node position: kernel A's P2G, the TPU probe's "full"; its "full2" computes
 the same function with another layout of the MXU product).  Cores: "scan",
-kernel A's parent node loop (every window node tests every particle of a
-256-particle chunk) that kernel F still runs, and "lists", kernel A's
-per-node particle lists (csrc/transfer.cuh).  Only "full" has a plain
-version; it sums each node in the order of the core asked for.
+the node loop kernels A and F ran before their redesign (every window node
+tests every particle of a 256-particle chunk); "lists", kernel A's
+per-node particle lists (csrc/transfer.cuh, one thread per node); and
+"pairs", the same lists walked by one thread per two z-neighbour nodes
+(list_walk_pair), in the lists order.  Only "full" has a plain version; it
+sums each node in the order of the core asked for.
 """
 
 from __future__ import annotations
@@ -21,8 +23,7 @@ import torch
 from wgsparkl_tpu_torch import _cuda
 from wgsparkl_tpu_torch.device import resolve
 from wgsparkl_tpu_torch.ops import rows as R
-from wgsparkl_tpu_torch.ops.blocked import add_rows
-from wgsparkl_tpu_torch.ops.p2g_cdf import p2g_features, window_tile
+from wgsparkl_tpu_torch.ops.p2g_cdf import p2g_node_tiles
 
 # The TPU probe's sizes (tools/ablate_kernels.py:13-18): particles, group,
 # block height, job slots, live jobs; grid (108, 112, 108) at h = 1 with
@@ -31,7 +32,7 @@ N, G, BY, MAXJ, NLIVE = 1_002_001, 1024, 8, 1536, 1300
 CELL_WIDTH = 1.0
 REPS = 10  # timed launches of each stage, after a warm one
 STAGES = ("load", "weights", "accumulate", "full")
-CORES = ("scan", "lists")
+CORES = ("scan", "lists", "pairs")
 
 
 def probe_inputs(n: int = N, group: int = G, maxj: int = MAXJ, nlive: int = NLIVE,
@@ -70,26 +71,19 @@ def probe_inputs(n: int = N, group: int = G, maxj: int = MAXJ, nlive: int = NLIV
 
 def p2g_ablation_plain(pdata, starts, lens, bcells, core: str = "lists"):
     """The full stage: [MAXJ, wpad, 8] tiles, each node's pairs summed in
-    the core's order (scan: particle order; lists: rows.lists_order)."""
+    the core's order (scan: particle order; lists and pairs:
+    rows.lists_order)."""
     if core not in CORES:
         raise ValueError(f"core {core!r} is not one of {CORES}")
     wsh, wvol, wpad = R.window_geom(BY)
-    maxj = starts.shape[0]
     jid, lane = R.job_lanes({"start": starts, "len": lens})
     pd = pdata[:16, lane]
     bc = bcells.to(torch.int64)[jid]
     w, nidx, _ = R.stencil([pd[R.PX], pd[R.PY], pd[R.PZ]], bc, R.f32(1.0 / CELL_WIDTH),
                            wsh)
-    contrib = w[:, :, None] * torch.stack(p2g_features(pd), 1)[:, None, :]
-    contrib = contrib.reshape(-1, 13)
-    fi = (jid[:, None] * wvol + nidx).reshape(-1)
-    if core == "lists":
-        order = R.lists_order(jid, lens)
-        fi, contrib = fi[order], contrib[order]
-    acc = torch.zeros((maxj * wvol, 13), dtype=torch.float32, device=pdata.device)
-    add_rows(acc, fi, contrib)
-    return window_tile(acc.reshape(maxj, wvol, 13),
-                       R.window_positions(bcells, CELL_WIDTH, wsh), wpad)
+    order = None if core == "scan" else R.lists_order(jid, lens)
+    return p2g_node_tiles(pd, w, jid[:, None] * wvol + nidx,
+                          R.window_positions(bcells, CELL_WIDTH, wsh), wpad, order)
 
 
 def p2g_ablation(pdata, starts, lens, bcells, stage: str = "full", core: str = "lists",
@@ -127,7 +121,7 @@ p2g_ablation.launches = 0
 
 
 def stage_table(inputs):
-    """Every stage of both cores on the card, on inputs = probe_inputs():
+    """Every stage of every core on the card, on inputs = probe_inputs():
     (lines to print, {(core, stage): ms per launch}), each time from CUDA
     events around REPS launches after a warm one.  Raises if a core's
     full stage differs from its plain version in any bit."""

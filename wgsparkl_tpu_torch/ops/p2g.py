@@ -5,19 +5,23 @@ with `_window_w`, `_p2g_feats32` / `_mm_from_feats32`, `_compat`,
 
 Per job (up to `group` sorted particles of one 4 x by x 4 block) every
 particle adds, at each node of its 3^3 stencil inside the job's window,
-w m v + w A (x_node - x_p) to the node's momentum and w m to its mass
-(A: the particle's affine rows A0..A0+8 as stored), into the job's window
-tile [wpad, 8] (cols 0-2 momentum, 3 mass, 4-7 zero).  The TPU kernel forms
-m v - A x_p per particle and adds (sum w A) x_node per node after a dense
-window x group matrix product; here each pair is formed directly, which
-rounds differently from the TPU kernel (a tolerance against it) and
-identically in the plain version and the CUDA kernel.
+w times its 13 features (m v - A x_p, m, A; p2g_cdf.p2g_features) to the
+node's sums, which the tile recombines with the node position x_node into
+momentum sum w (m v - A x_p) + (sum w A) x_node and mass sum w m (A: the
+particle's affine rows A0..A0+8 as stored), into the job's window tile
+[wpad, 8] (cols 0-2 momentum, 3 mass, 4-7 zero).  This is kernel A's P2G
+form, the TPU kernel's too; each node sums its pairs in the lists order of
+csrc/transfer.cuh (rows.lists_order: per chunk of up to 1024 particles of a
+job, stencil offsets in order, each offset's particles in particle order),
+where the TPU kernel contracts a dense window x group matrix product: a
+tolerance against it, and bit-equality between the plain version and the
+CUDA kernel.
 
 With colliders (nc > 0) a job whose gate level jbody is > 0 masks W by CPIC
 compatibility between the window node's affinity word (the job's node
 tiles) and the particle's stored one (rows AFF / AFF_SPARE), and reduces
 the impulses of its incompatible (node, particle) pairs against the node's
-closest body per collider: per node in particle order, per job over window
+closest body per collider: per node in the lists order, per job over window
 nodes in node order, over jobs in job order (imp [1, 8, 128], rows 0-2
 linear and 3-5 angular impulse, lanes = collider slots).  No pipeline path
 takes that branch; the collider-free substep (nc = 0) takes the other.
@@ -30,7 +34,7 @@ import torch
 from wgsparkl_tpu_torch import _cuda
 from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.ops.blocked import add_rows
-from wgsparkl_tpu_torch.ops.p2g_cdf import _seqsum, job_table
+from wgsparkl_tpu_torch.ops.p2g_cdf import _seqsum, job_table, p2g_node_tiles
 
 
 def p2g_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width, by, nc):
@@ -43,7 +47,6 @@ def p2g_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width, by, nc):
     w, nidx, _ = R.stencil([pd[0], pd[1], pd[2]], bc, R.f32(1.0 / cell_width), wsh)
     fi = jid[:, None] * wvol + nidx
     xw = R.window_positions(bcells, cell_width, wsh)                # [J, wvol, 3]
-    xn = xw.reshape(-1, 3)[fi]                                      # [P, 27, 3]
     gated = (jbody.to(torch.int64)[jid] > 0)[:, None] & (nc > 0)
     if nc > 0:
         t = ntiles[:, :wvol]
@@ -53,20 +56,9 @@ def p2g_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width, by, nc):
         wc = torch.where(gated & ~comp, 0.0, w)
     else:
         wc = w
-    mass = pd[R.PM]
-    dx = [xn[..., k] - pd[R.PX + k][:, None] for k in range(3)]
-    contrib = []
-    for i in range(3):
-        a = [pd[R.A0 + 3 * i + k][:, None] for k in range(3)]
-        t_i = (mass * pd[R.VX + i])[:, None] + ((a[0] * dx[0] + a[1] * dx[1])
-                                               + a[2] * dx[2])
-        contrib.append(wc * t_i)
-    contrib.append(wc * mass[:, None])
-    # Each node's pairs are added in particle order, as the kernel does.
-    acc = torch.zeros((maxj * wvol, 4), dtype=torch.float32, device=dev)
-    add_rows(acc, fi.reshape(-1), torch.stack(contrib, -1).reshape(-1, 4))
-    mm = torch.zeros((maxj, wpad, 8), dtype=torch.float32, device=dev)
-    mm[:, :wvol, :4] = acc.reshape(maxj, wvol, 4)
+    # Each node's pairs are added in the kernel's lists order.
+    order = R.lists_order(jid, jobs["len"])
+    mm = p2g_node_tiles(pd, wc, fi, xw, wpad, order)
 
     imp = torch.zeros((1, 8, 128), dtype=torch.float32, device=dev)
     if nc == 0:
@@ -76,11 +68,10 @@ def p2g_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width, by, nc):
     bvp = [b.reshape(-1)[fi] for b in R.node_body_velocity(closest_w, xw, btable, nc)]
     vp = [pd[R.VX + k][:, None] for k in range(3)]
     ghost = R.ghost_velocity(vp, bvp, [pd[R.NX + k][:, None] for k in range(3)])
-    w_i = torch.where(comp | (closest < 0.0) | ~gated, 0.0, w) * mass[:, None]
+    w_i = torch.where(comp | (closest < 0.0) | ~gated, 0.0, w) * pd[R.PM][:, None]
+    d = torch.stack([w_i * (vp[k] - ghost[k]) for k in range(3)], -1).reshape(-1, 3)
     dsum = torch.zeros((maxj * wvol, 3), dtype=torch.float32, device=dev)
-    add_rows(dsum, fi.reshape(-1),
-             torch.stack([w_i * (vp[k] - ghost[k]) for k in range(3)], -1)
-             .reshape(-1, 3))
+    add_rows(dsum, fi.reshape(-1)[order], d[order])
     d, x = dsum.reshape(maxj, wvol, 3), xw
     vals = torch.stack([d[..., 0], d[..., 1], d[..., 2],       # d, d x x_node
                         d[..., 1] * x[..., 2] - d[..., 2] * x[..., 1],

@@ -157,6 +157,23 @@ def window_tile(acc, xw, wpad: int):
     return mm
 
 
+def p2g_node_tiles(pd, w, fi, xw, wpad: int, order=None):
+    """[J, wpad, 8] tiles of kernel A's P2G form: each (particle, stencil
+    offset) pair adds w [P, 27] times the particle's p2g_features (rows pd)
+    to its flat window node fi [P, 27] (job * wvol + node), each node's
+    pairs in `order` (a permutation of the flattened pairs, rows.lists_order;
+    None: particle order), then window_tile with the node positions xw
+    [J, wvol, 3]."""
+    maxj, wvol, _ = xw.shape
+    contrib = (w[:, :, None] * torch.stack(p2g_features(pd), 1)[:, None, :]).reshape(-1, 13)
+    fi = fi.reshape(-1)
+    if order is not None:
+        fi, contrib = fi[order], contrib[order]
+    acc = torch.zeros((maxj * wvol, 13), dtype=torch.float32, device=pd.device)
+    add_rows(acc, fi, contrib)
+    return window_tile(acc.reshape(maxj, wvol, 13), xw, wpad)
+
+
 def p2g_cdf_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width,
                   by, group, npad, nc, moving):
     dev = pdata.device
@@ -191,13 +208,9 @@ def p2g_cdf_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width,
     comp = R.compat(naff, aff[:, None])
     wc = torch.where(gated[:, None] & ~comp, 0.0, w)
     mass = pd[R.PM]
-    contrib = wc[:, :, None] * torch.stack(p2g_features(pd), 1)[:, None, :]
     # Each node's pairs are added in the kernel's lists order.
     order = R.lists_order(jid, jobs["len"])
-    fi_o = fi.reshape(-1)[order]
-    acc = torch.zeros((maxj * wvol, 13), dtype=torch.float32, device=dev)
-    add_rows(acc, fi_o, contrib.reshape(-1, 13)[order])
-    mm = window_tile(acc.reshape(maxj, wvol, 13), xw, wpad)
+    mm = p2g_node_tiles(pd, wc, fi, xw, wpad, order)
 
     # Level-2 impulses against each incompatible node's closest body.
     imp = torch.zeros((1, 8, 128), dtype=torch.float32, device=dev)
@@ -210,7 +223,7 @@ def p2g_cdf_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width,
         w_i = torch.where(comp | (closest < 0) | ~lv2, 0.0, w) * mass[:, None]
         d = torch.stack([w_i * (vp[k] - ghost[k]) for k in range(3)], -1)
         dsum = torch.zeros((maxj * wvol, 3), dtype=torch.float32, device=dev)
-        add_rows(dsum, fi_o, d.reshape(-1, 3)[order])
+        add_rows(dsum, fi.reshape(-1)[order], d.reshape(-1, 3)[order])
         dsum = dsum.reshape(maxj, wvol, 3)
         x = xw
         cr = torch.stack([
