@@ -24,7 +24,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      collider (onto the paddle in 3D, 1.5 cells into the floor in 2D), so
      that the CPIC impulses carry load, of the collider-free scene (F) and
      of the 2D neo-Hookean scene (C-2D's neo-Hookean branch); C's 3D
-     neo-Hookean branch on the 3D inputs; the in-kernel math probe and its
+     neo-Hookean branch on the 3D inputs; A and B on a substep of path 5
+     lowered onto its capsule, in each CDF mode (entries `*_shapes` and
+     `*_chan_free`; tiles, affinity rows and per-particle rows bit for
+     bit); the in-kernel math probe and its
      table; the P2G ablation probe at the TPU probe's sizes (1,002,001
      particles, 1300 live jobs of 1536): its four stages for its three
      node-side cores (scan, lists, pairs), each stage's time, each core's
@@ -32,12 +35,22 @@ Phases (any failure exits non-zero, and no result line is printed):
      its stated tolerance, its time and its bound (CUDA events); beside
      kernel C, the share of lanes and of 32-lane warps whose F the
      Drucker-Prager return map replaced (such a warp runs C's second SVD);
+  5. (path 5) the 3D analytic-shapes path at full size: the main path's
+     lattice, models, grid and job table with a static halfspace floor,
+     the four static side walls, a kinematic capsule paddle and a kinematic
+     ball (`shapes_scene`), once in the gathered-hybrid CDF mode, which the
+     construction-time heuristic must pick, and once in the chan-free mode
+     (fewer frames); steps/s and the job-gate histogram of each;
   6. the kernel path against the plain path on small scenes (3D: 10
      substeps of the sand box, 5 of a lattice lowered onto the paddle, 10
      of the collider-free lattice and of the neo-Hookean sand box; 2D: 10
      substeps of the sand column, the elastic blocks and the collider-free
-     column): equal bit for bit to the plain path on the card, and within
-     tolerance of the plain path on the CPU (affinity words exact).
+     column; 5 substeps each of the analytic-shapes scene lowered onto its
+     capsule in both CDF modes, of the 16-collider scene, of a scene whose
+     colliders all move and of the 2D sand column stirred by a kinematic
+     ball and capsule): equal bit for bit to the plain path on the card,
+     and within tolerance of the plain path on the CPU (affinity words
+     exact).
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -54,6 +67,7 @@ import torch
 
 SUBSTEPS = 20
 TIMED_FRAMES = 3
+TIMED_FRAMES_CHAN_FREE = 2    # path 5 in the chan-free mode
 NXZ, NY = 77, 169           # 1,002,001 particles (the reference bench sizing)
 BY, GROUP = 8, 1024
 # The 2D throughput scene: sand_column_2d at 700 x 700 (490,000 particles),
@@ -65,6 +79,9 @@ SUBSTEPS_NEO2 = 15
 DEVICE = "cuda:0"
 # The H100 SXM's published peaks (fp32 outside the tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# f32 operations of one collider's CDF at one node (transfer.cuh
+# collider_cdf: two quaternion rotations, the projection, reach, distance).
+CDF_OPS = 90
 
 # TPU kernel each CUDA kernel replaces (the pallas_call site).
 REPLACES = {
@@ -82,9 +99,14 @@ REPLACES = {
     "update_rows2d_neo_hookean": "wgsparkl_tpu/ops/update_rows.py:191",
     "math_probe": "tools/probe_mosaic_math.py:44",
     "p2g_ablation": "tools/ablate_kernels.py:106",
+    "p2g_cdf_shapes": "wgsparkl_tpu/ops/pallas_cdf.py:517",
+    "g2p_shapes": "wgsparkl_tpu/ops/pallas_transfer.py:987",
+    "p2g_cdf_chan_free": "wgsparkl_tpu/ops/pallas_cdf.py:517",
+    "g2p_chan_free": "wgsparkl_tpu/ops/pallas_transfer.py:987",
 }
 SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_rows",
-          "update_rows2d_neo_hookean": "update_rows"}
+          "update_rows2d_neo_hookean": "update_rows", "p2g_cdf_shapes": "p2g_cdf",
+          "p2g_cdf_chan_free": "p2g_cdf", "g2p_shapes": "g2p", "g2p_chan_free": "g2p"}
 # The rows of the [PCHAN, NPAD] input matrix that kernel C reads (csrc/
 # update_rows.cu, update_kernel and update2d_kernel); it replaces the others
 # with G2P rows, particle-CDF rows or new values.
@@ -158,14 +180,15 @@ def plain_versions():
             setattr(m, a, f)
 
 
-def full_scene(dev):
+def full_scene(dev, **mpm_kw):
     """The 3D main path at full size: 1,002,001 particles."""
     from wgsparkl_tpu_torch import scenes
 
     n_est = NXZ * NXZ * NY
     max_jobs = (n_est // (100 * BY) + 256) // 128 * 128
     return scenes.sand_box_3d(nxz=NXZ, ny=NY, cell_width=1.0, with_paddle=True,
-                              device=dev, by=BY, group=GROUP, max_jobs=max_jobs)
+                              device=dev, by=BY, group=GROUP, max_jobs=max_jobs,
+                              **mpm_kw)
 
 
 def full_scene_2d(dev):
@@ -212,6 +235,135 @@ def full_scene_neo_2d(dev):
                                     group=GROUP2, elastic_model="neo_hookean")
 
 
+def shapes_scene(d, chan_free=None, **mpm_kw):
+    """Path 5: scene d's lattice, models and grid (a sand_box_3d) with every
+    analytic collider shape: a static halfspace at the origin in place of
+    the floor cuboid (whose top face is y = 0), d's four static side walls,
+    a kinematic capsule paddle (half height 28, radius 1.5) at (0, 2, 0)
+    lying along z and spinning about y at -1 rad/s, and a kinematic ball
+    (radius 2.5) at (10, 2, 10) spinning about y at 1 rad/s.  chan_free:
+    the CDF mode (None: the construction-time heuristic)."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+
+    bodies = ([RigidBodyDesc(Collider.halfspace(), (0.0, 0.0, 0.0))]
+              + list(d.bodies_desc[1:5])
+              + [RigidBodyDesc(Collider.capsule(28.0, 1.5), (0.0, 2.0, 0.0),
+                               rotation=(np.pi / 2, 0.0, 0.0), body_type="kinematic",
+                               angvel=(0.0, -1.0, 0.0)),
+                 RigidBodyDesc(Collider.ball(2.5), (10.0, 2.0, 10.0),
+                               body_type="kinematic", angvel=(0.0, 1.0, 0.0))])
+    p = d.state.particles
+    return MpmData(d.params, p, d.state.models, bodies, d.config.grid.cell_width,
+                   grid=d.config.grid, chan_free=chan_free, **mpm_kw)
+
+
+def full_scene_shapes(dev, chan_free=None, shift=None):
+    """Path 5 at full size: the main path's 1,002,001-particle lattice,
+    models, grid and job table size with the analytic-shapes bodies; shift
+    moves the lattice."""
+    d = full_scene(dev)
+    if shift is not None:
+        d.state.particles.pos += torch.tensor(shift, device=dev)
+    return shapes_scene(d, chan_free, by=BY, group=GROUP, max_jobs=d.config.max_jobs)
+
+
+def sixteen_colliders(device):
+    """The JAX package's 16-collider scene (tests/test_pallas_transfer.py,
+    test_pallas_16_colliders_affinity_bits): 15 static balls through a
+    falling sand lattice and a floor cuboid last, so that the affinity
+    words reach bits 15 and 31; by=4, group=128."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.models import DruckerPrager, ElasticCoefficients
+    from wgsparkl_tpu_torch.models.drucker_prager import drucker_prager_arrays
+    from wgsparkl_tpu_torch.params import SimulationParams
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+    from wgsparkl_tpu_torch.scenes import _lattice
+    from wgsparkl_tpu_torch.solver import Models, Particles
+
+    pos = _lattice((8, 12, 8), 1.0, (-2.0, 1.2, -2.0))
+    n = len(pos)
+    elast = ElasticCoefficients.from_young_modulus(2.0e9, 0.2)
+    dp = drucker_prager_arrays([DruckerPrager.new(2.0e9, 0.2)])
+    models = Models.from_arrays(n, elast.lam, elast.mu,
+                                dp={k: np.full(n, v[0]) for k, v in dp.items()},
+                                device=device)
+    rng = np.random.RandomState(7)
+    bodies = [RigidBodyDesc(Collider.ball(0.55),
+                            tuple(rng.uniform((-2.5, 0.5, -2.5), (2.5, 4.0, 2.5))))
+              for _ in range(15)]
+    bodies.append(RigidBodyDesc(Collider.cuboid(40.0, 1.0, 40.0), (0.0, -1.0, 0.0)))
+    return MpmData(
+        SimulationParams.new((1.0 / 60.0) / 20, [0.0, -9.81, 0.0], device=device),
+        Particles.from_arrays(pos, density=2700.0, radius=0.25, device=device),
+        models, bodies, 1.0,
+        grid_bounds=(np.array([-8.0, -2.0, -8.0]), np.array([8.0, 12.0, 8.0])),
+        group=128)
+
+
+def all_kinematic(device):
+    """Every collider kinematic (the per-substep dense node CDF): the small
+    sand box lattice lowered 3 cells onto path 5's capsule paddle, over a
+    halfspace floor sliding along x, with a ball spinning at its corner."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+
+    d = scenes_small_3d(device, (0.0, -3.0, 0.0))
+    bodies = [
+        RigidBodyDesc(Collider.halfspace(), (0.0, 0.0, 0.0), body_type="kinematic",
+                      linvel=(0.5, 0.0, 0.0)),
+        RigidBodyDesc(Collider.capsule(28.0, 1.5), (0.0, 2.0, 0.0),
+                      rotation=(np.pi / 2, 0.0, 0.0), body_type="kinematic",
+                      angvel=(0.0, -1.0, 0.0)),
+        RigidBodyDesc(Collider.ball(1.0), (2.0, 6.0, 2.0), body_type="kinematic",
+                      angvel=(1.0, 0.0, 0.0)),
+    ]
+    return MpmData(d.params, d.state.particles, d.state.models, bodies, 1.0,
+                   grid=d.config.grid, by=BY, group=256)
+
+
+def stirred_column_2d(device):
+    """The small 2D sand column with a kinematic ball and a kinematic
+    capsule stirring its foot over the static floor (the reference's sand2
+    stirrers)."""
+    from wgsparkl_tpu_torch import scenes
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+
+    d = scenes.sand_column_2d(nx=24, ny=48, cell_width=0.5, group=128, device=device)
+    bodies = list(d.bodies_desc) + [
+        RigidBodyDesc(Collider.ball(0.8), (-1.5, 1.5), body_type="kinematic",
+                      angvel=1.0),
+        RigidBodyDesc(Collider.capsule(1.0, 0.3), (1.5, 1.2), rotation=1.2,
+                      body_type="kinematic", angvel=-1.0),
+    ]
+    return MpmData(d.params, d.state.particles, d.state.models, bodies, 0.5,
+                   grid=d.config.grid, group=128, chan_free=False)
+
+
+def scenes_small_3d(device, shift=None, **kw):
+    """The small 3D sand box of the CPU tests (8 x 16 x 8 lattice, by=8,
+    group=256); shift moves its lattice."""
+    from wgsparkl_tpu_torch import scenes
+
+    d = scenes.sand_box_3d(nxz=8, ny=16, device=device, by=BY, group=256, **kw)
+    if shift is not None:
+        d.state.particles.pos += torch.tensor(shift, device=device)
+    return d
+
+
+def gate_histogram(rec) -> dict:
+    """Live jobs of a recorded substep by gate level."""
+    jb = rec["jbody"][rec["jobs"]["len"] > 0]
+    return {lvl: int((jb == lvl).sum()) for lvl in (0, 1, 2)}
+
+
 def _to(state, device):
     """A copy of a SimState with every tensor on `device`."""
     def mv(obj):
@@ -227,8 +379,9 @@ def _to(state, device):
                                models=mv(state.models), bodies=mv(state.bodies))
 
 
-def run_frames(wt, data, substeps, kernels, what, card, kind):
-    """One warm and TIMED_FRAMES timed frames through step_with_diag, with
+def run_frames(wt, data, substeps, kernels, what, card, kind,
+               frames=TIMED_FRAMES):
+    """One warm and `frames` timed frames through step_with_diag, with
     the launch counts set to 0 just before and read just after.  Returns
     (launch counts, the last state)."""
     from wgsparkl_tpu_torch.pipeline import step_with_diag
@@ -245,7 +398,7 @@ def run_frames(wt, data, substeps, kernels, what, card, kind):
     print(f"{what}: warm frame ({substeps} substeps) {time.time() - t0:.2f} s",
           flush=True)
     t0 = time.time()
-    for _ in range(TIMED_FRAMES):
+    for _ in range(frames):
         state, diag = step_with_diag(state, data.params, cfg, substeps)
         diags.append(diag)
     torch.cuda.synchronize()
@@ -259,7 +412,7 @@ def run_frames(wt, data, substeps, kernels, what, card, kind):
             fail(f"{what}: step diagnostics of frame {i} (0 = warm): {d.summary()}")
     if min(counts[k] for k in kernels) <= 0:
         fail(f"{what}: a kernel of the path never launched: {counts}")
-    steps = TIMED_FRAMES * substeps
+    steps = frames * substeps
     sps = steps / elapsed
     print(f"{what} on {kind} ({card}): {n} particles, {steps} substeps in "
           f"{elapsed:.3f} s -> {sps:.3f} steps/s, {sps * n / 1e6:.2f} M "
@@ -337,6 +490,25 @@ def main() -> None:
     rec_n["cfg"], rec_n["dt"] = data.config, data.params.dt
     del data, state
     torch.cuda.empty_cache()
+    # ---- 5. path 5: the 3D analytic shapes at full size, both CDF modes ----
+    data = full_scene_shapes(dev)
+    if data.config.chan_free:
+        fail("path 5: the CDF-mode heuristic picked chan-free, not the gathered hybrid")
+    for tag, frames in (("shapes", TIMED_FRAMES), ("chan_free", TIMED_FRAMES_CHAN_FREE)):
+        if tag == "chan_free":
+            data = full_scene_shapes(dev, chan_free=True)
+        mode = "chan-free" if data.config.chan_free else "gathered"
+        what = f"3D analytic-shapes path ({mode})"
+        counts, state = run_frames(wt, data, SUBSTEPS, KERNELS_3D, what, card, kind,
+                                   frames)
+        launches[f"p2g_cdf_{tag}"] = counts["p2g_cdf"]
+        launches[f"g2p_{tag}"] = counts["g2p"]
+        rec = {}
+        step_pallas(state, data.params, data.config, 1, record=rec)
+        print(f"{what}: live jobs by gate level {gate_histogram(rec)} in a substep "
+              "after the timed frames", flush=True)
+        del data, state, rec
+        torch.cuda.empty_cache()
 
     checks = []
 
@@ -500,6 +672,57 @@ def main() -> None:
           cost=(4 * npad + npad + 4 * 2 * n_first, 0))
     del rec, args_a, args_b, args_c, data, state
     torch.cuda.empty_cache()
+
+    # ---- 5a'. A and B on path 5 lowered onto its capsule, both CDF modes ----
+    for tag, chan_free in (("shapes", False), ("chan_free", True)):
+        data = full_scene_shapes(dev, chan_free, shift=(0.0, -3.0, 0.0))
+        cfg = data.config
+        state, diag = step_with_diag(data.state, data.params, cfg, 2)
+        rec = {}
+        step_pallas(state, data.params, cfg, 1, record=rec)
+        torch.cuda.synchronize()
+        if diag.any_overflow():
+            fail(f"step diagnostics of lowered path 5 ({tag}): {diag.summary()}")
+        h, npad, nc = cfg.grid.cell_width, rec["rows"].shape[1], cfg.num_colliders
+        mode = (rec["moving"], rec["static_desc"], rec["chan_free"])
+        args_a = (rec["rows"][:24].contiguous(), rec["ntiles"], rec["btable"],
+                  rec["jobs"], rec["bcells"], rec["jbody"], h, BY, GROUP, npad, nc,
+                  *mode)
+        args_b = (rec["pdata"], rec["ftiles"], rec["ntiles"], rec["btable"],
+                  rec["jobs"], rec["bcells"], rec["jbody"], h, BY, GROUP, npad, nc,
+                  *mode)
+        ce, pg, nj, njg = job_stats(rec)
+        hist = gate_histogram(rec)
+        wv = R.window_geom(BY)[1]
+        # Node CDF evaluations: chan-free, every window node of a level-1
+        # job against the static colliders and of a level-2 job against
+        # all; gathered, the level-2 jobs' nodes against the moving ones.
+        n_st, n_mv = len(rec["static_desc"]), len(rec["moving"])
+        evals = wv * (hist[1] * n_st + hist[2] * (n_st + n_mv) if chan_free
+                      else hist[2] * n_mv)
+        tile_bytes = 0 if chan_free else 4 * nj * wv * 4
+        print(f"path 5 kernel inputs ({tag}): {ce} covered particles ({pg} in "
+              f"gated jobs), live jobs by gate level {hist}, {evals} node-collider "
+              f"CDF evaluations, NPAD {npad}", flush=True)
+        check(f"p2g_cdf_{tag}",
+              lambda: p2g_cdf.p2g_cdf_tiles(*args_a),
+              lambda: p2g_cdf.p2g_cdf_plain(*args_a),
+              lambda k, p: [("impulses", k[1], p[1], 1e-4)],
+              lambda k, p: [("mm tiles", k[0], p[0]),
+                            ("particle cdf rows", k[2][:, :ce], p[2][:, :ce])],
+              lambda p: (None if float(p[1].abs().max()) > 1.0
+                         else "the plain impulses are ~0: no contact load"),
+              cost=(tile_bytes + 4 * (24 * ce + nj * wv * 8 + 8 * ce + njg * 8 * 128),
+                    ce * (30 + 27 * 13 * 2) + pg * (27 * (3 * nc + 58) + 200)
+                    + evals * CDF_OPS))
+        check(f"g2p_{tag}",
+              lambda: g2p.g2p_rows(*args_b), lambda: g2p.g2p_plain(*args_b),
+              lambda k, p: [], lambda k, p: [("rows", k[:, :ce], p[:, :ce])],
+              cost=(4 * (11 * ce + nj * wv * 4 + 12 * ce)
+                    + (0 if chan_free else 4 * njg * wv * 4),
+                    ce * (30 + 27 * 24) + pg * 27 * 40 + evals * CDF_OPS))
+        del rec, args_a, args_b, data, state
+        torch.cuda.empty_cache()
 
     # ---- 5b. 2D kernels vs plain versions at full size, under contact load ----
     # The 2D scene with its lattice lowered 1.5 cells into the floor: gated
@@ -723,6 +946,40 @@ def main() -> None:
           "2D sand column, elastic blocks and collider-free column): kernel "
           "path equals the plain path on the card and agrees with it on the "
           "CPU", flush=True)
+    # The analytic-shapes slice, 5 substeps each; against the CPU each
+    # substep starts both paths from the CPU state (contact from the start).
+    small_5 = {
+        "3D analytic shapes on the capsule (gathered)": lambda device: shapes_scene(
+            scenes_small_3d(device, (0.0, -3.0, 0.0), with_paddle=False), False,
+            by=BY, group=256),
+        "3D analytic shapes on the capsule (chan-free)": lambda device: shapes_scene(
+            scenes_small_3d(device, (0.0, -3.0, 0.0), with_paddle=False), True,
+            by=BY, group=256),
+        "3D 16 colliders": sixteen_colliders,
+        "3D all colliders kinematic": all_kinematic,
+        "2D sand column stirred by a kinematic ball and capsule": stirred_column_2d,
+    }
+    for what, make in small_5.items():
+        dk, dp = make(dev), make("cpu")
+        if ("chan-free" in what) != dk.config.chan_free:
+            fail(f"{what}: built in the wrong CDF mode")
+        wt.reset_launch_counts()
+        sk = step_pallas(dk.state, dk.params, dk.config, 5)
+        counts = wt.launch_counts()
+        kernels = KERNELS_3D if dk.config.grid.dim == 3 else KERNELS_2D
+        if min(counts[k] for k in kernels) <= 0:
+            fail(f"{what}: a kernel of the path never launched: {counts}")
+        with plain_versions():
+            same(sk, step_pallas(dk.state, dk.params, dk.config, 5), what)
+        sp = dp.state
+        for _ in range(5):
+            sk = step_pallas(_to(sp, dev), dk.params, dk.config, 1)
+            sp_next = step_pallas(sp, dp.params, dp.config, 1)
+            agree(sk, sp_next, what)
+            sp = sp_next
+    print("small analytic-shapes scenes (" + "; ".join(small_5) + "): kernel path "
+          "equals the plain path on the card and agrees with it on the CPU "
+          "substep by substep", flush=True)
     for c in checks:
         c["launches"] = launches[c["name"]]
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)

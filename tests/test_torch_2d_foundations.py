@@ -344,11 +344,17 @@ def _moving_floor_2d(**kw):
 ], ids=["chan_free", "neo_hookean", "fold_vel", "spatial", "moving_collider"])
 def test_unported_2d_options_raise(make):
     """Each 2D option the port lacks raises naming its ROADMAP item.  2D
-    neo-Hookean is ported now: that case builds and carries the model."""
+    neo-Hookean and 2D moving colliders are ported now: those cases build
+    and carry the model or the moving slot."""
     if make is None:
         d = scenes.sand_column_2d(nx=4, ny=4, cell_width=0.5, device="cpu",
                                   elastic_model="neo_hookean")
         assert d.config.elastic_model == "neo_hookean"
+        return
+    if make is _moving_floor_2d:
+        d = make()
+        assert not d.config.chan_free
+        assert d.config.static_slots == () and d.config.num_colliders == 1
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make()

@@ -72,6 +72,51 @@ def test_g2p_kernel_matches_plain(rec):
     _close(g2p.g2p_rows(*args), g2p.g2p_plain(*args), 1e-5)
 
 
+@pytest.fixture(scope="module", params=["gathered", "chan_free"])
+def rec_shapes(request):
+    """A substep of the analytic-shapes scene (static halfspace and walls,
+    kinematic capsule and ball), the lattice lowered onto the capsule, in
+    each CDF mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.pipeline import RigidBodyDesc
+
+    d = scenes.sand_box_3d(nxz=8, ny=16, with_paddle=False, device="cuda")
+    bodies = ([RigidBodyDesc(Collider.halfspace(), (0.0, 0.0, 0.0))]
+              + list(d.bodies_desc[1:5])
+              + [RigidBodyDesc(Collider.capsule(28.0, 1.5), (0.0, 2.0, 0.0),
+                               rotation=(np.pi / 2, 0.0, 0.0), body_type="kinematic",
+                               angvel=(0.0, -1.0, 0.0)),
+                 RigidBodyDesc(Collider.ball(2.5), (2.0, 2.0, 2.0),
+                               body_type="kinematic", angvel=(0.0, 1.0, 0.0))])
+    p = d.state.particles
+    p = dataclasses.replace(p, pos=p.pos + torch.tensor([0.0, -3.0, 0.0], device="cuda"))
+    d = MpmData(d.params, p, d.state.models, bodies, 1.0, grid=d.config.grid, by=8,
+                group=256, chan_free=request.param == "chan_free")
+    state = step_pallas(d.state, d.params, d.config, 2)
+    r = {}
+    step_pallas(state, d.params, d.config, 1, record=r)
+    r["cfg"] = d.config
+    return r
+
+
+def test_shapes_kernels_match_plain(rec_shapes):
+    """A and B with ball, capsule and halfspace colliders, gathered or
+    chan-free: bit for bit but for A's impulses."""
+    r, cfg = rec_shapes, rec_shapes["cfg"]
+    common = (r["btable"], r["jobs"], r["bcells"], r["jbody"], cfg.grid.cell_width,
+              cfg.by, cfg.group, r["rows"].shape[1], cfg.num_colliders, r["moving"],
+              r["static_desc"], r["chan_free"])
+    args = (r["rows"][:24].contiguous(), r["ntiles"]) + common
+    k, p = p2g_cdf.p2g_cdf_tiles(*args), p2g_cdf.p2g_cdf_plain(*args)
+    assert float(p[1].abs().max()) > 1.0
+    assert torch.equal(k[0], p[0]) and torch.equal(k[2], p[2])
+    _close(k[1], p[1], 1e-4)
+    args = (r["pdata"], r["ftiles"], r["ntiles"]) + common
+    assert torch.equal(g2p.g2p_rows(*args), g2p.g2p_plain(*args))
+
+
 def test_update_rows_kernel_matches_plain(rec):
     cfg = rec["cfg"]
     nb = rec["grid_mm"].shape[0] - 1

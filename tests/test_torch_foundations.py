@@ -160,6 +160,12 @@ def test_main_path_configuration_matches_jax():
     dict(fold_vel=True), dict(joints=((0, 5, (0, 0, 0), (0, 0, 0)),)),
     dict(spatial_devices=2)])
 def test_unported_options_raise(kw):
+    """Each 3D option the port lacks raises naming its ROADMAP item.  The
+    chan-free CDF mode is ported now: that case builds and carries it."""
+    if kw == dict(chan_free=True):
+        d = scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
+        assert d.config.chan_free and d.config.static_slots == (0, 1, 2, 3, 4)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
 

@@ -52,7 +52,8 @@ SHIFTS = {
 
 
 def _phases(rows_all, bodies, params, cfg, n, static_chan, mtable):
-    """One JAX main-path substep, returning every phase's arrays."""
+    """One JAX 3D substep (gathered hybrid, or chan-free when cfg.chan_free),
+    returning every phase's arrays."""
     from wgsparkl_tpu.ops import blocked as bk
     from wgsparkl_tpu.ops import pallas_transfer as ptf
     from wgsparkl_tpu.ops.kernel import inv_d
@@ -81,12 +82,13 @@ def _phases(rows_all, bodies, params, cfg, n, static_chan, mtable):
                         if i in cfg.static_slots)
     moving = tuple((i, cfg.collider_types[i]) for i in range(nc)
                    if i not in cfg.static_slots)
-    gate = _moving_reach_gate(bcells, bodies, moving, wsh, grid.cell_width)
+    gate = (None if cfg.chan_free
+            else _moving_reach_gate(bcells, bodies, moving, wsh, grid.cell_width))
     btable = _body_table(bodies, params, grid)
     ntiles, jbody, mm, imp, pcdf, pdata = _cdf_kernel_phase_3d(
         rows[:ptf.NCHAN], static_chan, gather_tiles, btable, jobs, bcells, grid,
         group, npad, nc, by=by, static_slots=cfg.static_slots, bodies=bodies,
-        mode=(False, static_desc, moving), moving_gate=gate)
+        mode=(cfg.chan_free, static_desc, moving), moving_gate=gate)
     grid_mm = jnp.zeros((nb_total + 1,) + bk.block_shape(3, by) + (4,),
                         jnp.float32)
     grid_mm = scatter_mm(grid_mm, mm)
@@ -94,7 +96,7 @@ def _phases(rows_all, bodies, params, cfg, n, static_chan, mtable):
     ftiles = gather_tiles(grid_mm, out=(wpad, 4))
     krows = ptf.g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, grid,
                          group, npad, nc, jbody, by=by, moving=moving,
-                         static_desc=static_desc)
+                         static_desc=static_desc, chan_free=cfg.chan_free)
     rows_out = update_rows(rows, krows, pcdf, sids, covered_end, btable, mtable,
                            params, cfg, nc, inv_d(grid.cell_width),
                            live_below=nb_total)
@@ -114,11 +116,17 @@ def _phases(rows_all, bodies, params, cfg, n, static_chan, mtable):
 def jax_dump(shift=(0.0, 0.0, 0.0), substeps_before: int = 2):
     """(MpmData, dict of numpy arrays) of the JAX main path's phases in the
     substep after `substeps_before` substeps of the scene."""
+    return dump_phases(jax_scene(shift), substeps_before)
+
+
+def dump_phases(data: MpmData, substeps_before: int = 2):
+    """(data, dict of numpy arrays) of the phases of a 3D scene with a
+    static collider (gathered hybrid or chan-free mode) in the substep
+    after `substeps_before` substeps."""
     from wgsparkl_tpu.ops import blocked as bk
     from wgsparkl_tpu.ops import pallas_transfer as ptf
     from wgsparkl_tpu.pipeline import _cdf_chan_grid, _node_cdf_static, pallas_npad
 
-    data = jax_scene(shift)
     cfg, st = data.config, data.state
     n = st.particles.count
     npad = pallas_npad(n, cfg.group)
@@ -147,6 +155,11 @@ def port_jobs(d):
 def moving_of(cfg):
     return tuple((i, t) for i, t in enumerate(cfg.collider_types)
                  if i not in cfg.static_slots)
+
+
+def static_of(cfg):
+    return tuple((i, t) for i, t in enumerate(cfg.collider_types)
+                 if i in cfg.static_slots)
 
 
 def compare_states(ref, out, colliders: bool = True):
@@ -319,3 +332,144 @@ def jax_scene_free(dim: int, elastic: bool = False) -> MpmData:
                                     max_stretch=-1.0)
     return MpmData(d.params, p, models, [], h, grid=d.config.grid,
                    transfer="pallas", **kw)
+
+
+# ------------------------------------------------------- analytic shapes
+# Lattice placements of the shapes scene, each 2 cells above the halfspace
+# floor: lowered onto the capsule paddle, moved onto the ball, and moved
+# aside (x in [-13, -9]) out of both moving colliders' reach, where jobs
+# see only the floor (gate level 1).
+SHIFTS_SHAPES = {
+    "on_capsule": (0.0, -3.0, 0.0),
+    "on_ball": (8.0, -3.0, 8.0),
+    "aside": (-11.0, -3.0, 0.0),
+}
+
+
+def shapes_bodies(walls):
+    """The analytic-shapes scene's bodies (JAX package): a static halfspace
+    at the origin (the sand box floor's top face), the four static side
+    walls `walls`, a kinematic capsule paddle spinning about y and a
+    kinematic ball spinning in place."""
+    from wgsparkl_tpu.collision.shapes import Collider
+    from wgsparkl_tpu.pipeline import RigidBodyDesc
+
+    return ([RigidBodyDesc(Collider.halfspace(), (0.0, 0.0, 0.0))] + list(walls)
+            + [RigidBodyDesc(Collider.capsule(28.0, 1.5), (0.0, 2.0, 0.0),
+                             rotation=(np.pi / 2, 0.0, 0.0), body_type="kinematic",
+                             angvel=(0.0, -1.0, 0.0)),
+               RigidBodyDesc(Collider.ball(2.5), (10.0, 2.0, 10.0),
+                             body_type="kinematic", angvel=(0.0, 1.0, 0.0))])
+
+
+def jax_scene_shapes(shift=(0.0, 0.0, 0.0), chan_free=False) -> MpmData:
+    """sand_box_3d(nxz=8, ny=16)'s lattice, models and grid with the
+    analytic-shapes bodies (shapes_bodies) at by=8, group=256, in the
+    gathered-hybrid or the chan-free CDF mode (None: the heuristic)."""
+    d3 = scenes.sand_box_3d(nxz=8, ny=16, cell_width=1.0, with_paddle=False)
+    p = d3.state.particles
+    if any(shift):
+        p = p.replace(pos=p.pos + jnp.asarray(shift, jnp.float32))
+    return MpmData(d3.params, p, d3.state.models, shapes_bodies(d3.bodies_desc[1:5]),
+                   1.0, grid=d3.config.grid, transfer="pallas", group=GROUP,
+                   job_chunk=8, by=BY, chan_free=chan_free)
+
+
+def jax_scene_16() -> MpmData:
+    """The 16-collider scene of tests/test_pallas_transfer.py
+    (test_pallas_16_colliders_affinity_bits): 15 static balls through a
+    falling sand lattice and a floor cuboid last, by=4, group=128."""
+    from wgsparkl_tpu.collision.shapes import Collider
+    from wgsparkl_tpu.models import DruckerPrager, ElasticCoefficients
+    from wgsparkl_tpu.models.drucker_prager import drucker_prager_arrays
+    from wgsparkl_tpu.params import SimulationParams
+    from wgsparkl_tpu.pipeline import RigidBodyDesc
+    from wgsparkl_tpu.solver import Models, Particles
+
+    pos = scenes._lattice((8, 12, 8), 1.0, (-2.0, 1.2, -2.0))
+    n = len(pos)
+    particles = Particles.from_arrays(pos, density=2700.0, radius=0.25)
+    elast = ElasticCoefficients.from_young_modulus(2.0e9, 0.2)
+    dp = drucker_prager_arrays([DruckerPrager.new(2.0e9, 0.2)])
+    models = Models.from_arrays(n, elast.lam, elast.mu,
+                                dp={k: np.full(n, v[0]) for k, v in dp.items()})
+    rng = np.random.RandomState(7)
+    bodies = [RigidBodyDesc(Collider.ball(0.55),
+                            tuple(rng.uniform((-2.5, 0.5, -2.5), (2.5, 4.0, 2.5))))
+              for _ in range(15)]
+    bodies.append(RigidBodyDesc(Collider.cuboid(40.0, 1.0, 40.0), (0.0, -1.0, 0.0)))
+    params = SimulationParams.new(dt=(1.0 / 60.0) / 20,
+                                  gravity=np.array([0.0, -9.81, 0.0]))
+    return MpmData(params, particles, models, bodies, 1.0,
+                   grid_bounds=(np.array([-8.0, -2.0, -8.0]),
+                                np.array([8.0, 12.0, 8.0])),
+                   transfer="pallas", group=128, job_chunk=8)
+
+
+def jax_scene_kinematic() -> MpmData:
+    """Every collider kinematic (the per-substep dense node CDF): the
+    sand_box_3d(nxz=8, ny=16) lattice lowered 3 cells onto the capsule
+    paddle of shapes_bodies, over a halfspace floor sliding along x, with a
+    spinning ball at the lattice's corner."""
+    from wgsparkl_tpu.collision.shapes import Collider
+    from wgsparkl_tpu.pipeline import RigidBodyDesc
+
+    d3 = scenes.sand_box_3d(nxz=8, ny=16, cell_width=1.0, with_paddle=False)
+    p = d3.state.particles
+    p = p.replace(pos=p.pos + jnp.asarray([0.0, -3.0, 0.0], jnp.float32))
+    bodies = [
+        RigidBodyDesc(Collider.halfspace(), (0.0, 0.0, 0.0), body_type="kinematic",
+                      linvel=(0.5, 0.0, 0.0)),
+        RigidBodyDesc(Collider.capsule(28.0, 1.5), (0.0, 2.0, 0.0),
+                      rotation=(np.pi / 2, 0.0, 0.0), body_type="kinematic",
+                      angvel=(0.0, -1.0, 0.0)),
+        RigidBodyDesc(Collider.ball(1.0), (2.0, 6.0, 2.0), body_type="kinematic",
+                      angvel=(1.0, 0.0, 0.0)),
+    ]
+    return MpmData(d3.params, p, d3.state.models, bodies, 1.0,
+                   grid=d3.config.grid, transfer="pallas", group=GROUP,
+                   job_chunk=8, by=BY)
+
+
+def jax_scene_2d_moving() -> MpmData:
+    """sand_column_2d(nx=24, ny=48, cell width 0.5) with a kinematic ball
+    and a kinematic capsule stirring the column's foot (the reference's
+    sand2 stirrers) over its static floor, group=128."""
+    from wgsparkl_tpu.collision.shapes import Collider
+    from wgsparkl_tpu.pipeline import RigidBodyDesc
+
+    d2 = scenes.sand_column_2d(nx=24, ny=48, cell_width=0.5, transfer="pallas",
+                               group=GROUP_2D)
+    bodies = list(d2.bodies_desc) + [
+        RigidBodyDesc(Collider.ball(0.8), (-1.5, 1.5), body_type="kinematic",
+                      angvel=1.0),
+        RigidBodyDesc(Collider.capsule(1.0, 0.3), (1.5, 1.2), rotation=1.2,
+                      body_type="kinematic", angvel=-1.0),
+    ]
+    return MpmData(d2.params, d2.state.particles, d2.state.models, bodies, 0.5,
+                   grid=d2.config.grid, transfer="pallas", group=GROUP_2D,
+                   chan_free=False)
+
+
+def port_bodies(descs):
+    """The port's RigidBodyDesc list of JAX package bodies."""
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.pipeline import RigidBodyDesc
+
+    return [RigidBodyDesc(Collider(d.collider.shape_type, tuple(d.collider.params)),
+                          tuple(d.translation), d.rotation, d.body_type, d.density,
+                          d.linvel, d.angvel) for d in descs]
+
+
+def port_data(jdata: MpmData, chan_free=False):
+    """The port's MpmData of a JAX scene's initial particles, models and
+    bodies, on its grid, blocks, group and job table size."""
+    from wgsparkl_tpu_torch import interop
+    from wgsparkl_tpu_torch.pipeline import MpmData as TMpmData
+
+    cfg = jdata.config
+    st = interop.state_from_reference(jdata.state, "cpu")
+    return TMpmData(interop.params_from_reference(jdata.params, "cpu"), st.particles,
+                    st.models, port_bodies(jdata.bodies_desc), cfg.grid.cell_width,
+                    grid=interop.config_from_reference(cfg).grid, group=cfg.group,
+                    max_jobs=cfg.max_jobs, by=cfg.by, chan_free=chan_free)

@@ -1,10 +1,14 @@
 """Where a frame's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 tools/torch_profile.py 3d|3d-free|2d|2d-neo
+    python3 tools/torch_profile.py 3d|3d-neo|3d-free|3d-shapes|3d-shapes-chan-free|2d|2d-neo
 
 Builds the full-size scene of chip_smoke.py (3d: the 1,002,001-particle
-sand box with the paddle, 20 substeps a frame; 3d-free: the same lattice,
-models and grid with no body, spinning; 2d: the 490,000-particle sand
+sand box with the paddle, 20 substeps a frame; 3d-neo: the same with the
+neo-Hookean stress; 3d-free: the same lattice,
+models and grid with no body, spinning; 3d-shapes: the same lattice,
+models and grid with path 5's analytic colliders (halfspace, walls,
+capsule, ball) in the gathered-hybrid CDF mode; 3d-shapes-chan-free: the
+same in the chan-free mode; 2d: the 490,000-particle sand
 column, 10 substeps a frame; 2d-neo: the 490,000-particle neo-Hookean
 elastic blocks, 15 substeps a frame), runs one warm frame and
 chip_smoke.TIMED_FRAMES (3) unprofiled frames (host clock around
@@ -33,7 +37,8 @@ import chip_smoke  # noqa: E402
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("path", choices=("3d", "3d-free", "2d", "2d-neo"))
+    ap.add_argument("path", choices=("3d", "3d-neo", "3d-free", "3d-shapes",
+                                     "3d-shapes-chan-free", "2d", "2d-neo"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("FAIL: torch.cuda.is_available() is False")
@@ -47,7 +52,13 @@ def main() -> None:
     dev = torch.device("cuda:0")
     data, substeps = {
         "3d": lambda: (chip_smoke.full_scene(dev), chip_smoke.SUBSTEPS),
+        "3d-neo": lambda: (chip_smoke.full_scene(dev, elastic_model="neo_hookean"),
+                           chip_smoke.SUBSTEPS),
         "3d-free": lambda: (chip_smoke.full_scene_free(dev), chip_smoke.SUBSTEPS),
+        "3d-shapes": lambda: (chip_smoke.full_scene_shapes(dev, False),
+                              chip_smoke.SUBSTEPS),
+        "3d-shapes-chan-free": lambda: (chip_smoke.full_scene_shapes(dev, True),
+                                        chip_smoke.SUBSTEPS),
         "2d": lambda: (chip_smoke.full_scene_2d(dev), chip_smoke.SUBSTEPS2),
         "2d-neo": lambda: (chip_smoke.full_scene_neo_2d(dev),
                            chip_smoke.SUBSTEPS_NEO2),

@@ -1,10 +1,12 @@
 """Channel-form analytic node CDF (port of
 wgsparkl_tpu/collision/cdf_channel.py).
 
-Cuboid colliders only, in 2D and 3D: the other analytic shapes are not on
-the ported paths and raise NotImplementedError (ROADMAP queue 1, item 8).
-Node positions are lists of [M] channels; body poses enter as 0-d tensors.
-Affinity words are int32 holding the uint32 bit pattern.
+Cuboid, ball, capsule and halfspace colliders, in 2D and 3D, with the JAX
+package's operation order (the ball's and the capsule's reciprocal is an
+IEEE division, `math.div`); mesh shapes raise NotImplementedError (ROADMAP
+queue 1, item 8).  Node positions are lists of [M] channels; body poses
+and shape parameters enter as 0-d tensors.  Affinity words are int32
+holding the uint32 bit pattern.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from wgsparkl_tpu_torch.collision import shapes as shp
+from wgsparkl_tpu_torch.math import div
 
 BIG = 1.0e10
 
@@ -70,15 +73,76 @@ def _proj_cuboid(he, q):
     return proj, inside
 
 
+def _sqnorm(v):
+    acc = v[0] * v[0]
+    for a in range(1, len(v)):
+        acc = acc + v[a] * v[a]
+    return acc
+
+
+def _proj_ball(radius, q):
+    n = torch.sqrt(_sqnorm(q))
+    away = n > 1e-12
+    inv = torch.where(away, div(1.0, torch.clamp(n, min=1e-30)), 0.0)
+    proj = [torch.where(away, q[a] * inv * radius, 0.0) for a in range(len(q))]
+    # At the centre the projection is +x on the sphere.
+    proj[0] = torch.where(away, proj[0], radius)
+    return proj, n < radius
+
+
+def _proj_capsule(hh, radius, q):
+    """Axis along local y, from -hh to hh."""
+    cy = torch.minimum(torch.maximum(q[1], -hh), hh)
+    base = [cy if a == 1 else 0.0 for a in range(len(q))]
+    rel = [q[a] - base[a] for a in range(len(q))]
+    n = torch.sqrt(_sqnorm(rel))
+    away = n > 1e-12
+    inv = torch.where(away, div(1.0, torch.clamp(n, min=1e-30)), 0.0)
+    # On the axis the projection leaves along +x.
+    proj = [base[a] + torch.where(away, rel[a] * inv, 1.0 if a == 0 else 0.0)
+            * radius for a in range(len(q))]
+    return proj, n < radius
+
+
+def _proj_halfspace(q):
+    """Boundary the local y = 0 plane, inside y < 0."""
+    return ([q[a] if a != 1 else torch.zeros_like(q[a]) for a in range(len(q))],
+            q[1] < 0.0)
+
+
+def project(shape_type, params, q):
+    """Boundary projection of local points q (d channels) on one shape with
+    parameters params (0-d tensors): (proj, inside)."""
+    if shape_type == shp.SHAPE_CUBOID:
+        return _proj_cuboid([params[a] for a in range(len(q))], q)
+    if shape_type == shp.SHAPE_BALL:
+        return _proj_ball(params[0], q)
+    if shape_type == shp.SHAPE_CAPSULE:
+        return _proj_capsule(params[0], params[1], q)
+    if shape_type == shp.SHAPE_HALFSPACE:
+        return _proj_halfspace(q)
+    raise NotImplementedError(
+        f"collider shape {shape_type} (mesh colliders) is not ported yet "
+        "(ROADMAP queue 1, item 8)")
+
+
+def merge_node_cdf(a, b):
+    """Merge two node-CDF triples (dist, aff, closest) computed over
+    disjoint collider subsets into what the index-ordered loop of
+    node_cdf_channels gives over their union: strictly smaller distance
+    wins, the lower collider index on exact ties, affinity words OR."""
+    da, fa, ca = a
+    db, fb, cb = b
+    b_wins = (cb >= 0) & ((db < da) | ((db == da) & ((ca < 0) | (cb < ca))))
+    return torch.where(b_wins, db, da), fa | fb, torch.where(b_wins, cb, ca)
+
+
 def collider_cdf(shape_type, rot, trans, params, pos, cap):
     """One posed collider at d node channels (d = 2 or 3; rot a unit
     complex or a quaternion): (within, inside, world distance)."""
-    if shape_type != shp.SHAPE_CUBOID:
-        raise NotImplementedError(
-            "only cuboid colliders are ported (ROADMAP queue 1, item 8)")
     d = len(pos)
     q = _to_local(rot, trans, pos)
-    proj, inside = _proj_cuboid([params[a] for a in range(d)], q)
+    proj, inside = project(shape_type, params, q)
     dl = [proj[a] - q[a] for a in range(d)]
     dw = _to_world_vec(rot, dl)
     box = dw[0].abs() <= cap

@@ -6,8 +6,11 @@
 // compatibility-masked weights; incompatible nodes give the particle's ghost
 // velocity instead (gate level 1: the per-particle static chain,
 // `_ghost_static`; level 2: the pairwise ghost against the node's closest
-// body, `_ghost_velocity`, with the moving colliders merged into the window
-// CDF).  The in-kernel grid update (`fold_vel`) is not ported.
+// body, `_ghost_velocity`).  The window node CDF is kernel A's
+// (transfer.cuh window_node_cdf): gathered channels merged with the moving
+// colliders, or in chan-free mode every collider evaluated at the window
+// nodes with no tile read (pallas_transfer.py:868-888).  The in-kernel grid
+// update (`fold_vel`) is not ported.
 // Bound on the H100: arithmetic, lightly.  Per particle it reads 24 rows and
 // writes 12 (~0.15 GB per substep at 1M particles) and runs ~27 x 12
 // multiply-adds, ~27 x 40 more in gated jobs.
@@ -33,8 +36,9 @@ __global__ void __launch_bounds__(NTHREADS) g2p_kernel(
     const float* __restrict__ pdata, long long pstride,
     const float* __restrict__ ftiles, const float* __restrict__ ntiles,
     const float* __restrict__ bt, const int* __restrict__ jt, int maxj,
-    int wsh1, int wsh2, int wvol, int wpad, int nc, unsigned moving, float h,
-    float inv_h, float cap, float* __restrict__ out, long long ostride) {
+    int wsh1, int wsh2, int wvol, int wpad, int nc, unsigned moving,
+    unsigned statics, unsigned shapes, int chan_free, float h, float inv_h,
+    float cap, float* __restrict__ out, long long ostride) {
   __shared__ float s_v[WV_MAX * 3], s_bv[WV_MAX * 3];
   __shared__ uint32_t s_naff[WV_MAX];
   __shared__ float s_cl[WV_MAX];
@@ -50,8 +54,9 @@ __global__ void __launch_bounds__(NTHREADS) g2p_kernel(
     if (lvl >= 1 && nc > 0) {
       float xw[3], dist;
       node_pos(n, wsh1, wsh2, bc, h, xw);
-      window_node_cdf(ntiles + ((long long)j * wpad + n) * 4, bt, lvl, moving, xw,
-                      cap, &s_naff[n], &s_cl[n], &dist);
+      window_node_cdf(chan_free ? nullptr : ntiles + ((long long)j * wpad + n) * 4,
+                      bt, lvl, moving, statics, shapes, xw, cap, &s_naff[n],
+                      &s_cl[n], &dist);
       if (lvl >= 2) node_body_velocity(s_cl[n], xw, bt, nc, &s_bv[n * 3]);
     }
   }
@@ -123,13 +128,15 @@ __global__ void __launch_bounds__(NTHREADS) g2p_kernel(
 extern "C" int g2p_cuda(const float* pdata, long long pstride, const float* ftiles,
                         const float* ntiles, const float* bt, const int* jt,
                         long long maxj, long long by, long long nc,
-                        long long moving, float h, float inv_h, float cap,
+                        long long moving, long long statics, long long shapes,
+                        long long chan_free, float h, float inv_h, float cap,
                         float* out, long long ostride, cudaStream_t stream) {
   int wsh1 = (int)by + 2, wsh2 = 6;
   int wvol = 6 * wsh1 * wsh2, wpad = (wvol + 7) / 8 * 8;
   if (maxj > 0)
     g2p_kernel<<<(unsigned)maxj, NTHREADS, 0, stream>>>(
         pdata, pstride, ftiles, ntiles, bt, jt, (int)maxj, wsh1, wsh2, wvol, wpad,
-        (int)nc, (unsigned)moving, h, inv_h, cap, out, ostride);
+        (int)nc, (unsigned)moving, (unsigned)statics, (unsigned)shapes,
+        (int)chan_free, h, inv_h, cap, out, ostride);
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,12 @@
 // over the 3^3 stencil, sign votes with temporal persistence, 4x4 MLS solve
 // for signed distance and normal), the compatibility-masked APIC P2G of
 // momentum and mass into the job's window tile, and at gate level 2 the
-// merge of the moving colliders into the window CDF and the ghost-velocity
-// impulses reduced per collider.
+// ghost-velocity impulses reduced per collider.  The window node CDF is
+// the gathered static channels, merged at level 2 with the moving colliders
+// (`_merge_ntile_cdf`), or in chan-free mode every analytic collider (cuboid,
+// ball, capsule, halfspace) evaluated at the window nodes, the static ones
+// at level 1 and all at level 2 (`_moving_node_cdf`, `lvl1_cdf` / `lvl2_cdf`,
+// pallas_cdf.py:391-408), with no tile read.
 // Bound on the H100: instruction throughput and shared-memory reads.  Device
 // traffic is small (24 rows in, 6 rows and one 360 x 8 tile out per job:
 // ~0.15 GB per substep at 1M particles); each particle runs ~27 x (nc + 14)
@@ -90,7 +94,8 @@ __global__ void __launch_bounds__(LIST_THREADS, 2) p2g_cdf_kernel(
     const float* __restrict__ pdata, long long pstride,
     const float* __restrict__ ntiles, const float* __restrict__ bt,
     const int* __restrict__ jt, int maxj, int wsh1, int wsh2, int wvol, int wpad,
-    int nc, unsigned moving, float h, float inv_h, float cap, int chunk,
+    int nc, unsigned moving, unsigned statics, unsigned shapes, int chan_free,
+    float h, float inv_h, float cap, int chunk,
     float* __restrict__ mm, float* __restrict__ part, float* pcdf,
     long long ostride) {
   __shared__ uint32_t s_naff[WV_MAX];
@@ -115,8 +120,8 @@ __global__ void __launch_bounds__(LIST_THREADS, 2) p2g_cdf_kernel(
     node_pos(tid, wsh1, wsh2, bc, h, xn);
     if (lvl >= 1) {
       float dist;
-      window_node_cdf(ntiles + ((long long)j * wpad + tid) * 4, bt, lvl, moving, xn,
-                      cap, &naff, &cl, &dist);
+      window_node_cdf(chan_free ? nullptr : ntiles + ((long long)j * wpad + tid) * 4,
+                      bt, lvl, moving, statics, shapes, xn, cap, &naff, &cl, &dist);
       s_naff[tid] = naff;
       s_cl[tid] = cl;
       s_dist[tid] = dist;
@@ -304,10 +309,13 @@ __global__ void __launch_bounds__(LIST_THREADS, 2) p2g_cdf_kernel(
 
 // chunk: particles per list sort, min(group, LIST_CHUNK); a job of len <=
 // group then sorts in chunks of LIST_CHUNK, the plain version's order.
+// moving / statics: slot masks; shapes: shape types, 2 bits a slot;
+// chan_free: ntiles is not read.
 extern "C" int p2g_cdf_cuda(const float* pdata, long long pstride,
                             const float* ntiles, const float* bt, const int* jt,
                             long long maxj, long long by, long long nc,
-                            long long moving, float h, float inv_h, float cap,
+                            long long moving, long long statics, long long shapes,
+                            long long chan_free, float h, float inv_h, float cap,
                             long long chunk, float* mm, float* part, float* imp,
                             float* pcdf, long long ostride, cudaStream_t stream) {
   int wsh1 = (int)by + 2, wsh2 = 6;
@@ -327,7 +335,8 @@ extern "C" int p2g_cdf_cuda(const float* pdata, long long pstride,
     if (e != cudaSuccess) return (int)e;
     p2g_cdf_kernel<<<(unsigned)maxj, LIST_THREADS, shm, stream>>>(
         pdata, pstride, ntiles, bt, jt, (int)maxj, wsh1, wsh2, wvol, wpad,
-        (int)nc, (unsigned)moving, h, inv_h, cap, (int)chunk, mm, part, pcdf,
+        (int)nc, (unsigned)moving, (unsigned)statics, (unsigned)shapes,
+        (int)chan_free, h, inv_h, cap, (int)chunk, mm, part, pcdf,
         ostride);
     impulse_sum_kernel<<<1, 96, 0, stream>>>(part, (int)maxj, imp);
   }

@@ -27,38 +27,100 @@ __device__ __forceinline__ void quat_rot(float w, float x, float y, float z,
   o[2] = v[2] + w * t2 + (x * t1 - y * t0);
 }
 
-// Cuboid collider `slot` of the body table at world point p:
+// Shape types (collision/shapes.py), packed 2 bits a slot in `shapes`.
+#define SHAPE_CUBOID 0
+#define SHAPE_BALL 1
+#define SHAPE_CAPSULE 2
+#define SHAPE_HALFSPACE 3
+
+// Analytic collider `slot` of the body table at world point p, of type
+// (shapes >> 2 slot) & 3 (cdf_channel.collider_cdf and its projections):
 // within (affinity reach), inside, world distance to the boundary.
-__device__ void cuboid_cdf(const float* bt, int slot, const float p[3],
-                           float cap, bool* within, bool* inside, float* dist) {
+__device__ void collider_cdf(const float* bt, int slot, unsigned shapes,
+                             const float p[3], float cap, bool* within,
+                             bool* inside, float* dist) {
   float qw = bt[9 * 128 + slot], qx = bt[10 * 128 + slot];
   float qy = bt[11 * 128 + slot], qz = bt[12 * 128 + slot];
-  float rel[3], q[3], he[3];
-  for (int a = 0; a < 3; ++a) {
-    rel[a] = p[a] - bt[(13 + a) * 128 + slot];
-    he[a] = bt[(16 + a) * 128 + slot];
-  }
+  const float* par = bt + 16 * 128 + slot;     // shape parameter k: par[k * 128]
+  float rel[3], q[3];
+  for (int a = 0; a < 3; ++a) rel[a] = p[a] - bt[(13 + a) * 128 + slot];
   quat_rot(qw, -qx, -qy, -qz, rel, q);
-  bool ins = fabsf(q[0]) < he[0] && fabsf(q[1]) < he[1] && fabsf(q[2]) < he[2];
-  float gaps[3];
-  for (int a = 0; a < 3; ++a) gaps[a] = he[a] - fabsf(q[a]);
-  float min_gap = fminf(fminf(gaps[0], gaps[1]), gaps[2]);
-  bool snapped = false;
-  float dl[3];
-  for (int a = 0; a < 3; ++a) {
-    float sgn = q[a] >= 0.0f ? 1.0f : -1.0f;
-    bool is_min = gaps[a] == min_gap && !snapped;
-    snapped = snapped || is_min;
-    float clamped = fminf(fmaxf(q[a], -he[a]), he[a]);
-    float proj = (ins && is_min) ? sgn * he[a] : clamped;
-    dl[a] = proj - q[a];
+  float proj[3];
+  bool ins;
+  switch ((shapes >> (2 * slot)) & 3u) {
+    case SHAPE_BALL: {
+      const float r = par[0];
+      const float n = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2]);
+      const bool away = n > 1e-12f;   // off the centre
+      const float inv = away ? 1.0f / fmaxf(n, 1e-30f) : 0.0f;
+      for (int a = 0; a < 3; ++a) proj[a] = away ? q[a] * inv * r : 0.0f;
+      if (!away) proj[0] = r;              // the centre projects along +x
+      ins = n < r;
+      break;
+    }
+    case SHAPE_CAPSULE: {                  // axis along local y, [-hh, hh]
+      const float hh = par[0], r = par[128];
+      const float cy = fminf(fmaxf(q[1], -hh), hh);
+      const float base[3] = {0.0f, cy, 0.0f};
+      float d[3];
+      for (int a = 0; a < 3; ++a) d[a] = q[a] - base[a];
+      const float n = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+      const bool away = n > 1e-12f;   // off the axis
+      const float inv = away ? 1.0f / fmaxf(n, 1e-30f) : 0.0f;
+      for (int a = 0; a < 3; ++a)          // on the axis: along +x
+        proj[a] = base[a] + (away ? d[a] * inv : (a == 0 ? 1.0f : 0.0f)) * r;
+      ins = n < r;
+      break;
+    }
+    case SHAPE_HALFSPACE:                  // boundary y = 0, inside y < 0
+      proj[0] = q[0];
+      proj[1] = 0.0f;
+      proj[2] = q[2];
+      ins = q[1] < 0.0f;
+      break;
+    default: {                             // cuboid, half-extents par[0..2]
+      float he[3], gaps[3];
+      for (int a = 0; a < 3; ++a) he[a] = par[a * 128];
+      ins = fabsf(q[0]) < he[0] && fabsf(q[1]) < he[1] && fabsf(q[2]) < he[2];
+      for (int a = 0; a < 3; ++a) gaps[a] = he[a] - fabsf(q[a]);
+      float min_gap = fminf(fminf(gaps[0], gaps[1]), gaps[2]);
+      bool snapped = false;
+      for (int a = 0; a < 3; ++a) {
+        float sgn = q[a] >= 0.0f ? 1.0f : -1.0f;
+        bool is_min = gaps[a] == min_gap && !snapped;
+        snapped = snapped || is_min;
+        float clamped = fminf(fmaxf(q[a], -he[a]), he[a]);
+        proj[a] = (ins && is_min) ? sgn * he[a] : clamped;
+      }
+    }
   }
-  float dw[3];
+  float dl[3], dw[3];
+  for (int a = 0; a < 3; ++a) dl[a] = proj[a] - q[a];
   quat_rot(qw, qx, qy, qz, dl, dw);
   bool box = fabsf(dw[0]) <= cap && fabsf(dw[1]) <= cap && fabsf(dw[2]) <= cap;
   *within = ins || box;
   *inside = ins;
   *dist = sqrtf(dw[0] * dw[0] + dw[1] * dw[1] + dw[2] * dw[2]);
+}
+
+// Node CDF of the colliders of slot mask `set`, in index order, at xw
+// (rows.moving_node_cdf): strictly closer wins; BIG, 0, -1 where none.
+__device__ void colliders_cdf(const float* bt, unsigned set, unsigned shapes,
+                              const float xw[3], float cap, uint32_t* naff,
+                              float* closest, float* dist) {
+  float d_dist = BIG, d_cl = -1.0f;
+  uint32_t d_aff = 0;
+  for (int s = 0; s < 16; ++s) {
+    if (!((set >> s) & 1u)) continue;
+    bool within, inside;
+    float d;
+    collider_cdf(bt, s, shapes, xw, cap, &within, &inside, &d);
+    if (within && d < d_dist) { d_cl = (float)s; d_dist = d; }
+    if (within) d_aff |= inside ? ((1u << (16 + s)) | (1u << s)) : (1u << s);
+  }
+  *naff = d_aff;
+  *closest = d_cl;
+  *dist = d_dist;
 }
 
 // World position of window node n of a job whose block origin cell is bc.
@@ -70,24 +132,26 @@ __device__ __forceinline__ void node_pos(int n, int wsh1, int wsh2,
   xw[2] = ((float)wz + (float)bc[2]) * h;
 }
 
-// Window node CDF: the gathered static channels, merged at gate level >= 2
-// with the moving colliders (strictly closer wins, lower index on ties).
+// Window node CDF at gate level lvl >= 1 (rows.window_cdf).  Gathered
+// (tile = the node's [aff lo, aff hi, closest, dist] channels): the
+// channels, merged at level >= 2 with the `moving` colliders (strictly
+// closer wins, lower index on ties).  Chan-free (tile = nullptr, not read):
+// the `statics` colliders at level 1, statics | moving at level >= 2.
 __device__ void window_node_cdf(const float* tile, const float* bt, int lvl,
-                                unsigned moving, const float xw[3], float cap,
+                                unsigned moving, unsigned statics,
+                                unsigned shapes, const float xw[3], float cap,
                                 uint32_t* naff, float* closest, float* dist) {
+  if (tile == nullptr) {
+    colliders_cdf(bt, lvl >= 2 ? (statics | moving) : statics, shapes, xw, cap,
+                  naff, closest, dist);
+    return;
+  }
   uint32_t a = aff_word(tile[0], tile[1]);
   float cl = tile[2], di = tile[3];
   if (lvl >= 2 && moving) {
-    float d_dist = BIG, d_cl = -1.0f;
-    uint32_t d_aff = 0;
-    for (int s = 0; s < 16; ++s) {
-      if (!((moving >> s) & 1u)) continue;
-      bool within, inside;
-      float d;
-      cuboid_cdf(bt, s, xw, cap, &within, &inside, &d);
-      if (within && d < d_dist) { d_cl = (float)s; d_dist = d; }
-      if (within) d_aff |= inside ? ((1u << (16 + s)) | (1u << s)) : (1u << s);
-    }
+    float d_dist, d_cl;
+    uint32_t d_aff;
+    colliders_cdf(bt, moving, shapes, xw, cap, &d_aff, &d_cl, &d_dist);
     float da = cl >= 0.0f ? di : BIG;
     bool bw = d_cl >= 0.0f &&
               (d_dist < da || (d_dist == da && (cl < 0.0f || d_cl < cl)));

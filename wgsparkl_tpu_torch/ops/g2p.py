@@ -8,9 +8,11 @@ Per particle, over its 3^3 stencil in the job's window: the PIC velocity
 are masked by CPIC compatibility; an incompatible node contributes the
 particle's ghost velocity instead: at level 1 (static colliders, body
 velocity zero) the per-particle static ghost chain, at level 2 the
-pairwise ghost against the node's closest body (with the moving colliders
-merged into the window CDF), the particle's own velocity where the node
-has no body.  Each job writes its own lanes [start, start + len).
+pairwise ghost against the node's closest body, the particle's own
+velocity where the node has no body.  The window node CDF is the one
+kernel A reads (ops/p2g_cdf.py: gathered channels merged with the moving
+colliders, or in chan-free mode every collider evaluated in-kernel).
+Each job writes its own lanes [start, start + len).
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import torch
 
 from wgsparkl_tpu_torch import _cuda
 from wgsparkl_tpu_torch.ops import rows as R
-from wgsparkl_tpu_torch.ops.p2g_cdf import _seqsum, job_table, moving_mask
+from wgsparkl_tpu_torch.ops.p2g_cdf import (
+    _seqsum, check_node_tiles, collider_words, job_table,
+)
 
 
 def ghost_static(vp, nrm, friction=R.DEFAULT_FRICTION):
@@ -33,7 +37,7 @@ def ghost_static(vp, nrm, friction=R.DEFAULT_FRICTION):
 
 
 def g2p_plain(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, cell_width,
-              by, group, npad, nc, moving):
+              by, group, npad, nc, moving=(), static_desc=(), chan_free=False):
     dev = pdata.device
     wsh, wvol, _ = R.window_geom(by)
     jid, lane = R.job_lanes(jobs)
@@ -51,7 +55,8 @@ def g2p_plain(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, cell_width,
     rows = [None] * 12
     if nc > 0:
         naff_w, closest_w, _ = R.window_cdf(ntiles, xw, btable, moving, jbody,
-                                            cell_width, wvol)
+                                            cell_width, wvol, static_desc,
+                                            chan_free)
         naff = naff_w.reshape(-1)[fi]
         closest = closest_w.reshape(-1)[fi]
         paff = R.aff_from_halves(pd[R.AFF], pd[R.AFF_SPARE])
@@ -97,31 +102,33 @@ def g2p_plain(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, cell_width,
 
 def g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, jbody,
              cell_width: float, by: int, group: int, npad: int, nc: int,
-             moving=()):
+             moving=(), static_desc=(), chan_free: bool = False):
     """Per-particle G2P rows [16, NPAD + G + 128] (see the module
     docstring).  pdata: rows with the fresh particle CDF patched in (rows
     0..23 are read); ftiles [MAXJ, wpad, 4] gathered grid velocity + mass;
-    ntiles as for p2g_cdf_tiles; not read at nc = 0."""
+    ntiles, moving, static_desc and chan_free as for p2g_cdf_tiles (ntiles
+    is not read at nc = 0 either)."""
     if pdata.device.type == "cpu":
         return g2p_plain(pdata, ftiles, ntiles, btable, jobs, bcells, jbody,
-                         cell_width, by, group, npad, nc, moving)
+                         cell_width, by, group, npad, nc, moving, static_desc,
+                         chan_free)
     wsh, wvol, wpad = R.window_geom(by)
     maxj = jobs["start"].shape[0]
-    if (wvol > R.WV_MAX or nc > 16 or ntiles.shape[1:] != (wpad, 4)
-            or (nc > 0 and ntiles.shape[0] != maxj)
-            or ftiles.shape != (maxj, wpad, 4)):
+    if (wvol > R.WV_MAX or nc > 16 or ftiles.shape != (maxj, wpad, 4)
+            or ntiles.shape[1:] != (wpad, 4)):
         raise ValueError("g2p_rows: by <= 8, <= 16 colliders and "
-                         "[MAXJ, wpad, 4] tiles ([1, wpad, 4] node tiles will "
-                         "do at nc = 0)")
+                         "[MAXJ, wpad, 4] tiles")
+    if nc > 0:
+        check_node_tiles("g2p_rows", ntiles, maxj, wpad, chan_free)
     jt = job_table(jobs, bcells, jbody)
     R.check_kernel_args(pdata, ftiles, ntiles, btable, jt)
     out = torch.zeros((16, npad + group + 128), dtype=torch.float32,
                       device=pdata.device)
-    _cuda.launch("g2p", "g2p_cuda", "pippppiiiifffpi",
+    _cuda.launch("g2p", "g2p_cuda", "pippppiiiiiiifffpi",
                  pdata, pdata.shape[1], ftiles, ntiles, btable, jt, maxj, by,
-                 nc, moving_mask(moving), R.f32(cell_width),
-                 R.f32(1.0 / cell_width), R.f32(1.5 * cell_width), out,
-                 out.shape[1])
+                 nc, *collider_words(moving, static_desc), int(chan_free),
+                 R.f32(cell_width), R.f32(1.0 / cell_width),
+                 R.f32(1.5 * cell_width), out, out.shape[1])
     g2p_rows.launches += 1
     return out
 

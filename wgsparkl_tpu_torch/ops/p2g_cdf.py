@@ -17,11 +17,14 @@ over its 3^3 stencil inside the job's window:
     against the node's closest body, reduced per job and collider.
 
 Gate levels (per job): 0 no collider node in the window (no CDF, plain
-P2G), 1 only frame-static colliders (gathered channels), 2 a moving
-collider may be in reach (gathered channels merged with the in-kernel
-moving-collider CDF, plus impulses).  The TPU version writes particle rows
-through a sequential-grid VMEM handoff; here each job writes exactly its
-own lanes [start, start + len) and the rest of the output stays zero.
+P2G), 1 only frame-static colliders, 2 a moving collider may be in reach
+(plus impulses).  The window node CDF comes from the gathered channels
+(level 1), merged at level 2 with the in-kernel CDF of the moving
+colliders; in chan-free mode no tile is read and the kernel evaluates the
+static colliders at level 1 and all colliders at level 2.  The TPU
+version writes particle rows through a sequential-grid VMEM handoff; here
+each job writes exactly its own lanes [start, start + len) and the rest of
+the output stays zero.
 """
 
 from __future__ import annotations
@@ -30,7 +33,6 @@ import torch
 
 from wgsparkl_tpu_torch import _cuda
 from wgsparkl_tpu_torch.collision.cdf_channel import bit
-from wgsparkl_tpu_torch.collision.shapes import SHAPE_CUBOID
 from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.ops.blocked import add_rows
 
@@ -175,7 +177,7 @@ def p2g_node_tiles(pd, w, fi, xw, wpad: int, order=None):
 
 
 def p2g_cdf_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width,
-                  by, group, npad, nc, moving):
+                  by, group, npad, nc, moving=(), static_desc=(), chan_free=False):
     dev = pdata.device
     wsh, wvol, wpad = R.window_geom(by)
     maxj = jobs["start"].shape[0]
@@ -183,7 +185,8 @@ def p2g_cdf_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width,
     lvl = jbody.to(torch.int64)[jid]
     xw = R.window_positions(bcells, cell_width, wsh)
     naff_w, closest_w, ndist_w = R.window_cdf(ntiles, xw, btable, moving, jbody,
-                                              cell_width, wvol)
+                                              cell_width, wvol, static_desc,
+                                              chan_free)
     pd = pdata[:R.NCHAN, lane]
     bc = bcells.to(torch.int64)[jid]
     inv_h = float(torch.tensor(1.0 / cell_width, dtype=torch.float32))
@@ -258,32 +261,50 @@ def job_table(jobs, bcells, jbody):
                         bz, jbody]).to(torch.int32).contiguous()
 
 
-def moving_mask(moving) -> int:
-    mask = 0
+def collider_words(moving, static_desc=()) -> tuple:
+    """The kernels' collider arguments: (moving slot mask, static slot
+    mask, shape types packed 2 bits a slot)."""
+    mov = sta = shapes = 0
     for slot, st in moving:
-        if st != SHAPE_CUBOID:
+        mov |= 1 << slot
+    for slot, st in static_desc:
+        sta |= 1 << slot
+    for slot, st in tuple(moving) + tuple(static_desc):
+        if not 0 <= st <= 3:
             raise NotImplementedError(
-                "only cuboid moving colliders are ported (ROADMAP queue 1, item 8)")
-        mask |= 1 << slot
-    return mask
+                f"collider shape {st} (mesh colliders) is not ported yet "
+                "(ROADMAP queue 1, item 8)")
+        shapes |= st << (2 * slot)
+    return mov, sta, shapes
+
+
+def check_node_tiles(name, ntiles, maxj, wpad, chan_free):
+    """[MAXJ, wpad, 4] gathered node tiles; [1, wpad, 4] in chan-free mode
+    (not read)."""
+    want = (1 if chan_free else maxj, wpad, 4)
+    if tuple(ntiles.shape) != want:
+        raise ValueError(f"{name}: node tiles {tuple(ntiles.shape)}, want {want}")
 
 
 def p2g_cdf_tiles(pdata, ntiles, btable, jobs, bcells, jbody, cell_width: float,
-                  by: int, group: int, npad: int, nc: int, moving=()):
+                  by: int, group: int, npad: int, nc: int, moving=(),
+                  static_desc=(), chan_free: bool = False):
     """Returns (mm [MAXJ, wpad, 8], imp [1, 8, 128] rows 0-2 linear / 3-5
     angular impulse per collider lane, pcdf rows [8, NPAD + G + 128]: aff
     low, signed distance, normal xyz, aff high).  pdata: the sorted rows
-    (rows 0..23 are read); ntiles [MAXJ, wpad, 4] gathered static node
-    channels (aff low, aff high, closest, dist); moving: ((slot, shape),
-    ...) colliders merged in-kernel at gate level 2."""
+    (rows 0..23 are read); ntiles [MAXJ, wpad, 4] gathered node channels
+    (aff low, aff high, closest, dist), [1, wpad, 4] and unread in chan-free
+    mode; moving / static_desc: ((slot, shape), ...) of the moving and the
+    never-moving colliders (see the module docstring)."""
     if pdata.device.type == "cpu":
         return p2g_cdf_plain(pdata, ntiles, btable, jobs, bcells, jbody,
-                             cell_width, by, group, npad, nc, moving)
+                             cell_width, by, group, npad, nc, moving,
+                             static_desc, chan_free)
     wsh, wvol, wpad = R.window_geom(by)
     maxj = jobs["start"].shape[0]
-    if wvol > R.WV_MAX or nc > 16 or ntiles.shape != (maxj, wpad, 4):
-        raise ValueError("p2g_cdf_tiles: by <= 8, <= 16 colliders and "
-                         "[MAXJ, wpad, 4] node tiles")
+    if wvol > R.WV_MAX or nc > 16:
+        raise ValueError("p2g_cdf_tiles: by <= 8 and <= 16 colliders")
+    check_node_tiles("p2g_cdf_tiles", ntiles, maxj, wpad, chan_free)
     jt = job_table(jobs, bcells, jbody)
     R.check_kernel_args(pdata, ntiles, btable, jt)
     dev = pdata.device
@@ -291,9 +312,10 @@ def p2g_cdf_tiles(pdata, ntiles, btable, jobs, bcells, jbody, cell_width: float,
     part = torch.empty((maxj, 6, 16), dtype=torch.float32, device=dev)
     imp = torch.zeros((1, 8, 128), dtype=torch.float32, device=dev)
     pcdf = torch.zeros((8, npad + group + 128), dtype=torch.float32, device=dev)
-    _cuda.launch("p2g_cdf", "p2g_cdf_cuda", "pipppiiiifffippppi",
+    _cuda.launch("p2g_cdf", "p2g_cdf_cuda", "pipppiiiiiiifffippppi",
                  pdata, pdata.shape[1], ntiles, btable, jt, maxj, by, nc,
-                 moving_mask(moving), R.f32(cell_width), R.f32(1.0 / cell_width),
+                 *collider_words(moving, static_desc), int(chan_free),
+                 R.f32(cell_width), R.f32(1.0 / cell_width),
                  R.f32(1.5 * cell_width), min(group, R.LIST_CHUNK), mm, part, imp,
                  pcdf, pcdf.shape[1])
     p2g_cdf_tiles.launches += 1

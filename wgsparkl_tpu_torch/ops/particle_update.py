@@ -20,6 +20,7 @@ from wgsparkl_tpu_torch.models.elasticity import (
 )
 from wgsparkl_tpu_torch.ops.kernel import inv_d
 from wgsparkl_tpu_torch.ops.rows import DEFAULT_FRICTION
+from wgsparkl_tpu_torch.params import velocity_limit
 
 PENALTY_COEFF = 1.0e3
 ELASTIC_MODELS = ("corotated", "neo_hookean")   # index = kernel C's model id
@@ -74,7 +75,7 @@ def particle_update_channels(ch, dt: float, h: float,
     new_vel = [torch.where(penetrating, rv[i] + proj[i], vel[i]) for i in range(d)]
 
     speed = torch.sqrt(_dot(new_vel, new_vel))
-    limit = h / dt
+    limit = velocity_limit(h, dt)
     cl = torch.where(speed > limit, div(limit, torch.clamp(speed, min=1e-30)), 1.0)
     new_vel = [v * cl for v in new_vel]
     new_pos = [ch["pos"][i] + new_vel[i] * dt for i in range(d)]

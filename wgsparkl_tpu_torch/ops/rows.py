@@ -235,15 +235,16 @@ def ghost_velocity(vp, bv, nrm, friction=DEFAULT_FRICTION):
     return [bv[i] + torch.where(sliding, tang[i] * scale, u[i]) for i in range(d)]
 
 
-def moving_node_cdf(xw, btable, moving, cell_width):
-    """Analytic node CDF of the moving colliders at window nodes xw
-    [..., 3] from the body table (rows 9-12 quaternion, 13-15 translation,
-    16-23 shape params).  Returns (dist, aff int32, closest f32)."""
+def moving_node_cdf(xw, btable, desc, cell_width):
+    """Analytic node CDF of the colliders of desc ((slot, shape), ...,
+    evaluated in that order) at window nodes xw [..., 3] from the body
+    table (rows 9-12 quaternion, 13-15 translation, 16-23 shape params).
+    Returns (dist, aff int32, closest f32): BIG, 0 and -1 where none."""
     pos = [xw[..., a] for a in range(3)]
     dist = torch.full_like(pos[0], cch.BIG)
     aff = torch.zeros(pos[0].shape, dtype=torch.int32, device=xw.device)
     closest = torch.full_like(pos[0], -1.0)
-    for slot, st in moving:
+    for slot, st in desc:
         rot = [btable[9 + k, slot] for k in range(4)]
         trans = [btable[13 + k, slot] for k in range(3)]
         par = [btable[16 + k, slot] for k in range(3)]
@@ -258,11 +259,25 @@ def moving_node_cdf(xw, btable, moving, cell_width):
     return dist, aff, closest
 
 
-def window_cdf(ntiles, xw, btable, moving, lvl, cell_width, wvol):
+def window_cdf(ntiles, xw, btable, moving, lvl, cell_width, wvol,
+               static_desc=(), chan_free=False):
     """Per-job window node CDF (naff int32, closest f32, ndist f32), each
-    [J, wvol]: the gathered static channels, merged at gate level >= 2
-    with the in-kernel moving colliders (strictly smaller distance wins,
-    the lower collider index on exact ties, affinity words OR)."""
+    [J, wvol], at gate levels lvl [J].  Gathered: the static channels of
+    ntiles, merged at level >= 2 with the in-kernel moving colliders
+    (strictly smaller distance wins, the lower collider index on exact
+    ties, affinity words OR).  chan_free: no tile is read; level 1
+    evaluates the static colliders, level >= 2 all colliders in index
+    order."""
+    lv2 = (lvl >= 2)[:, None]
+    if chan_free:
+        s_dist, s_aff, s_closest = moving_node_cdf(xw, btable, static_desc,
+                                                   cell_width)
+        if not moving:
+            return s_aff, s_closest, s_dist
+        a_dist, a_aff, a_closest = moving_node_cdf(
+            xw, btable, tuple(sorted(static_desc + moving)), cell_width)
+        return (torch.where(lv2, a_aff, s_aff), torch.where(lv2, a_closest, s_closest),
+                torch.where(lv2, a_dist, s_dist))
     t = ntiles[:, :wvol]
     naff = aff_from_halves(t[..., 0], t[..., 1])
     s_closest, s_dist = t[..., 2], t[..., 3]
@@ -273,7 +288,6 @@ def window_cdf(ntiles, xw, btable, moving, lvl, cell_width, wvol):
     b_wins = (d_closest >= 0.0) & (
         (d_dist < da)
         | ((d_dist == da) & ((s_closest < 0.0) | (d_closest < s_closest))))
-    lv2 = (lvl >= 2)[:, None]
     return (torch.where(lv2, naff | d_aff, naff),
             torch.where(lv2, torch.where(b_wins, d_closest, s_closest), s_closest),
             torch.where(lv2, torch.where(b_wins, d_dist, da), s_dist))

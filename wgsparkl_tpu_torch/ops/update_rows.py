@@ -24,6 +24,7 @@ from wgsparkl_tpu_torch.ops.kernel import inv_d
 from wgsparkl_tpu_torch.ops.particle_update import (
     ELASTIC_MODELS, particle_update_channels,
 )
+from wgsparkl_tpu_torch.params import velocity_limit
 from wgsparkl_tpu_torch.solver import DP_KEYS, DPS_KEYS
 
 
@@ -109,6 +110,14 @@ def update2d_plain(rows_all, krows, pcdf, sorted_ids, covered_end, btable,
                          elastic_model)
 
 
+def kernel_scalars(dt: float, h: float):
+    """Kernel C's f32 scalars: dt, h, the APIC D^-1 scale, the velocity
+    limit h / dt (divided in f32, as the JAX package divides it) and the
+    penetration depths -0.05 h and -0.3 h."""
+    return (R.f32(dt), R.f32(h), R.f32(inv_d(h)), velocity_limit(h, dt),
+            R.f32(-0.05 * h), R.f32(-0.3 * h))
+
+
 def _launch(symbol, pchan, nkrows, rows_all, krows, pcdf, sorted_ids,
             covered_end, btable, mtable, dt, h, nc, n_mat, live_below,
             elastic_model):
@@ -132,9 +141,7 @@ def _launch(symbol, pchan, nkrows, rows_all, krows, pcdf, sorted_ids,
         "update_rows", symbol, "pppppppiiiiiiiffffffp",
         rows_all, krows, pcdf, sorted_ids, ce, btable, mtable,
         npad, krows.shape[1], pcdf.shape[1], nc, n_mat, live_below,
-        ELASTIC_MODELS.index(elastic_model),
-        R.f32(dt), R.f32(h), R.f32(inv_d(h)), R.f32(h / dt),
-        R.f32(-0.05 * h), R.f32(-0.3 * h), out)
+        ELASTIC_MODELS.index(elastic_model), *kernel_scalars(dt, h), out)
     return out
 
 

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from wgsparkl_tpu_torch.device import resolve
@@ -21,3 +22,9 @@ class SimulationParams:
             gravity=torch.as_tensor(gravity, dtype=torch.float32,
                                     device=resolve(device)).clone(),
         )
+
+
+def velocity_limit(cell_width: float, dt: float) -> float:
+    """The one-cell-per-substep speed limit cell_width / dt, divided in f32
+    as the JAX package divides it (f32(cell_width) / f32(dt))."""
+    return float(np.float32(cell_width) / np.float32(dt))

@@ -15,16 +15,28 @@ world then holds one inert body slot) skips every CDF phase: P2G is kernel
 F in 3D and kernel H at nc = 0 in 2D, and the other kernels run with
 nc = 0, a zero gate level and zero particle-CDF rows.
 
-The CDF mode is the JAX package's "gathered hybrid": the never-moving
-colliders' node-CDF channel grid is built once per frame, and (3D only)
-moving colliders are merged in-kernel at the windows of jobs a
-conservative reach test marks (gate level 2).  Options the JAX package has
-beyond these paths raise NotImplementedError naming their ROADMAP item.
+Colliders are analytic: cuboids, balls, capsules and halfspaces, fixed or
+kinematic.  The CDF modes are the JAX package's:
+  * gathered hybrid (the default): the never-moving colliders' node-CDF
+    channel grid is built once per frame and gathered per job window; in
+    3D the moving colliders are merged in-kernel at the windows of jobs a
+    conservative reach test marks (gate level 2);
+  * dense: with no never-moving collider in 3D, and with any moving
+    collider in 2D, every substep evaluates the moving colliders' node CDF
+    on the whole grid (merged with the frame's static part in 2D) and
+    gathers it;
+  * chan-free (3D, `chan_free=True` or the construction-time heuristic):
+    no channel grid; the kernels evaluate every collider at the window
+    nodes, the static ones at gate level 1 and all at level 2, the levels
+    coming from reach tests.
+Options the JAX package has beyond these raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -47,7 +59,7 @@ from wgsparkl_tpu_torch.ops.transfer2d import g2p_rows as g2p_rows2d
 from wgsparkl_tpu_torch.ops.transfer2d import p2g_tiles as p2g_tiles2d
 from wgsparkl_tpu_torch.ops.transfer2d import pcdf_rows as pcdf_rows2d
 from wgsparkl_tpu_torch.ops.update_rows import update_rows, update_rows2d
-from wgsparkl_tpu_torch.params import SimulationParams
+from wgsparkl_tpu_torch.params import SimulationParams, velocity_limit
 from wgsparkl_tpu_torch.rigid import body as body_mod
 from wgsparkl_tpu_torch.rigid.body import RigidWorld
 from wgsparkl_tpu_torch.solver import Models, Particles, attach_material_table
@@ -75,6 +87,7 @@ class MpmConfig:
     n_materials: int = 1
     static_slots: Tuple[int, ...] = ()
     elastic_model: str = "corotated"
+    chan_free: bool = False
 
     @property
     def num_colliders(self) -> int:
@@ -176,7 +189,7 @@ def _body_table(bodies: RigidWorld, params: SimulationParams, grid: GridConfig):
     bt[13:16, :nb] = bodies.pos.T
     bt[16:24, :nb] = bodies.shape_params.T
     bt[24, :3] = params.gravity * params.dt
-    bt[24, 3].fill_(grid.cell_width / params.dt)   # fill_: no host copy
+    bt[24, 3].fill_(velocity_limit(grid.cell_width, params.dt))  # no host copy
     return bt
 
 
@@ -194,7 +207,7 @@ def _body_table_2d(bodies: RigidWorld, params: SimulationParams,
     bt[7:9, :nb] = bodies.pos.T
     bt[9:12, :nb] = bodies.shape_params[:, :3].T
     bt[13, :2] = params.gravity * params.dt
-    bt[13, 2].fill_(grid.cell_width / params.dt)
+    bt[13, 2].fill_(velocity_limit(grid.cell_width, params.dt))
     return bt
 
 
@@ -204,6 +217,21 @@ def _node_cdf_static(bodies: RigidWorld, cfg: MpmConfig):
     return cch.node_cdf_channels(cfg.collider_types, bodies.shape_params,
                                  bodies.rot, bodies.pos, pos, cfg.grid.cell_width,
                                  only=frozenset(cfg.static_slots))
+
+
+def _node_cdf_full(bodies: RigidWorld, cfg: MpmConfig, static_part=None):
+    """Analytic node CDF at block-major node positions: of every collider,
+    or of the moving ones merged with static_part (the static slots' triple
+    of this frame), which gives the same triple exactly."""
+    pos = bk.block_major_node_positions_ch(cfg.grid, cfg.by, bodies.pos.device)
+    only = None
+    if static_part is not None:
+        only = frozenset(i for i in range(cfg.num_colliders)
+                         if i not in cfg.static_slots)
+    tri = cch.node_cdf_channels(cfg.collider_types, bodies.shape_params,
+                                bodies.rot, bodies.pos, pos, cfg.grid.cell_width,
+                                only=only)
+    return tri if static_part is None else cch.merge_node_cdf(static_part, tri)
 
 
 def _cdf_chan_grid(node_dist, node_aff, node_closest, nrows: int, bsd: int):
@@ -233,22 +261,21 @@ def _jbody_gate(ntiles, wvol: int, static_slots=None):
     return torch.where(moving, 2, torch.where(any_c, 1, 0)).to(torch.int32)
 
 
-def _moving_reach_gate(bcells, bodies: RigidWorld, moving, wsh, h: float):
+def _moving_reach_gate(bcells, bodies: RigidWorld, desc, wsh, h: float):
     """[J] bool: the job window may lie within node-CDF reach (1.5 cells)
-    of a moving collider (window-centre surface distance against the reach
-    plus the window half-diagonal; false positives only promote the gate)."""
+    of a collider of desc ((slot, shape), ...): window-centre surface
+    distance against the reach plus the window half-diagonal (false
+    positives only promote the gate)."""
     dim = bcells.shape[1]
     ctr = [(bcells[:, a].to(torch.float32) + (wsh[a] - 1) * 0.5) * h
            for a in range(dim)]
     thresh = 1.5 * h + 0.5 * h * float(np.sqrt(sum((s - 1) ** 2 for s in wsh)))
     hit = torch.zeros(bcells.shape[0], dtype=torch.bool, device=bcells.device)
-    for slot, st in moving:
-        if st != shp.SHAPE_CUBOID:
-            raise _unported("non-cuboid colliders", "queue 1, item 8")
+    for slot, st in desc:
         q = cch._to_local([bodies.rot[slot, k] for k in range(bodies.rot.shape[1])],
                           [bodies.pos[slot, k] for k in range(dim)], ctr)
-        proj, inside = cch._proj_cuboid(
-            [bodies.shape_params[slot, a] for a in range(dim)], q)
+        proj, inside = cch.project(st, bodies.shape_params[slot], q)
+        # A rotation keeps lengths: the local gap is the world distance.
         d = [proj[a] - q[a] for a in range(dim)]
         sq = d[0] * d[0]
         for a in range(1, dim):
@@ -301,7 +328,7 @@ def _grid_velocity(grid_mm, params: SimulationParams, grid: GridConfig):
     mass = grid_mm[..., d:]
     inv_mass = torch.where(mass > 0.0, 1.0 / torch.clamp(mass, min=1e-30), 0.0)
     vel = (grid_mm[..., :d] + mass * params.gravity * params.dt) * inv_mass
-    lim = grid.cell_width / params.dt
+    lim = velocity_limit(grid.cell_width, params.dt)
     return torch.clamp(vel, -lim, lim)
 
 
@@ -371,6 +398,47 @@ def _collider_free_inputs(wpad: int, jobs, npad: int, dev):
             torch.zeros((8, npad), dtype=torch.float32, device=dev))
 
 
+def _cdf_mode(cfg: MpmConfig):
+    """(static_desc, moving): the ((slot, shape), ...) of the never-moving
+    and of the moving colliders, as the kernels take them."""
+    desc = tuple(enumerate(cfg.collider_types))
+    return (tuple(c for c in desc if c[0] in cfg.static_slots),
+            tuple(c for c in desc if c[0] not in cfg.static_slots))
+
+
+def _cdf_phase_3d(bodies, cfg: MpmConfig, static_chan, src, bcells, nb_total):
+    """Node tiles, per-job gate levels and the moving colliders the kernels
+    merge in-kernel, for the CDF mode of cfg (see the module docstring)."""
+    static_desc, moving = _cdf_mode(cfg)
+    h = cfg.grid.cell_width
+    wsh, wvol, wpad = R.window_geom(cfg.by)
+    dev = bcells.device
+    if cfg.chan_free:
+        # No tiles: level 1 where a static collider may be in reach, 2
+        # where a moving one may be.
+        jbody = torch.zeros(bcells.shape[0], dtype=torch.int32, device=dev)
+        if static_desc:
+            hit = _moving_reach_gate(bcells, bodies, static_desc, wsh, h)
+            jbody = torch.where(hit, 1, jbody).to(torch.int32)
+        if moving:
+            hit = _moving_reach_gate(bcells, bodies, moving, wsh, h)
+            jbody = torch.where(hit, 2, jbody).to(torch.int32)
+        return (torch.zeros((1, wpad, 4), dtype=torch.float32, device=dev),
+                jbody, moving)
+    if static_chan is None:
+        # Dense: no never-moving collider, every collider in the tiles.
+        static_chan = _cdf_chan_grid(*_node_cdf_full(bodies, cfg), nb_total,
+                                     int(np.prod(bk.block_shape(3, cfg.by))))
+        moving = ()
+    ntiles = bk.gather_tiles(static_chan, src, wpad, 4)
+    jbody = _jbody_gate(ntiles, wvol, cfg.static_slots)
+    if moving:
+        # Gathered hybrid: moving colliders possibly in reach force level 2.
+        gate = _moving_reach_gate(bcells, bodies, moving, wsh, h)
+        jbody = torch.maximum(jbody, torch.where(gate, 2, 0).to(torch.int32))
+    return ntiles, jbody, moving
+
+
 def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
              mtable, diag: StepDiag, record: Optional[dict] = None):
     """One 3D substep on the [PCHAN, NPAD] rows (lanes >= n are padding).
@@ -380,27 +448,24 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     grid = cfg.grid
     by, group, nc = cfg.by, cfg.group, cfg.num_colliders
     h = grid.cell_width
-    wsh, wvol, wpad = R.window_geom(by)
+    wpad = R.window_geom(by)[2]
     npad = rows_all.shape[1]
     dev = rows_all.device
     bodies = body_mod.update_world_mass_properties(bodies)
     ph = _job_phase(rows_all, cfg, n, diag)
     rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
     nb_total = ph["nb_total"]
-    moving = tuple((i, t) for i, t in enumerate(cfg.collider_types)
-                   if i not in cfg.static_slots)
+    static_desc, moving = _cdf_mode(cfg)
     btable = _body_table(bodies, params, grid)
     if nc > 0:
-        # Particle CDF + P2G against the frame-static channels, moving
-        # colliders merged in-kernel where the reach gate says so.
+        # Particle CDF + P2G against the node tiles, colliders evaluated
+        # in-kernel where the mode and the gate say so.
         pdata = rows_all[:R.NCHAN].clone()
-        ntiles = bk.gather_tiles(static_chan, src, wpad, 4)
-        jbody = _jbody_gate(ntiles, wvol, cfg.static_slots)
-        if moving:
-            gate = _moving_reach_gate(bcells, bodies, moving, wsh, h)
-            jbody = torch.maximum(jbody, torch.where(gate, 2, 0).to(torch.int32))
+        ntiles, jbody, moving = _cdf_phase_3d(bodies, cfg, static_chan, src,
+                                              bcells, nb_total)
         mm, imp, pcdf = p2g_cdf_tiles(pdata, ntiles, btable, jobs, bcells, jbody,
-                                      h, by, group, npad, nc, moving)
+                                      h, by, group, npad, nc, moving,
+                                      static_desc, cfg.chan_free)
         pdata[R.AFF] = pcdf[0, :npad]
         pdata[R.NX:R.NZ + 1] = pcdf[2:5, :npad]
         pdata[R.AFF_SPARE] = pcdf[5, :npad]
@@ -420,25 +485,30 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     grid_mm[..., :3] = _grid_velocity(grid_mm, params, grid)
     ftiles = bk.gather_tiles(grid_mm, src, wpad, 4)
     krows = g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, h, by,
-                     group, npad, nc, moving)
+                     group, npad, nc, moving, static_desc, cfg.chan_free)
     rows_out = update_rows(rows_all, krows, pcdf, ph["sorted_ids"],
                            ph["covered_end"], btable, mtable, params.dt, h, nc,
                            max(cfg.n_materials, 1), nb_total, cfg.elastic_model)
     if record is not None:
         record.update(ph, jbody=jbody, ntiles=ntiles, btable=btable,
-                      moving=moving, pdata=pdata, mm=mm, imp=imp, pcdf=pcdf,
-                      ftiles=ftiles, krows=krows, mtable=mtable,
+                      moving=moving, static_desc=static_desc,
+                      chan_free=cfg.chan_free, pdata=pdata, mm=mm, imp=imp,
+                      pcdf=pcdf, ftiles=ftiles, krows=krows, mtable=mtable,
                       rows_out=rows_out, grid_mm=grid_mm)
     bodies = rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg)
     return rows_out, bodies
 
 
 def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
-                mtable, diag: StepDiag, record: Optional[dict] = None):
-    """One 2D substep on the [32, NPAD] rows, every collider frame-static
-    or none (the gathered and the collider-free branches of the JAX
-    package's _substep_pallas_rows_2d).  record: as for _substep (the 2D
-    kernels' inputs and outputs)."""
+                mtable, diag: StepDiag, record: Optional[dict] = None,
+                static_cdf=None):
+    """One 2D substep on the [32, NPAD] rows (the gathered, dense and
+    collider-free branches of the JAX package's _substep_pallas_rows_2d):
+    static_chan, the frame's channel grid when every collider is static;
+    else the node CDF is evaluated on the whole grid, the moving colliders
+    merged with static_cdf (the frame's static part, None when no collider
+    is static).  record: as for _substep (the 2D kernels' inputs and
+    outputs)."""
     grid = cfg.grid
     group, nc = cfg.group, cfg.num_colliders
     h = grid.cell_width
@@ -450,6 +520,10 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     nb_total = ph["nb_total"]
     btable = _body_table_2d(bodies, params, grid)
     if nc > 0:
+        if static_chan is None:
+            # Dense: a collider moves; G, H and I read the same channels.
+            static_chan = _cdf_chan_grid(*_node_cdf_full(bodies, cfg, static_cdf),
+                                         nb_total, 64)
         ntiles = bk.gather_tiles(static_chan, src, R2.WPAD, 4)
         jbody = _jbody_gate(ntiles, R2.WVOL)
         pcdf = pcdf_rows2d(rows_all, ntiles, jobs, bcells, jbody, h, group,
@@ -493,25 +567,25 @@ def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
                 num_substeps: int, return_diag: bool = False,
                 record: Optional[dict] = None):
     """A frame of substeps carrying the [PCHAN, NPAD] row matrix; the
-    static colliders' channel grid is built once per frame.  record: see
-    _substep (filled by the frame's last substep)."""
+    static colliders' node CDF (as a channel grid in the gathered modes)
+    is built once per frame.  record: see _substep (filled by the frame's
+    last substep)."""
     dim = cfg.grid.dim
-    if cfg.num_colliders and not cfg.static_slots:
-        raise _unported("the per-substep dense node CDF (no static colliders)",
-                        "queue 1, item 8")
-    if dim == 2 and len(cfg.static_slots) != cfg.num_colliders:
-        raise _unported("2D moving colliders (the per-substep dense node CDF)",
-                        "queue 1, item 9")
+    if dim == 2 and cfg.chan_free and cfg.num_colliders:
+        raise _unported("the 2D chan-free (in-kernel) CDF mode", "queue 1, item 9")
     L, substep = (R, _substep) if dim == 3 else (R2, _substep_2d)
     n = state.particles.count
     npad = pallas_npad(n, cfg.group)
     rows = L.pack_rows_padded(state.particles, state.models, npad)
     nb_total = int(np.prod(bk.num_blocks(cfg.grid, cfg.by)))
-    static_chan = None
-    if cfg.num_colliders:
-        static_chan = _cdf_chan_grid(*_node_cdf_static(state.bodies, cfg),
-                                     nb_total,
-                                     int(np.prod(bk.block_shape(dim, cfg.by))))
+    static_chan = static_cdf = None
+    if cfg.static_slots and not cfg.chan_free:
+        static_cdf = _node_cdf_static(state.bodies, cfg)
+        if dim == 3 or len(cfg.static_slots) == cfg.num_colliders:
+            static_chan = _cdf_chan_grid(*static_cdf, nb_total,
+                                         int(np.prod(bk.block_shape(dim, cfg.by))))
+    if dim == 2:
+        substep = functools.partial(_substep_2d, static_cdf=static_cdf)
     bodies = state.bodies
     diag = StepDiag.zeros(rows.device)
     for _ in range(num_substeps):
@@ -561,8 +635,8 @@ class MpmData:
         if elastic_model not in ELASTIC_MODELS:
             raise ValueError(f"unknown elastic model {elastic_model!r}")
         for b in bodies:
-            if b.collider.shape_type != shp.SHAPE_CUBOID:
-                raise _unported("non-cuboid and mesh colliders", "queue 1, item 8")
+            if b.collider.shape_type not in shp.ANALYTIC:
+                raise _unported("mesh colliders", "queue 1, item 8")
             if b.body_type == "dynamic":
                 raise _unported("dynamic bodies", "queue 1, item 8")
         if len(bodies) > 16:
@@ -595,18 +669,15 @@ class MpmData:
         static_slots = tuple(i for i, b in enumerate(bodies)
                              if b.body_type == "fixed" and zero(b.linvel)
                              and zero(b.angvel))
-        item = "queue 1, item 8" if dim == 3 else "queue 1, item 9"
-        if dim == 2 and len(static_slots) != len(bodies):
-            raise _unported("2D moving colliders (the per-substep dense node CDF)",
-                            item)
         world = build_rigid_world(bodies, dim, device)
         if chan_free is None:
             adesc = tuple(enumerate(collider_types))
             chan_free = _auto_chan_free(grid, by, adesc, world,
                                         particles.pos.cpu().numpy(),
                                         params.gravity.cpu().numpy())
-        if chan_free:
-            raise _unported("the chan-free (in-kernel analytic) CDF mode", item)
+        chan_free = bool(chan_free)
+        if chan_free and dim == 2 and bodies:
+            raise _unported("the 2D chan-free (in-kernel) CDF mode", "queue 1, item 9")
         models, n_mat = attach_material_table(particles, models)
         self.params = params
         self.bodies_desc = tuple(bodies)
@@ -614,7 +685,7 @@ class MpmData:
             grid=grid, collider_types=collider_types,
             group=group, max_jobs=max_jobs, by=by,
             n_materials=n_mat, static_slots=static_slots,
-            elastic_model=elastic_model)
+            elastic_model=elastic_model, chan_free=chan_free)
         self.state = SimState(particles=particles, models=models, bodies=world)
 
     @property
