@@ -10,15 +10,21 @@ Phases (any failure exits non-zero, and no result line is printed):
      particles, 4 x 8 x 4 blocks, 1024 particles per job): one warm frame of
      20 substeps, then timed frames; no job-table overflow in any frame,
      finite positions, and every kernel of the path (A-E) launched by that
-     run;
+     run; then the same with `fold_vel` (the grid update inside kernel B;
+     2 timed frames and the job-gate histogram);
   3. the 3D collider-free path at full size (the same lattice, models and
      grid with no body, spinning at 1 rad/s about its vertical centre
      line), the same checks for its kernels (F, B, C, D, E);
   4. the 2D path at full size (sand_column_2d, 490,000 particles, 8 x 8
      blocks, 512 particles per job): one warm frame of 10 substeps, then
      timed frames, with the same checks for its kernels (G, H, I, the dim=2
-     entry of C, and D, E); then the 2D neo-Hookean path at full size
-     (elastic_blocks_2d, 490,000 particles, 15 substeps a frame);
+     entry of C, and D, E), and again with `fold_vel` (inside kernel I);
+     path 6, the same column stirred at its foot by a kinematic ball and a
+     kinematic capsule (`full_scene_stirred_2d`), in the dense CDF mode its
+     moving colliders take (the node CDF on all 2.99M nodes every substep)
+     and chan-free (2 timed frames each, job-gate histograms); then the 2D
+     neo-Hookean path at full size (elastic_blocks_2d, 490,000 particles,
+     15 substeps a frame);
   5. each kernel against its plain PyTorch version at full size, on the
      inputs of a substep of each scene with its lattice lowered into a
      collider (onto the paddle in 3D, 1.5 cells into the floor in 2D), so
@@ -27,7 +33,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      neo-Hookean branch on the 3D inputs; A and B on a substep of path 5
      lowered onto its capsule, in each CDF mode (entries `*_shapes` and
      `*_chan_free`; tiles, affinity rows and per-particle rows bit for
-     bit); the in-kernel math probe and its
+     bit); B and I with `fold_vel` on the lowered inputs (`g2p_fold`,
+     `g2p2d_fold`) and G, H and I on path 6 lowered into the floor in the
+     chan-free mode (`*2d_chan_free`), bit for bit; the in-kernel math
+     probe and its
      table; the P2G ablation probe at the TPU probe's sizes (1,002,001
      particles, 1300 live jobs of 1536): its four stages for its three
      node-side cores (scan, lists, pairs), each stage's time, each core's
@@ -48,9 +57,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      column; 5 substeps each of the analytic-shapes scene lowered onto its
      capsule in both CDF modes, of the 16-collider scene, of a scene whose
      colliders all move and of the 2D sand column stirred by a kinematic
-     ball and capsule): equal bit for bit to the plain path on the card,
-     and within tolerance of the plain path on the CPU (affinity words
-     exact).
+     ball and capsule; `fold_vel`: 10 substeps each of the sand box, the
+     collider-free lattice and the 2D sand column; the 2D chan-free mode: 5
+     substeps of the stirred column and of the column lowered into its
+     floor, folded too, each with gated jobs): equal bit for bit to the
+     plain path on the card, and within tolerance of the plain path on the
+     CPU (affinity words exact).
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -67,7 +79,8 @@ import torch
 
 SUBSTEPS = 20
 TIMED_FRAMES = 3
-TIMED_FRAMES_CHAN_FREE = 2    # path 5 in the chan-free mode
+# Path 5 in the chan-free mode, the folded runs and path 6.
+TIMED_FRAMES_SHORT = 2
 NXZ, NY = 77, 169           # 1,002,001 particles (the reference bench sizing)
 BY, GROUP = 8, 1024
 # The 2D throughput scene: sand_column_2d at 700 x 700 (490,000 particles),
@@ -76,12 +89,19 @@ NX2, NY2, H2, GROUP2, SUBSTEPS2 = 700, 700, 0.2, 512, 10
 # The 2D neo-Hookean scene: elastic_blocks_2d at 700 x 700 (490,000
 # particles), BASELINE config 1's constitutive model, 15 substeps a frame.
 SUBSTEPS_NEO2 = 15
+# Path 6: the 2D throughput scene stirred by a kinematic ball and capsule,
+# placed as on the small column (sand_column_2d(nx=24, ny=48, cell width
+# 0.5): 6 wide) and scaled by the full column's width (140 cells of 0.2).
+STIR_SCALE = NX2 * H2 / (24 * 0.5)
 DEVICE = "cuda:0"
 # The H100 SXM's published peaks (fp32 outside the tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 # f32 operations of one collider's CDF at one node (transfer.cuh
 # collider_cdf: two quaternion rotations, the projection, reach, distance).
 CDF_OPS = 90
+# The same for one 2D collider (transfer2d.cuh collider_cdf2: two 2D
+# rotations, the projection, reach, distance).
+CDF_OPS_2D = 40
 
 # TPU kernel each CUDA kernel replaces (the pallas_call site).
 REPLACES = {
@@ -103,10 +123,17 @@ REPLACES = {
     "g2p_shapes": "wgsparkl_tpu/ops/pallas_transfer.py:987",
     "p2g_cdf_chan_free": "wgsparkl_tpu/ops/pallas_cdf.py:517",
     "g2p_chan_free": "wgsparkl_tpu/ops/pallas_transfer.py:987",
+    "g2p_fold": "wgsparkl_tpu/ops/pallas_transfer.py:987",
+    "g2p2d_fold": "wgsparkl_tpu/ops/pallas_transfer2d.py:584",
+    "pcdf2d_chan_free": "wgsparkl_tpu/ops/pallas_transfer2d.py:820",
+    "p2g2d_chan_free": "wgsparkl_tpu/ops/pallas_transfer2d.py:402",
+    "g2p2d_chan_free": "wgsparkl_tpu/ops/pallas_transfer2d.py:584",
 }
 SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_rows",
           "update_rows2d_neo_hookean": "update_rows", "p2g_cdf_shapes": "p2g_cdf",
-          "p2g_cdf_chan_free": "p2g_cdf", "g2p_shapes": "g2p", "g2p_chan_free": "g2p"}
+          "p2g_cdf_chan_free": "p2g_cdf", "g2p_shapes": "g2p", "g2p_chan_free": "g2p",
+          "g2p_fold": "g2p", "g2p2d_fold": "g2p2d", "pcdf2d_chan_free": "pcdf2d",
+          "p2g2d_chan_free": "p2g2d", "g2p2d_chan_free": "g2p2d"}
 # The rows of the [PCHAN, NPAD] input matrix that kernel C reads (csrc/
 # update_rows.cu, update_kernel and update2d_kernel); it replaces the others
 # with G2P rows, particle-CDF rows or new values.
@@ -191,12 +218,24 @@ def full_scene(dev, **mpm_kw):
                               **mpm_kw)
 
 
-def full_scene_2d(dev):
+def full_scene_2d(dev, **mpm_kw):
     """The 2D path at full size: 490,000 particles."""
     from wgsparkl_tpu_torch import scenes
 
     return scenes.sand_column_2d(nx=NX2, ny=NY2, cell_width=H2, device=dev,
-                                 group=GROUP2)
+                                 group=GROUP2, **mpm_kw)
+
+
+def full_scene_stirred_2d(dev, chan_free=False, shift=None):
+    """Path 6 at full size: the 2D path's 490,000-particle column, models,
+    grid, floor and job table size, stirred (stirred_column, STIR_SCALE) in
+    the dense CDF mode (the default for these colliders) or chan-free;
+    shift moves the lattice."""
+    d = full_scene_2d(dev)
+    if shift is not None:
+        d.state.particles.pos += torch.tensor(shift, device=dev)
+    return stirred_column(d, STIR_SCALE, chan_free, group=GROUP2,
+                          max_jobs=d.config.max_jobs)
 
 
 def collider_free(d, jitter: float = 0.0, elastic: bool = False, **mpm_kw):
@@ -328,23 +367,44 @@ def all_kinematic(device):
                    grid=d.config.grid, by=BY, group=256)
 
 
-def stirred_column_2d(device):
-    """The small 2D sand column with a kinematic ball and a kinematic
-    capsule stirring its foot over the static floor (the reference's sand2
-    stirrers)."""
-    from wgsparkl_tpu_torch import scenes
+def stirred_column(d, scale=1.0, chan_free=False, **mpm_kw):
+    """Scene d's lattice, models, grid and floor (a sand_column_2d) with a
+    kinematic ball and a kinematic capsule stirring the column's foot (the
+    reference's sand2 stirrers): on the small column (nx=24, cell width
+    0.5) a ball of radius 0.8 at (-1.5, 1.5) spinning at 1 rad/s and a
+    capsule (half height 1.0, radius 0.3) at (1.5, 1.2), turned 1.2 rad
+    and spinning at -1 rad/s; every length times `scale`.  chan_free: the
+    CDF mode (False: the dense mode, which these colliders take)."""
     from wgsparkl_tpu_torch.collision.shapes import Collider
     from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
 
-    d = scenes.sand_column_2d(nx=24, ny=48, cell_width=0.5, group=128, device=device)
+    s = scale
     bodies = list(d.bodies_desc) + [
-        RigidBodyDesc(Collider.ball(0.8), (-1.5, 1.5), body_type="kinematic",
-                      angvel=1.0),
-        RigidBodyDesc(Collider.capsule(1.0, 0.3), (1.5, 1.2), rotation=1.2,
-                      body_type="kinematic", angvel=-1.0),
+        RigidBodyDesc(Collider.ball(0.8 * s), (-1.5 * s, 1.5 * s),
+                      body_type="kinematic", angvel=1.0),
+        RigidBodyDesc(Collider.capsule(1.0 * s, 0.3 * s), (1.5 * s, 1.2 * s),
+                      rotation=1.2, body_type="kinematic", angvel=-1.0),
     ]
-    return MpmData(d.params, d.state.particles, d.state.models, bodies, 0.5,
-                   grid=d.config.grid, group=128, chan_free=False)
+    return MpmData(d.params, d.state.particles, d.state.models, bodies,
+                   d.config.grid.cell_width, grid=d.config.grid,
+                   chan_free=chan_free, **mpm_kw)
+
+
+def small_column_2d(device, shift=None, **mpm_kw):
+    """The small 2D sand column of the CPU tests (24 x 48 at cell width
+    0.5, group 128); shift moves its lattice."""
+    from wgsparkl_tpu_torch import scenes
+
+    d = scenes.sand_column_2d(nx=24, ny=48, cell_width=0.5, group=128,
+                              device=device, **mpm_kw)
+    if shift is not None:
+        d.state.particles.pos += torch.tensor(shift, device=device)
+    return d
+
+
+def stirred_column_2d(device, chan_free=False):
+    """The small 2D sand column stirred (stirred_column at scale 1)."""
+    return stirred_column(small_column_2d(device), chan_free=chan_free, group=128)
 
 
 def scenes_small_3d(device, shift=None, **kw):
@@ -380,11 +440,12 @@ def _to(state, device):
 
 
 def run_frames(wt, data, substeps, kernels, what, card, kind,
-               frames=TIMED_FRAMES):
+               frames=TIMED_FRAMES, gates=False):
     """One warm and `frames` timed frames through step_with_diag, with
-    the launch counts set to 0 just before and read just after.  Returns
+    the launch counts set to 0 just before and read just after; gates:
+    then print the job-gate histogram of one more substep.  Returns
     (launch counts, the last state)."""
-    from wgsparkl_tpu_torch.pipeline import step_with_diag
+    from wgsparkl_tpu_torch.pipeline import step_pallas, step_with_diag
 
     cfg, n = data.config, data.num_particles
     print(f"{what}: {n} particles, grid {cfg.grid.shape}, max_jobs "
@@ -418,6 +479,11 @@ def run_frames(wt, data, substeps, kernels, what, card, kind,
           f"{elapsed:.3f} s -> {sps:.3f} steps/s, {sps * n / 1e6:.2f} M "
           f"particle-updates/s; diag of all {len(diags)} frames OK; launches "
           f"{ {k: counts[k] for k in kernels} }", flush=True)
+    if gates:
+        rec = {}
+        step_pallas(state, data.params, cfg, 1, record=rec)
+        print(f"{what}: live jobs by gate level {gate_histogram(rec)} in a substep "
+              "after the timed frames", flush=True)
     return counts, state
 
 
@@ -463,6 +529,12 @@ def main() -> None:
                            "3D main path", card, kind)
     launches.update((k, counts[k]) for k in KERNELS_3D)
     torch.cuda.empty_cache()
+    # The same with the grid update folded into kernel B.
+    counts, _ = run_frames(wt, full_scene(dev, fold_vel=True), SUBSTEPS,
+                           KERNELS_3D, "3D main path (fold_vel)", card, kind,
+                           TIMED_FRAMES_SHORT, gates=True)
+    launches["g2p_fold"] = counts["g2p"]
+    torch.cuda.empty_cache()
     # ---- 3. the 3D collider-free path at full size ----
     data = full_scene_free(dev)
     counts, state = run_frames(wt, data, SUBSTEPS, KERNELS_FREE,
@@ -481,6 +553,24 @@ def main() -> None:
                            "2D path", card, kind)
     launches.update((k, counts[k]) for k in KERNELS_2D)
     torch.cuda.empty_cache()
+    counts, _ = run_frames(wt, full_scene_2d(dev, fold_vel=True), SUBSTEPS2,
+                           KERNELS_2D, "2D path (fold_vel)", card, kind,
+                           TIMED_FRAMES_SHORT, gates=True)
+    launches["g2p2d_fold"] = counts["g2p2d"]
+    torch.cuda.empty_cache()
+    # Path 6: the stirred column, dense (the default for its colliders),
+    # then chan-free.
+    for chan_free in (False, True):
+        data = full_scene_stirred_2d(dev, chan_free)
+        if data.config.chan_free != chan_free or data.config.static_slots != (0,):
+            fail(f"path 6: built as {data.config}")
+        mode = "chan-free" if chan_free else "dense"
+        counts, _ = run_frames(wt, data, SUBSTEPS2, KERNELS_2D,
+                               f"2D stirred column ({mode})", card, kind,
+                               TIMED_FRAMES_SHORT, gates=True)
+        del data
+        torch.cuda.empty_cache()
+    launches.update((f"{k}_chan_free", counts[k]) for k in KERNELS_2D[:3])
     data = full_scene_neo_2d(dev)
     counts, state = run_frames(wt, data, SUBSTEPS_NEO2, KERNELS_2D,
                                "2D neo-Hookean path", card, kind)
@@ -494,20 +584,16 @@ def main() -> None:
     data = full_scene_shapes(dev)
     if data.config.chan_free:
         fail("path 5: the CDF-mode heuristic picked chan-free, not the gathered hybrid")
-    for tag, frames in (("shapes", TIMED_FRAMES), ("chan_free", TIMED_FRAMES_CHAN_FREE)):
+    for tag, frames in (("shapes", TIMED_FRAMES), ("chan_free", TIMED_FRAMES_SHORT)):
         if tag == "chan_free":
             data = full_scene_shapes(dev, chan_free=True)
         mode = "chan-free" if data.config.chan_free else "gathered"
-        what = f"3D analytic-shapes path ({mode})"
-        counts, state = run_frames(wt, data, SUBSTEPS, KERNELS_3D, what, card, kind,
-                                   frames)
+        counts, _ = run_frames(wt, data, SUBSTEPS, KERNELS_3D,
+                               f"3D analytic-shapes path ({mode})", card, kind,
+                               frames, gates=True)
         launches[f"p2g_cdf_{tag}"] = counts["p2g_cdf"]
         launches[f"g2p_{tag}"] = counts["g2p"]
-        rec = {}
-        step_pallas(state, data.params, data.config, 1, record=rec)
-        print(f"{what}: live jobs by gate level {gate_histogram(rec)} in a substep "
-              "after the timed frames", flush=True)
-        del data, state, rec
+        del data
         torch.cuda.empty_cache()
 
     checks = []
@@ -634,6 +720,20 @@ def main() -> None:
           lambda k, p: [("rows", k[:, :ce], p[:, :ce], 1e-5)],
           cost=(4 * (11 * ce + nj * wv * 4 + njg * wv * 4 + 12 * ce),
                 ce * (30 + 27 * 24) + pg * 27 * 40))
+    # Kernel B folded, on the same substep with the grid update left to it:
+    # its tiles hold raw momentum and mass, and it folds each window node
+    # once (~12 operations) as the plain version does, bit for bit.
+    rec_fold = {}
+    step_pallas(state, data.params, dataclasses.replace(cfg, fold_vel=True), 1,
+                record=rec_fold)
+    args_bf = ((rec_fold["pdata"], rec_fold["ftiles"]) + args_b[2:]
+               + ((), False, True))
+    check("g2p_fold",
+          lambda: g2p.g2p_rows(*args_bf), lambda: g2p.g2p_plain(*args_bf),
+          lambda k, p: [], lambda k, p: [("rows", k[:, :ce], p[:, :ce])],
+          cost=(4 * (11 * ce + nj * wv * 4 + njg * wv * 4 + 12 * ce),
+                ce * (30 + 27 * 24) + pg * 27 * 40 + nj * wv * 12))
+    del rec_fold, args_bf
     # Lanes whose F the Drucker-Prager return map replaced: their plastic
     # state rows change (the plain output against the input).  Kernel C
     # decomposes such a lane's F a second time, and so does its whole warp.
@@ -774,6 +874,19 @@ def main() -> None:
           lambda k, p: [], lambda k, p: [("rows", k, p)],
           cost=(4 * (8 * ce + nj * wv * 2 + njg * wv * 3 + 6 * ce),
                 ce * (12 + 9 * 16) + pg * 9 * 37))
+    # Kernel I folded, on the same substep with the grid update left to it.
+    rec_fold = {}
+    step_pallas(state, data.params, dataclasses.replace(cfg, fold_vel=True), 1,
+                record=rec_fold)
+    args_if = ((rec_fold["pdata"], rec_fold["ftiles"]) + args_i[2:]
+               + ((), False, True))
+    check("g2p2d_fold",
+          lambda: transfer2d.g2p_rows(*args_if),
+          lambda: transfer2d.g2p_plain(*args_if),
+          lambda k, p: [], lambda k, p: [("rows", k, p)],
+          cost=(4 * (8 * ce + nj * wv * 3 + njg * wv * 3 + 6 * ce),
+                ce * (12 + 9 * 16) + pg * 9 * 37 + nj * wv * 8))
+    del rec_fold, args_if
     check("update_rows2d",
           lambda: update_rows.update_rows2d(*args_c2),
           lambda: update_rows.update2d_plain(*args_c2),
@@ -781,6 +894,56 @@ def main() -> None:
           lambda k, p: [(f"row {r}", k[r], p[r]) for r in (9, 12, 13, 14)],
           cost=c_cost(C_ROWS_READ_2D, 6, 5, rec["rows"].shape[0], npad, ce, 400))
     del rec, args_g, args_h, args_i, args_c2, data, state
+    torch.cuda.empty_cache()
+
+    # ---- 5b'. G, H and I chan-free on path 6 lowered into the floor ----
+    data = full_scene_stirred_2d(dev, True, shift=(0.0, -1.5 * H2))
+    cfg = data.config
+    state, diag = step_with_diag(data.state, data.params, cfg, 2)
+    rec = {}
+    step_pallas(state, data.params, cfg, 1, record=rec)
+    torch.cuda.synchronize()
+    if diag.any_overflow():
+        fail(f"step diagnostics of lowered path 6: {diag.summary()}")
+    npad, nc = rec["rows"].shape[1], cfg.num_colliders
+    jobs = (rec["jobs"], rec["bcells"], rec["jbody"], H2)
+    mode = (rec["alldesc"], True)
+    args_g = (rec["rows"], rec["ntiles"]) + jobs + (GROUP2, npad, nc,
+                                                    rec["btable"]) + mode
+    args_h = (rec["pdata"], rec["ntiles"], rec["btable"]) + jobs + (nc,) + mode
+    args_i = ((rec["pdata"], rec["ftiles"], rec["ntiles"], rec["btable"]) + jobs
+              + (GROUP2, npad, nc) + mode)
+    ce, pg, nj, njg = job_stats(rec)
+    # Node CDF evaluations: every collider at every window node of a gated
+    # job (the kernels evaluate them again each, as the plain versions do).
+    evals = njg * wv * nc
+    print(f"path 6 kernel inputs (chan-free, lowered): {ce} covered particles "
+          f"({pg} in gated jobs), {nj} live jobs ({njg} gated), {evals} "
+          f"node-collider CDF evaluations a kernel, NPAD {npad}", flush=True)
+    check("pcdf2d_chan_free",
+          lambda: transfer2d.pcdf_rows(*args_g),
+          lambda: transfer2d.pcdf_plain(*args_g),
+          lambda k, p: [], lambda k, p: [("rows", k, p)],
+          lambda p: (None if int((p[0] != 0).sum()) > 100
+                     else "few particles near a collider"),
+          cost=(4 * (4 * pg + 5 * pg),
+                pg * (9 * (3 * nc + 22) + 80) + evals * CDF_OPS_2D))
+    check("p2g2d_chan_free",
+          lambda: transfer2d.p2g_tiles(*args_h),
+          lambda: transfer2d.p2g_plain(*args_h),
+          lambda k, p: [], lambda k, p: [("mm tiles", k[0], p[0]),
+                                         ("impulses", k[1], p[1])],
+          lambda p: (None if float(p[1].abs().max()) > 1e-3
+                     else "the plain impulses are ~0: no contact load"),
+          cost=(4 * (13 * ce + nj * wv * 3 + njg * 3 * nc),
+                ce * (20 + 9 * 7 * 2) + pg * 9 * 31 + evals * CDF_OPS_2D))
+    check("g2p2d_chan_free",
+          lambda: transfer2d.g2p_rows(*args_i),
+          lambda: transfer2d.g2p_plain(*args_i),
+          lambda k, p: [], lambda k, p: [("rows", k, p)],
+          cost=(4 * (8 * ce + nj * wv * 2 + 6 * ce),
+                ce * (12 + 9 * 16) + pg * 9 * 37 + evals * CDF_OPS_2D))
+    del rec, args_g, args_h, args_i, data, state
     torch.cuda.empty_cache()
 
     # ---- 5c. C-2D's neo-Hookean branch on a substep of the neo-Hookean path ----
@@ -929,6 +1092,13 @@ def main() -> None:
         "3D neo-Hookean sand box": lambda device: scenes.sand_box_3d(
             nxz=8, ny=16, device=device, by=BY, group=256,
             elastic_model="neo_hookean"),
+        "3D sand box (fold_vel)": lambda device: scenes_small_3d(
+            device, fold_vel=True),
+        "3D collider-free lattice (fold_vel)": lambda device: collider_free(
+            scenes.sand_box_3d(nxz=8, ny=16, with_paddle=False, device=device),
+            jitter=0.5, elastic=True, by=BY, group=256, fold_vel=True),
+        "2D sand column (fold_vel)": lambda device: small_column_2d(
+            device, fold_vel=True),
     }
     for what, make in small_10.items():
         dk, dp = make(dev), make("cpu")
@@ -939,13 +1109,16 @@ def main() -> None:
             launches["update_rows_neo_hookean"] = counts["update_rows"]
         if dk.config.num_colliders == 0 and dk.config.grid.dim == 3 and not counts["p2g"]:
             fail(f"{what}: kernel F never launched: {counts}")
+        if ("fold_vel" in what) != dk.config.fold_vel:
+            fail(f"{what}: built with fold_vel={dk.config.fold_vel}")
         with plain_versions():
             same(sk, step_pallas(dk.state, dk.params, dk.config, 10), what)
         agree(sk, step_pallas(dp.state, dp.params, dp.config, 10), what)
     print("small scenes (3D sand box, contact, collider-free and neo-Hookean; "
-          "2D sand column, elastic blocks and collider-free column): kernel "
-          "path equals the plain path on the card and agrees with it on the "
-          "CPU", flush=True)
+          "2D sand column, elastic blocks and collider-free column; the 3D sand "
+          "box, the 3D collider-free lattice and the 2D sand column folded): "
+          "kernel path equals the plain path on the card and agrees with it "
+          "on the CPU", flush=True)
     # The analytic-shapes slice, 5 substeps each; against the CPU each
     # substep starts both paths from the CPU state (contact from the start).
     small_5 = {
@@ -958,17 +1131,29 @@ def main() -> None:
         "3D 16 colliders": sixteen_colliders,
         "3D all colliders kinematic": all_kinematic,
         "2D sand column stirred by a kinematic ball and capsule": stirred_column_2d,
+        "2D stirred column (chan-free)": lambda device: stirred_column_2d(device,
+                                                                          True),
+        "2D sand column in its floor (chan-free, fold_vel)": lambda device:
+            small_column_2d(device, (0.0, -0.75), chan_free=True, fold_vel=True),
     }
     for what, make in small_5.items():
         dk, dp = make(dev), make("cpu")
-        if ("chan-free" in what) != dk.config.chan_free:
-            fail(f"{what}: built in the wrong CDF mode")
+        if (("chan-free" in what) != dk.config.chan_free
+                or ("fold_vel" in what) != dk.config.fold_vel):
+            fail(f"{what}: built in the wrong CDF mode or fold setting")
         wt.reset_launch_counts()
         sk = step_pallas(dk.state, dk.params, dk.config, 5)
         counts = wt.launch_counts()
         kernels = KERNELS_3D if dk.config.grid.dim == 3 else KERNELS_2D
         if min(counts[k] for k in kernels) <= 0:
             fail(f"{what}: a kernel of the path never launched: {counts}")
+        if dk.config.chan_free and dk.config.grid.dim == 2:
+            # A chan-free scene proves nothing if no job is gated.
+            rec = {}
+            step_pallas(dk.state, dk.params, dk.config, 1, record=rec)
+            hist = gate_histogram(rec)
+            if hist[1] + hist[2] == 0:
+                fail(f"{what}: no job gated")
         with plain_versions():
             same(sk, step_pallas(dk.state, dk.params, dk.config, 5), what)
         sp = dp.state

@@ -332,20 +332,36 @@ def _moving_floor_2d(**kw):
                        linvel=(0.5, 0.0))], 0.5, **kw)
 
 
+def _chan_free_2d():
+    return scenes.sand_column_2d(nx=4, ny=4, cell_width=0.5, device="cpu",
+                                 chan_free=True)
+
+
+def _fold_vel_2d():
+    return scenes.sand_column_2d(nx=4, ny=4, cell_width=0.5, device="cpu",
+                                 fold_vel=True)
+
+
+_PORTED_2D = {_chan_free_2d: "chan_free", _fold_vel_2d: "fold_vel"}
+
+
 @pytest.mark.parametrize("make", [
-    lambda: scenes.sand_column_2d(nx=4, ny=4, cell_width=0.5, device="cpu",
-                                  chan_free=True),
+    _chan_free_2d,
     None,
-    lambda: scenes.sand_column_2d(nx=4, ny=4, cell_width=0.5, device="cpu",
-                                  fold_vel=True),
+    _fold_vel_2d,
     lambda: scenes.sand_column_2d(nx=4, ny=4, cell_width=0.5, device="cpu",
                                   spatial_devices=2),
     _moving_floor_2d,
 ], ids=["chan_free", "neo_hookean", "fold_vel", "spatial", "moving_collider"])
 def test_unported_2d_options_raise(make):
     """Each 2D option the port lacks raises naming its ROADMAP item.  2D
-    neo-Hookean and 2D moving colliders are ported now: those cases build
-    and carry the model or the moving slot."""
+    neo-Hookean, 2D moving colliders, the 2D chan-free CDF mode and
+    fold_vel are ported now: those cases build and carry the model, the
+    moving slot or the option."""
+    if make in _PORTED_2D:
+        d = make()
+        assert getattr(d.config, _PORTED_2D[make])
+        return
     if make is None:
         d = scenes.sand_column_2d(nx=4, ny=4, cell_width=0.5, device="cpu",
                                   elastic_model="neo_hookean")

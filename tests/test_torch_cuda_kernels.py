@@ -5,7 +5,8 @@ box lowered onto the paddle (so kernel A's impulse path carries load), the
 (so kernel H's impulses carry load), kernel F on a substep of the spinning
 collider-free sand box and on the coupled inputs, kernel C's neo-Hookean
 branch in 3D and 2D, the math probe and every core of the P2G ablation
-probe.  Marked `cuda`: they skip where
+probe; the `fold_vel` branches of B and I on folded substeps, and the 2D
+chan-free branches of G, H and I on the stirred column.  Marked `cuda`: they skip where
 torch sees no CUDA device (run them on a GPU host with
 `python -m pytest --noconftest tests/test_torch_cuda_kernels.py`)."""
 
@@ -322,3 +323,83 @@ def test_p2g_ablation_cores_match_plain(group, n, nlive):
         for stage in ablation.STAGES[:3]:
             out = ablation.p2g_ablation(*inputs, stage=stage, core=core, group=group)
             assert bool(torch.isfinite(out).all())
+
+
+@pytest.fixture(scope="module", params=[3, 2])
+def rec_fold(request):
+    """A substep of the small sand box lowered onto the paddle (3D) or the
+    sand column lowered into its floor (2D), with fold_vel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if request.param == 3:
+        d = scenes.sand_box_3d(nxz=8, ny=16, by=8, group=256, device="cuda",
+                               fold_vel=True)
+        d.state.particles.pos += torch.tensor([0.0, -3.0, 0.0], device="cuda")
+    else:
+        d = scenes.sand_column_2d(nx=24, ny=48, cell_width=0.5, group=128,
+                                  device="cuda", fold_vel=True)
+        d.state.particles.pos += torch.tensor([0.0, -0.75], device="cuda")
+    state = step_pallas(d.state, d.params, d.config, 2)
+    r = {}
+    step_pallas(state, d.params, d.config, 1, record=r)
+    r["cfg"] = d.config
+    return r
+
+
+def test_fold_kernels_match_plain(rec_fold):
+    """B (3D) or I (2D) with the grid update folded in: bit for bit."""
+    r, cfg = rec_fold, rec_fold["cfg"]
+    assert r["fold_vel"]
+    if cfg.grid.dim == 3:
+        args = (r["pdata"], r["ftiles"], r["ntiles"], r["btable"], r["jobs"],
+                r["bcells"], r["jbody"], cfg.grid.cell_width, cfg.by, cfg.group,
+                r["rows"].shape[1], cfg.num_colliders, r["moving"], (), False, True)
+        k, p = g2p.g2p_rows(*args), g2p.g2p_plain(*args)
+    else:
+        args = ((r["pdata"], r["ftiles"], r["ntiles"], r["btable"]) + _jobs2d(r)
+                + (cfg.group, r["rows"].shape[1], cfg.num_colliders, (), False, True))
+        k, p = transfer2d.g2p_rows(*args), transfer2d.g2p_plain(*args)
+    assert torch.equal(k, p)
+
+
+@pytest.fixture(scope="module")
+def rec2d_chan_free():
+    """A substep of the small sand column stirred by a kinematic ball and
+    capsule, in the chan-free CDF mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.pipeline import RigidBodyDesc
+
+    d = scenes.sand_column_2d(nx=24, ny=48, cell_width=0.5, group=128, device="cuda")
+    bodies = list(d.bodies_desc) + [
+        RigidBodyDesc(Collider.ball(0.8), (-1.5, 1.5), body_type="kinematic",
+                      angvel=1.0),
+        RigidBodyDesc(Collider.capsule(1.0, 0.3), (1.5, 1.2), rotation=1.2,
+                      body_type="kinematic", angvel=-1.0)]
+    d = MpmData(d.params, d.state.particles, d.state.models, bodies, 0.5,
+                grid=d.config.grid, group=128, chan_free=True)
+    state = step_pallas(d.state, d.params, d.config, 2)
+    r = {}
+    step_pallas(state, d.params, d.config, 1, record=r)
+    r["cfg"] = d.config
+    return r
+
+
+def test_chan_free_2d_kernels_match_plain(rec2d_chan_free):
+    """G, H and I evaluating every collider at the window nodes of the
+    gated jobs: bit for bit."""
+    r, cfg = rec2d_chan_free, rec2d_chan_free["cfg"]
+    assert r["chan_free"] and int((r["jbody"][r["jobs"]["len"] > 0] > 0).sum()) > 3
+    mode = (r["alldesc"], True)
+    npad, nc = r["rows"].shape[1], cfg.num_colliders
+    args = (r["rows"], r["ntiles"]) + _jobs2d(r) + (cfg.group, npad, nc,
+                                                    r["btable"]) + mode
+    assert torch.equal(transfer2d.pcdf_rows(*args), transfer2d.pcdf_plain(*args))
+    args = (r["pdata"], r["ntiles"], r["btable"]) + _jobs2d(r) + (nc,) + mode
+    k, p = transfer2d.p2g_tiles(*args), transfer2d.p2g_plain(*args)
+    assert float(p[1].abs().max()) > 0.0
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    args = ((r["pdata"], r["ftiles"], r["ntiles"], r["btable"]) + _jobs2d(r)
+            + (cfg.group, npad, nc) + mode)
+    assert torch.equal(transfer2d.g2p_rows(*args), transfer2d.g2p_plain(*args))

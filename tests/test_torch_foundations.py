@@ -161,10 +161,15 @@ def test_main_path_configuration_matches_jax():
     dict(spatial_devices=2)])
 def test_unported_options_raise(kw):
     """Each 3D option the port lacks raises naming its ROADMAP item.  The
-    chan-free CDF mode is ported now: that case builds and carries it."""
+    chan-free CDF mode and fold_vel are ported now: those cases build and
+    carry the option."""
     if kw == dict(chan_free=True):
         d = scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
         assert d.config.chan_free and d.config.static_slots == (0, 1, 2, 3, 4)
+        return
+    if kw == dict(fold_vel=True):
+        d = scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
+        assert d.config.fold_vel and not d.config.chan_free
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)

@@ -27,17 +27,18 @@ def to_torch(x):
     return torch.as_tensor(np.array(a))
 
 
-def jax_scene(shift=(0.0, 0.0, 0.0)) -> MpmData:
+def jax_scene(shift=(0.0, 0.0, 0.0), fold_vel: bool = False) -> MpmData:
     """sand_box_3d(nxz=8, ny=16) with the paddle on the bounded pallas path
     (by=8, group=256); `shift` moves the particle lattice (the grid and the
-    colliders stay), e.g. onto the floor away from the paddle."""
+    colliders stay), e.g. onto the floor away from the paddle; fold_vel:
+    the grid update folded into G2P."""
     d3 = scenes.sand_box_3d(nxz=8, ny=16, cell_width=1.0, with_paddle=True)
     p = d3.state.particles
     if any(shift):
         p = p.replace(pos=p.pos + jnp.asarray(shift, jnp.float32))
     return MpmData(d3.params, p, d3.state.models, d3.bodies_desc, 1.0,
                    grid=d3.config.grid, transfer="pallas", group=GROUP,
-                   job_chunk=8, by=BY)
+                   job_chunk=8, by=BY, fold_vel=fold_vel)
 
 
 # Lattice placements: as built (jobs near the paddle at gate level 2, the
@@ -52,8 +53,9 @@ SHIFTS = {
 
 
 def _phases(rows_all, bodies, params, cfg, n, static_chan, mtable):
-    """One JAX 3D substep (gathered hybrid, or chan-free when cfg.chan_free),
-    returning every phase's arrays."""
+    """One JAX 3D substep (gathered hybrid, or chan-free when cfg.chan_free;
+    the grid update folded into G2P when cfg.fold_vel), returning every
+    phase's arrays."""
     from wgsparkl_tpu.ops import blocked as bk
     from wgsparkl_tpu.ops import pallas_transfer as ptf
     from wgsparkl_tpu.ops.kernel import inv_d
@@ -92,11 +94,13 @@ def _phases(rows_all, bodies, params, cfg, n, static_chan, mtable):
     grid_mm = jnp.zeros((nb_total + 1,) + bk.block_shape(3, by) + (4,),
                         jnp.float32)
     grid_mm = scatter_mm(grid_mm, mm)
-    grid_mm = grid_mm.at[..., :3].set(_grid_velocity(grid_mm, params, grid, 3))
+    if not cfg.fold_vel:
+        grid_mm = grid_mm.at[..., :3].set(_grid_velocity(grid_mm, params, grid, 3))
     ftiles = gather_tiles(grid_mm, out=(wpad, 4))
     krows = ptf.g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, grid,
                          group, npad, nc, jbody, by=by, moving=moving,
-                         static_desc=static_desc, chan_free=cfg.chan_free)
+                         static_desc=static_desc, chan_free=cfg.chan_free,
+                         fold_vel=cfg.fold_vel)
     rows_out = update_rows(rows, krows, pcdf, sids, covered_end, btable, mtable,
                            params, cfg, nc, inv_d(grid.cell_width),
                            live_below=nb_total)
@@ -113,10 +117,11 @@ def _phases(rows_all, bodies, params, cfg, n, static_chan, mtable):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_dump(shift=(0.0, 0.0, 0.0), substeps_before: int = 2):
+def jax_dump(shift=(0.0, 0.0, 0.0), substeps_before: int = 2,
+             fold_vel: bool = False):
     """(MpmData, dict of numpy arrays) of the JAX main path's phases in the
     substep after `substeps_before` substeps of the scene."""
-    return dump_phases(jax_scene(shift), substeps_before)
+    return dump_phases(jax_scene(shift, fold_vel), substeps_before)
 
 
 def dump_phases(data: MpmData, substeps_before: int = 2):
@@ -193,25 +198,29 @@ SCENES_2D = ("sand_column", "elastic_blocks")
 SHIFTS_2D = {"as_built": 0.0, "in_floor": -0.75}
 
 
-def jax_scene_2d(kind: str, shift: float = 0.0) -> MpmData:
+def jax_scene_2d(kind: str, shift: float = 0.0, chan_free: bool = False,
+                 fold_vel: bool = False) -> MpmData:
     """sand_column_2d(nx=24, ny=48) or elastic_blocks_2d(n_side=24) at cell
     width 0.5 on the bounded pallas path (group 128); `shift` moves the
-    particle lattice in y (the grid and the colliders stay)."""
+    particle lattice in y (the grid and the colliders stay); chan_free and
+    fold_vel: the CDF mode and the grid update folded into G2P."""
     build = {"sand_column": lambda **kw: scenes.sand_column_2d(nx=24, ny=48, **kw),
              "elastic_blocks": lambda **kw: scenes.elastic_blocks_2d(n_side=24, **kw)}
     d2 = build[kind](cell_width=0.5, transfer="pallas", group=GROUP_2D)
-    if not shift:
+    if not (shift or chan_free or fold_vel):
         return d2
     p = d2.state.particles
     p = p.replace(pos=p.pos + jnp.asarray([0.0, shift], jnp.float32))
     return MpmData(d2.params, p, d2.state.models, d2.bodies_desc, 0.5,
                    grid=d2.config.grid, transfer="pallas", group=GROUP_2D,
-                   chan_free=False)
+                   chan_free=chan_free, fold_vel=fold_vel)
 
 
 def _phases_2d(rows_all, bodies, params, cfg, n, static_chan, mtable):
     """One JAX 2D substep (the gathered all-static branch of
-    _substep_pallas_rows_2d), returning every phase's arrays."""
+    _substep_pallas_rows_2d, or its chan-free branch when cfg.chan_free;
+    the grid update folded into G2P when cfg.fold_vel), returning every
+    phase's arrays."""
     from wgsparkl_tpu.ops import blocked as bk
     from wgsparkl_tpu.ops import pallas_transfer2d as ptf
     from wgsparkl_tpu.ops.kernel import inv_d
@@ -219,7 +228,7 @@ def _phases_2d(rows_all, bodies, params, cfg, n, static_chan, mtable):
     from wgsparkl_tpu.ops.update_rows import update_rows
     from wgsparkl_tpu.pipeline import (
         StepDiag, _bounded_job_phase, _cdf_mode, _grid_velocity, _jbody_gate,
-        _split_impulses, rigid_bodies_update)
+        _moving_reach_gate, _split_impulses, rigid_bodies_update)
     from wgsparkl_tpu.rigid import body as body_mod
 
     grid, group, nc = cfg.grid, cfg.group, cfg.num_colliders
@@ -245,26 +254,35 @@ def _phases_2d(rows_all, bodies, params, cfg, n, static_chan, mtable):
     btable = btable.at[9:12, :bodies.count].set(bodies.shape_params[:, :3].T)
     btable = btable.at[13, :2].set(params.gravity * params.dt)
     btable = btable.at[13, 2].set(grid.cell_width / params.dt)
-    ntiles = gather_tiles(static_chan, out=(ptf.WPAD, 4), c=4)
-    jbody = _jbody_gate(ntiles, ptf.WVOL)
+    chan_free = cfg.chan_free
+    if chan_free:
+        jbody = _moving_reach_gate(bcells, bodies, alldesc, (10, 10),
+                                   grid.cell_width).astype(jnp.int32)
+        ntiles = jnp.zeros((1, ptf.WPAD, 4), jnp.float32)
+    else:
+        ntiles = gather_tiles(static_chan, out=(ptf.WPAD, 4), c=4)
+        jbody = _jbody_gate(ntiles, ptf.WVOL)
     pdata0 = rows[:ptf.NCHAN]
     pcdf = ptf.pcdf_rows(pdata0, ntiles, btable, jobs, bcells, grid, group,
-                         npad, nc, jbody, alldesc=alldesc)
+                         npad, nc, jbody, alldesc=alldesc, chan_free=chan_free)
     pdata = jax.lax.dynamic_update_slice(
         pdata0, jnp.concatenate([pcdf[0:1, :npad], pcdf[2:4, :npad],
                                  pcdf[4:5, :npad]], axis=0), (ptf.AFF, 0))
-    itiles = jnp.stack([(ntiles[..., 1].astype(jnp.int32) << 16)
-                        | ntiles[..., 0].astype(jnp.int32),
-                        ntiles[..., 2].astype(jnp.int32)], axis=-1)
+    itiles = (jnp.zeros((1, ptf.WPAD, 2), jnp.int32) if chan_free else
+              jnp.stack([(ntiles[..., 1].astype(jnp.int32) << 16)
+                         | ntiles[..., 0].astype(jnp.int32),
+                         ntiles[..., 2].astype(jnp.int32)], axis=-1))
     mm, imp = ptf.p2g_tiles(pdata, itiles, btable, jobs, bcells, grid, group,
-                            nc, jbody, alldesc=alldesc)
+                            nc, jbody, alldesc=alldesc, chan_free=chan_free)
     grid_mm = jnp.zeros((nb_total + 1, 8, 8, 3), jnp.float32)
     grid_mm = scatter_mm(grid_mm, mm)
     lin, ang = _split_impulses(imp, bodies.count, 2)
-    grid_mm = grid_mm.at[..., :2].set(_grid_velocity(grid_mm, params, grid, 2))
+    if not cfg.fold_vel:
+        grid_mm = grid_mm.at[..., :2].set(_grid_velocity(grid_mm, params, grid, 2))
     ftiles = gather_tiles(grid_mm, out=(ptf.WPAD, 4))
     krows = ptf.g2p_rows(pdata, ftiles, itiles, btable, jobs, bcells, grid,
-                         group, npad, nc, jbody, alldesc=alldesc)
+                         group, npad, nc, jbody, alldesc=alldesc,
+                         chan_free=chan_free, fold_vel=cfg.fold_vel)
     rows_out = update_rows(rows, krows, pcdf, sids, covered_end, btable, mtable,
                            params, cfg, nc, inv_d(grid.cell_width),
                            live_below=nb_total, dim=2)
@@ -279,14 +297,22 @@ def _phases_2d(rows_all, bodies, params, cfg, n, static_chan, mtable):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_dump_2d(kind: str, shift: float = 0.0, substeps_before: int = 2):
+def jax_dump_2d(kind: str, shift: float = 0.0, substeps_before: int = 2,
+                fold_vel: bool = False):
     """(MpmData, dict of numpy arrays) of the JAX 2D path's phases in the
     substep after `substeps_before` substeps of the scene."""
+    return dump_phases_2d(jax_scene_2d(kind, shift, fold_vel=fold_vel),
+                          substeps_before)
+
+
+def dump_phases_2d(data: MpmData, substeps_before: int = 2):
+    """(data, dict of numpy arrays) of the phases of a 2D scene whose
+    colliders are all static, or of any 2D scene in the chan-free mode, in
+    the substep after `substeps_before` substeps."""
     from wgsparkl_tpu.ops import blocked as bk
     from wgsparkl_tpu.ops import pallas_transfer2d as ptf
     from wgsparkl_tpu.pipeline import _cdf_chan_grid, _node_cdf_static, pallas_npad
 
-    data = jax_scene_2d(kind, shift)
     cfg, st = data.config, data.state
     n = st.particles.count
     npad = pallas_npad(n, cfg.group)
@@ -431,10 +457,11 @@ def jax_scene_kinematic() -> MpmData:
                    job_chunk=8, by=BY)
 
 
-def jax_scene_2d_moving() -> MpmData:
+def jax_scene_2d_moving(chan_free: bool = False) -> MpmData:
     """sand_column_2d(nx=24, ny=48, cell width 0.5) with a kinematic ball
     and a kinematic capsule stirring the column's foot (the reference's
-    sand2 stirrers) over its static floor, group=128."""
+    sand2 stirrers) over its static floor, group=128, in the dense or the
+    chan-free CDF mode."""
     from wgsparkl_tpu.collision.shapes import Collider
     from wgsparkl_tpu.pipeline import RigidBodyDesc
 
@@ -448,7 +475,28 @@ def jax_scene_2d_moving() -> MpmData:
     ]
     return MpmData(d2.params, d2.state.particles, d2.state.models, bodies, 0.5,
                    grid=d2.config.grid, transfer="pallas", group=GROUP_2D,
-                   chan_free=False)
+                   chan_free=chan_free)
+
+
+# A kinematic ball (radius 0.8) with the small sand column and no floor:
+# aside, at the grid's right edge level with the column's top, where the
+# CDF-mode heuristic picks chan-free; under the column's foot, where it
+# catches the falling matter and the heuristic picks the gathered modes.
+BALL_2D = {"aside": (47.5, 12.375), "under": (0.0, -0.3)}
+
+
+def jax_scene_2d_ball(where: str) -> MpmData:
+    """sand_column_2d(nx=24, ny=48, cell width 0.5, group=128)'s lattice,
+    models and grid with one kinematic ball at BALL_2D[where] in place of
+    the floor; the CDF mode from the construction-time heuristic."""
+    from wgsparkl_tpu.collision.shapes import Collider
+    from wgsparkl_tpu.pipeline import RigidBodyDesc
+
+    d2 = scenes.sand_column_2d(nx=24, ny=48, cell_width=0.5, transfer="pallas",
+                               group=GROUP_2D)
+    ball = RigidBodyDesc(Collider.ball(0.8), BALL_2D[where], body_type="kinematic")
+    return MpmData(d2.params, d2.state.particles, d2.state.models, [ball], 0.5,
+                   grid=d2.config.grid, transfer="pallas", group=GROUP_2D)
 
 
 def port_bodies(descs):
@@ -461,9 +509,10 @@ def port_bodies(descs):
                           d.linvel, d.angvel) for d in descs]
 
 
-def port_data(jdata: MpmData, chan_free=False):
+def port_data(jdata: MpmData, chan_free=False, fold_vel=None):
     """The port's MpmData of a JAX scene's initial particles, models and
-    bodies, on its grid, blocks, group and job table size."""
+    bodies, on its grid, blocks, group and job table size (chan_free None:
+    the heuristic)."""
     from wgsparkl_tpu_torch import interop
     from wgsparkl_tpu_torch.pipeline import MpmData as TMpmData
 
@@ -472,4 +521,5 @@ def port_data(jdata: MpmData, chan_free=False):
     return TMpmData(interop.params_from_reference(jdata.params, "cpu"), st.particles,
                     st.models, port_bodies(jdata.bodies_desc), cfg.grid.cell_width,
                     grid=interop.config_from_reference(cfg).grid, group=cfg.group,
-                    max_jobs=cfg.max_jobs, by=cfg.by, chan_free=chan_free)
+                    max_jobs=cfg.max_jobs, by=cfg.by, chan_free=chan_free,
+                    fold_vel=fold_vel)

@@ -1,21 +1,26 @@
 """Where a frame's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 tools/torch_profile.py 3d|3d-neo|3d-free|3d-shapes|3d-shapes-chan-free|2d|2d-neo
+    python3 tools/torch_profile.py PATH
 
-Builds the full-size scene of chip_smoke.py (3d: the 1,002,001-particle
-sand box with the paddle, 20 substeps a frame; 3d-neo: the same with the
-neo-Hookean stress; 3d-free: the same lattice,
-models and grid with no body, spinning; 3d-shapes: the same lattice,
-models and grid with path 5's analytic colliders (halfspace, walls,
-capsule, ball) in the gathered-hybrid CDF mode; 3d-shapes-chan-free: the
-same in the chan-free mode; 2d: the 490,000-particle sand
-column, 10 substeps a frame; 2d-neo: the 490,000-particle neo-Hookean
-elastic blocks, 15 substeps a frame), runs one warm frame and
-chip_smoke.TIMED_FRAMES (3) unprofiled frames (host clock around
-synchronised frames), then one frame under torch.profiler.  Prints the
-frame wall times, the device time of the
+PATH is one of 3d, 3d-fold, 3d-neo, 3d-free, 3d-shapes, 3d-shapes-chan-free,
+2d, 2d-fold, 2d-neo, 2d-stirred, 2d-stirred-chan-free.  Builds the
+full-size scene of chip_smoke.py (3d: the 1,002,001-particle sand box with
+the paddle, 20 substeps a frame; 3d-fold: the same with the grid update
+folded into G2P (`fold_vel`); 3d-neo: the same with the neo-Hookean
+stress; 3d-free: the same lattice, models and grid with no body, spinning;
+3d-shapes: the same lattice, models and grid with path 5's analytic
+colliders (halfspace, walls, capsule, ball) in the gathered-hybrid CDF
+mode; 3d-shapes-chan-free: the same in the chan-free mode; 2d: the
+490,000-particle sand column, 10 substeps a frame; 2d-fold: the same
+folded; 2d-neo: the 490,000-particle neo-Hookean elastic blocks, 15
+substeps a frame; 2d-stirred: path 6, the sand column stirred by a
+kinematic ball and capsule, in the dense CDF mode; 2d-stirred-chan-free:
+the same chan-free), runs one warm frame and chip_smoke.TIMED_FRAMES (3)
+unprofiled frames (host clock around synchronised frames), then one frame
+under torch.profiler.  Prints the frame wall times, the device time of the
 profiled frame, the device's idle share against the median unprofiled
-frame, and the kernels by device time per substep.  Fails without a CUDA
+frame, the device launches (kernels, copies, fills) a substep, and the
+kernels by device time per substep.  Fails without a CUDA
 device.
 """
 
@@ -37,8 +42,10 @@ import chip_smoke  # noqa: E402
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("path", choices=("3d", "3d-neo", "3d-free", "3d-shapes",
-                                     "3d-shapes-chan-free", "2d", "2d-neo"))
+    ap.add_argument("path", choices=("3d", "3d-fold", "3d-neo", "3d-free",
+                                     "3d-shapes", "3d-shapes-chan-free", "2d",
+                                     "2d-fold", "2d-neo", "2d-stirred",
+                                     "2d-stirred-chan-free"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("FAIL: torch.cuda.is_available() is False")
@@ -52,6 +59,8 @@ def main() -> None:
     dev = torch.device("cuda:0")
     data, substeps = {
         "3d": lambda: (chip_smoke.full_scene(dev), chip_smoke.SUBSTEPS),
+        "3d-fold": lambda: (chip_smoke.full_scene(dev, fold_vel=True),
+                            chip_smoke.SUBSTEPS),
         "3d-neo": lambda: (chip_smoke.full_scene(dev, elastic_model="neo_hookean"),
                            chip_smoke.SUBSTEPS),
         "3d-free": lambda: (chip_smoke.full_scene_free(dev), chip_smoke.SUBSTEPS),
@@ -60,6 +69,12 @@ def main() -> None:
         "3d-shapes-chan-free": lambda: (chip_smoke.full_scene_shapes(dev, True),
                                         chip_smoke.SUBSTEPS),
         "2d": lambda: (chip_smoke.full_scene_2d(dev), chip_smoke.SUBSTEPS2),
+        "2d-fold": lambda: (chip_smoke.full_scene_2d(dev, fold_vel=True),
+                            chip_smoke.SUBSTEPS2),
+        "2d-stirred": lambda: (chip_smoke.full_scene_stirred_2d(dev),
+                               chip_smoke.SUBSTEPS2),
+        "2d-stirred-chan-free": lambda: (chip_smoke.full_scene_stirred_2d(dev, True),
+                                         chip_smoke.SUBSTEPS2),
         "2d-neo": lambda: (chip_smoke.full_scene_neo_2d(dev),
                            chip_smoke.SUBSTEPS_NEO2),
     }[args.path]()
@@ -97,7 +112,8 @@ def main() -> None:
     print("unprofiled frame wall ms: " + ", ".join(f"{w:.3f}" for w in walls))
     print(f"profiled frame: device time {device_ms:.3f} ms "
           f"({device_ms / substeps:.3f} ms a substep); idle share against the "
-          f"median unprofiled frame {1.0 - device_ms / median:.3f}")
+          f"median unprofiled frame {1.0 - device_ms / median:.3f}; "
+          f"{sum(r[1] for r in rows) / substeps:.1f} device launches a substep")
     print("device ms a substep, calls a substep, kernel:")
     for ms, count, key in rows[:40]:
         print(f"  {ms / substeps:8.4f}  {count / substeps:6.1f}  {key[:110]}")

@@ -9,6 +9,12 @@
 #define FRICTION 20.0f
 #define NTHREADS 256
 
+// Shape types (collision/shapes.py), packed 2 bits a slot in `shapes`.
+#define SHAPE_CUBOID 0
+#define SHAPE_BALL 1
+#define SHAPE_CAPSULE 2
+#define SHAPE_HALFSPACE 3
+
 __device__ __forceinline__ float nr_recip(float x) {
   float r = 1.0f / x;
   return r * (2.0f - x * r);

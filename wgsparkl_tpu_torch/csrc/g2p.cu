@@ -9,8 +9,11 @@
 // body, `_ghost_velocity`).  The window node CDF is kernel A's
 // (transfer.cuh window_node_cdf): gathered channels merged with the moving
 // colliders, or in chan-free mode every collider evaluated at the window
-// nodes with no tile read (pallas_transfer.py:868-888).  The in-kernel grid
-// update (`fold_vel`) is not ported.
+// nodes with no tile read (pallas_transfer.py:868-888).  With `fold` the
+// grid tiles hold raw momentum (cols 0-2) and mass (col 3), and the kernel
+// does the grid update itself (pallas_transfer.py:767-787): v = clip((mom +
+// m g dt) / m, -vlim, vlim) with the Newton-refined reciprocal, g dt and
+// vlim from body-table row 24, once a node as the tile is loaded.
 // Bound on the H100: arithmetic, lightly.  Per particle it reads 24 rows and
 // writes 12 (~0.15 GB per substep at 1M particles) and runs ~27 x 12
 // multiply-adds, ~27 x 40 more in gated jobs.
@@ -37,8 +40,8 @@ __global__ void __launch_bounds__(NTHREADS) g2p_kernel(
     const float* __restrict__ ftiles, const float* __restrict__ ntiles,
     const float* __restrict__ bt, const int* __restrict__ jt, int maxj,
     int wsh1, int wsh2, int wvol, int wpad, int nc, unsigned moving,
-    unsigned statics, unsigned shapes, int chan_free, float h, float inv_h,
-    float cap, float* __restrict__ out, long long ostride) {
+    unsigned statics, unsigned shapes, int chan_free, int fold, float h,
+    float inv_h, float cap, float* __restrict__ out, long long ostride) {
   __shared__ float s_v[WV_MAX * 3], s_bv[WV_MAX * 3];
   __shared__ uint32_t s_naff[WV_MAX];
   __shared__ float s_cl[WV_MAX];
@@ -48,7 +51,16 @@ __global__ void __launch_bounds__(NTHREADS) g2p_kernel(
   const int bc[3] = {jt[2 * maxj + j], jt[3 * maxj + j], jt[4 * maxj + j]};
   for (int n = tid; n < wvol; n += NTHREADS) {
     const float* ft = ftiles + ((long long)j * wpad + n) * 4;
-    for (int k = 0; k < 3; ++k) { s_v[n * 3 + k] = ft[k]; s_bv[n * 3 + k] = 0.0f; }
+    if (fold) {
+      const float m = ft[3], vlim = bt[24 * 128 + 3];
+      const float inv_m = m > 0.0f ? nr_recip(fmaxf(m, 1e-30f)) : 0.0f;
+      for (int k = 0; k < 3; ++k)
+        s_v[n * 3 + k] =
+            fminf(fmaxf((ft[k] + m * bt[24 * 128 + k]) * inv_m, -vlim), vlim);
+    } else {
+      for (int k = 0; k < 3; ++k) s_v[n * 3 + k] = ft[k];
+    }
+    for (int k = 0; k < 3; ++k) s_bv[n * 3 + k] = 0.0f;
     s_naff[n] = 0u;
     s_cl[n] = -1.0f;
     if (lvl >= 1 && nc > 0) {
@@ -129,14 +141,15 @@ extern "C" int g2p_cuda(const float* pdata, long long pstride, const float* ftil
                         const float* ntiles, const float* bt, const int* jt,
                         long long maxj, long long by, long long nc,
                         long long moving, long long statics, long long shapes,
-                        long long chan_free, float h, float inv_h, float cap,
-                        float* out, long long ostride, cudaStream_t stream) {
+                        long long chan_free, long long fold, float h,
+                        float inv_h, float cap, float* out, long long ostride,
+                        cudaStream_t stream) {
   int wsh1 = (int)by + 2, wsh2 = 6;
   int wvol = 6 * wsh1 * wsh2, wpad = (wvol + 7) / 8 * 8;
   if (maxj > 0)
     g2p_kernel<<<(unsigned)maxj, NTHREADS, 0, stream>>>(
         pdata, pstride, ftiles, ntiles, bt, jt, (int)maxj, wsh1, wsh2, wvol, wpad,
         (int)nc, (unsigned)moving, (unsigned)statics, (unsigned)shapes,
-        (int)chan_free, h, inv_h, cap, out, ostride);
+        (int)chan_free, (int)fold, h, inv_h, cap, out, ostride);
   return (int)cudaGetLastError();
 }

@@ -6,13 +6,20 @@
 // through the compatibility-masked weights; at a gated job the incompatible
 // nodes give the particle's ghost velocity against the node's closest body
 // instead (`_ghost_velocity`), or its own velocity where the node has no
-// body.  The in-kernel grid update (`fold_vel`) is not ported.
+// body.  The window node CDF is the gathered channels, or in chan-free mode
+// every collider evaluated at the window nodes of a gated job
+// (pallas_transfer2d.py:504-507; transfer2d.cuh window_node_cdf2), with no
+// tile read.  With `fold` the grid tiles hold raw momentum (cols 0-1) and
+// mass (col 2), and the kernel does the grid update itself
+// (pallas_transfer2d.py:446-463): v = clip((mom + m g dt) / m, -vlim, vlim)
+// with the Newton-refined reciprocal, g dt and vlim from body-table row 13.
 // Bound on the H100: device memory, lightly.  Per particle it reads 8 rows
 // and writes 6 (~27 MB per substep at 490k particles, ~8 us at 3.35 TB/s),
 // plus the window tiles (~1.7 KB per job); ~9 x 12 multiply-adds, ~9 x 30
 // more in gated jobs.
-// Design: the window's grid velocity, affinity words, closest bodies and
-// body velocities go to shared memory (~2 KB); one thread per particle walks
+// Design: the window's grid velocity (folded once a node as the tile is
+// loaded), affinity words, closest bodies and body velocities go to shared
+// memory (~2 KB); one thread per particle walks
 // its 9 stencil nodes in the plain version's order and writes its own 6
 // output lanes, so the result matches the plain version bit for bit and
 // needs no atomics.  Only lanes [start, start + len) are written (the
@@ -23,7 +30,8 @@ __global__ void __launch_bounds__(NTHREADS) g2p2d_kernel(
     const float* __restrict__ pdata, long long pstride,
     const float* __restrict__ ftiles, const float* __restrict__ ntiles,
     const float* __restrict__ bt, const int* __restrict__ jt, int maxj, int nc,
-    float h, float inv_h, float* __restrict__ out, long long ostride) {
+    unsigned shapes, int chan_free, int fold, float h, float inv_h, float cap,
+    float* __restrict__ out, long long ostride) {
   __shared__ float s_v[WVOL * 2], s_bv[WVOL * 2];
   __shared__ uint32_t s_naff[WVOL];
   __shared__ float s_cl[WVOL];
@@ -34,14 +42,30 @@ __global__ void __launch_bounds__(NTHREADS) g2p2d_kernel(
   const bool gated = lvl > 0;
   for (int n = tid; n < WVOL; n += NTHREADS) {
     const float* ft = ftiles + ((long long)j * WPAD + n) * 4;
-    const float* t = ntiles + ((long long)j * WPAD + n) * 4;
-    s_v[2 * n] = ft[0];
-    s_v[2 * n + 1] = ft[1];
-    // No collider: no node tile to read (the caller may pass just one).
-    s_naff[n] = nc > 0 ? aff_word(t[0], t[1]) : 0u;
-    s_cl[n] = nc > 0 ? t[2] : -1.0f;
-    float xw[2];
+    if (fold) {
+      const float m = ft[2], vlim = bt[13 * 128 + 2];
+      const float inv_m = m > 0.0f ? nr_recip(fmaxf(m, 1e-30f)) : 0.0f;
+      for (int k = 0; k < 2; ++k)
+        s_v[2 * n + k] =
+            fminf(fmaxf((ft[k] + m * bt[13 * 128 + k]) * inv_m, -vlim), vlim);
+    } else {
+      s_v[2 * n] = ft[0];
+      s_v[2 * n + 1] = ft[1];
+    }
+    float xw[2], dist;
     node_pos2(n, bc, h, xw);
+    s_naff[n] = 0u;
+    s_cl[n] = -1.0f;
+    if (chan_free) {
+      // Only a gated job reads its window's CDF.
+      if (gated) window_node_cdf2(bt, nc, shapes, xw, cap, &s_naff[n], &s_cl[n], &dist);
+    } else if (nc > 0) {
+      // The gathered tile (with no collider there is none to read: the
+      // caller may pass just one).
+      const float* t = ntiles + ((long long)j * WPAD + n) * 4;
+      s_naff[n] = aff_word(t[0], t[1]);
+      s_cl[n] = t[2];
+    }
     node_body_velocity2(s_cl[n], xw, bt, nc, &s_bv[2 * n]);
   }
   __syncthreads();
@@ -92,11 +116,12 @@ __global__ void __launch_bounds__(NTHREADS) g2p2d_kernel(
 extern "C" int g2p2d_cuda(const float* pdata, long long pstride,
                           const float* ftiles, const float* ntiles,
                           const float* bt, const int* jt, long long maxj,
-                          long long nc, float h, float inv_h, float* out,
-                          long long ostride, cudaStream_t stream) {
+                          long long nc, long long shapes, long long chan_free,
+                          long long fold, float h, float inv_h, float cap,
+                          float* out, long long ostride, cudaStream_t stream) {
   if (maxj > 0)
     g2p2d_kernel<<<(unsigned)maxj, NTHREADS, 0, stream>>>(
-        pdata, pstride, ftiles, ntiles, bt, jt, (int)maxj, (int)nc, h, inv_h, out,
-        ostride);
+        pdata, pstride, ftiles, ntiles, bt, jt, (int)maxj, (int)nc,
+        (unsigned)shapes, (int)chan_free, (int)fold, h, inv_h, cap, out, ostride);
   return (int)cudaGetLastError();
 }

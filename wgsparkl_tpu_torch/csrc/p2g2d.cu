@@ -5,7 +5,10 @@
 // the compatibility-masked APIC scatter of momentum and mass into the job's
 // 10 x 10 window tile, and at a gated job the impulse of every incompatible
 // (node, particle) pair against the node's closest body, reduced per job and
-// collider into linear (rows 0-1) and angular (row 2) parts.
+// collider into linear (rows 0-1) and angular (row 2) parts.  The window
+// node CDF is the gathered channels, or in chan-free mode every collider
+// evaluated at the window nodes of a gated job (pallas_transfer2d.py:318-321;
+// transfer2d.cuh window_node_cdf2), with no tile read.
 // Bound on the H100: shared-memory traffic and instruction throughput.  Device traffic is
 // small (13 rows in per particle, a 104 x 8 tile out per job: ~30 MB per
 // substep at 490k particles); each window node tests every particle of its
@@ -39,8 +42,9 @@
 __global__ void __launch_bounds__(NTHREADS) p2g2d_kernel(
     const float* __restrict__ pdata, long long pstride,
     const float* __restrict__ ntiles, const float* __restrict__ bt,
-    const int* __restrict__ jt, int maxj, int nc, float h, float inv_h,
-    float* __restrict__ mm, float* __restrict__ imp) {
+    const int* __restrict__ jt, int maxj, int nc, unsigned shapes, int chan_free,
+    float h, float inv_h, float cap, float* __restrict__ mm,
+    float* __restrict__ imp) {
   __shared__ uint32_t s_naff[WVOL];
   __shared__ float s_cl[WVOL];
   __shared__ float s_bv[WVOL * 2], s_d[WVOL * 2];
@@ -56,14 +60,22 @@ __global__ void __launch_bounds__(NTHREADS) p2g2d_kernel(
   const bool gated = lvl > 0;
   const int bc[2] = {jt[2 * maxj + j], jt[3 * maxj + j]};
   for (int n = tid; n < WVOL; n += NTHREADS) {
-    // No collider: no node tile to read (the caller may pass just one).
-    const float* t = ntiles + ((long long)j * WPAD + n) * 4;
     for (int f = 0; f < NFEAT; ++f) s_acc[n * NFEAT + f] = 0.0f;
     s_d[2 * n] = s_d[2 * n + 1] = 0.0f;
-    s_naff[n] = nc > 0 ? aff_word(t[0], t[1]) : 0u;
-    s_cl[n] = nc > 0 ? t[2] : -1.0f;
-    float xw[2];
+    float xw[2], dist;
     node_pos2(n, bc, h, xw);
+    s_naff[n] = 0u;
+    s_cl[n] = -1.0f;
+    if (chan_free) {
+      // Only a gated job reads its window's CDF.
+      if (gated) window_node_cdf2(bt, nc, shapes, xw, cap, &s_naff[n], &s_cl[n], &dist);
+    } else if (nc > 0) {
+      // The gathered tile (with no collider there is none to read: the
+      // caller may pass just one).
+      const float* t = ntiles + ((long long)j * WPAD + n) * 4;
+      s_naff[n] = aff_word(t[0], t[1]);
+      s_cl[n] = t[2];
+    }
     node_body_velocity2(s_cl[n], xw, bt, nc, &s_bv[2 * n]);
   }
   __syncthreads();
@@ -172,10 +184,12 @@ __global__ void __launch_bounds__(NTHREADS) p2g2d_kernel(
 
 extern "C" int p2g2d_cuda(const float* pdata, long long pstride,
                           const float* ntiles, const float* bt, const int* jt,
-                          long long maxj, long long nc, float h, float inv_h,
+                          long long maxj, long long nc, long long shapes,
+                          long long chan_free, float h, float inv_h, float cap,
                           float* mm, float* imp, cudaStream_t stream) {
   if (maxj > 0)
     p2g2d_kernel<<<(unsigned)maxj, NTHREADS, 0, stream>>>(
-        pdata, pstride, ntiles, bt, jt, (int)maxj, (int)nc, h, inv_h, mm, imp);
+        pdata, pstride, ntiles, bt, jt, (int)maxj, (int)nc, (unsigned)shapes,
+        (int)chan_free, h, inv_h, cap, mm, imp);
   return (int)cudaGetLastError();
 }

@@ -5,11 +5,17 @@
 // particles of one 8 x 8 block, each particle's affinity word (the union of
 // its stencil nodes' collider bits, per-collider sign votes weighted by node
 // distance with the previous word's signs kept), and its signed distance and
-// normal from the 3x3 MLS solve over the compatible stencil nodes.
+// normal from the 3x3 MLS solve over the compatible stencil nodes.  The
+// window node CDF is the gathered channels, or in chan-free mode every
+// collider evaluated at the window nodes (`_moving_node_cdf_2d`,
+// pallas_transfer2d.py:667-671; transfer2d.cuh window_node_cdf2), with no
+// tile read.
 // Bound on the H100: device memory, lightly.  Per particle it reads 4 rows
 // and writes 5 (~18 MB per substep at 490k particles, ~5 us at 3.35 TB/s);
 // the arithmetic is ~9 x (2 nc + 14) multiply-adds and one 3x3 cofactor
 // solve, a few hundred flops.
+// In chan-free mode each gated job adds 100 x nc collider evaluations
+// (~90 flops each) and reads no tile.
 // Design: the job's 100 window nodes' affinity words and distances go to
 // shared memory; one thread per particle walks only its 3 x 3 stencil (the
 // TPU kernel's support mask over the whole window is exactly that stencil)
@@ -43,8 +49,10 @@ __device__ void inv3_solve(const float a[3][3], const float b[3], float x[3],
 
 __global__ void __launch_bounds__(NTHREADS) pcdf2d_kernel(
     const float* __restrict__ pdata, long long pstride,
-    const float* __restrict__ ntiles, const int* __restrict__ jt, int maxj,
-    int nc, float h, float inv_h, float* __restrict__ out, long long ostride) {
+    const float* __restrict__ ntiles, const float* __restrict__ bt,
+    const int* __restrict__ jt, int maxj, int nc, unsigned shapes,
+    int chan_free, float h, float inv_h, float cap, float* __restrict__ out,
+    long long ostride) {
   __shared__ uint32_t s_naff[WVOL];
   __shared__ float s_dist[WVOL];
   const int j = blockIdx.x;
@@ -52,9 +60,15 @@ __global__ void __launch_bounds__(NTHREADS) pcdf2d_kernel(
   if (len == 0 || lvl == 0) return;
   const int bc[2] = {jt[2 * maxj + j], jt[3 * maxj + j]};
   for (int n = threadIdx.x; n < WVOL; n += NTHREADS) {
-    const float* t = ntiles + ((long long)j * WPAD + n) * 4;
-    s_naff[n] = aff_word(t[0], t[1]);
-    s_dist[n] = t[3];
+    if (chan_free) {
+      float xw[2], cl;
+      node_pos2(n, bc, h, xw);
+      window_node_cdf2(bt, nc, shapes, xw, cap, &s_naff[n], &cl, &s_dist[n]);
+    } else {
+      const float* t = ntiles + ((long long)j * WPAD + n) * 4;
+      s_naff[n] = aff_word(t[0], t[1]);
+      s_dist[n] = t[3];
+    }
   }
   __syncthreads();
 
@@ -136,11 +150,13 @@ __global__ void __launch_bounds__(NTHREADS) pcdf2d_kernel(
 }
 
 extern "C" int pcdf2d_cuda(const float* pdata, long long pstride,
-                           const float* ntiles, const int* jt, long long maxj,
-                           long long nc, float h, float inv_h, float* out,
-                           long long ostride, cudaStream_t stream) {
+                           const float* ntiles, const float* bt, const int* jt,
+                           long long maxj, long long nc, long long shapes,
+                           long long chan_free, float h, float inv_h, float cap,
+                           float* out, long long ostride, cudaStream_t stream) {
   if (maxj > 0)
     pcdf2d_kernel<<<(unsigned)maxj, NTHREADS, 0, stream>>>(
-        pdata, pstride, ntiles, jt, (int)maxj, (int)nc, h, inv_h, out, ostride);
+        pdata, pstride, ntiles, bt, jt, (int)maxj, (int)nc, (unsigned)shapes,
+        (int)chan_free, h, inv_h, cap, out, ostride);
   return (int)cudaGetLastError();
 }

@@ -27,12 +27,6 @@ __device__ __forceinline__ void quat_rot(float w, float x, float y, float z,
   o[2] = v[2] + w * t2 + (x * t1 - y * t0);
 }
 
-// Shape types (collision/shapes.py), packed 2 bits a slot in `shapes`.
-#define SHAPE_CUBOID 0
-#define SHAPE_BALL 1
-#define SHAPE_CAPSULE 2
-#define SHAPE_HALFSPACE 3
-
 // Analytic collider `slot` of the body table at world point p, of type
 // (shapes >> 2 slot) & 3 (cdf_channel.collider_cdf and its projections):
 // within (affinity reach), inside, world distance to the boundary.

@@ -1,6 +1,7 @@
 // Device helpers shared by the 2D transfer kernels (pcdf2d.cu, p2g2d.cu,
 // g2p2d.cu).  Each follows its plain PyTorch counterpart in
-// wgsparkl_tpu_torch/ops/rows2d.py operation by operation.
+// wgsparkl_tpu_torch/ops/rows2d.py, ops/transfer2d.py and
+// collision/cdf_channel.py operation by operation.
 #pragma once
 #include "cpic.cuh"
 
@@ -21,6 +22,90 @@
 __device__ __forceinline__ void node_pos2(int n, const int bc[2], float h, float xw[2]) {
   xw[0] = ((float)(n / WSH) + (float)bc[0]) * h;
   xw[1] = ((float)(n % WSH) + (float)bc[1]) * h;
+}
+
+// Analytic collider `slot` of the 2D body table (rows 5-6 rotation (cos,
+// sin), 7-8 translation, 9-11 shape parameters) at world point p, of type
+// (shapes >> 2 slot) & 3 (cdf_channel.collider_cdf with two channels):
+// within (affinity reach), inside, world distance to the boundary.
+__device__ void collider_cdf2(const float* bt, int slot, unsigned shapes,
+                              const float p[2], float cap, bool* within,
+                              bool* inside, float* dist) {
+  const float c = bt[5 * 128 + slot], s = bt[6 * 128 + slot];
+  const float* par = bt + 9 * 128 + slot;      // shape parameter k: par[k * 128]
+  const float r0 = p[0] - bt[7 * 128 + slot], r1 = p[1] - bt[8 * 128 + slot];
+  const float si = -s;                         // the inverse rotation
+  const float q[2] = {c * r0 - si * r1, si * r0 + c * r1};
+  float proj[2];
+  bool ins;
+  switch ((shapes >> (2 * slot)) & 3u) {
+    case SHAPE_BALL: {
+      const float r = par[0];
+      const float n = sqrtf(q[0] * q[0] + q[1] * q[1]);
+      const bool away = n > 1e-12f;            // off the centre
+      const float inv = away ? 1.0f / fmaxf(n, 1e-30f) : 0.0f;
+      proj[0] = away ? q[0] * inv * r : r;     // the centre projects along +x
+      proj[1] = away ? q[1] * inv * r : 0.0f;
+      ins = n < r;
+      break;
+    }
+    case SHAPE_CAPSULE: {                      // axis along local y, [-hh, hh]
+      const float hh = par[0], r = par[128];
+      const float cy = fminf(fmaxf(q[1], -hh), hh);
+      const float d[2] = {q[0], q[1] - cy};
+      const float n = sqrtf(d[0] * d[0] + d[1] * d[1]);
+      const bool away = n > 1e-12f;            // off the axis
+      const float inv = away ? 1.0f / fmaxf(n, 1e-30f) : 0.0f;
+      proj[0] = 0.0f + (away ? d[0] * inv : 1.0f) * r;   // on the axis: along +x
+      proj[1] = cy + (away ? d[1] * inv : 0.0f) * r;
+      ins = n < r;
+      break;
+    }
+    case SHAPE_HALFSPACE:                      // boundary y = 0, inside y < 0
+      proj[0] = q[0];
+      proj[1] = 0.0f;
+      ins = q[1] < 0.0f;
+      break;
+    default: {                                 // cuboid, half-extents par[0..1]
+      const float he[2] = {par[0], par[128]};
+      ins = fabsf(q[0]) < he[0] && fabsf(q[1]) < he[1];
+      const float gaps[2] = {he[0] - fabsf(q[0]), he[1] - fabsf(q[1])};
+      const float min_gap = fminf(gaps[0], gaps[1]);
+      bool snapped = false;
+      for (int a = 0; a < 2; ++a) {
+        const float sgn = q[a] >= 0.0f ? 1.0f : -1.0f;
+        const bool is_min = gaps[a] == min_gap && !snapped;
+        snapped = snapped || is_min;
+        const float clamped = fminf(fmaxf(q[a], -he[a]), he[a]);
+        proj[a] = (ins && is_min) ? sgn * he[a] : clamped;
+      }
+    }
+  }
+  const float dl0 = proj[0] - q[0], dl1 = proj[1] - q[1];
+  const float dw0 = c * dl0 - s * dl1, dw1 = s * dl0 + c * dl1;
+  *inside = ins;
+  *within = ins || (fabsf(dw0) <= cap && fabsf(dw1) <= cap);
+  *dist = sqrtf(dw0 * dw0 + dw1 * dw1);
+}
+
+// Node CDF of colliders 0..nc-1 at xw, in slot order (transfer2d.
+// window_node_cdf, the chan-free mode): strictly closer wins; BIG, 0, -1
+// where no collider is within reach.
+__device__ void window_node_cdf2(const float* bt, int nc, unsigned shapes,
+                                 const float xw[2], float cap, uint32_t* naff,
+                                 float* closest, float* dist) {
+  float d_dist = BIG, d_cl = -1.0f;
+  uint32_t d_aff = 0u;
+  for (int s = 0; s < nc; ++s) {
+    bool within, inside;
+    float d;
+    collider_cdf2(bt, s, shapes, xw, cap, &within, &inside, &d);
+    if (within && d < d_dist) { d_cl = (float)s; d_dist = d; }
+    if (within) d_aff |= inside ? ((1u << (16 + s)) | (1u << s)) : (1u << s);
+  }
+  *naff = d_aff;
+  *closest = d_cl;
+  *dist = d_dist;
 }
 
 // Velocity at xw of body `closest` from the 2D body table (rows 0-1 COM, 2-3

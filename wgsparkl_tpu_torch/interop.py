@@ -38,9 +38,6 @@ def config_from_reference(cfg) -> MpmConfig:
         "transfer": cfg.transfer != "pallas", "sparse": cfg.sparse,
         "spatial_devices": cfg.spatial_devices, "mesh_cids": cfg.mesh_cids,
         "dynamic_slots": cfg.dynamic_slots, "joints": cfg.joints,
-        "chan_free (2D)": cfg.chan_free and len(cfg.grid.shape) == 2
-        and len(cfg.collider_types) > 0,
-        "fold_vel": cfg.fold_vel,
         "elastic_model": cfg.elastic_model not in ELASTIC_MODELS,
         # Only two-way coupling (COUPLING_TWO_WAY = 2; empty means all).
         "coupling": any(int(c) != 2 for c in cfg.coupling),
@@ -54,7 +51,8 @@ def config_from_reference(cfg) -> MpmConfig:
         collider_types=tuple(cfg.collider_types), group=int(cfg.group),
         max_jobs=int(cfg.max_jobs), by=int(cfg.by),
         n_materials=int(cfg.n_materials), static_slots=tuple(cfg.static_slots),
-        elastic_model=cfg.elastic_model, chan_free=bool(cfg.chan_free))
+        elastic_model=cfg.elastic_model, chan_free=bool(cfg.chan_free),
+        fold_vel=bool(cfg.fold_vel))
 
 
 def state_from_reference(state, device=None) -> SimState:

@@ -12,7 +12,9 @@ pairwise ghost against the node's closest body, the particle's own
 velocity where the node has no body.  The window node CDF is the one
 kernel A reads (ops/p2g_cdf.py: gathered channels merged with the moving
 colliders, or in chan-free mode every collider evaluated in-kernel).
-Each job writes its own lanes [start, start + len).
+With `fold_vel` the grid tiles hold raw momentum and mass, and the grid
+update (rows.fold_velocity) is done on each window node as its tile is
+read.  Each job writes its own lanes [start, start + len).
 """
 
 from __future__ import annotations
@@ -37,8 +39,11 @@ def ghost_static(vp, nrm, friction=R.DEFAULT_FRICTION):
 
 
 def g2p_plain(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, cell_width,
-              by, group, npad, nc, moving=(), static_desc=(), chan_free=False):
+              by, group, npad, nc, moving=(), static_desc=(), chan_free=False,
+              fold_vel=False):
     dev = pdata.device
+    if fold_vel:
+        ftiles = R.fold_velocity(ftiles, btable, 3, 24)
     wsh, wvol, _ = R.window_geom(by)
     jid, lane = R.job_lanes(jobs)
     lvl = jbody.to(torch.int64)[jid]
@@ -102,16 +107,17 @@ def g2p_plain(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, cell_width,
 
 def g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, jbody,
              cell_width: float, by: int, group: int, npad: int, nc: int,
-             moving=(), static_desc=(), chan_free: bool = False):
+             moving=(), static_desc=(), chan_free: bool = False,
+             fold_vel: bool = False):
     """Per-particle G2P rows [16, NPAD + G + 128] (see the module
     docstring).  pdata: rows with the fresh particle CDF patched in (rows
-    0..23 are read); ftiles [MAXJ, wpad, 4] gathered grid velocity + mass;
-    ntiles, moving, static_desc and chan_free as for p2g_cdf_tiles (ntiles
-    is not read at nc = 0 either)."""
+    0..23 are read); ftiles [MAXJ, wpad, 4] gathered grid velocity + mass
+    (raw momentum + mass with fold_vel); ntiles, moving, static_desc and
+    chan_free as for p2g_cdf_tiles (ntiles is not read at nc = 0 either)."""
     if pdata.device.type == "cpu":
         return g2p_plain(pdata, ftiles, ntiles, btable, jobs, bcells, jbody,
                          cell_width, by, group, npad, nc, moving, static_desc,
-                         chan_free)
+                         chan_free, fold_vel)
     wsh, wvol, wpad = R.window_geom(by)
     maxj = jobs["start"].shape[0]
     if (wvol > R.WV_MAX or nc > 16 or ftiles.shape != (maxj, wpad, 4)
@@ -124,10 +130,10 @@ def g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, jbody,
     R.check_kernel_args(pdata, ftiles, ntiles, btable, jt)
     out = torch.zeros((16, npad + group + 128), dtype=torch.float32,
                       device=pdata.device)
-    _cuda.launch("g2p", "g2p_cuda", "pippppiiiiiiifffpi",
+    _cuda.launch("g2p", "g2p_cuda", "pippppiiiiiiiifffpi",
                  pdata, pdata.shape[1], ftiles, ntiles, btable, jt, maxj, by,
                  nc, *collider_words(moving, static_desc), int(chan_free),
-                 R.f32(cell_width), R.f32(1.0 / cell_width),
+                 int(fold_vel), R.f32(cell_width), R.f32(1.0 / cell_width),
                  R.f32(1.5 * cell_width), out, out.shape[1])
     g2p_rows.launches += 1
     return out

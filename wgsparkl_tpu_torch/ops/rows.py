@@ -235,19 +235,29 @@ def ghost_velocity(vp, bv, nrm, friction=DEFAULT_FRICTION):
     return [bv[i] + torch.where(sliding, tang[i] * scale, u[i]) for i in range(d)]
 
 
+# Body-table rows of a collider's pose and shape, by dimension: (first
+# rotation row, rotation rows, first translation row, first shape row).
+# 3D: quaternion 9-12, translation 13-15, shape 16-23 (pipeline._body_table);
+# 2D: (cos, sin) 5-6, translation 7-8, shape 9-11 (_body_table_2d).
+_POSE_ROWS = {3: (9, 4, 13, 16), 2: (5, 2, 7, 9)}
+
+
 def moving_node_cdf(xw, btable, desc, cell_width):
     """Analytic node CDF of the colliders of desc ((slot, shape), ...,
-    evaluated in that order) at window nodes xw [..., 3] from the body
-    table (rows 9-12 quaternion, 13-15 translation, 16-23 shape params).
-    Returns (dist, aff int32, closest f32): BIG, 0 and -1 where none."""
-    pos = [xw[..., a] for a in range(3)]
+    evaluated in that order) at window nodes xw [..., d] from the body
+    table of dimension d (_POSE_ROWS; in 2D the port of
+    `_moving_node_cdf_2d`).  Returns (dist, aff int32, closest f32): BIG, 0
+    and -1 where none."""
+    d = xw.shape[-1]
+    r0, nr, t0, p0 = _POSE_ROWS[d]
+    pos = [xw[..., a] for a in range(d)]
     dist = torch.full_like(pos[0], cch.BIG)
     aff = torch.zeros(pos[0].shape, dtype=torch.int32, device=xw.device)
     closest = torch.full_like(pos[0], -1.0)
     for slot, st in desc:
-        rot = [btable[9 + k, slot] for k in range(4)]
-        trans = [btable[13 + k, slot] for k in range(3)]
-        par = [btable[16 + k, slot] for k in range(3)]
+        rot = [btable[r0 + k, slot] for k in range(nr)]
+        trans = [btable[t0 + k, slot] for k in range(d)]
+        par = [btable[p0 + k, slot] for k in range(3)]
         within, inside, di = cch.collider_cdf(st, rot, trans, par, pos,
                                               1.5 * cell_width)
         closer = within & (di < dist)
@@ -291,6 +301,21 @@ def window_cdf(ntiles, xw, btable, moving, lvl, cell_width, wvol,
     return (torch.where(lv2, naff | d_aff, naff),
             torch.where(lv2, torch.where(b_wins, d_closest, s_closest), s_closest),
             torch.where(lv2, torch.where(b_wins, d_dist, da), s_dist))
+
+
+def fold_velocity(ftiles, btable, d: int, row: int):
+    """The grid update that G2P does in-kernel under `fold_vel`, on window
+    tiles [..., 4] of raw momentum (cols 0..d-1) and mass (col d): v =
+    clip((mom + m g dt) * nr_recip(max(m, 1e-30)), -vlim, vlim), zero where
+    m = 0, with g dt in lanes 0..d-1 of body-table row `row` and vlim in
+    lane d (the kernels' order of operations, not _grid_velocity's).
+    Returns the tiles with the velocity in place of the momentum."""
+    m = ftiles[..., d]
+    inv_m = torch.where(m > 0.0, nr_recip(torch.clamp(m, min=1e-30)), 0.0)
+    vlim = btable[row, d]
+    v = [torch.clamp((ftiles[..., k] + m * btable[row, k]) * inv_m, -vlim, vlim)
+         for k in range(d)]
+    return torch.cat([torch.stack(v, -1), ftiles[..., d:]], -1)
 
 
 def node_body_velocity(closest, xw, btable, nc: int):

@@ -7,11 +7,17 @@ A job is up to `group` sorted particles of one 8 x 8 block; its window is
 the block's 10 x 10 nodes (ops/rows2d.py).  Every kernel reads the job's
 gathered node-CDF tiles ntiles [MAXJ, WPAD, 4] (affinity low half, high
 half, closest collider, distance) and its gate level jbody: 0 (no collider
-node in the window: no particle CDF, plain transfers) or 2 (CPIC
+node in the window: no particle CDF, plain transfers) or > 0 (CPIC
 compatibility masks, ghost velocities and impulses; the 2D path has no
-static-only level 1).  A scene with no collider (nc = 0) runs P2G and G2P
+static-only level).  In chan-free mode (`chan_free`, alldesc every
+collider in slot order) no tile is read: a gated job evaluates every
+collider at its window nodes (window_tiles, the port of
+`_moving_node_cdf_2d`; csrc/transfer2d.cuh window_node_cdf2), and ntiles is
+a [1, WPAD, 4] dummy.  A scene with no collider (nc = 0) runs P2G and G2P
 only, and they read no node tile: the collider-free substep passes one zero
-[1, WPAD, 4] tile and zero gate levels.  The TPU kernels write particle
+[1, WPAD, 4] tile and zero gate levels.  With `fold_vel`, G2P's grid tiles
+hold raw momentum and mass, and the grid update (rows.fold_velocity) is
+done on each window node as its tile is read.  The TPU kernels write particle
 rows through a sequential-grid VMEM handoff; here each job writes exactly
 its own lanes [start, start + len) and the rest of the output stays zero.
 
@@ -30,7 +36,20 @@ from wgsparkl_tpu_torch.collision.cdf_channel import bit
 from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.ops import rows2d as R2
 from wgsparkl_tpu_torch.ops.blocked import add_rows
-from wgsparkl_tpu_torch.ops.p2g_cdf import _seqsum, job_table
+from wgsparkl_tpu_torch.ops.p2g_cdf import _seqsum, collider_words, job_table
+
+
+def window_tiles(btable, bcells, alldesc, cell_width):
+    """Chan-free node tiles [MAXJ, WPAD, 4] (aff low, aff high, closest,
+    dist): the colliders of alldesc evaluated in order at each job's window
+    nodes from the 2D body table (rows.moving_node_cdf: strictly closer
+    wins; BIG, 0 and -1 where none), in the gathered tiles' form."""
+    xw = R.window_positions(bcells, cell_width, R2.WSH)
+    dist, aff, closest = R.moving_node_cdf(xw, btable, alldesc, cell_width)
+    t = torch.zeros((bcells.shape[0], R2.WPAD, 4), dtype=torch.float32,
+                    device=xw.device)
+    t[:, :R2.WVOL] = torch.stack([*R.aff_halves(aff), closest, dist], -1)
+    return t
 
 
 def _pairs(pdata, ntiles, jobs, bcells, cell_width, select=None):
@@ -125,7 +144,10 @@ def particle_cdf(prev_aff, p, nc: int):
     return torch.where(ok, p_aff, 0), torch.where(ok, x[2], 0.0), normal
 
 
-def pcdf_plain(pdata, ntiles, jobs, bcells, jbody, cell_width, group, npad, nc):
+def pcdf_plain(pdata, ntiles, jobs, bcells, jbody, cell_width, group, npad, nc,
+               btable=None, alldesc=(), chan_free=False):
+    if chan_free:
+        ntiles = window_tiles(btable, bcells, alldesc, cell_width)
     out = torch.zeros((8, npad + group + 128), dtype=torch.float32,
                       device=pdata.device)
     p = _pairs(pdata, ntiles, jobs, bcells, cell_width, select=jbody > 0)
@@ -140,8 +162,11 @@ def pcdf_plain(pdata, ntiles, jobs, bcells, jbody, cell_width, group, npad, nc):
     return out
 
 
-def p2g_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width, nc):
+def p2g_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width, nc,
+              alldesc=(), chan_free=False):
     dev = pdata.device
+    if chan_free:
+        ntiles = window_tiles(btable, bcells, alldesc, cell_width)
     maxj = jobs["start"].shape[0]
     p = _pairs(pdata, ntiles if nc else None, jobs, bcells, cell_width)
     pd, w, jid = p["pd"], p["w"], p["jid"]
@@ -196,7 +221,11 @@ def p2g_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width, nc):
 
 
 def g2p_plain(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, cell_width,
-              group, npad, nc):
+              group, npad, nc, alldesc=(), chan_free=False, fold_vel=False):
+    if chan_free:
+        ntiles = window_tiles(btable, bcells, alldesc, cell_width)
+    if fold_vel:
+        ftiles = R.fold_velocity(ftiles, btable, 2, 13)
     p = _pairs(pdata, ntiles if nc else None, jobs, bcells, cell_width)
     pd, w, jid = p["pd"], p["w"], p["jid"]
     ft = ftiles.reshape(-1, 4)[jid[:, None] * R2.WPAD + p["nidx"]]
@@ -224,75 +253,103 @@ def g2p_plain(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, cell_width,
 
 
 # ------------------------------------------------------------- the wrappers
-def _check_tiles(name, maxj, nc, ntiles, *tiles):
-    """Node tiles [MAXJ, WPAD, 4] (any [., WPAD, 4] at nc = 0, where they
-    are not read) and grid tiles [MAXJ, WPAD, 4]."""
+def _check_tiles(name, maxj, nc, chan_free, ntiles, *tiles):
+    """Node tiles [MAXJ, WPAD, 4] ([1, WPAD, 4] in chan-free mode, any
+    [., WPAD, 4] at nc = 0, where they are not read) and grid tiles [MAXJ,
+    WPAD, 4]."""
     if (nc > 16 or ntiles.shape[1:] != (R2.WPAD, 4)
-            or (nc > 0 and ntiles.shape[0] != maxj)
+            or (nc > 0 and ntiles.shape[0] != (1 if chan_free else maxj))
             or any(t.shape != (maxj, R2.WPAD, 4) for t in tiles)):
-        raise ValueError(f"{name}: <= 16 colliders and [MAXJ, {R2.WPAD}, 4] tiles")
+        raise ValueError(f"{name}: <= 16 colliders and [MAXJ, {R2.WPAD}, 4] "
+                         "tiles ([1, WPAD, 4] node tiles in chan-free mode)")
+
+
+def _shapes(nc, alldesc, chan_free) -> int:
+    """The kernels' shape word (2 bits a slot) in chan-free mode, where
+    alldesc must list the colliders 0..nc-1 in slot order; 0 otherwise."""
+    if not chan_free:
+        return 0
+    if [slot for slot, _ in alldesc] != list(range(nc)):
+        raise ValueError("chan-free: alldesc must list every collider in slot order")
+    return collider_words(alldesc)[2]
 
 
 def pcdf_rows(pdata, ntiles, jobs, bcells, jbody, cell_width: float, group: int,
-              npad: int, nc: int):
+              npad: int, nc: int, btable=None, alldesc=(),
+              chan_free: bool = False):
     """Particle-CDF rows [8, NPAD + G + 128]: aff low, signed distance,
     normal xy, aff high (row 4), on the lanes of gated jobs (zero
-    elsewhere).  pdata: the sorted rows (rows 0..15 are read)."""
+    elsewhere).  pdata: the sorted rows (rows 0..15 are read); btable: the
+    2D body table, read only in chan-free mode."""
     if pdata.device.type == "cpu":
         return pcdf_plain(pdata, ntiles, jobs, bcells, jbody, cell_width, group,
-                          npad, nc)
+                          npad, nc, btable, alldesc, chan_free)
     maxj = jobs["start"].shape[0]
-    _check_tiles("pcdf_rows", maxj, nc, ntiles)
+    _check_tiles("pcdf_rows", maxj, nc, chan_free, ntiles)
+    shapes = _shapes(nc, alldesc, chan_free)
+    if btable is None:
+        if chan_free:
+            raise ValueError("pcdf_rows: chan-free mode reads the body table")
+        btable = ntiles                     # a pointer the kernel does not read
     jt = job_table(jobs, bcells, jbody)
-    R.check_kernel_args(pdata, ntiles, jt)
+    R.check_kernel_args(pdata, ntiles, btable, jt)
     out = torch.zeros((8, npad + group + 128), dtype=torch.float32,
                       device=pdata.device)
-    _cuda.launch("pcdf2d", "pcdf2d_cuda", "pippiiffpi", pdata, pdata.shape[1],
-                 ntiles, jt, maxj, nc, R.f32(cell_width), R.f32(1.0 / cell_width),
-                 out, out.shape[1])
+    _cuda.launch("pcdf2d", "pcdf2d_cuda", "pipppiiiifffpi", pdata, pdata.shape[1],
+                 ntiles, btable, jt, maxj, nc, shapes, int(chan_free),
+                 R.f32(cell_width), R.f32(1.0 / cell_width),
+                 R.f32(1.5 * cell_width), out, out.shape[1])
     pcdf_rows.launches += 1
     return out
 
 
 def p2g_tiles(pdata, ntiles, btable, jobs, bcells, jbody, cell_width: float,
-              nc: int):
+              nc: int, alldesc=(), chan_free: bool = False):
     """(mm [MAXJ, WPAD, 8]: cols 0-1 momentum, 2 mass; imp [MAXJ, 8, 128]:
     rows 0-1 linear, 2 angular impulse per collider lane).  pdata: the
     sorted rows with the fresh particle CDF patched in."""
     if pdata.device.type == "cpu":
         return p2g_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width,
-                         nc)
+                         nc, alldesc, chan_free)
     maxj = jobs["start"].shape[0]
-    _check_tiles("p2g_tiles", maxj, nc, ntiles)
+    _check_tiles("p2g_tiles", maxj, nc, chan_free, ntiles)
+    shapes = _shapes(nc, alldesc, chan_free)
     jt = job_table(jobs, bcells, jbody)
     R.check_kernel_args(pdata, ntiles, btable, jt)
     dev = pdata.device
     mm = torch.empty((maxj, R2.WPAD, 8), dtype=torch.float32, device=dev)
     imp = torch.zeros((maxj, 8, 128), dtype=torch.float32, device=dev)
-    _cuda.launch("p2g2d", "p2g2d_cuda", "pipppiiffpp", pdata, pdata.shape[1],
-                 ntiles, btable, jt, maxj, nc, R.f32(cell_width),
-                 R.f32(1.0 / cell_width), mm, imp)
+    _cuda.launch("p2g2d", "p2g2d_cuda", "pipppiiiifffpp", pdata, pdata.shape[1],
+                 ntiles, btable, jt, maxj, nc, shapes, int(chan_free),
+                 R.f32(cell_width), R.f32(1.0 / cell_width),
+                 R.f32(1.5 * cell_width), mm, imp)
     p2g_tiles.launches += 1
     return mm, imp
 
 
 def g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, jbody,
-             cell_width: float, group: int, npad: int, nc: int):
+             cell_width: float, group: int, npad: int, nc: int, alldesc=(),
+             chan_free: bool = False, fold_vel: bool = False):
     """G2P rows [8, NPAD + G + 128]: rows 0-1 PIC velocity, 2-5 the
     velocity moment (row 2 + 2 i + k = sum w v_i x_k).  ftiles [MAXJ, WPAD,
-    4]: the gathered grid velocity (cols 0-1) and mass."""
+    4]: the gathered grid velocity (cols 0-1) and mass (col 2), or with
+    fold_vel the raw momentum and mass."""
     if pdata.device.type == "cpu":
         return g2p_plain(pdata, ftiles, ntiles, btable, jobs, bcells, jbody,
-                         cell_width, group, npad, nc)
+                         cell_width, group, npad, nc, alldesc, chan_free,
+                         fold_vel)
     maxj = jobs["start"].shape[0]
-    _check_tiles("g2p_rows", maxj, nc, ntiles, ftiles)
+    _check_tiles("g2p_rows", maxj, nc, chan_free, ntiles, ftiles)
+    shapes = _shapes(nc, alldesc, chan_free)
     jt = job_table(jobs, bcells, jbody)
     R.check_kernel_args(pdata, ftiles, ntiles, btable, jt)
     out = torch.zeros((8, npad + group + 128), dtype=torch.float32,
                       device=pdata.device)
-    _cuda.launch("g2p2d", "g2p2d_cuda", "pippppiiffpi", pdata, pdata.shape[1],
-                 ftiles, ntiles, btable, jt, maxj, nc, R.f32(cell_width),
-                 R.f32(1.0 / cell_width), out, out.shape[1])
+    _cuda.launch("g2p2d", "g2p2d_cuda", "pippppiiiiifffpi", pdata,
+                 pdata.shape[1], ftiles, ntiles, btable, jt, maxj, nc, shapes,
+                 int(chan_free), int(fold_vel), R.f32(cell_width),
+                 R.f32(1.0 / cell_width), R.f32(1.5 * cell_width), out,
+                 out.shape[1])
     g2p_rows.launches += 1
     return out
 

@@ -1,8 +1,8 @@
 """The MPM step on the bounded block grid (port of the kernel-path subset of
 wgsparkl_tpu/pipeline.py: MpmConfig, MpmData, RigidBodyDesc,
 build_rigid_world, StepDiag, step / step_pallas / step_with_diag, the
-bounded 3D branch of `_substep_pallas_rows` and the gathered all-static
-and collider-free branches of `_substep_pallas_rows_2d`).
+bounded 3D branch of `_substep_pallas_rows` and the bounded branch of
+`_substep_pallas_rows_2d`).
 
 One 3D substep, in order: block sort keys; stable sort and row permute
 (kernel D); job table (kernel E inside build_jobs); window gather of the
@@ -25,12 +25,15 @@ kinematic.  The CDF modes are the JAX package's:
     collider in 2D, every substep evaluates the moving colliders' node CDF
     on the whole grid (merged with the frame's static part in 2D) and
     gathers it;
-  * chan-free (3D, `chan_free=True` or the construction-time heuristic):
-    no channel grid; the kernels evaluate every collider at the window
-    nodes, the static ones at gate level 1 and all at level 2, the levels
-    coming from reach tests.
-Options the JAX package has beyond these raise NotImplementedError naming
-their ROADMAP item.
+  * chan-free (`chan_free=True` or the construction-time heuristic): no
+    channel grid; the kernels evaluate every collider at the window nodes,
+    the levels coming from reach tests: in 3D the static ones at gate level
+    1 and all at level 2; in 2D all at the one level a reach test against
+    every collider gives.
+`fold_vel=True` (off by default, as in the JAX package) skips the grid
+velocity pass: G2P (B or I) reads the raw momentum and mass tiles and does
+the grid update at its window nodes.  Options the JAX package has beyond
+these raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -88,6 +91,7 @@ class MpmConfig:
     static_slots: Tuple[int, ...] = ()
     elastic_model: str = "corotated"
     chan_free: bool = False
+    fold_vel: bool = False
 
     @property
     def num_colliders(self) -> int:
@@ -444,7 +448,8 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     """One 3D substep on the [PCHAN, NPAD] rows (lanes >= n are padding).
 
     record: when a dict is given, the inputs and outputs of the five
-    kernels are stored in it (kernel checks and tests read them)."""
+    kernels are stored in it (kernel checks and tests read them); under
+    fold_vel its grid_mm and ftiles hold raw momentum and mass."""
     grid = cfg.grid
     by, group, nc = cfg.by, cfg.group, cfg.num_colliders
     h = grid.cell_width
@@ -481,20 +486,23 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     lin_imp = imp[0, 0:3, :bodies.count].T
     ang_imp = imp[0, 3:6, :bodies.count].T
 
-    # Grid velocity, G2P, particle update, bodies.
-    grid_mm[..., :3] = _grid_velocity(grid_mm, params, grid)
+    # Grid velocity (or folded into G2P), G2P, particle update, bodies.
+    if not cfg.fold_vel:
+        grid_mm[..., :3] = _grid_velocity(grid_mm, params, grid)
     ftiles = bk.gather_tiles(grid_mm, src, wpad, 4)
     krows = g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, h, by,
-                     group, npad, nc, moving, static_desc, cfg.chan_free)
+                     group, npad, nc, moving, static_desc, cfg.chan_free,
+                     cfg.fold_vel)
     rows_out = update_rows(rows_all, krows, pcdf, ph["sorted_ids"],
                            ph["covered_end"], btable, mtable, params.dt, h, nc,
                            max(cfg.n_materials, 1), nb_total, cfg.elastic_model)
     if record is not None:
         record.update(ph, jbody=jbody, ntiles=ntiles, btable=btable,
                       moving=moving, static_desc=static_desc,
-                      chan_free=cfg.chan_free, pdata=pdata, mm=mm, imp=imp,
-                      pcdf=pcdf, ftiles=ftiles, krows=krows, mtable=mtable,
-                      rows_out=rows_out, grid_mm=grid_mm)
+                      chan_free=cfg.chan_free, fold_vel=cfg.fold_vel,
+                      pdata=pdata, mm=mm, imp=imp, pcdf=pcdf, ftiles=ftiles,
+                      krows=krows, mtable=mtable, rows_out=rows_out,
+                      grid_mm=grid_mm)
     bodies = rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg)
     return rows_out, bodies
 
@@ -502,8 +510,10 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
 def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
                 mtable, diag: StepDiag, record: Optional[dict] = None,
                 static_cdf=None):
-    """One 2D substep on the [32, NPAD] rows (the gathered, dense and
-    collider-free branches of the JAX package's _substep_pallas_rows_2d):
+    """One 2D substep on the [32, NPAD] rows (the gathered, dense,
+    chan-free and collider-free branches of the JAX package's
+    _substep_pallas_rows_2d): in chan-free mode the kernels evaluate every
+    collider at the windows of the jobs a reach test gates; else
     static_chan, the frame's channel grid when every collider is static;
     else the node CDF is evaluated on the whole grid, the moving colliders
     merged with static_cdf (the frame's static part, None when no collider
@@ -519,15 +529,22 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
     nb_total = ph["nb_total"]
     btable = _body_table_2d(bodies, params, grid)
+    alldesc = tuple(enumerate(cfg.collider_types))
     if nc > 0:
-        if static_chan is None:
-            # Dense: a collider moves; G, H and I read the same channels.
-            static_chan = _cdf_chan_grid(*_node_cdf_full(bodies, cfg, static_cdf),
-                                         nb_total, 64)
-        ntiles = bk.gather_tiles(static_chan, src, R2.WPAD, 4)
-        jbody = _jbody_gate(ntiles, R2.WVOL)
+        if cfg.chan_free:
+            # No tiles: one gate level where any collider may be in reach.
+            jbody = _moving_reach_gate(bcells, bodies, alldesc, R2.WSH,
+                                       h).to(torch.int32)
+            ntiles = torch.zeros((1, R2.WPAD, 4), dtype=torch.float32, device=dev)
+        else:
+            if static_chan is None:
+                # Dense: a collider moves; G, H and I read the same channels.
+                static_chan = _cdf_chan_grid(
+                    *_node_cdf_full(bodies, cfg, static_cdf), nb_total, 64)
+            ntiles = bk.gather_tiles(static_chan, src, R2.WPAD, 4)
+            jbody = _jbody_gate(ntiles, R2.WVOL)
         pcdf = pcdf_rows2d(rows_all, ntiles, jobs, bcells, jbody, h, group,
-                           npad, nc)
+                           npad, nc, btable, alldesc, cfg.chan_free)
         # Rows AFF..AFF_SPARE (aff low, normal xy, aff high) take the fresh
         # particle CDF for P2G and G2P.
         pdata = rows_all[:R2.NCHAN].clone()
@@ -538,7 +555,8 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
         # No collider: no particle CDF (kernel G), H and I at nc = 0.
         pdata = rows_all[:R2.NCHAN]
         ntiles, jbody, pcdf = _collider_free_inputs(R2.WPAD, jobs, npad, dev)
-    mm, imp = p2g_tiles2d(pdata, ntiles, btable, jobs, bcells, jbody, h, nc)
+    mm, imp = p2g_tiles2d(pdata, ntiles, btable, jobs, bcells, jbody, h, nc,
+                          alldesc, cfg.chan_free)
     grid_mm = torch.zeros((nb_total + 1, 64, 3), dtype=torch.float32, device=dev)
     bk.scatter_tiles(grid_mm, mm, src)
     # The jobs' impulses in one fixed-order reduction (_split_impulses).
@@ -546,17 +564,20 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     lin_imp = imp_sum[0:2, :bodies.count].T
     ang_imp = imp_sum[2:3, :bodies.count].T
 
-    grid_mm[..., :2] = _grid_velocity(grid_mm, params, grid)
+    if not cfg.fold_vel:
+        grid_mm[..., :2] = _grid_velocity(grid_mm, params, grid)
     ftiles = bk.gather_tiles(grid_mm, src, R2.WPAD, 4)
     krows = g2p_rows2d(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, h,
-                       group, npad, nc)
+                       group, npad, nc, alldesc, cfg.chan_free, cfg.fold_vel)
     rows_out = update_rows2d(rows_all, krows, pcdf, ph["sorted_ids"],
                              ph["covered_end"], btable, mtable, params.dt, h, nc,
                              max(cfg.n_materials, 1), nb_total,
                              cfg.elastic_model)
     if record is not None:
         record.update(ph, jbody=jbody, ntiles=ntiles, btable=btable,
-                      pdata=pdata, mm=mm, imp=imp, pcdf=pcdf, ftiles=ftiles,
+                      alldesc=alldesc, chan_free=cfg.chan_free,
+                      fold_vel=cfg.fold_vel, pdata=pdata, mm=mm, imp=imp,
+                      pcdf=pcdf, ftiles=ftiles,
                       krows=krows, mtable=mtable, rows_out=rows_out,
                       grid_mm=grid_mm)
     bodies = rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg)
@@ -571,8 +592,6 @@ def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
     is built once per frame.  record: see _substep (filled by the frame's
     last substep)."""
     dim = cfg.grid.dim
-    if dim == 2 and cfg.chan_free and cfg.num_colliders:
-        raise _unported("the 2D chan-free (in-kernel) CDF mode", "queue 1, item 9")
     L, substep = (R, _substep) if dim == 3 else (R2, _substep_2d)
     n = state.particles.count
     npad = pallas_npad(n, cfg.group)
@@ -630,8 +649,6 @@ class MpmData:
             raise _unported("spatial multi-device sharding", "queue 1, item 11")
         if joints:
             raise _unported("joints", "queue 1, item 8")
-        if fold_vel:
-            raise _unported("fold_vel (in-kernel grid update)", "queue 2, item 2")
         if elastic_model not in ELASTIC_MODELS:
             raise ValueError(f"unknown elastic model {elastic_model!r}")
         for b in bodies:
@@ -676,8 +693,6 @@ class MpmData:
                                         particles.pos.cpu().numpy(),
                                         params.gravity.cpu().numpy())
         chan_free = bool(chan_free)
-        if chan_free and dim == 2 and bodies:
-            raise _unported("the 2D chan-free (in-kernel) CDF mode", "queue 1, item 9")
         models, n_mat = attach_material_table(particles, models)
         self.params = params
         self.bodies_desc = tuple(bodies)
@@ -685,7 +700,8 @@ class MpmData:
             grid=grid, collider_types=collider_types,
             group=group, max_jobs=max_jobs, by=by,
             n_materials=n_mat, static_slots=static_slots,
-            elastic_model=elastic_model, chan_free=chan_free)
+            elastic_model=elastic_model, chan_free=chan_free,
+            fold_vel=bool(fold_vel))
         self.state = SimState(particles=particles, models=models, bodies=world)
 
     @property
