@@ -10,8 +10,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      particles, 4 x 8 x 4 blocks, 1024 particles per job): one warm frame of
      20 substeps, then timed frames; no job-table overflow in any frame,
      finite positions, and every kernel of the path (A-E) launched by that
-     run; then the same with `fold_vel` (the grid update inside kernel B;
-     2 timed frames and the job-gate histogram);
+     run, and the job-gate histogram of one more substep; then the same
+     with `fold_vel` (the grid update inside kernel B; 2 timed frames);
   3. the 3D collider-free path at full size (the same lattice, models and
      grid with no body, spinning at 1 rad/s about its vertical centre
      line), the same checks for its kernels (F, B, C, D, E);
@@ -24,7 +24,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      moving colliders take (the node CDF on all 2.99M nodes every substep)
      and chan-free (2 timed frames each, job-gate histograms); then the 2D
      neo-Hookean path at full size (elastic_blocks_2d, 490,000 particles,
-     15 substeps a frame);
+     15 substeps a frame), and the column on cells three times as wide (36
+     particles a cell, group 2048: kernel H's jobs span several of its
+     chunks; 2 timed frames);
   5. each kernel against its plain PyTorch version at full size, on the
      inputs of a substep of each scene with its lattice lowered into a
      collider (onto the paddle in 3D, 1.5 cells into the floor in 2D), so
@@ -35,9 +37,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      `*_chan_free`; tiles, affinity rows and per-particle rows bit for
      bit); B and I with `fold_vel` on the lowered inputs (`g2p_fold`,
      `g2p2d_fold`) and G, H and I on path 6 lowered into the floor in the
-     chan-free mode (`*2d_chan_free`), bit for bit; the in-kernel math
-     probe and its
-     table; the P2G ablation probe at the TPU probe's sizes (1,002,001
+     chan-free mode (`*2d_chan_free`), bit for bit; H on a substep of the
+     neo-Hookean path (`p2g2d_neo`) and on the 36-particle-a-cell column
+     lowered into its floor (`p2g2d_chunks`), bit for bit; B's main entry
+     (`g2p`) bit for bit too; the in-kernel math probe and its table; the
+     P2G ablation probe at the TPU probe's sizes (1,002,001
      particles, 1300 live jobs of 1536): its four stages for its three
      node-side cores (scan, lists, pairs), each stage's time, each core's
      full stage equal to its plain version bit for bit; each kernel with
@@ -128,12 +132,15 @@ REPLACES = {
     "pcdf2d_chan_free": "wgsparkl_tpu/ops/pallas_transfer2d.py:820",
     "p2g2d_chan_free": "wgsparkl_tpu/ops/pallas_transfer2d.py:402",
     "g2p2d_chan_free": "wgsparkl_tpu/ops/pallas_transfer2d.py:584",
+    "p2g2d_neo": "wgsparkl_tpu/ops/pallas_transfer2d.py:402",
+    "p2g2d_chunks": "wgsparkl_tpu/ops/pallas_transfer2d.py:402",
 }
 SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_rows",
           "update_rows2d_neo_hookean": "update_rows", "p2g_cdf_shapes": "p2g_cdf",
           "p2g_cdf_chan_free": "p2g_cdf", "g2p_shapes": "g2p", "g2p_chan_free": "g2p",
           "g2p_fold": "g2p", "g2p2d_fold": "g2p2d", "pcdf2d_chan_free": "pcdf2d",
-          "p2g2d_chan_free": "p2g2d", "g2p2d_chan_free": "g2p2d"}
+          "p2g2d_chan_free": "p2g2d", "g2p2d_chan_free": "g2p2d",
+          "p2g2d_neo": "p2g2d", "p2g2d_chunks": "p2g2d"}
 # The rows of the [PCHAN, NPAD] input matrix that kernel C reads (csrc/
 # update_rows.cu, update_kernel and update2d_kernel); it replaces the others
 # with G2P rows, particle-CDF rows or new values.
@@ -264,6 +271,29 @@ def full_scene_free(dev):
     particle lattice, models, grid and job table size with no body."""
     d = full_scene(dev)
     return collider_free(d, by=BY, group=GROUP, max_jobs=d.config.max_jobs)
+
+
+def coarser_grid(d, factor: int, **mpm_kw):
+    """Scene d's particles, models, bodies and grid bounds on cells `factor`
+    times as wide: factor^dim times the particles a cell."""
+    from wgsparkl_tpu_torch.pipeline import MpmData
+
+    g = d.config.grid
+    lo = [o * g.cell_width for o in g.origin_cell]
+    hi = [(o + n) * g.cell_width for o, n in zip(g.origin_cell, g.shape)]
+    return MpmData(d.params, d.state.particles, d.state.models, d.bodies_desc,
+                   g.cell_width * factor, grid_bounds=(lo, hi), **mpm_kw)
+
+
+def full_scene_dense_2d(dev, shift=None):
+    """The 2D path's 490,000-particle column, models and floor on cells
+    three times as wide (36 particles a cell, 2304 a full 8 x 8 block; group
+    2048), so that kernel H's jobs span several of its chunks; shift moves
+    the lattice."""
+    d = full_scene_2d(dev)
+    if shift is not None:
+        d.state.particles.pos += torch.tensor(shift, device=dev)
+    return coarser_grid(d, 3, group=2048)
 
 
 def full_scene_neo_2d(dev):
@@ -506,6 +536,7 @@ def main() -> None:
         ablation, compact, g2p, p2g, p2g_cdf, permute, transfer2d, update_rows,
     )
     from wgsparkl_tpu_torch.ops import rows as R
+    from wgsparkl_tpu_torch.ops import rows2d as R2
     from wgsparkl_tpu_torch.pipeline import step_pallas, step_with_diag
 
     dev = torch.device(DEVICE)
@@ -526,7 +557,7 @@ def main() -> None:
     launches = {}
     # ---- 2. the 3D main path at full size ----
     counts, _ = run_frames(wt, full_scene(dev), SUBSTEPS, KERNELS_3D,
-                           "3D main path", card, kind)
+                           "3D main path", card, kind, gates=True)
     launches.update((k, counts[k]) for k in KERNELS_3D)
     torch.cuda.empty_cache()
     # The same with the grid update folded into kernel B.
@@ -575,10 +606,16 @@ def main() -> None:
     counts, state = run_frames(wt, data, SUBSTEPS_NEO2, KERNELS_2D,
                                "2D neo-Hookean path", card, kind)
     launches["update_rows2d_neo_hookean"] = counts["update_rows2d"]
+    launches["p2g2d_neo"] = counts["p2g2d"]
     rec_n = {}
     step_pallas(state, data.params, data.config, 1, record=rec_n)
     rec_n["cfg"], rec_n["dt"] = data.config, data.params.dt
     del data, state
+    torch.cuda.empty_cache()
+    counts, _ = run_frames(wt, full_scene_dense_2d(dev), SUBSTEPS2, KERNELS_2D,
+                           "2D column at 36 particles a cell", card, kind,
+                           TIMED_FRAMES_SHORT)
+    launches["p2g2d_chunks"] = counts["p2g2d"]
     torch.cuda.empty_cache()
     # ---- 5. path 5: the 3D analytic shapes at full size, both CDF modes ----
     data = full_scene_shapes(dev)
@@ -649,6 +686,31 @@ def main() -> None:
                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                        "bound_by": bound_by, "library_ms": library_ms})
 
+    def g2p_cost(ce, pg, nj, njg, wv, tiles=True, fold=False, evals=0):
+        """Kernel B's (bytes, flops): 3 position rows a covered particle and
+        8 more (velocity, normal, affinity) a particle of a gated job, the
+        live jobs' grid tiles (3 velocity columns; with fold momentum and
+        mass), the gated jobs' node tiles (none chan-free), 12 rows out a
+        particle; ~27 x 24 operations a particle, ~27 x 40 more in a gated
+        job, ~12 a window node to fold, CDF_OPS a collider's CDF at a
+        node."""
+        return (4 * (3 * ce + 8 * pg + nj * wv * (4 if fold else 3)
+                     + (njg * wv * 4 if tiles else 0) + 12 * ce),
+                ce * (30 + 27 * 24) + pg * 27 * 40 + (nj * wv * 12 if fold else 0)
+                + evals * CDF_OPS)
+
+    def p2g2d_cost(ce, pg, nj, njg, nc, tiles=True, evals=0):
+        """Kernel H's (bytes, flops): 9 rows a covered particle (position,
+        velocity, mass, affine matrix) and 4 more (normal, affinity) a
+        particle of a gated job, 3 columns of the gated jobs' node tiles
+        (none chan-free), the tiles' 3 columns out, the gated jobs'
+        impulses; 9 pairs of 7 multiply-adds a particle, ~31 more
+        operations a pair in a gated job, CDF_OPS_2D a collider's CDF at a
+        node."""
+        return (4 * (9 * ce + 4 * pg + (njg * 100 * 3 if tiles else 0)
+                     + nj * 100 * 3 + njg * 3 * nc),
+                ce * (20 + 9 * 7 * 2) + pg * 9 * 31 + evals * CDF_OPS_2D)
+
     def job_stats(rec):
         """(covered particles, of them in gated jobs, live jobs, gated live
         jobs) of a recorded substep."""
@@ -693,16 +755,17 @@ def main() -> None:
     wv = rec["ntiles"].shape[1]
     n_first = int(is_first.sum())
     print(f"3D kernel inputs: {ce} covered particles ({pg} in gated jobs), "
-          f"{nj} live jobs ({njg} gated), NPAD {npad}", flush=True)
+          f"{nj} live jobs ({njg} gated; by gate level {gate_histogram(rec)}), "
+          f"NPAD {npad}", flush=True)
 
     # Costs, counted from these inputs: 4 bytes a float read or written once;
     # f32 operations per particle and stencil node from the kernel sources.
     # Tolerances: kernel A sums its impulses over nodes in another order
     # than the plain version; its window tiles follow the plain version's
     # lists order of sums bit for bit; the per-particle outputs of A and B
-    # follow the plain operation order; C differs from its plain version
-    # only through libm (expf, logf, sinf); D and E move integers and must
-    # be exact.
+    # follow the plain operation order (B's bit for bit); C differs from its
+    # plain version only through libm (expf, logf, sinf); D and E move
+    # integers and must be exact.
     check("p2g_cdf",
           lambda: p2g_cdf.p2g_cdf_tiles(*args_a),
           lambda: p2g_cdf.p2g_cdf_plain(*args_a),
@@ -717,9 +780,8 @@ def main() -> None:
                 ce * (30 + 27 * 13 * 2) + pg * (27 * (3 * nc + 58) + 200)))
     check("g2p",
           lambda: g2p.g2p_rows(*args_b), lambda: g2p.g2p_plain(*args_b),
-          lambda k, p: [("rows", k[:, :ce], p[:, :ce], 1e-5)],
-          cost=(4 * (11 * ce + nj * wv * 4 + njg * wv * 4 + 12 * ce),
-                ce * (30 + 27 * 24) + pg * 27 * 40))
+          lambda k, p: [], lambda k, p: [("rows", k[:, :ce], p[:, :ce])],
+          cost=g2p_cost(ce, pg, nj, njg, wv))
     # Kernel B folded, on the same substep with the grid update left to it:
     # its tiles hold raw momentum and mass, and it folds each window node
     # once (~12 operations) as the plain version does, bit for bit.
@@ -731,8 +793,7 @@ def main() -> None:
     check("g2p_fold",
           lambda: g2p.g2p_rows(*args_bf), lambda: g2p.g2p_plain(*args_bf),
           lambda k, p: [], lambda k, p: [("rows", k[:, :ce], p[:, :ce])],
-          cost=(4 * (11 * ce + nj * wv * 4 + njg * wv * 4 + 12 * ce),
-                ce * (30 + 27 * 24) + pg * 27 * 40 + nj * wv * 12))
+          cost=g2p_cost(ce, pg, nj, njg, wv, fold=True))
     del rec_fold, args_bf
     # Lanes whose F the Drucker-Prager return map replaced: their plastic
     # state rows change (the plain output against the input).  Kernel C
@@ -818,9 +879,7 @@ def main() -> None:
         check(f"g2p_{tag}",
               lambda: g2p.g2p_rows(*args_b), lambda: g2p.g2p_plain(*args_b),
               lambda k, p: [], lambda k, p: [("rows", k[:, :ce], p[:, :ce])],
-              cost=(4 * (11 * ce + nj * wv * 4 + 12 * ce)
-                    + (0 if chan_free else 4 * njg * wv * 4),
-                    ce * (30 + 27 * 24) + pg * 27 * 40 + evals * CDF_OPS))
+              cost=g2p_cost(ce, pg, nj, njg, wv, tiles=not chan_free, evals=evals))
         del rec, args_a, args_b, data, state
         torch.cuda.empty_cache()
 
@@ -866,8 +925,7 @@ def main() -> None:
                                          ("impulses", k[1], p[1])],
           lambda p: (None if float(p[1].abs().max()) > 1e-3
                      else "the plain impulses are ~0: no contact load"),
-          cost=(4 * (13 * ce + njg * wv * 3 + nj * wv * 3 + njg * 3 * nc),
-                ce * (20 + 9 * 7 * 2) + pg * 9 * 31))
+          cost=p2g2d_cost(ce, pg, nj, njg, nc))
     check("g2p2d",
           lambda: transfer2d.g2p_rows(*args_i),
           lambda: transfer2d.g2p_plain(*args_i),
@@ -935,8 +993,7 @@ def main() -> None:
                                          ("impulses", k[1], p[1])],
           lambda p: (None if float(p[1].abs().max()) > 1e-3
                      else "the plain impulses are ~0: no contact load"),
-          cost=(4 * (13 * ce + nj * wv * 3 + njg * 3 * nc),
-                ce * (20 + 9 * 7 * 2) + pg * 9 * 31 + evals * CDF_OPS_2D))
+          cost=p2g2d_cost(ce, pg, nj, njg, nc, tiles=False, evals=evals))
     check("g2p2d_chan_free",
           lambda: transfer2d.g2p_rows(*args_i),
           lambda: transfer2d.g2p_plain(*args_i),
@@ -959,7 +1016,50 @@ def main() -> None:
           lambda k, p: [(f"row {r}", k[r], p[r]) for r in (9, 12, 13, 14)],
           cost=c_cost(C_ROWS_READ_2D, 6, 5, r["rows"].shape[0], r["rows"].shape[1],
                       ce, 340))
-    del rec_n, r, args_n
+    # Kernel H on the same substep (the blocks on their floor and walls).
+    args_hn = ((r["pdata"], r["ntiles"], r["btable"], r["jobs"], r["bcells"],
+                r["jbody"], H2, r["cfg"].num_colliders))
+    ce, pg, nj, njg = job_stats(r)
+    print(f"2D neo-Hookean kernel inputs: {ce} covered particles ({pg} in gated "
+          f"jobs), {nj} live jobs ({njg} gated)", flush=True)
+    check("p2g2d_neo",
+          lambda: transfer2d.p2g_tiles(*args_hn),
+          lambda: transfer2d.p2g_plain(*args_hn),
+          lambda k, p: [], lambda k, p: [("mm tiles", k[0], p[0]),
+                                         ("impulses", k[1], p[1])],
+          cost=p2g2d_cost(ce, pg, nj, njg, r["cfg"].num_colliders))
+    del rec_n, r, args_n, args_hn
+    torch.cuda.empty_cache()
+
+    # ---- 5c'. kernel H on jobs of several chunks, under contact load ----
+    # The 36-particle-a-cell column lowered 1.5 of its cells into the floor.
+    data = full_scene_dense_2d(dev, shift=(0.0, -1.5 * 3 * H2))
+    cfg = data.config
+    state, diag = step_with_diag(data.state, data.params, cfg, 2)
+    rec = {}
+    step_pallas(state, data.params, cfg, 1, record=rec)
+    torch.cuda.synchronize()
+    if diag.any_overflow():
+        fail(f"step diagnostics of the lowered dense column: {diag.summary()}")
+    nc = cfg.num_colliders
+    args_hc = ((rec["pdata"], rec["ntiles"], rec["btable"], rec["jobs"],
+                rec["bcells"], rec["jbody"], cfg.grid.cell_width, nc))
+    ce, pg, nj, njg = job_stats(rec)
+    longest = int(rec["jobs"]["len"].max())
+    print(f"2D dense-column kernel inputs: {ce} covered particles ({pg} in gated "
+          f"jobs), {nj} live jobs ({njg} gated), the longest {longest} particles",
+          flush=True)
+    if longest <= R2.P2G_CHUNK:
+        fail(f"dense column: no job longer than H's chunk ({longest})")
+    check("p2g2d_chunks",
+          lambda: transfer2d.p2g_tiles(*args_hc),
+          lambda: transfer2d.p2g_plain(*args_hc),
+          lambda k, p: [], lambda k, p: [("mm tiles", k[0], p[0]),
+                                         ("impulses", k[1], p[1])],
+          lambda p: (None if float(p[1].abs().max()) > 1e-3
+                     else "the plain impulses are ~0: no contact load"),
+          cost=p2g2d_cost(ce, pg, nj, njg, nc))
+    del rec, args_hc, data, state
     torch.cuda.empty_cache()
 
     # ---- 5d. kernel F on a substep of the collider-free path ----

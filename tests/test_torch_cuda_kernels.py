@@ -5,8 +5,9 @@ box lowered onto the paddle (so kernel A's impulse path carries load), the
 (so kernel H's impulses carry load), kernel F on a substep of the spinning
 collider-free sand box and on the coupled inputs, kernel C's neo-Hookean
 branch in 3D and 2D, the math probe and every core of the P2G ablation
-probe; the `fold_vel` branches of B and I on folded substeps, and the 2D
-chan-free branches of G, H and I on the stirred column.  Marked `cuda`: they skip where
+probe; the `fold_vel` branches of B and I on folded substeps, the 2D
+chan-free branches of G, H and I on the stirred column, and H on jobs that
+span several of its chunks.  Marked `cuda`: they skip where
 torch sees no CUDA device (run them on a GPU host with
 `python -m pytest --noconftest tests/test_torch_cuda_kernels.py`)."""
 
@@ -22,6 +23,7 @@ from wgsparkl_tpu_torch.ops import (
     ablation, compact, g2p, p2g, p2g_cdf, permute, transfer2d, update_rows,
 )
 from wgsparkl_tpu_torch.ops import rows as R
+from wgsparkl_tpu_torch.ops import rows2d as R2
 from wgsparkl_tpu_torch.pipeline import MpmData, step_pallas
 
 pytestmark = pytest.mark.cuda
@@ -70,7 +72,9 @@ def test_g2p_kernel_matches_plain(rec):
             rec["jobs"], rec["bcells"], rec["jbody"], cfg.grid.cell_width,
             cfg.by, cfg.group, rec["rows"].shape[1], cfg.num_colliders,
             rec["moving"])
-    _close(g2p.g2p_rows(*args), g2p.g2p_plain(*args), 1e-5)
+    k, p = g2p.g2p_rows(*args), g2p.g2p_plain(*args)
+    assert torch.equal(k, p)
+    assert torch.equal(k, g2p.g2p_rows(*args))
 
 
 @pytest.fixture(scope="module", params=["gathered", "chan_free"])
@@ -403,3 +407,39 @@ def test_chan_free_2d_kernels_match_plain(rec2d_chan_free):
     args = ((r["pdata"], r["ftiles"], r["ntiles"], r["btable"]) + _jobs2d(r)
             + (cfg.group, npad, nc) + mode)
     assert torch.equal(transfer2d.g2p_rows(*args), transfer2d.g2p_plain(*args))
+
+
+@pytest.fixture(scope="module")
+def rec2d_chunks():
+    """A substep of the small sand column on cells three times as wide (36
+    particles a cell, group 2048), lowered 1.5 cells into its floor: a
+    gated job longer than kernel H's chunk of 256 particles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    d = scenes.sand_column_2d(nx=24, ny=48, cell_width=0.5, device="cuda")
+    g = d.config.grid
+    lo = [o * g.cell_width for o in g.origin_cell]
+    hi = [(o + n) * g.cell_width for o, n in zip(g.origin_cell, g.shape)]
+    d = MpmData(d.params, d.state.particles, d.state.models, d.bodies_desc,
+                3 * g.cell_width, grid_bounds=(lo, hi), group=2048)
+    d.state.particles.pos += torch.tensor([0.0, -2.25], device="cuda")
+    state = step_pallas(d.state, d.params, d.config, 2)
+    r = {}
+    step_pallas(state, d.params, d.config, 1, record=r)
+    r["cfg"] = d.config
+    return r
+
+
+def test_p2g2d_kernel_multi_chunk_matches_plain(rec2d_chunks):
+    """H summing a job's chunks in order: bit for bit, the same bits twice."""
+    r = rec2d_chunks
+    live = r["jobs"]["len"] > 0
+    assert int(r["jobs"]["len"].max()) > R2.P2G_CHUNK
+    assert bool((r["jbody"][live] > 0).any())
+    args = ((r["pdata"], r["ntiles"], r["btable"]) + _jobs2d(r)
+            + (r["cfg"].num_colliders,))
+    k, p = transfer2d.p2g_tiles(*args), transfer2d.p2g_plain(*args)
+    assert float(p[1].abs().max()) > 0.0
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    k2 = transfer2d.p2g_tiles(*args)
+    assert torch.equal(k[0], k2[0]) and torch.equal(k[1], k2[1])

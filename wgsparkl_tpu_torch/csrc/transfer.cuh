@@ -244,6 +244,29 @@ __device__ void stencil(const float p[3], const int bc[3], float inv_h,
   stencil_from_axes(wa, bl, wsh1, wsh2, s);
 }
 
+// The stencil per axis (kernel B; tests/test_torch_lists_order.py holds
+// its rule against the plain R.stencil),
+// for the base cell bl that stencil_axes gives: offset o of axis a lies in
+// the window when (unsigned)(bl[a] + o) < the window's extent, at node
+// coordinate xa[a][o] = ((float)(bl[a] + o) + (float)bc[a]) * h, bit for
+// bit node_pos's coordinate of any node there (both terms are integers f32
+// holds exactly).  Node (ox, oy, oz) lies in the window when its three
+// offsets do; its index is ((bl[0] + ox) * wsh1 + bl[1] + oy) * wsh2 +
+// bl[2] + oz and its weight stencil_from_axes's, so no division is needed
+// and no 27-node array is formed.
+__device__ __forceinline__ void stencil_axis_nodes(const int bl[3], const int bc[3],
+                                                   int wsh1, int wsh2, float h,
+                                                   bool ok[3][3], float xa[3][3]) {
+  const unsigned wsh[3] = {6u, (unsigned)wsh1, (unsigned)wsh2};
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int o = 0; o < 3; ++o) {
+      ok[a][o] = (unsigned)(bl[a] + o) < wsh[a];
+      xa[a][o] = ((float)(bl[a] + o) + (float)bc[a]) * h;
+    }
+}
+
 // ---- The `lists` P2G core: per-node particle lists (kernels A and F, the probe) ----
 //
 // A chunk of up to LIST_CHUNK particles of a job is bucketed by its stencil

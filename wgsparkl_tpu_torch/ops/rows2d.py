@@ -43,6 +43,7 @@ PCHAN = 32
 WSH = (10, 10)
 WVOL = 100
 WPAD = 104
+P2G_CHUNK = 256     # particles a chunk of kernel H (csrc/p2g2d.cu CHUNK2)
 
 
 def pack_state_rows(particles, models):

@@ -170,6 +170,13 @@ def p2g_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width, nc,
     maxj = jobs["start"].shape[0]
     p = _pairs(pdata, ntiles if nc else None, jobs, bcells, cell_width)
     pd, w, jid = p["pd"], p["w"], p["jid"]
+    # Kernel H buckets a particle by its stencil's centre node (base cell +
+    # 1) and drops a particle whose centre lies outside its window; the
+    # block sort key (blocked.particle_sort_keys_ch) keeps every centre
+    # inside.
+    if not bool(p["valid"][:, 4].all()):
+        raise ValueError("p2g_plain: a particle's stencil centre lies outside "
+                         "its job window")
     gated = (jbody.to(torch.int64)[jid] > 0)[:, None]
     paff = R.aff_from_halves(pd[R2.AFF], pd[R2.AFF_SPARE])
     comp = R.compat(p["naff"], paff[:, None])
