@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero, and no result line is printed):
   1. environment: the card's name and power limit; the CUDA kernels'
      eleven sources are built from wgsparkl_tpu_torch/csrc, one nvcc each,
-     all started together (set-up);
+     all started together (set-up), and the ptxas reports of kernels I and
+     E printed;
   2. the 3D main path at full size (sand_box_3d with the paddle, 1,002,001
      particles, 4 x 8 x 4 blocks, 1024 particles per job): one warm frame of
      20 substeps, then timed frames; no job-table overflow in any frame,
@@ -40,7 +41,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      chan-free mode (`*2d_chan_free`), bit for bit; H on a substep of the
      neo-Hookean path (`p2g2d_neo`) and on the 36-particle-a-cell column
      lowered into its floor (`p2g2d_chunks`), bit for bit; B's main entry
-     (`g2p`) bit for bit too; the in-kernel math probe and its table; the
+     (`g2p`) bit for bit too; E on eleven edge cases (no flag, every flag,
+     more flags than cap, below one tile, a million lanes, R = 1 and 2)
+     bit for bit; the in-kernel math probe and its table; the
      P2G ablation probe at the TPU probe's sizes (1,002,001
      particles, 1300 live jobs of 1536): its four stages for its three
      node-side cores (scan, lists, pairs), each stage's time, each core's
@@ -156,6 +159,36 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def ptxas_reports(_cuda, kernels):
+    """Start nvcc with `_cuda.NVCC_FLAGS` plus -Xptxas -v on copies of the
+    sources named in kernels {source: entry kernel}, into _build/ptxas/ (the
+    kernels' own builds stay unhashed by -v); returns a function that waits
+    and gives each kernel's ptxas lines (registers, stack frame, spills)."""
+    out_dir = _cuda._BUILD / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {name: subprocess.Popen(
+        [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_cuda._SRC),
+         "-o", str(out_dir / f"lib{name}.so"), str(_cuda._SRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in kernels}
+
+    def wait():
+        lines = {}
+        for name, proc in procs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                fail(f"nvcc -Xptxas -v failed for {name}.cu:\n{err}")
+            keep, lines[name] = False, []
+            for line in err.splitlines():
+                if "Compiling entry function" in line:
+                    keep = kernels[name] in line
+                elif keep and ("bytes stack frame" in line or "Used" in line):
+                    lines[name].append(line.strip())
+        return lines
+
+    return wait
+
+
 def cuda_ms(fn, reps: int = 5) -> float:
     fn()
     torch.cuda.synchronize()
@@ -183,6 +216,36 @@ def c_cost(rows_read, krows, pcdf_rows, pchan, npad, ce, flops_per_lane):
     rows."""
     return (4 * ((len(rows_read) + 1 + pchan) * npad + (krows + pcdf_rows) * ce),
             ce * flops_per_lane)
+
+
+def compact_edge_cases(compact, dev) -> None:
+    """Kernel E bit for bit against its plain version and a second launch:
+    N below one 16384-lane tile and over 61 of them, a multiple of 1024 and
+    not, no flag, every flag, more flags than cap, R = 1 and 2, and a flag
+    view off a 16-byte boundary (tests/test_torch_permute_compact.py's
+    cases and a million lanes)."""
+    import numpy as np
+
+    rng = np.random.default_rng(6)
+    cases = [(0.01, 8192, 300, 2), (0.05, 8192, 300, 2), (0.0, 8192, 300, 2),
+             (1e-3, 10_000, 300, 1), (0.05, 700, 300, 2), (1.0, 3000, 4000, 2),
+             (0.05, 8192, 100, 1), (1.0, 5000, 1000, 1), (1e-3, 1_000_003, 9000, 1),
+             (1.0, 1_000_003, 20_000, 2), (0.3, 5001, 6000, 1)]
+    for density, n, cap, r in cases:
+        vals = torch.as_tensor(rng.integers(0, 2 ** 24, (r, n)).astype(np.float32),
+                               device=dev)
+        flag = torch.as_tensor(rng.random(n) < density, device=dev)
+        if n == 5001:
+            vals, flag = vals[:, 1:].contiguous(), flag[1:]
+        k, again = compact.compact_flagged(vals, flag, cap), compact.compact_flagged(
+            vals, flag, cap)
+        p = compact.compact_plain(vals, flag, cap)
+        for a, b in ((k, p), (k, again)):
+            if not (torch.equal(a[0], b[0]) and bool(a[1]) == bool(b[1])):
+                fail(f"compact: edge case (density {density}, N {n}, cap {cap}, "
+                     f"R {r}) differs from the plain version or a second launch")
+    print(f"compact: {len(cases)} edge cases equal to the plain version and a "
+          "second launch bit for bit", flush=True)
 
 
 @contextlib.contextmanager
@@ -546,9 +609,12 @@ def main() -> None:
 
     # ---- 1. build ----
     t0 = time.time()
+    ptxas = ptxas_reports(_cuda, {"g2p2d": "g2p2d_kernel", "compact": "compact_kernel"})
     _cuda.build(_cuda.sources())
     for name in _cuda.sources():
         _cuda.load(name)
+    for name, lines in ptxas().items():
+        print(f"ptxas {name}: {'; '.join(lines)}", flush=True)
     print(f"built {len(_cuda.sources())} kernel sources in {time.time() - t0:.1f} s",
           flush=True)
 
@@ -711,6 +777,19 @@ def main() -> None:
                      + nj * 100 * 3 + njg * 3 * nc),
                 ce * (20 + 9 * 7 * 2) + pg * 9 * 31 + evals * CDF_OPS_2D)
 
+    def g2p2d_cost(ce, pg, nj, njg, width, tiles=True, fold=False, evals=0):
+        """Kernel I's (bytes, flops): 2 position rows a covered particle and
+        6 more (velocity, normal, affinity) a particle of a gated job, the
+        live jobs' grid tiles (2 velocity columns; with fold momentum and
+        mass), 3 columns of the gated jobs' node tiles (none chan-free),
+        all 8 rows of the output's width written; 9 nodes of 16 operations
+        a particle, 9 x 37 more in a gated job, 8 a window node to fold,
+        CDF_OPS_2D a collider's CDF at a node."""
+        return (4 * (2 * ce + 6 * pg + nj * 100 * (3 if fold else 2)
+                     + (njg * 100 * 3 if tiles else 0) + 8 * width),
+                ce * (12 + 9 * 16) + pg * 9 * 37 + (nj * 100 * 8 if fold else 0)
+                + evals * CDF_OPS_2D)
+
     def job_stats(rec):
         """(covered particles, of them in gated jobs, live jobs, gated live
         jobs) of a recorded substep."""
@@ -826,11 +905,14 @@ def main() -> None:
           lambda k, p: [], lambda k, p: [("rows", k, p)],
           cost=(4 * (2 * rec["unsorted"].shape[0] * npad + npad), 0),
           library=lambda: rec["unsorted"].index_select(1, rec["perm"]))
+    # Kernel E needs a byte of flag a lane, the value of each flagged lane
+    # and its (R + 1) rows of cap columns out.
     check("compact",
           lambda: compact.compact_flagged(vals_e, is_first, cap_e),
           lambda: compact.compact_plain(vals_e, is_first, cap_e),
           lambda k, p: [], lambda k, p: [("values", k[0], p[0]), ("ok", k[1], p[1])],
-          cost=(4 * npad + npad + 4 * 2 * n_first, 0))
+          cost=(npad + 4 * n_first + 4 * 2 * cap_e, 0))
+    compact_edge_cases(compact, dev)
     del rec, args_a, args_b, args_c, data, state
     torch.cuda.empty_cache()
 
@@ -926,12 +1008,12 @@ def main() -> None:
           lambda p: (None if float(p[1].abs().max()) > 1e-3
                      else "the plain impulses are ~0: no contact load"),
           cost=p2g2d_cost(ce, pg, nj, njg, nc))
+    width = npad + GROUP2 + 128
     check("g2p2d",
           lambda: transfer2d.g2p_rows(*args_i),
           lambda: transfer2d.g2p_plain(*args_i),
           lambda k, p: [], lambda k, p: [("rows", k, p)],
-          cost=(4 * (8 * ce + nj * wv * 2 + njg * wv * 3 + 6 * ce),
-                ce * (12 + 9 * 16) + pg * 9 * 37))
+          cost=g2p2d_cost(ce, pg, nj, njg, width))
     # Kernel I folded, on the same substep with the grid update left to it.
     rec_fold = {}
     step_pallas(state, data.params, dataclasses.replace(cfg, fold_vel=True), 1,
@@ -942,8 +1024,7 @@ def main() -> None:
           lambda: transfer2d.g2p_rows(*args_if),
           lambda: transfer2d.g2p_plain(*args_if),
           lambda k, p: [], lambda k, p: [("rows", k, p)],
-          cost=(4 * (8 * ce + nj * wv * 3 + njg * wv * 3 + 6 * ce),
-                ce * (12 + 9 * 16) + pg * 9 * 37 + nj * wv * 8))
+          cost=g2p2d_cost(ce, pg, nj, njg, width, fold=True))
     del rec_fold, args_if
     check("update_rows2d",
           lambda: update_rows.update_rows2d(*args_c2),
@@ -998,8 +1079,8 @@ def main() -> None:
           lambda: transfer2d.g2p_rows(*args_i),
           lambda: transfer2d.g2p_plain(*args_i),
           lambda k, p: [], lambda k, p: [("rows", k, p)],
-          cost=(4 * (8 * ce + nj * wv * 2 + 6 * ce),
-                ce * (12 + 9 * 16) + pg * 9 * 37 + evals * CDF_OPS_2D))
+          cost=g2p2d_cost(ce, pg, nj, njg, npad + GROUP2 + 128, tiles=False,
+                          evals=evals))
     del rec, args_g, args_h, args_i, data, state
     torch.cuda.empty_cache()
 

@@ -148,6 +148,14 @@ def test_permute_kernel_is_exact_on_ragged_lanes():
                            permute.permute_plain(rows, perm))
 
 
+def _compact_exact(vals, flag, cap):
+    k, p = (compact.compact_flagged(vals, flag, cap),
+            compact.compact_plain(vals, flag, cap))
+    assert torch.equal(k[0], p[0]) and bool(k[1]) == bool(p[1])
+    again = compact.compact_flagged(vals, flag, cap)
+    assert torch.equal(k[0], again[0]) and bool(k[1]) == bool(again[1])
+
+
 def test_permute_and_compact_kernels_are_exact(rec):
     assert torch.equal(permute.permute_lanes(rec["unsorted"], rec["perm"]),
                        permute.permute_plain(rec["unsorted"], rec["perm"]))
@@ -156,9 +164,23 @@ def test_permute_and_compact_kernels_are_exact(rec):
     flag[1:] = sids[1:] != sids[:-1]
     vals = sids.to(torch.float32)[None]
     for cap in (4, 4096):
-        k, p = (compact.compact_flagged(vals, flag, cap),
-                compact.compact_plain(vals, flag, cap))
-        assert torch.equal(k[0], p[0]) and bool(k[1]) == bool(p[1])
+        _compact_exact(vals, flag, cap)
+    # Kernel E's edge cases (tests/test_torch_permute_compact.py's, and a
+    # million lanes): N a multiple of 1024 and not, below one 16384-lane
+    # tile and over 61 of them, no flag, every flag, more flags than cap,
+    # R = 1 and 2, and a flag view that starts off a 16-byte boundary.
+    rng = np.random.default_rng(6)
+    for density, n, cap, r in ((0.01, 8192, 300, 2), (0.05, 8192, 300, 2),
+                               (0.0, 8192, 300, 2), (1e-3, 10_000, 300, 1),
+                               (0.05, 700, 300, 2), (1.0, 3000, 4000, 2),
+                               (0.05, 8192, 100, 1), (1.0, 5000, 1000, 1),
+                               (1e-3, 1_000_003, 9000, 1), (1.0, 1_000_003, 20_000, 2)):
+        vals = torch.as_tensor(rng.integers(0, 2 ** 24, (r, n)).astype(np.float32))
+        flag = torch.as_tensor(rng.random(n) < density)
+        _compact_exact(vals.cuda(), flag.cuda(), cap)
+    flag = torch.as_tensor(rng.random(5001) < 0.3).cuda()[1:]
+    _compact_exact(torch.arange(5000, dtype=torch.float32, device="cuda")[None], flag,
+                   6000)
 
 
 @pytest.fixture(scope="module", params=["sand_column", "elastic_blocks"])
@@ -204,11 +226,25 @@ def test_p2g2d_kernel_matches_plain(rec2d):
     assert torch.equal(k[0], k2[0]) and torch.equal(k[1], k2[1])
 
 
+def _g2p2d_exact(args):
+    """Kernel I equal to its plain version and to a second launch on the
+    whole output, with the job table as recorded and cut to two thirds of
+    its live slots (a job-table overflow drops the tail)."""
+    k = transfer2d.g2p_rows(*args)
+    assert torch.equal(k, transfer2d.g2p_plain(*args))
+    assert torch.equal(k, transfer2d.g2p_rows(*args))
+    pdata, ftiles, ntiles, btable, jobs, bcells, jbody = args[:7]
+    m = int((jobs["len"] > 0).sum()) * 2 // 3
+    cut = ((pdata, ftiles[:m], ntiles if ntiles.shape[0] == 1 else ntiles[:m], btable,
+            {key: v[:m] for key, v in jobs.items()}, bcells[:m], jbody[:m]) + args[7:])
+    assert torch.equal(transfer2d.g2p_rows(*cut), transfer2d.g2p_plain(*cut))
+
+
 def test_g2p2d_kernel_matches_plain(rec2d):
     r, cfg = rec2d, rec2d["cfg"]
     args = ((r["pdata"], r["ftiles"], r["ntiles"], r["btable"]) + _jobs2d(r)
             + (cfg.group, r["rows"].shape[1], cfg.num_colliders))
-    assert torch.equal(transfer2d.g2p_rows(*args), transfer2d.g2p_plain(*args))
+    _g2p2d_exact(args)
 
 
 def test_update_rows2d_kernel_matches_plain(rec2d):
@@ -358,12 +394,11 @@ def test_fold_kernels_match_plain(rec_fold):
         args = (r["pdata"], r["ftiles"], r["ntiles"], r["btable"], r["jobs"],
                 r["bcells"], r["jbody"], cfg.grid.cell_width, cfg.by, cfg.group,
                 r["rows"].shape[1], cfg.num_colliders, r["moving"], (), False, True)
-        k, p = g2p.g2p_rows(*args), g2p.g2p_plain(*args)
+        assert torch.equal(g2p.g2p_rows(*args), g2p.g2p_plain(*args))
     else:
         args = ((r["pdata"], r["ftiles"], r["ntiles"], r["btable"]) + _jobs2d(r)
                 + (cfg.group, r["rows"].shape[1], cfg.num_colliders, (), False, True))
-        k, p = transfer2d.g2p_rows(*args), transfer2d.g2p_plain(*args)
-    assert torch.equal(k, p)
+        _g2p2d_exact(args)
 
 
 @pytest.fixture(scope="module")
@@ -406,7 +441,7 @@ def test_chan_free_2d_kernels_match_plain(rec2d_chan_free):
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     args = ((r["pdata"], r["ftiles"], r["ntiles"], r["btable"]) + _jobs2d(r)
             + (cfg.group, npad, nc) + mode)
-    assert torch.equal(transfer2d.g2p_rows(*args), transfer2d.g2p_plain(*args))
+    _g2p2d_exact(args)
 
 
 @pytest.fixture(scope="module")

@@ -9,10 +9,10 @@ numpy from a seed.
   buckets its offsets reach, in particle order, at offset node + 1 -
   bucket: exactly R.stencil's pairs, in the order the plain version sums
   them, edge nodes dropped.
-- Kernel B's per-axis stencil (_axis_nodes, the rule of
-  csrc/transfer.cuh stencil_axis_nodes): validity, node index and node
-  coordinate equal to R.stencil's and R.window_positions' bit for bit,
-  edge nodes dropped.
+- Kernels B's and I's per-axis stencil (_axis_nodes, the rule of
+  csrc/transfer.cuh stencil_axis_nodes and csrc/transfer2d.cuh
+  stencil_axis_nodes2): validity, node index and node coordinate equal to
+  R.stencil's and R.window_positions' bit for bit, edge nodes dropped.
 Both walks are checked on particles at exact half-cell ties and where
 p * (1/h) rounds below the p / h of the block sort key."""
 
@@ -147,29 +147,45 @@ def _axis_nodes(pos, bcell, inv_h, cell_width, wsh):
     return bl, ok, xa
 
 
-@pytest.mark.parametrize("h,by", [(0.2, 8), (0.5, 8), (0.3, 4)])
-def test_g2p_axis_nodes_match_stencil(h, by):
-    rng = np.random.default_rng(int(h * 10) + by)
-    pos, bcell, low, high = _edge_particles(h, (4, by, 4), rng)
+def _check_axis_nodes(h, bsh, wsh, rng):
+    """The per-axis stencil of kernels B and I against R.stencil and
+    R.window_positions on particles at the window's edges, bit for bit."""
+    pos, bcell, low, high = _edge_particles(h, bsh, rng)
     # Ties round up past the window at every cell width; p * (1/h) rounds
     # below p / h only where 1/h is inexact.
     assert high.sum() > 50 and (low.sum() > 50 if h != 0.5 else not low.any())
-    wsh = (6, by + 2, 6)
+    d = len(bsh)
     hf = float(np.float32(h))
     inv_h = float(np.float32(1.0) / np.float32(h))
-    pt = [torch.as_tensor(pos[a]) for a in range(3)]
+    pt = [torch.as_tensor(pos[a]) for a in range(d)]
     bc = torch.as_tensor(bcell)
     _, nidx, valid = R.stencil(pt, bc, inv_h, wsh)
-    xw = R.window_positions(bc, hf, wsh)                     # [P, wvol, 3]
+    xw = R.window_positions(bc, hf, wsh)                     # [P, wvol, d]
     bl, ok, xa = _axis_nodes(pt, bc, inv_h, hf, wsh)
     dropped = 0
-    for o, (ox, oy, oz) in enumerate(itertools.product(range(3), repeat=3)):
-        ok_n = ok[0][ox] & ok[1][oy] & ok[2][oz]
+    for o, offs in enumerate(itertools.product(range(3), repeat=d)):
+        ok_n, idx = ok[0][offs[0]], bl[0] + offs[0]
+        for a in range(1, d):
+            ok_n = ok_n & ok[a][offs[a]]
+            idx = idx * wsh[a] + bl[a] + offs[a]
         assert torch.equal(ok_n, valid[:, o])
         dropped += int((~ok_n).sum())
-        idx = ((bl[0] + ox) * wsh[1] + bl[1] + oy) * wsh[2] + bl[2] + oz
         assert torch.equal(idx[ok_n], nidx[ok_n, o])
-        at = xw[torch.arange(len(idx)), nidx[:, o]]          # [P, 3]
-        for a, off in enumerate((ox, oy, oz)):
+        at = xw[torch.arange(len(idx)), nidx[:, o]]          # [P, d]
+        for a, off in enumerate(offs):
             assert torch.equal(xa[a][off][ok_n], at[ok_n, a])
     assert dropped > 0 and bool(valid[~torch.as_tensor(low | high)].all())
+
+
+@pytest.mark.parametrize("h,by", [(0.2, 8), (0.5, 8), (0.3, 4)])
+def test_g2p_axis_nodes_match_stencil(h, by):
+    _check_axis_nodes(h, (4, by, 4), (6, by + 2, 6),
+                      np.random.default_rng(int(h * 10) + by))
+
+
+@pytest.mark.parametrize("h", [0.2, 0.5, 0.3])
+def test_g2p2d_axis_nodes_match_stencil(h):
+    """Kernel I's walk (csrc/transfer2d.cuh stencil_axis_nodes2): the 3 x 3
+    stencil per axis in the 10 x 10 window, node index (bl[0] + ox) * 10 +
+    bl[1] + oy."""
+    _check_axis_nodes(h, (8, 8), R2.WSH, np.random.default_rng(int(h * 10) + 100))

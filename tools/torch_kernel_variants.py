@@ -1,16 +1,24 @@
-"""Trial builds of kernels B (csrc/g2p.cu) and H (csrc/p2g2d.cu) on one GPU.
+"""Trial builds of kernels B (csrc/g2p.cu), H (csrc/p2g2d.cu), I
+(csrc/g2p2d.cu) and E (csrc/compact.cu) on one GPU, and E and I against a
+parent tree's.
 
-    python3 tools/torch_kernel_variants.py
+    python3 tools/torch_kernel_variants.py [--parent ROOT]
 
 Each variant is a text edit of the kernel's source as it stands, built with
 `_cuda.NVCC_FLAGS` plus `-Xptxas -v` into `wgsparkl_tpu_torch/_build/variants/`
-(one nvcc per variant, all started together).  For each it prints the
+(one nvcc per variant, all started together); with --parent, ROOT's
+csrc/compact.cu and csrc/g2p2d.cu (another checkout of the repository,
+e.g. the parent commit unpacked with `git archive`) are built the same way
+as the variant `parent`.  For each it prints the
 ptxas report of the kernel (registers, stack frame, spill stores and
 loads, shared memory), its resident blocks an SM from
 cudaOccupancyMaxActiveBlocksPerMultiprocessor, and then, in three rounds
-that take the variants in turn, the device ms a launch (CUDA events around
-20 back-to-back launches) and the host microseconds a call; and whether
-its output equals the kernel's as it stands bit for bit.
+that take the variants in turn, forward and then backward (parent,
+change, change, parent), the device ms a raw launch of the C entry (CUDA
+events around 20 back-to-back launches; a parent's output fill, which its
+wrapper issued as a launch of its own, is timed beside it as
+`parent+fill`) and the host microseconds a call; and whether its output
+equals the kernel's as it stands bit for bit.
 
 Variants of B (256 threads a block):
   as_is        the source as it stands: __launch_bounds__(256), every
@@ -25,19 +33,43 @@ Variants of H (128 threads a block):
                carveout
   max_carveout the largest shared-memory carveout requested before every
                launch
+Variants of I (256 threads a block):
+  as_is        the source as it stands: one block a job slot
+  min_blocks_4 __launch_bounds__(256, 4): registers capped for four blocks
+  ungated_only every job through the ungated walk (a measurement of what
+               the gated code's registers cost the others: its gated jobs'
+               rows differ)
+  no_chan_free the chan-free node CDF left out (a measurement of its
+               registers; on these gathered-mode inputs the rows agree)
+  parent       ROOT's kernel (with --parent); it writes only the live
+               jobs' lanes, so `parent+fill` zeroes the output first
+Variants of E:
+  as_is        the source as it stands: one launch, tiles of 16384 lanes
+               (512 threads of 32 flags)
+  tile_8k      tiles of 8192 lanes (256 threads of 32 flags): twice the
+               tiles, so twice the look-back rounds
+  tile_4k      tiles of 4096 lanes (256 threads of 16 flags)
+  parent       ROOT's three launches (with --parent); `parent+fill` adds
+               the 2^24 fill of the output
 
 Inputs, from chip_smoke.py's scenes at full size: B on a substep of the 3D
 main path lowered 3 cells onto its paddle (the `g2p` entry's); H on a
 substep of the 2D column lowered 1.5 cells into its floor (the `p2g2d`
-entry's) and on a substep of the 2D neo-Hookean path (`p2g2d_neo`).
+entry's) and on a substep of the 2D neo-Hookean path (`p2g2d_neo`); I on
+the same 2D column substep (`g2p2d`), again with its job table cut to the
+live slots (no dead slot: what the ~maxj - live idle blocks cost), and on
+the neo-Hookean substep; E on the 3D main path's and the 2D column's
+block-boundary compaction (`build_jobs`' call).
 Prints the card's name and power limit first.  Fails without a CUDA
 device.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
+import pathlib
 import subprocess
 import sys
 import time
@@ -83,7 +115,27 @@ VARIANTS = {
                            "        cudaFuncAttributePreferredSharedMemoryCarveout,\n"
                            "        cudaSharedmemCarveoutMaxShared);\n" + LAUNCH_H)]),
     ]),
+    "g2p2d": ("g2p2d_kernel", 256, [
+        ("as_is", []),
+        ("min_blocks_4", [("__launch_bounds__(NTHREADS) g2p2d_kernel(",
+                           "__launch_bounds__(NTHREADS, 4) g2p2d_kernel(")]),
+        ("ungated_only", [("  if (gated)\n    g2p2d_walk<true>",
+                           "  if (false)\n    g2p2d_walk<true>")]),
+        ("no_chan_free", [("    if (chan_free) {", "    if (false) {")]),
+    ]),
+    "compact": ("compact_kernel", 512, [
+        ("as_is", []),
+        ("tile_8k", [("#define THREADS 512\n", "#define THREADS 256\n")]),
+        ("tile_4k", [("#define PER_THREAD 32 ", "#define PER_THREAD 16 "),
+                     ("#define THREADS 512\n", "#define THREADS 256\n")]),
+    ]),
 }
+# Variants whose blocks have other than their kernel's threads.
+THREADS_OF = {("compact", "tile_8k"): 256, ("compact", "tile_4k"): 256}
+# Kernels timed against a parent tree's (--parent): the parent's kernel
+# entry, and how its wrapper filled the output before the launch.
+PARENT = {"g2p2d": ("g2p2d_kernel", lambda out: out.zero_()),
+          "compact": ("scatter_kernel", lambda out: out.fill_(2.0 ** 24))}
 
 
 def variant_source(src: str, kernel: str, edits) -> str:
@@ -99,21 +151,32 @@ def variant_source(src: str, kernel: str, edits) -> str:
         "  return n;\n}\n")
 
 
-def build_all(_cuda):
-    """Build every variant; {(name, variant): (library path, ptxas lines)}."""
+def build_all(_cuda, parent=None):
+    """Build every variant, and with `parent` (a repository root) that
+    tree's E and I as the variant `parent`; {(name, variant): (library
+    path, ptxas lines)}."""
     out_dir = _cuda._BUILD / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = []
+    builds = []
     for name, (kernel, _, variants) in VARIANTS.items():
         src = (_cuda._SRC / f"{name}.cu").read_text()
         for var, edits in variants:
-            cu = out_dir / f"{name}_{var}.cu"
-            cu.write_text(variant_source(src, kernel, edits))
-            lib = out_dir / f"lib{name}_{var}.so"
-            cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-                   str(_cuda._SRC), "-o", str(lib), str(cu)]
-            jobs.append((name, var, kernel, lib, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            builds.append((name, var, kernel, _cuda._SRC,
+                           variant_source(src, kernel, edits)))
+        if parent is not None and name in PARENT:
+            psrc = pathlib.Path(parent) / "wgsparkl_tpu_torch" / "csrc"
+            builds.append((name, "parent", PARENT[name][0], psrc,
+                           variant_source((psrc / f"{name}.cu").read_text(),
+                                          PARENT[name][0], [])))
+    jobs = []
+    for name, var, kernel, inc, text in builds:
+        cu = out_dir / f"{name}_{var}.cu"
+        cu.write_text(text)
+        lib = out_dir / f"lib{name}_{var}.so"
+        cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+               str(inc), "-o", str(lib), str(cu)]
+        jobs.append((name, var, kernel, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     built = {}
     for name, var, kernel, lib, proc in jobs:
         _, err = proc.communicate()
@@ -121,6 +184,18 @@ def build_all(_cuda):
             raise RuntimeError(f"nvcc failed for {name} {var}:\n{err}")
         built[(name, var)] = (lib, ptxas_lines(err, kernel))
     return built
+
+
+def parent_call(got, name):
+    """The parent tree's entry call for the new entry's captured call:
+    kernel E's took per-chunk count and offset scratch (chunks of 1024
+    lanes) where the new one takes its status words; I's is the same."""
+    if name != "compact":
+        return got
+    a = list(got["args"])
+    ng = -(-int(a[3]) // 1024)
+    scratch = [torch.empty(ng, dtype=torch.int32, device=a[0].device) for _ in range(2)]
+    return dict(symbol=got["symbol"], sig="ppiiipppp", args=a[:5] + scratch + a[6:])
 
 
 def ptxas_lines(err: str, kernel: str):
@@ -209,23 +284,38 @@ def recorded(step_pallas, step_with_diag, data, warm, shift):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", help="root of another checkout whose E and I "
+                    "are timed against these")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("FAIL: torch.cuda.is_available() is False")
     from wgsparkl_tpu_torch import _cuda
-    from wgsparkl_tpu_torch.ops import g2p, transfer2d
+    from wgsparkl_tpu_torch.ops import compact, g2p, transfer2d
     from wgsparkl_tpu_torch.pipeline import step_pallas, step_with_diag
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
-    _cuda.build(["g2p", "p2g2d"])
+    _cuda.build(list(VARIANTS))
     t0 = time.time()
-    built = build_all(_cuda)
+    built = build_all(_cuda, args.parent)
     print(f"built {len(built)} variants in {time.time() - t0:.1f} s", flush=True)
 
     dev = torch.device("cuda:0")
     inputs = []
+
+    def add_compact(what, rec):
+        sids, nb_total = rec["sorted_ids"], rec["nb_total"]
+        flag = torch.ones_like(sids, dtype=torch.bool)
+        flag[1:] = sids[1:] != sids[:-1]
+        vals = torch.clamp(sids, max=nb_total + 1).to(torch.float32)[None, :]
+        got = capture(_cuda, compact.compact_flagged, vals, flag,
+                      min(nb_total + 3, sids.shape[0]))
+        inputs.append(("compact", what, got, [len(got["args"]) - 2,
+                                              len(got["args"]) - 1]))
+
     data = chip_smoke.full_scene(dev)
     rec = recorded(step_pallas, step_with_diag, data, 2, (0.0, -3.0, 0.0))
     cfg = data.config
@@ -235,28 +325,58 @@ def main() -> None:
               cfg.num_colliders, rec["moving"])
     got = capture(_cuda, g2p.g2p_rows, *args_b)
     inputs.append(("g2p", "3D main path, lowered", got, [len(got["args"]) - 2]))
+    add_compact("3D main path, lowered", rec)
     del data, rec
     for what, data, warm, shift in (
             ("2D column, lowered", chip_smoke.full_scene_2d(dev), 2,
              (0.0, -1.5 * chip_smoke.H2)),
             ("2D neo-Hookean path", chip_smoke.full_scene_neo_2d(dev), 5, None)):
         rec = recorded(step_pallas, step_with_diag, data, warm, shift)
+        cfg = data.config
         args_h = (rec["pdata"], rec["ntiles"], rec["btable"], rec["jobs"],
-                  rec["bcells"], rec["jbody"], data.config.grid.cell_width,
-                  data.config.num_colliders)
+                  rec["bcells"], rec["jbody"], cfg.grid.cell_width,
+                  cfg.num_colliders)
         got = capture(_cuda, transfer2d.p2g_tiles, *args_h)
         n = len(got["args"])
         inputs.append(("p2g2d", what, got, [n - 2, n - 1]))
+        args_i = ((rec["pdata"], rec["ftiles"], rec["ntiles"], rec["btable"])
+                  + args_h[3:7] + (cfg.group, rec["rows"].shape[1],
+                                   cfg.num_colliders))
+        got = capture(_cuda, transfer2d.g2p_rows, *args_i)
+        inputs.append(("g2p2d", what, got, [len(got["args"]) - 2]))
+        if what.startswith("2D column"):
+            add_compact(what, rec)
+            # The job table cut to its live slots: no dead slot's block.
+            live = int((rec["jobs"]["len"] > 0).sum())
+            cut = ((rec["pdata"], rec["ftiles"][:live], rec["ntiles"][:live],
+                    rec["btable"], {k: v[:live] for k, v in rec["jobs"].items()},
+                    rec["bcells"][:live], rec["jbody"][:live]) + args_i[7:])
+            got = capture(_cuda, transfer2d.g2p_rows, *cut)
+            inputs.append(("g2p2d", f"{what}, live slots only ({live})", got,
+                           [len(got["args"]) - 2]))
         del data, rec
     torch.cuda.empty_cache()
 
     for name, what, got, outputs in inputs:
         kernel, threads, variants = VARIANTS[name]
+        names = [var for var, _ in variants]
+        if (name, "parent") in built:
+            names = ["parent"] + names
         runs = {}
-        for var, _ in variants:
+        for var in names:
             lib_path, report = built[(name, var)]
             lib = ctypes.CDLL(str(lib_path))
-            launch, outs = caller(_cuda, lib, got, outputs)
+            call = parent_call(got, name) if var == "parent" else got
+            if name == "compact" and var != "parent":
+                # Status words for the smallest tile (4096 lanes), zeroed.
+                a = call["args"]
+                call = dict(call, args=a[:5] + (torch.zeros(
+                    2 + -(-int(a[3]) // 4096), dtype=torch.int32, device=dev),) + a[6:])
+            outs_at = ([len(call["args"]) - 2, len(call["args"]) - 1]
+                       if name == "compact" else outputs)
+            launch, outs = caller(_cuda, lib, call, outs_at)
+            if var == "parent":
+                PARENT[name][1](outs[0])
             launch()
             torch.cuda.synchronize()
             runs[var] = (launch, outs, lib, report)
@@ -265,12 +385,18 @@ def main() -> None:
         for var, (launch, outs, lib, report) in runs.items():
             same = all(torch.equal(a, b) for a, b in zip(outs, ref))
             lib.variant_blocks_per_sm.restype = ctypes.c_int
-            blocks = lib.variant_blocks_per_sm(threads)
+            nt = THREADS_OF.get((name, var), threads)
+            blocks = lib.variant_blocks_per_sm(nt)
             print(f"{name} {var}: {'; '.join(report)}; {blocks} blocks of "
-                  f"{threads} an SM; output equal to as_is: {same}", flush=True)
+                  f"{nt} an SM; output equal to as_is: {same}", flush=True)
+        if "parent" in runs:
+            launch, outs = runs["parent"][:2]
+            runs["parent+fill"] = (lambda launch=launch, out=outs[0], fill=PARENT[name][1]:
+                                   (fill(out), launch()), *runs["parent"][1:])
+        order = list(runs)
         for rnd in range(3):
-            for var, (launch, _, _, _) in runs.items():
-                ms, host_us = timed(launch)
+            for var in order + order[::-1]:
+                ms, host_us = timed(runs[var][0])
                 print(f"{name} {var} round {rnd}: {ms:.4f} ms device a launch, "
                       f"{host_us:.1f} us host a call", flush=True)
     print(f"card: {card}", flush=True)

@@ -1,4 +1,5 @@
-// G2P of the 2D path with CPIC ghost velocities, one thread block per job.
+// G2P of the 2D path with CPIC ghost velocities, one thread block per job
+// slot.
 //
 // Replaces: wgsparkl_tpu/ops/pallas_transfer2d.py `_g2p_kernel` (launched by
 // `g2p_rows`): per job, each particle gathers the PIC velocity and the
@@ -13,18 +14,111 @@
 // mass (col 2), and the kernel does the grid update itself
 // (pallas_transfer2d.py:446-463): v = clip((mom + m g dt) / m, -vlim, vlim)
 // with the Newton-refined reciprocal, g dt and vlim from body-table row 13.
-// Bound on the H100: device memory, lightly.  Per particle it reads 8 rows
-// and writes 6 (~27 MB per substep at 490k particles, ~8 us at 3.35 TB/s),
-// plus the window tiles (~1.7 KB per job); ~9 x 12 multiply-adds, ~9 x 30
-// more in gated jobs.
+// Bound on the H100: device memory.  A particle of an ungated job reads its
+// 2 position rows (one of a gated job 8), every lane of the output is
+// written once (8 rows), and each live job reads its window's grid tile
+// (2 columns; 3 folded) and, gated and gathered, its node tile: ~22 MB a
+// substep at 490k particles, ~7 us at 3.35 TB/s.  ~9 x 12 multiply-adds a
+// particle, ~9 x 30 more in a gated job.
 // Design: the window's grid velocity (folded once a node as the tile is
-// loaded), affinity words, closest bodies and body velocities go to shared
-// memory (~2 KB); one thread per particle walks
-// its 9 stencil nodes in the plain version's order and writes its own 6
-// output lanes, so the result matches the plain version bit for bit and
-// needs no atomics.  Only lanes [start, start + len) are written (the
-// wrapper zeroes the rest).
+// loaded) goes to shared memory, and at a gated job its affinity words,
+// closest bodies and body velocities too (~2.4 KB).  One thread per
+// particle walks its 9 stencil nodes per axis (stencil_axis_nodes2: 3
+// weights and 3 node coordinates an axis, the node index from the axes),
+// unrolled, in the plain version's order, and writes its own 8 output
+// lanes, so the result matches the plain version bit for bit and needs no
+// atomics.  One walk a gate level, chosen once a block (g2p2d_walk<GATED>):
+// an ungated job (or a scene with no collider) reads only the position
+// rows, tests no compatibility and keeps no ghost sums.  One kernel has one
+// register count, and the gated walk's sets it for every job (PERF.md §7).
+// The kernel owns its whole output (the wrapper allocates it with
+// torch.empty): the live job slots are [0, L) (len > 0 exactly there) and
+// their particles cover the lanes [0, end), end = start + len of slot L - 1,
+// in one run (ops/blocked.py build_jobs: a job starts where the one before
+// it ended, the first at rank 0, and a job-table overflow drops a tail of
+// slots).  Each live block writes its lanes' 8 rows; the blocks of the
+// first DEAD_PARTS dead slots find L (one warp reads the 31 slots before
+// theirs) and stripe 0 over the lanes [end, width), and the other dead
+// slots' blocks return after one load; with no dead slot every block
+// stripes that tail after its job.
 #include "transfer2d.cuh"
+
+#define DEAD_PARTS 32   // dead job slots that stripe the zero tail
+
+template <bool GATED>
+__device__ __forceinline__ void g2p2d_walk(
+    const float* __restrict__ pdata, long long pstride, int start, int len,
+    const int bc[2], float h, float inv_h, const float2* s_v,
+    const uint32_t* s_naff, const float* s_cl, const float* s_bv,
+    float* __restrict__ out, long long ostride) {
+  for (int i = threadIdx.x; i < len; i += NTHREADS) {
+    const long long lane = (long long)start + i;
+    auto row = [&](int r) { return pdata[r * pstride + lane]; };
+    const float p[2] = {row(PX), row(PX + 1)};
+    float vp[2] = {0.0f, 0.0f}, nrm[2] = {0.0f, 0.0f};
+    uint32_t paff = 0u;
+    if (GATED) {
+      vp[0] = row(VX);
+      vp[1] = row(VX + 1);
+      nrm[0] = row(NX);
+      nrm[1] = row(NX + 1);
+      paff = aff_word(row(AFF), row(AFF_SPARE));
+    }
+    float wa[2][3], xa[2][3];
+    int bl[2];
+    bool ok[2][3];
+    stencil_axes2(p, bc, inv_h, wa, bl);
+    stencil_axis_nodes2(bl, bc, h, ok, xa);
+    const int n0 = bl[0] * WSH + bl[1];
+    // Row 2 + 2 i + k of the output is the moment sum w v_i x_k.
+    float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    float ex[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ox = 0; ox < 3; ++ox)
+#pragma unroll
+      for (int oy = 0; oy < 3; ++oy) {
+        // A node outside the window is dropped.
+        if (!(ok[0][ox] && ok[1][oy])) continue;
+        const int n = n0 + ox * WSH + oy;
+        const float w = wa[0][ox] * wa[1][oy];
+        const float x[2] = {xa[0][ox], xa[1][oy]};
+        const float2 v2 = s_v[n];
+        const float v[2] = {v2.x, v2.y};
+        const float wc = (!GATED || compat(s_naff[n], paff)) ? w : 0.0f;
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          acc[a] = acc[a] + wc * v[a];
+#pragma unroll
+          for (int k = 0; k < 2; ++k)
+            acc[2 + 2 * a + k] = acc[2 + 2 * a + k] + wc * (v[a] * x[k]);
+        }
+        if (!GATED) continue;
+        const float wi = w - wc;
+        float g[2] = {vp[0], vp[1]};
+        if (s_cl[n] >= 0.0f) ghost_velocity2(vp, &s_bv[2 * n], nrm, g);
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          const float wg = wi * g[a];
+          ex[a] = ex[a] + wg;
+#pragma unroll
+          for (int k = 0; k < 2; ++k) ex[2 + 2 * a + k] = ex[2 + 2 * a + k] + wg * x[k];
+        }
+      }
+#pragma unroll
+    for (int r = 0; r < 6; ++r) out[r * ostride + lane] = GATED ? acc[r] + ex[r] : acc[r];
+    out[6 * ostride + lane] = 0.0f;
+    out[7 * ostride + lane] = 0.0f;
+  }
+}
+
+// Zero on the lanes [end + part * NTHREADS, width), every parts * NTHREADS.
+__device__ __forceinline__ void zero_tail(long long end, int part, int parts,
+                                          float* __restrict__ out, long long ostride) {
+  for (long long lane = end + (long long)part * NTHREADS + threadIdx.x; lane < ostride;
+       lane += (long long)parts * NTHREADS)
+#pragma unroll
+    for (int r = 0; r < 8; ++r) out[r * ostride + lane] = 0.0f;
+}
 
 __global__ void __launch_bounds__(NTHREADS) g2p2d_kernel(
     const float* __restrict__ pdata, long long pstride,
@@ -32,36 +126,61 @@ __global__ void __launch_bounds__(NTHREADS) g2p2d_kernel(
     const float* __restrict__ bt, const int* __restrict__ jt, int maxj, int nc,
     unsigned shapes, int chan_free, int fold, float h, float inv_h, float cap,
     float* __restrict__ out, long long ostride) {
-  __shared__ float s_v[WVOL * 2], s_bv[WVOL * 2];
+  __shared__ float2 s_v[WVOL];
+  __shared__ float s_bv[WVOL * 2];
   __shared__ uint32_t s_naff[WVOL];
   __shared__ float s_cl[WVOL];
+  __shared__ int s_live;
   const int j = blockIdx.x, tid = threadIdx.x;
-  const int start = jt[j], len = jt[maxj + j], lvl = jt[5 * maxj + j];
-  if (len == 0) return;
+  const int* lens = jt + maxj;
+  // Every job-table entry at once: one load latency.
+  const int len = lens[j], start = jt[j], lvl = jt[5 * maxj + j];
   const int bc[2] = {jt[2 * maxj + j], jt[3 * maxj + j]};
-  const bool gated = lvl > 0;
+  if (len == 0) {
+    // A dead slot: the first DEAD_PARTS of them stripe the tail, the rest
+    // return.  Then L, the first dead slot, lies in [j - DEAD_PARTS + 1, j].
+    if (j >= DEAD_PARTS && lens[j - DEAD_PARTS] == 0) return;
+    if (tid < 32) {
+      int lo = max(j - DEAD_PARTS + 1, 0), hi = j;
+      while (lo < hi) {
+        const int step = (hi - lo + 30) / 31;     // lane 31 reaches hi
+        const int k = lo + tid * step;
+        const unsigned dead = __ballot_sync(0xFFFFFFFFu, k >= hi || lens[k] == 0);
+        const int f = __ffs(dead) - 1;
+        if (f == 0) {
+          hi = lo;
+        } else {
+          const int nlo = lo + (f - 1) * step + 1;
+          hi = min(lo + f * step, hi);
+          lo = nlo;
+        }
+      }
+      if (tid == 0) s_live = lo;
+    }
+    __syncthreads();
+    const int live = s_live;
+    const long long end = live > 0 ? (long long)jt[live - 1] + lens[live - 1] : 0;
+    zero_tail(end, j - live, min(maxj - live, DEAD_PARTS), out, ostride);
+    return;
+  }
+  const bool gated = lvl > 0 && nc > 0;
   for (int n = tid; n < WVOL; n += NTHREADS) {
     const float* ft = ftiles + ((long long)j * WPAD + n) * 4;
     if (fold) {
       const float m = ft[2], vlim = bt[13 * 128 + 2];
       const float inv_m = m > 0.0f ? nr_recip(fmaxf(m, 1e-30f)) : 0.0f;
-      for (int k = 0; k < 2; ++k)
-        s_v[2 * n + k] =
-            fminf(fmaxf((ft[k] + m * bt[13 * 128 + k]) * inv_m, -vlim), vlim);
+      s_v[n] = make_float2(
+          fminf(fmaxf((ft[0] + m * bt[13 * 128]) * inv_m, -vlim), vlim),
+          fminf(fmaxf((ft[1] + m * bt[13 * 128 + 1]) * inv_m, -vlim), vlim));
     } else {
-      s_v[2 * n] = ft[0];
-      s_v[2 * n + 1] = ft[1];
+      s_v[n] = make_float2(ft[0], ft[1]);
     }
+    if (!gated) continue;
     float xw[2], dist;
     node_pos2(n, bc, h, xw);
-    s_naff[n] = 0u;
-    s_cl[n] = -1.0f;
     if (chan_free) {
-      // Only a gated job reads its window's CDF.
-      if (gated) window_node_cdf2(bt, nc, shapes, xw, cap, &s_naff[n], &s_cl[n], &dist);
-    } else if (nc > 0) {
-      // The gathered tile (with no collider there is none to read: the
-      // caller may pass just one).
+      window_node_cdf2(bt, nc, shapes, xw, cap, &s_naff[n], &s_cl[n], &dist);
+    } else {
       const float* t = ntiles + ((long long)j * WPAD + n) * 4;
       s_naff[n] = aff_word(t[0], t[1]);
       s_cl[n] = t[2];
@@ -69,48 +188,16 @@ __global__ void __launch_bounds__(NTHREADS) g2p2d_kernel(
     node_body_velocity2(s_cl[n], xw, bt, nc, &s_bv[2 * n]);
   }
   __syncthreads();
-
-  for (int i = tid; i < len; i += NTHREADS) {
-    const long long lane = (long long)start + i;
-    auto row = [&](int r) { return pdata[r * pstride + lane]; };
-    const float p[2] = {row(PX), row(PX + 1)};
-    const float vp[2] = {row(VX), row(VX + 1)};
-    const float nrm[2] = {row(NX), row(NX + 1)};
-    const uint32_t paff = aff_word(row(AFF), row(AFF_SPARE));
-    float wa[2][3];
-    int bl[2];
-    stencil_axes2(p, bc, inv_h, wa, bl);
-    // Row 2 + 2 i + k of the output is the moment sum w v_i x_k.
-    float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    float ex[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int ox = 0; ox < 3; ++ox)
-      for (int oy = 0; oy < 3; ++oy) {
-        if (!in_window(bl[0] + ox, bl[1] + oy)) continue;
-        const int n = (bl[0] + ox) * WSH + bl[1] + oy;
-        float x[2];
-        node_pos2(n, bc, h, x);
-        const float w = wa[0][ox] * wa[1][oy];
-        const float wc = (!gated || compat(s_naff[n], paff)) ? w : 0.0f;
-        const float* v = &s_v[2 * n];
-        for (int a = 0; a < 2; ++a) {
-          acc[a] = acc[a] + wc * v[a];
-          for (int k = 0; k < 2; ++k)
-            acc[2 + 2 * a + k] = acc[2 + 2 * a + k] + wc * (v[a] * x[k]);
-        }
-        if (!gated || nc == 0) continue;
-        const float wi = w - wc;
-        float g[2] = {vp[0], vp[1]};
-        if (s_cl[n] >= 0.0f) ghost_velocity2(vp, &s_bv[2 * n], nrm, g);
-        for (int a = 0; a < 2; ++a) {
-          const float wg = wi * g[a];
-          ex[a] = ex[a] + wg;
-          for (int k = 0; k < 2; ++k) ex[2 + 2 * a + k] = ex[2 + 2 * a + k] + wg * x[k];
-        }
-      }
-    const bool extra = gated && nc > 0;
-    for (int r = 0; r < 6; ++r)
-      out[r * ostride + lane] = extra ? acc[r] + ex[r] : acc[r];
-  }
+  if (gated)
+    g2p2d_walk<true>(pdata, pstride, start, len, bc, h, inv_h, s_v, s_naff, s_cl,
+                     s_bv, out, ostride);
+  else
+    g2p2d_walk<false>(pdata, pstride, start, len, bc, h, inv_h, s_v, s_naff, s_cl,
+                      s_bv, out, ostride);
+  // No dead slot (every slot live, or the table overflowed): every block
+  // stripes the lanes past the last job.
+  if (lens[maxj - 1] > 0)
+    zero_tail((long long)jt[maxj - 1] + lens[maxj - 1], j, maxj, out, ostride);
 }
 
 extern "C" int g2p2d_cuda(const float* pdata, long long pstride,

@@ -160,3 +160,22 @@ __device__ void stencil_axes2(const float p[2], const int bc[2], float inv_h,
 __device__ __forceinline__ bool in_window(int wx, int wy) {
   return wx >= 0 && wx < WSH && wy >= 0 && wy < WSH;
 }
+
+// The stencil per axis (kernel I; the 2D twin of transfer.cuh
+// stencil_axis_nodes, held against R.stencil by
+// tests/test_torch_lists_order.py): offset o of axis a lies in the window
+// when (unsigned)(bl[a] + o) < WSH, at node coordinate xa[a][o] =
+// ((float)(bl[a] + o) + (float)bc[a]) * h, node_pos2's bits.  Node (ox, oy)
+// lies in the window when both offsets do; its index is (bl[0] + ox) * WSH
+// + bl[1] + oy, with no division and no 9-node array.
+__device__ __forceinline__ void stencil_axis_nodes2(const int bl[2], const int bc[2],
+                                                    float h, bool ok[2][3],
+                                                    float xa[2][3]) {
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int o = 0; o < 3; ++o) {
+      ok[a][o] = (unsigned)(bl[a] + o) < (unsigned)WSH;
+      xa[a][o] = ((float)(bl[a] + o) + (float)bc[a]) * h;
+    }
+}

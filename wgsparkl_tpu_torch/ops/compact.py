@@ -15,7 +15,10 @@ from wgsparkl_tpu_torch import _cuda
 from wgsparkl_tpu_torch.ops.rows import check_kernel_args
 
 PAD = float(2 ** 24)
-CHUNK = 1024   # lanes per block of the CUDA kernel
+TILE = 16384   # lanes a tile of the CUDA kernel (csrc/compact.cu TILE)
+# Zeroed scratch of the CUDA kernel by (device, stream): a ticket, a done
+# counter and one status word a tile.  The kernel leaves it zeroed again.
+_SCRATCH = {}
 
 
 def compact_plain(vals, flag, cap: int):
@@ -26,6 +29,16 @@ def compact_plain(vals, flag, cap: int):
     out[:r, :k] = vals[:, idx[:k]]
     out[r, :k] = idx[:k].to(torch.float32)
     return out, torch.as_tensor(idx.shape[0] <= cap, device=vals.device)
+
+
+def _scratch(dev, ntiles: int):
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.shape[0] < 2 + ntiles:
+        # Grown by doubling; allocated zeroed once, outside the steady state.
+        size = max(2 + ntiles, 2 * (0 if buf is None else buf.shape[0]))
+        buf = _SCRATCH[key] = torch.zeros(size, dtype=torch.int32, device=dev)
+    return buf
 
 
 def compact_flagged(vals, flag, cap: int):
@@ -40,14 +53,14 @@ def compact_flagged(vals, flag, cap: int):
     flag = flag.to(torch.bool).contiguous()
     check_kernel_args(vals, flag)
     r, n = vals.shape
-    ng = -(-n // CHUNK)
+    if flag.shape != (n,) or cap < 0 or n >= 2 ** 30:
+        raise ValueError(f"compact_flagged: flag [{n}] and 0 <= cap, N < 2^30 "
+                         f"(got flag {tuple(flag.shape)}, cap {cap})")
     dev = vals.device
-    counts = torch.empty(ng, dtype=torch.int32, device=dev)
-    offs = torch.empty(ng, dtype=torch.int32, device=dev)
-    out = torch.full((r + 1, cap), PAD, dtype=torch.float32, device=dev)
+    out = torch.empty((r + 1, cap), dtype=torch.float32, device=dev)
     ok = torch.empty((), dtype=torch.bool, device=dev)
-    _cuda.launch("compact", "compact_flagged_cuda", "ppiiipppp",
-                 vals, flag, r, n, cap, counts, offs, out, ok)
+    _cuda.launch("compact", "compact_flagged_cuda", "ppiiippp",
+                 vals, flag, r, n, cap, _scratch(dev, -(-n // TILE)), out, ok)
     compact_flagged.launches += 1
     return out, ok
 

@@ -19,7 +19,9 @@ only, and they read no node tile: the collider-free substep passes one zero
 hold raw momentum and mass, and the grid update (rows.fold_velocity) is
 done on each window node as its tile is read.  The TPU kernels write particle
 rows through a sequential-grid VMEM handoff; here each job writes exactly
-its own lanes [start, start + len) and the rest of the output stays zero.
+its own lanes [start, start + len) and the rest of the output is zero (G's
+wrapper zero-fills it; I writes the zeros itself, from the live jobs
+covering the lanes [0, end) in one run, as build_jobs makes them).
 
 Summation order: a particle's sums over its 3 x 3 stencil nodes run in node
 order (ox slowest), a window node's sums over particles in particle order,
@@ -347,10 +349,13 @@ def g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, jbody,
                          fold_vel)
     maxj = jobs["start"].shape[0]
     _check_tiles("g2p_rows", maxj, nc, chan_free, ntiles, ftiles)
+    if maxj < 1:
+        raise ValueError("g2p_rows: the kernel writes its output from >= 1 job slot")
     shapes = _shapes(nc, alldesc, chan_free)
     jt = job_table(jobs, bcells, jbody)
     R.check_kernel_args(pdata, ftiles, ntiles, btable, jt)
-    out = torch.zeros((8, npad + group + 128), dtype=torch.float32,
+    # The kernel writes every entry: the live jobs' lanes, and 0 past them.
+    out = torch.empty((8, npad + group + 128), dtype=torch.float32,
                       device=pdata.device)
     _cuda.launch("g2p2d", "g2p2d_cuda", "pippppiiiiifffpi", pdata,
                  pdata.shape[1], ftiles, ntiles, btable, jt, maxj, nc, shapes,
