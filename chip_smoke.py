@@ -5,8 +5,8 @@
 Phases (any failure exits non-zero, and no result line is printed):
   1. environment: the card's name and power limit; the CUDA kernels'
      eleven sources are built from wgsparkl_tpu_torch/csrc, one nvcc each,
-     all started together (set-up), and the ptxas reports of kernels I and
-     E printed;
+     all started together (set-up), and the ptxas reports of kernels G, I
+     and E printed;
   2. the 3D main path at full size (sand_box_3d with the paddle, 1,002,001
      particles, 4 x 8 x 4 blocks, 1024 particles per job): one warm frame of
      20 substeps, then timed frames; no job-table overflow in any frame,
@@ -38,7 +38,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      `*_chan_free`; tiles, affinity rows and per-particle rows bit for
      bit); B and I with `fold_vel` on the lowered inputs (`g2p_fold`,
      `g2p2d_fold`) and G, H and I on path 6 lowered into the floor in the
-     chan-free mode (`*2d_chan_free`), bit for bit; H on a substep of the
+     chan-free mode (`*2d_chan_free`), bit for bit, and G on path 6
+     lowered in the dense mode (`pcdf2d_dense`); G on its particle-CDF
+     rows and on the sorted rows it patches in place, as the 2D substep
+     calls it; H on a substep of the
      neo-Hookean path (`p2g2d_neo`) and on the 36-particle-a-cell column
      lowered into its floor (`p2g2d_chunks`), bit for bit; B's main entry
      (`g2p`) bit for bit too; E on eleven edge cases (no flag, every flag,
@@ -133,6 +136,7 @@ REPLACES = {
     "g2p_fold": "wgsparkl_tpu/ops/pallas_transfer.py:987",
     "g2p2d_fold": "wgsparkl_tpu/ops/pallas_transfer2d.py:584",
     "pcdf2d_chan_free": "wgsparkl_tpu/ops/pallas_transfer2d.py:820",
+    "pcdf2d_dense": "wgsparkl_tpu/ops/pallas_transfer2d.py:820",
     "p2g2d_chan_free": "wgsparkl_tpu/ops/pallas_transfer2d.py:402",
     "g2p2d_chan_free": "wgsparkl_tpu/ops/pallas_transfer2d.py:584",
     "p2g2d_neo": "wgsparkl_tpu/ops/pallas_transfer2d.py:402",
@@ -142,7 +146,7 @@ SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_row
           "update_rows2d_neo_hookean": "update_rows", "p2g_cdf_shapes": "p2g_cdf",
           "p2g_cdf_chan_free": "p2g_cdf", "g2p_shapes": "g2p", "g2p_chan_free": "g2p",
           "g2p_fold": "g2p", "g2p2d_fold": "g2p2d", "pcdf2d_chan_free": "pcdf2d",
-          "p2g2d_chan_free": "p2g2d", "g2p2d_chan_free": "g2p2d",
+          "pcdf2d_dense": "pcdf2d", "p2g2d_chan_free": "p2g2d", "g2p2d_chan_free": "g2p2d",
           "p2g2d_neo": "p2g2d", "p2g2d_chunks": "p2g2d"}
 # The rows of the [PCHAN, NPAD] input matrix that kernel C reads (csrc/
 # update_rows.cu, update_kernel and update2d_kernel); it replaces the others
@@ -609,7 +613,8 @@ def main() -> None:
 
     # ---- 1. build ----
     t0 = time.time()
-    ptxas = ptxas_reports(_cuda, {"g2p2d": "g2p2d_kernel", "compact": "compact_kernel"})
+    ptxas = ptxas_reports(_cuda, {"pcdf2d": "pcdf2d_kernel", "g2p2d": "g2p2d_kernel",
+                                  "compact": "compact_kernel"})
     _cuda.build(_cuda.sources())
     for name in _cuda.sources():
         _cuda.load(name)
@@ -665,6 +670,8 @@ def main() -> None:
         counts, _ = run_frames(wt, data, SUBSTEPS2, KERNELS_2D,
                                f"2D stirred column ({mode})", card, kind,
                                TIMED_FRAMES_SHORT, gates=True)
+        if not chan_free:
+            launches["pcdf2d_dense"] = counts["pcdf2d"]
         del data
         torch.cuda.empty_cache()
     launches.update((f"{k}_chan_free", counts[k]) for k in KERNELS_2D[:3])
@@ -789,6 +796,39 @@ def main() -> None:
                      + (njg * 100 * 3 if tiles else 0) + 8 * width),
                 ce * (12 + 9 * 16) + pg * 9 * 37 + (nj * 100 * 8 if fold else 0)
                 + evals * CDF_OPS_2D)
+
+    def pcdf2d_cost(pg, njg, nc, width, npad, tiles=True, evals=0):
+        """Kernel G's (bytes, flops): 4 rows a particle of a gated job
+        (position, affinity), 3 columns of the gated jobs' node tiles (none
+        chan-free), all 8 rows of the output's width and the 4 patched rows
+        of the NPAD particle lanes written; ~9 x (3 nc + 22) + 80 operations
+        a particle of a gated job, CDF_OPS_2D a collider's CDF at a node."""
+        return (4 * (4 * pg + (njg * 100 * 3 if tiles else 0) + 8 * width + 4 * npad),
+                pg * (9 * (3 * nc + 22) + 80) + evals * CDF_OPS_2D)
+
+    def check_pcdf2d(name, args, stats, tiles=True, evals=0):
+        """Kernel G as the 2D substep calls it, patching the sorted rows in
+        place: its particle-CDF rows and the patched rows bit for bit.  A
+        side's first two calls patch fresh copies of args[0]; later calls
+        (the timing) patch the second copy again, the same work."""
+        def in_place(fn):
+            fresh = [args[0].clone(), args[0].clone()]
+            rows = []
+
+            def run():
+                if fresh:
+                    rows[:] = [fresh.pop()]
+                return fn(rows[0], *args[1:]), rows[0]
+            return run
+
+        _, pg, _, njg = stats
+        npad = args[0].shape[1]
+        check(name, in_place(transfer2d.pcdf_rows), in_place(transfer2d.pcdf_plain),
+              lambda k, p: [], lambda k, p: [("rows", k[0], p[0]),
+                                             ("patched rows", k[1], p[1])],
+              lambda p: (None if int((p[0][0] != 0).sum()) > 100
+                         else "few particles near a collider"),
+              cost=pcdf2d_cost(pg, njg, args[8], npad + GROUP2 + 128, npad, tiles, evals))
 
     def job_stats(rec):
         """(covered particles, of them in gated jobs, live jobs, gated live
@@ -992,14 +1032,7 @@ def main() -> None:
           f"{nj} live jobs ({njg} gated), NPAD {npad}", flush=True)
     # G, H and I sum in the plain versions' order: bit for bit.  The dim=2
     # entry of C differs from its plain version only through libm.
-    check("pcdf2d",
-          lambda: transfer2d.pcdf_rows(*args_g),
-          lambda: transfer2d.pcdf_plain(*args_g),
-          lambda k, p: [], lambda k, p: [("rows", k, p)],
-          lambda p: (None if int((p[0] != 0).sum()) > 100
-                     else "few particles near a collider"),
-          cost=(4 * (4 * pg + njg * wv * 3 + 5 * pg),
-                pg * (9 * (3 * nc + 22) + 80)))
+    check_pcdf2d("pcdf2d", args_g, job_stats(rec))
     check("p2g2d",
           lambda: transfer2d.p2g_tiles(*args_h),
           lambda: transfer2d.p2g_plain(*args_h),
@@ -1035,7 +1068,23 @@ def main() -> None:
     del rec, args_g, args_h, args_i, args_c2, data, state
     torch.cuda.empty_cache()
 
-    # ---- 5b'. G, H and I chan-free on path 6 lowered into the floor ----
+    # ---- 5b'. G dense on path 6 lowered into the floor ----
+    data = full_scene_stirred_2d(dev, False, shift=(0.0, -1.5 * H2))
+    cfg = data.config
+    state, diag = step_with_diag(data.state, data.params, cfg, 2)
+    rec = {}
+    step_pallas(state, data.params, cfg, 1, record=rec)
+    torch.cuda.synchronize()
+    if diag.any_overflow() or cfg.chan_free or cfg.static_slots != (0,):
+        fail(f"lowered path 6 (dense): {diag.summary()}, built as {cfg}")
+    args_g = ((rec["rows"], rec["ntiles"], rec["jobs"], rec["bcells"], rec["jbody"],
+               H2, GROUP2, rec["rows"].shape[1], cfg.num_colliders, rec["btable"],
+               rec["alldesc"], False))
+    check_pcdf2d("pcdf2d_dense", args_g, job_stats(rec))
+    del rec, args_g, data, state
+    torch.cuda.empty_cache()
+
+    # ---- 5b''. G, H and I chan-free on path 6 lowered into the floor ----
     data = full_scene_stirred_2d(dev, True, shift=(0.0, -1.5 * H2))
     cfg = data.config
     state, diag = step_with_diag(data.state, data.params, cfg, 2)
@@ -1059,14 +1108,8 @@ def main() -> None:
     print(f"path 6 kernel inputs (chan-free, lowered): {ce} covered particles "
           f"({pg} in gated jobs), {nj} live jobs ({njg} gated), {evals} "
           f"node-collider CDF evaluations a kernel, NPAD {npad}", flush=True)
-    check("pcdf2d_chan_free",
-          lambda: transfer2d.pcdf_rows(*args_g),
-          lambda: transfer2d.pcdf_plain(*args_g),
-          lambda k, p: [], lambda k, p: [("rows", k, p)],
-          lambda p: (None if int((p[0] != 0).sum()) > 100
-                     else "few particles near a collider"),
-          cost=(4 * (4 * pg + 5 * pg),
-                pg * (9 * (3 * nc + 22) + 80) + evals * CDF_OPS_2D))
+    check_pcdf2d("pcdf2d_chan_free", args_g, job_stats(rec), tiles=False,
+                 evals=evals)
     check("p2g2d_chan_free",
           lambda: transfer2d.p2g_tiles(*args_h),
           lambda: transfer2d.p2g_plain(*args_h),

@@ -206,13 +206,70 @@ def _jobs2d(r):
     return (r["jobs"], r["bcells"], r["jbody"], r["cfg"].grid.cell_width)
 
 
-def test_pcdf2d_kernel_matches_plain(rec2d):
+def _nan_empty(monkeypatch):
+    """torch.empty gives NaN-filled float tensors: a kernel that owns its
+    output must write every entry of it."""
+    empty = torch.empty
+
+    def nan_empty(*a, **k):
+        t = empty(*a, **k)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    monkeypatch.setattr(torch, "empty", nan_empty)
+
+
+def _cut_jobs(args, m, tiles):
+    """args with the job table cut to its first m slots: the tiles at the
+    positions `tiles` (chan-free's one dummy node tile uncut), and the jobs
+    dict, block cells and gate levels that follow the last of them (with
+    the body table between them in kernel I's arguments)."""
+    a = list(args)
+    for i in tiles:
+        a[i] = a[i] if a[i].shape[0] == 1 else a[i][:m]
+    at = next(i for i, v in enumerate(a) if isinstance(v, dict))
+    a[at] = {key: v[:m] for key, v in a[at].items()}
+    a[at + 1], a[at + 2] = a[at + 1][:m], a[at + 2][:m]
+    return tuple(a)
+
+
+def _pcdf2d_exact(args, monkeypatch):
+    """Kernel G equal to its plain version bit for bit on the particle-CDF
+    rows and on the particle rows it patches in place (each on a copy of
+    args[0]), on outputs that held NaN; the same bits on a second launch
+    whose rows NX and NY, which G only writes, held NaN; the patched rows
+    equal to the 16 transfer rows with rows AFF, NX, NY, AFF_SPARE copied
+    in from the particle-CDF rows; with the job table as recorded, cut to
+    its live slots (no dead slot) and to two thirds of them (a job-table
+    overflow)."""
+    _nan_empty(monkeypatch)
+    live = int((args[2]["len"] > 0).sum())
+    assert live < args[2]["len"].shape[0]
+    for m in (None, live, live * 2 // 3):
+        a = args if m is None else _cut_jobs(args, m, (1,))
+        outs = []
+        for fn, nan in ((transfer2d.pcdf_rows, False), (transfer2d.pcdf_plain, False),
+                        (transfer2d.pcdf_rows, True)):
+            rows = a[0].clone()
+            if nan:
+                rows[R2.NX:R2.NY + 1] = float("nan")
+            outs.append((fn(rows, *a[1:]), rows))
+        k, p, k2 = outs
+        assert int((p[0][0] != 0).sum()) > 0
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        assert torch.equal(k[0], k2[0]) and torch.equal(k[1], k2[1])
+        npad = a[0].shape[1]
+        ref = a[0].clone()
+        ref[R2.AFF] = p[0][0, :npad]
+        ref[R2.NX:R2.NY + 1] = p[0][2:4, :npad]
+        ref[R2.AFF_SPARE] = p[0][4, :npad]
+        assert torch.equal(p[1], ref)
+
+
+def test_pcdf2d_kernel_matches_plain(rec2d, monkeypatch):
     r, cfg = rec2d, rec2d["cfg"]
     args = ((r["rows"], r["ntiles"]) + _jobs2d(r)
             + (cfg.group, r["rows"].shape[1], cfg.num_colliders))
-    k, p = transfer2d.pcdf_rows(*args), transfer2d.pcdf_plain(*args)
-    assert torch.equal(k, p)
-    assert torch.equal(k, transfer2d.pcdf_rows(*args))
+    _pcdf2d_exact(args, monkeypatch)
 
 
 def test_p2g2d_kernel_matches_plain(rec2d):
@@ -226,25 +283,26 @@ def test_p2g2d_kernel_matches_plain(rec2d):
     assert torch.equal(k[0], k2[0]) and torch.equal(k[1], k2[1])
 
 
-def _g2p2d_exact(args):
+def _g2p2d_exact(args, monkeypatch):
     """Kernel I equal to its plain version and to a second launch on the
-    whole output, with the job table as recorded and cut to two thirds of
-    its live slots (a job-table overflow drops the tail)."""
+    whole output, which held NaN, with the job table as recorded, cut to
+    its live slots (no dead slot) and to two thirds of them (a job-table
+    overflow drops the tail)."""
+    _nan_empty(monkeypatch)
     k = transfer2d.g2p_rows(*args)
     assert torch.equal(k, transfer2d.g2p_plain(*args))
     assert torch.equal(k, transfer2d.g2p_rows(*args))
-    pdata, ftiles, ntiles, btable, jobs, bcells, jbody = args[:7]
-    m = int((jobs["len"] > 0).sum()) * 2 // 3
-    cut = ((pdata, ftiles[:m], ntiles if ntiles.shape[0] == 1 else ntiles[:m], btable,
-            {key: v[:m] for key, v in jobs.items()}, bcells[:m], jbody[:m]) + args[7:])
-    assert torch.equal(transfer2d.g2p_rows(*cut), transfer2d.g2p_plain(*cut))
+    live = int((args[4]["len"] > 0).sum())
+    for m in (live, live * 2 // 3):
+        cut = _cut_jobs(args, m, (1, 2))
+        assert torch.equal(transfer2d.g2p_rows(*cut), transfer2d.g2p_plain(*cut))
 
 
-def test_g2p2d_kernel_matches_plain(rec2d):
+def test_g2p2d_kernel_matches_plain(rec2d, monkeypatch):
     r, cfg = rec2d, rec2d["cfg"]
     args = ((r["pdata"], r["ftiles"], r["ntiles"], r["btable"]) + _jobs2d(r)
             + (cfg.group, r["rows"].shape[1], cfg.num_colliders))
-    _g2p2d_exact(args)
+    _g2p2d_exact(args, monkeypatch)
 
 
 def test_update_rows2d_kernel_matches_plain(rec2d):
@@ -386,7 +444,7 @@ def rec_fold(request):
     return r
 
 
-def test_fold_kernels_match_plain(rec_fold):
+def test_fold_kernels_match_plain(rec_fold, monkeypatch):
     """B (3D) or I (2D) with the grid update folded in: bit for bit."""
     r, cfg = rec_fold, rec_fold["cfg"]
     assert r["fold_vel"]
@@ -398,7 +456,7 @@ def test_fold_kernels_match_plain(rec_fold):
     else:
         args = ((r["pdata"], r["ftiles"], r["ntiles"], r["btable"]) + _jobs2d(r)
                 + (cfg.group, r["rows"].shape[1], cfg.num_colliders, (), False, True))
-        _g2p2d_exact(args)
+        _g2p2d_exact(args, monkeypatch)
 
 
 @pytest.fixture(scope="module")
@@ -425,7 +483,7 @@ def rec2d_chan_free():
     return r
 
 
-def test_chan_free_2d_kernels_match_plain(rec2d_chan_free):
+def test_chan_free_2d_kernels_match_plain(rec2d_chan_free, monkeypatch):
     """G, H and I evaluating every collider at the window nodes of the
     gated jobs: bit for bit."""
     r, cfg = rec2d_chan_free, rec2d_chan_free["cfg"]
@@ -434,14 +492,14 @@ def test_chan_free_2d_kernels_match_plain(rec2d_chan_free):
     npad, nc = r["rows"].shape[1], cfg.num_colliders
     args = (r["rows"], r["ntiles"]) + _jobs2d(r) + (cfg.group, npad, nc,
                                                     r["btable"]) + mode
-    assert torch.equal(transfer2d.pcdf_rows(*args), transfer2d.pcdf_plain(*args))
+    _pcdf2d_exact(args, monkeypatch)
     args = (r["pdata"], r["ntiles"], r["btable"]) + _jobs2d(r) + (nc,) + mode
     k, p = transfer2d.p2g_tiles(*args), transfer2d.p2g_plain(*args)
     assert float(p[1].abs().max()) > 0.0
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     args = ((r["pdata"], r["ftiles"], r["ntiles"], r["btable"]) + _jobs2d(r)
             + (cfg.group, npad, nc) + mode)
-    _g2p2d_exact(args)
+    _g2p2d_exact(args, monkeypatch)
 
 
 @pytest.fixture(scope="module")

@@ -1,24 +1,29 @@
-"""Trial builds of kernels B (csrc/g2p.cu), H (csrc/p2g2d.cu), I
-(csrc/g2p2d.cu) and E (csrc/compact.cu) on one GPU, and E and I against a
-parent tree's.
+"""Trial builds of kernels B (csrc/g2p.cu), H (csrc/p2g2d.cu), G
+(csrc/pcdf2d.cu), I (csrc/g2p2d.cu) and E (csrc/compact.cu) on one GPU,
+and G and I against a parent tree's.
 
     python3 tools/torch_kernel_variants.py [--parent ROOT]
 
 Each variant is a text edit of the kernel's source as it stands, built with
 `_cuda.NVCC_FLAGS` plus `-Xptxas -v` into `wgsparkl_tpu_torch/_build/variants/`
 (one nvcc per variant, all started together); with --parent, ROOT's
-csrc/compact.cu and csrc/g2p2d.cu (another checkout of the repository,
-e.g. the parent commit unpacked with `git archive`) are built the same way
-as the variant `parent`.  For each it prints the
+csrc/pcdf2d.cu and csrc/g2p2d.cu (another checkout of the repository, e.g.
+the parent commit unpacked with `git archive`, with the entries of this
+one's parent) are built the same way as the variant `parent`.  For each it prints the
 ptxas report of the kernel (registers, stack frame, spill stores and
 loads, shared memory), its resident blocks an SM from
 cudaOccupancyMaxActiveBlocksPerMultiprocessor, and then, in three rounds
 that take the variants in turn, forward and then backward (parent,
 change, change, parent), the device ms a raw launch of the C entry (CUDA
-events around 20 back-to-back launches; a parent's output fill, which its
-wrapper issued as a launch of its own, is timed beside it as
-`parent+fill`) and the host microseconds a call; and whether its output
-equals the kernel's as it stands bit for bit.
+events around 20 back-to-back launches; G's parent is timed beside it
+with what its callers issued around it as launches of their own, the
+output's zero fill before it and the 2D substep's clone of the 16
+transfer rows and its three row copies after it, as `parent+glue`) and
+the host microseconds a call, for G also the device time of its kernels
+a call under torch.profiler (the parent's glue is host-bound between
+CUDA events); and whether its output equals the kernel's as it stands
+bit for bit (G's: its particle-CDF rows and the rows it patches; the
+parent's G patches none: its particle-CDF rows).
 
 Variants of B (256 threads a block):
   as_is        the source as it stands: __launch_bounds__(256), every
@@ -33,6 +38,17 @@ Variants of H (128 threads a block):
                carveout
   max_carveout the largest shared-memory carveout requested before every
                launch
+Variants of G (256 threads a block):
+  as_is        the source as it stands: one block a job slot, the whole
+               output written and the sorted rows patched in place (each
+               variant on its own copy of them)
+  min_blocks_6 __launch_bounds__(256, 6): registers capped for six blocks
+  no_job_zeros an ungated job writes nothing (a measurement of what its
+               zeros cost: its lanes differ)
+  threads_128  blocks of 128 threads
+  parent       ROOT's kernel (with --parent): it writes only the gated
+               jobs' lanes, so `parent+glue` zeroes the output first and
+               then clones and patches the rows as the parent's substep did
 Variants of I (256 threads a block):
   as_is        the source as it stands: one block a job slot
   min_blocks_4 __launch_bounds__(256, 4): registers capped for four blocks
@@ -41,16 +57,13 @@ Variants of I (256 threads a block):
                rows differ)
   no_chan_free the chan-free node CDF left out (a measurement of its
                registers; on these gathered-mode inputs the rows agree)
-  parent       ROOT's kernel (with --parent); it writes only the live
-               jobs' lanes, so `parent+fill` zeroes the output first
+  parent       ROOT's kernel (with --parent)
 Variants of E:
   as_is        the source as it stands: one launch, tiles of 16384 lanes
                (512 threads of 32 flags)
   tile_8k      tiles of 8192 lanes (256 threads of 32 flags): twice the
                tiles, so twice the look-back rounds
   tile_4k      tiles of 4096 lanes (256 threads of 16 flags)
-  parent       ROOT's three launches (with --parent); `parent+fill` adds
-               the 2^24 fill of the output
 
 Inputs, from chip_smoke.py's scenes at full size: B on a substep of the 3D
 main path lowered 3 cells onto its paddle (the `g2p` entry's); H on a
@@ -58,7 +71,9 @@ substep of the 2D column lowered 1.5 cells into its floor (the `p2g2d`
 entry's) and on a substep of the 2D neo-Hookean path (`p2g2d_neo`); I on
 the same 2D column substep (`g2p2d`), again with its job table cut to the
 live slots (no dead slot: what the ~maxj - live idle blocks cost), and on
-the neo-Hookean substep; E on the 3D main path's and the 2D column's
+the neo-Hookean substep; G on the same column and neo-Hookean substeps and
+on a substep of path 6 lowered into the floor in the chan-free mode (the
+`pcdf2d` and `pcdf2d_chan_free` entries'); E on the 3D main path's and the 2D column's
 block-boundary compaction (`build_jobs`' call).
 Prints the card's name and power limit first.  Fails without a CUDA
 device.
@@ -123,6 +138,15 @@ VARIANTS = {
                            "  if (false)\n    g2p2d_walk<true>")]),
         ("no_chan_free", [("    if (chan_free) {", "    if (false) {")]),
     ]),
+    "pcdf2d": ("pcdf2d_kernel", 256, [
+        ("as_is", []),
+        ("min_blocks_6", [("__launch_bounds__(NTHREADS) pcdf2d_kernel(",
+                           "__launch_bounds__(NTHREADS, 6) pcdf2d_kernel(")]),
+        ("no_job_zeros", [("    zero_job(out, ostride, pdata, pstride, start, len);\n",
+                           "")]),
+        ("threads_128", [('#include "transfer2d.cuh"\n', '#include "transfer2d.cuh"\n'
+                          "#undef NTHREADS\n#define NTHREADS 128\n")]),
+    ]),
     "compact": ("compact_kernel", 512, [
         ("as_is", []),
         ("tile_8k", [("#define THREADS 512\n", "#define THREADS 256\n")]),
@@ -131,11 +155,27 @@ VARIANTS = {
     ]),
 }
 # Variants whose blocks have other than their kernel's threads.
-THREADS_OF = {("compact", "tile_8k"): 256, ("compact", "tile_4k"): 256}
+THREADS_OF = {("compact", "tile_8k"): 256, ("compact", "tile_4k"): 256,
+              ("pcdf2d", "threads_128"): 128}
+
+
+def parent_patch(call, out):
+    """What the parent's 2D substep did after kernel G: clone the 16
+    transfer rows of the sorted rows and copy rows AFF, NX..NY and
+    AFF_SPARE in from G's output."""
+    rows = call["args"][0]
+    npad = rows.shape[1]
+    pdata = rows[:16].clone()
+    pdata[9] = out[0, :npad]
+    pdata[10:12] = out[2:4, :npad]
+    pdata[12] = out[4, :npad]
+
+
 # Kernels timed against a parent tree's (--parent): the parent's kernel
-# entry, and how its wrapper filled the output before the launch.
-PARENT = {"g2p2d": ("g2p2d_kernel", lambda out: out.zero_()),
-          "compact": ("scatter_kernel", lambda out: out.fill_(2.0 ** 24))}
+# entry, and what its callers issued around it (the output's fill before
+# the launch, the work on the output after it), or None.
+PARENT = {"g2p2d": ("g2p2d_kernel", None),
+          "pcdf2d": ("pcdf2d_kernel", (lambda out: out.zero_(), parent_patch))}
 
 
 def variant_source(src: str, kernel: str, edits) -> str:
@@ -153,7 +193,7 @@ def variant_source(src: str, kernel: str, edits) -> str:
 
 def build_all(_cuda, parent=None):
     """Build every variant, and with `parent` (a repository root) that
-    tree's E and I as the variant `parent`; {(name, variant): (library
+    tree's G and I as the variant `parent`; {(name, variant): (library
     path, ptxas lines)}."""
     out_dir = _cuda._BUILD / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -186,18 +226,6 @@ def build_all(_cuda, parent=None):
     return built
 
 
-def parent_call(got, name):
-    """The parent tree's entry call for the new entry's captured call:
-    kernel E's took per-chunk count and offset scratch (chunks of 1024
-    lanes) where the new one takes its status words; I's is the same."""
-    if name != "compact":
-        return got
-    a = list(got["args"])
-    ng = -(-int(a[3]) // 1024)
-    scratch = [torch.empty(ng, dtype=torch.int32, device=a[0].device) for _ in range(2)]
-    return dict(symbol=got["symbol"], sig="ppiiipppp", args=a[:5] + scratch + a[6:])
-
-
 def ptxas_lines(err: str, kernel: str):
     """The ptxas report of the entry function `kernel`."""
     lines, keep = [], False
@@ -209,9 +237,9 @@ def ptxas_lines(err: str, kernel: str):
     return lines
 
 
-def capture(_cuda, fn, *args):
-    """Run the wrapper fn(*args) once and return the (symbol, sig, args)
-    it handed to _cuda.launch."""
+def capture(_cuda, fn, *args, **kwargs):
+    """Run the wrapper fn(*args, **kwargs) once and return the (symbol,
+    sig, args) it handed to _cuda.launch."""
     got = {}
     real = _cuda.launch
 
@@ -221,23 +249,26 @@ def capture(_cuda, fn, *args):
 
     _cuda.launch = grab
     try:
-        fn(*args)
+        fn(*args, **kwargs)
     finally:
         _cuda.launch = real
     torch.cuda.synchronize()
     return got
 
 
-def caller(_cuda, lib, got, outputs):
+def caller(_cuda, lib, got, outputs, in_place=()):
     """A no-argument launcher of got's entry in lib on fresh zeroed output
-    tensors (positions `outputs` of got's arguments); returns (launch,
-    outputs)."""
+    tensors (positions `outputs` of got's arguments) and fresh copies of
+    the tensors it writes in place (positions `in_place`); returns (launch,
+    those tensors)."""
     f = getattr(lib, got["symbol"])
     f.argtypes = [_cuda._CT[c] for c in got["sig"]] + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     args = list(got["args"])
     for i in outputs:
         args[i] = torch.zeros_like(args[i])
+    for i in in_place:
+        args[i] = args[i].clone()
     conv = []
     for c, a in zip(got["sig"], args):
         conv.append(ctypes.c_void_p(a.data_ptr()) if c == "p"
@@ -250,7 +281,7 @@ def caller(_cuda, lib, got, outputs):
         if err != 0:
             raise RuntimeError(f"{got['symbol']} failed with error {err}")
 
-    return launch, [args[i] for i in outputs]
+    return launch, [args[i] for i in list(outputs) + list(in_place)]
 
 
 def timed(launch, reps: int = 20):
@@ -269,6 +300,23 @@ def timed(launch, reps: int = 20):
     return t0.elapsed_time(t1) / reps, 1e6 * (h1 - h0) / reps
 
 
+def kernel_ms(call, reps: int = 20):
+    """(device ms of the kernels a call, kernels a call) over reps calls
+    under torch.profiler: the sum of the device events' own times, with
+    no idle time between them, for calls whose host work outlasts them."""
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA],
+                                acc_events=True) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    return us / 1e3 / reps, sum(e.count for e in events) / reps
+
+
 def recorded(step_pallas, step_with_diag, data, warm, shift):
     """The record of one substep after `warm` substeps, the lattice moved
     by `shift` first."""
@@ -285,7 +333,7 @@ def recorded(step_pallas, step_with_diag, data, warm, shift):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", help="root of another checkout whose E and I "
+    ap.add_argument("--parent", help="root of another checkout whose G and I "
                     "are timed against these")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -316,6 +364,13 @@ def main() -> None:
         inputs.append(("compact", what, got, [len(got["args"]) - 2,
                                               len(got["args"]) - 1]))
 
+    def add_pcdf(what, rec, cfg, mode=()):
+        args_g = ((rec["rows"], rec["ntiles"], rec["jobs"], rec["bcells"],
+                   rec["jbody"], cfg.grid.cell_width, cfg.group, rec["rows"].shape[1],
+                   cfg.num_colliders) + mode)
+        got = capture(_cuda, transfer2d.pcdf_rows, rec["rows"].clone(), *args_g[1:])
+        inputs.append(("pcdf2d", what, got, [12]))
+
     data = chip_smoke.full_scene(dev)
     rec = recorded(step_pallas, step_with_diag, data, 2, (0.0, -3.0, 0.0))
     cfg = data.config
@@ -339,6 +394,7 @@ def main() -> None:
         got = capture(_cuda, transfer2d.p2g_tiles, *args_h)
         n = len(got["args"])
         inputs.append(("p2g2d", what, got, [n - 2, n - 1]))
+        add_pcdf(what, rec, cfg)
         args_i = ((rec["pdata"], rec["ftiles"], rec["ntiles"], rec["btable"])
                   + args_h[3:7] + (cfg.group, rec["rows"].shape[1],
                                    cfg.num_colliders))
@@ -355,6 +411,11 @@ def main() -> None:
             inputs.append(("g2p2d", f"{what}, live slots only ({live})", got,
                            [len(got["args"]) - 2]))
         del data, rec
+    data = chip_smoke.full_scene_stirred_2d(dev, True)
+    rec = recorded(step_pallas, step_with_diag, data, 2, (0.0, -1.5 * chip_smoke.H2))
+    add_pcdf("path 6 chan-free, lowered", rec, data.config,
+             (rec["btable"], rec["alldesc"], True))
+    del data, rec
     torch.cuda.empty_cache()
 
     for name, what, got, outputs in inputs:
@@ -366,7 +427,7 @@ def main() -> None:
         for var in names:
             lib_path, report = built[(name, var)]
             lib = ctypes.CDLL(str(lib_path))
-            call = parent_call(got, name) if var == "parent" else got
+            call = got
             if name == "compact" and var != "parent":
                 # Status words for the smallest tile (4096 lanes), zeroed.
                 a = call["args"]
@@ -374,9 +435,12 @@ def main() -> None:
                     2 + -(-int(a[3]) // 4096), dtype=torch.int32, device=dev),) + a[6:])
             outs_at = ([len(call["args"]) - 2, len(call["args"]) - 1]
                        if name == "compact" else outputs)
-            launch, outs = caller(_cuda, lib, call, outs_at)
-            if var == "parent":
-                PARENT[name][1](outs[0])
+            # G patches the sorted rows in place (the parent's G only reads
+            # them).
+            in_place = [0] if name == "pcdf2d" and var != "parent" else []
+            launch, outs = caller(_cuda, lib, call, outs_at, in_place)
+            if var == "parent" and PARENT[name][1]:
+                PARENT[name][1][0](outs[0])
             launch()
             torch.cuda.synchronize()
             runs[var] = (launch, outs, lib, report)
@@ -389,16 +453,22 @@ def main() -> None:
             blocks = lib.variant_blocks_per_sm(nt)
             print(f"{name} {var}: {'; '.join(report)}; {blocks} blocks of "
                   f"{nt} an SM; output equal to as_is: {same}", flush=True)
-        if "parent" in runs:
+        if "parent" in runs and PARENT[name][1]:
             launch, outs = runs["parent"][:2]
-            runs["parent+fill"] = (lambda launch=launch, out=outs[0], fill=PARENT[name][1]:
-                                   (fill(out), launch()), *runs["parent"][1:])
+            fill, after = PARENT[name][1]
+            runs["parent+glue"] = (
+                lambda launch=launch, out=outs[0], fill=fill, after=after:
+                (fill(out), launch(), after(got, out)), *runs["parent"][1:])
         order = list(runs)
         for rnd in range(3):
             for var in order + order[::-1]:
                 ms, host_us = timed(runs[var][0])
                 print(f"{name} {var} round {rnd}: {ms:.4f} ms device a launch, "
                       f"{host_us:.1f} us host a call", flush=True)
+                if "parent+glue" in runs:
+                    kms, nk = kernel_ms(runs[var][0])
+                    print(f"{name} {var} round {rnd}: {kms:.4f} ms of kernels a "
+                          f"call ({nk:.1f} kernels, profiler)", flush=True)
     print(f"card: {card}", flush=True)
 
 

@@ -19,10 +19,10 @@ the same chan-free), runs one warm frame and chip_smoke.TIMED_FRAMES (3)
 unprofiled frames (host clock around synchronised frames), then one frame
 under torch.profiler.  Prints the frame wall times, the device time of the
 profiled frame, the device's idle share against the median unprofiled
-frame, the device launches (kernels, copies, fills) a substep, and the
+frame, the device launches (kernels, copies, fills) a substep, the
 kernels by device time per substep: the 40 largest and every hand-written
-one.  Fails without a CUDA
-device.
+one, and on a 2D path kernel G's device ms a substep and a launch.  Fails
+without a CUDA device, and on a 2D path where G did not launch.
 """
 
 from __future__ import annotations
@@ -121,6 +121,13 @@ def main() -> None:
     own = [r for r in rows[40:] if "::" not in r[2] and not r[2].startswith("Mem")]
     for ms, count, key in rows[:40] + own:
         print(f"  {ms / substeps:8.4f}  {count / substeps:6.1f}  {key[:110]}")
+    if args.path.startswith("2d"):
+        g = [r for r in rows if "pcdf2d_kernel" in r[2]]
+        if not g:
+            sys.exit("FAIL: kernel G (pcdf2d_kernel) did not launch")
+        ms, count = sum(r[0] for r in g), sum(r[1] for r in g)
+        print(f"kernel G (pcdf2d_kernel): {ms / substeps:.4f} ms a substep, "
+              f"{count / substeps:.1f} launches a substep, {ms / count:.4f} ms a launch")
 
 
 if __name__ == "__main__":

@@ -32,18 +32,10 @@
 // rows, tests no compatibility and keeps no ghost sums.  One kernel has one
 // register count, and the gated walk's sets it for every job (PERF.md §7).
 // The kernel owns its whole output (the wrapper allocates it with
-// torch.empty): the live job slots are [0, L) (len > 0 exactly there) and
-// their particles cover the lanes [0, end), end = start + len of slot L - 1,
-// in one run (ops/blocked.py build_jobs: a job starts where the one before
-// it ended, the first at rank 0, and a job-table overflow drops a tail of
-// slots).  Each live block writes its lanes' 8 rows; the blocks of the
-// first DEAD_PARTS dead slots find L (one warp reads the 31 slots before
-// theirs) and stripe 0 over the lanes [end, width), and the other dead
-// slots' blocks return after one load; with no dead slot every block
-// stripes that tail after its job.
+// torch.empty): each live block writes its lanes' 8 rows, and the lanes
+// past the live jobs get 0 in stripes (transfer2d.cuh tail_share: the
+// first DEAD_PARTS dead slots' blocks, or with no dead slot every block).
 #include "transfer2d.cuh"
-
-#define DEAD_PARTS 32   // dead job slots that stripe the zero tail
 
 template <bool GATED>
 __device__ __forceinline__ void g2p2d_walk(
@@ -111,15 +103,6 @@ __device__ __forceinline__ void g2p2d_walk(
   }
 }
 
-// Zero on the lanes [end + part * NTHREADS, width), every parts * NTHREADS.
-__device__ __forceinline__ void zero_tail(long long end, int part, int parts,
-                                          float* __restrict__ out, long long ostride) {
-  for (long long lane = end + (long long)part * NTHREADS + threadIdx.x; lane < ostride;
-       lane += (long long)parts * NTHREADS)
-#pragma unroll
-    for (int r = 0; r < 8; ++r) out[r * ostride + lane] = 0.0f;
-}
-
 __global__ void __launch_bounds__(NTHREADS) g2p2d_kernel(
     const float* __restrict__ pdata, long long pstride,
     const float* __restrict__ ftiles, const float* __restrict__ ntiles,
@@ -130,37 +113,17 @@ __global__ void __launch_bounds__(NTHREADS) g2p2d_kernel(
   __shared__ float s_bv[WVOL * 2];
   __shared__ uint32_t s_naff[WVOL];
   __shared__ float s_cl[WVOL];
-  __shared__ int s_live;
   const int j = blockIdx.x, tid = threadIdx.x;
   const int* lens = jt + maxj;
   // Every job-table entry at once: one load latency.
   const int len = lens[j], start = jt[j], lvl = jt[5 * maxj + j];
   const int bc[2] = {jt[2 * maxj + j], jt[3 * maxj + j]};
+  long long end;
+  int part, parts;
   if (len == 0) {
-    // A dead slot: the first DEAD_PARTS of them stripe the tail, the rest
-    // return.  Then L, the first dead slot, lies in [j - DEAD_PARTS + 1, j].
-    if (j >= DEAD_PARTS && lens[j - DEAD_PARTS] == 0) return;
-    if (tid < 32) {
-      int lo = max(j - DEAD_PARTS + 1, 0), hi = j;
-      while (lo < hi) {
-        const int step = (hi - lo + 30) / 31;     // lane 31 reaches hi
-        const int k = lo + tid * step;
-        const unsigned dead = __ballot_sync(0xFFFFFFFFu, k >= hi || lens[k] == 0);
-        const int f = __ffs(dead) - 1;
-        if (f == 0) {
-          hi = lo;
-        } else {
-          const int nlo = lo + (f - 1) * step + 1;
-          hi = min(lo + f * step, hi);
-          lo = nlo;
-        }
-      }
-      if (tid == 0) s_live = lo;
-    }
-    __syncthreads();
-    const int live = s_live;
-    const long long end = live > 0 ? (long long)jt[live - 1] + lens[live - 1] : 0;
-    zero_tail(end, j - live, min(maxj - live, DEAD_PARTS), out, ostride);
+    if (tail_share(jt, maxj, j, len, &end, &part, &parts))
+      zero_tail(out, ostride, 0, 8, end, ostride, part * NTHREADS + tid,
+                parts * NTHREADS);
     return;
   }
   const bool gated = lvl > 0 && nc > 0;
@@ -196,8 +159,9 @@ __global__ void __launch_bounds__(NTHREADS) g2p2d_kernel(
                       s_bv, out, ostride);
   // No dead slot (every slot live, or the table overflowed): every block
   // stripes the lanes past the last job.
-  if (lens[maxj - 1] > 0)
-    zero_tail((long long)jt[maxj - 1] + lens[maxj - 1], j, maxj, out, ostride);
+  if (tail_share(jt, maxj, j, len, &end, &part, &parts))
+    zero_tail(out, ostride, 0, 8, end, ostride, part * NTHREADS + tid,
+              parts * NTHREADS);
 }
 
 extern "C" int g2p2d_cuda(const float* pdata, long long pstride,

@@ -179,3 +179,112 @@ __device__ __forceinline__ void stencil_axis_nodes2(const int bl[2], const int b
       xa[a][o] = ((float)(bl[a] + o) + (float)bc[a]) * h;
     }
 }
+
+// ---- The zero tail of a 2D kernel that owns its output (kernels G and I).
+// The live job slots are [0, L) (len > 0 exactly there) and their particles
+// cover the lanes [0, end), end = start + len of slot L - 1, in one run
+// (ops/blocked.py build_jobs: a job starts where the one before it ended,
+// the first at rank 0, and a job-table overflow drops a tail of slots;
+// tests/test_torch_g2p2d_gates.py holds this).  The lanes past end are
+// zeroed in stripes: by the blocks of the first DEAD_PARTS dead slots (the
+// other dead slots' blocks return after one load), or, with no dead slot,
+// by every block after its job.
+#define DEAD_PARTS 32   // dead job slots that stripe the zero tail
+
+// Job slot j's (of length len) stripe of the tail: sets end and (part,
+// parts), the stripe part of parts, and returns false when its block zeroes
+// nothing.  A dead slot's block finds L with one warp ballot over the 31
+// slots before its own and ends in a barrier, so every thread of the block
+// calls this.
+__device__ __forceinline__ bool tail_share(const int* __restrict__ jt, int maxj,
+                                           int j, int len, long long* end,
+                                           int* part, int* parts) {
+  __shared__ int s_live;
+  const int* lens = jt + maxj;
+  if (len > 0) {
+    if (lens[maxj - 1] == 0) return false;
+    *end = (long long)jt[maxj - 1] + lens[maxj - 1];
+    *part = j;
+    *parts = maxj;
+    return true;
+  }
+  // Past the first DEAD_PARTS dead slots; else L lies in
+  // [j - DEAD_PARTS + 1, j].
+  if (j >= DEAD_PARTS && lens[j - DEAD_PARTS] == 0) return false;
+  const int tid = threadIdx.x;
+  if (tid < 32) {
+    int lo = max(j - DEAD_PARTS + 1, 0), hi = j;
+    while (lo < hi) {
+      const int step = (hi - lo + 30) / 31;     // lane 31 reaches hi
+      const int k = lo + tid * step;
+      const unsigned dead = __ballot_sync(0xFFFFFFFFu, k >= hi || lens[k] == 0);
+      const int f = __ffs(dead) - 1;
+      if (f == 0) {
+        hi = lo;
+      } else {
+        const int nlo = lo + (f - 1) * step + 1;
+        hi = min(lo + f * step, hi);
+        lo = nlo;
+      }
+    }
+    if (tid == 0) s_live = lo;
+  }
+  __syncthreads();
+  const int live = s_live;
+  *end = live > 0 ? (long long)jt[live - 1] + lens[live - 1] : 0;
+  *part = j - live;
+  *parts = min(maxj - live, DEAD_PARTS);
+  return true;
+}
+
+// Zero rows [r0, r0 + nr) of a [., stride] matrix on the lanes [a, b), lane
+// by lane, thread t of nt taking every nt-th lane: the tail past the live
+// jobs (a few thousand lanes, striped over many blocks).
+__device__ __forceinline__ void zero_tail(float* base, long long stride, int r0, int nr,
+                                          long long a, long long b, int t, int nt) {
+  for (long long lane = a + t; lane < b; lane += nt)
+#pragma unroll
+    for (int r = 0; r < nr; ++r) base[(r0 + r) * stride + lane] = 0.0f;
+}
+
+// Thread t of nt's first item (r, i) of an nr x n run of items, row by
+// row, and its step (dr, di) to its next one: the divisions happen once.
+__device__ __forceinline__ void run_start(int t, int nt, int n, int* r, int* i,
+                                          int* dr, int* di) {
+  *r = t / n;
+  *i = t - *r * n;
+  *dr = nt / n;
+  *di = nt - *dr * n;
+}
+
+__device__ __forceinline__ void run_next(int n, int dr, int di, int* r, int* i) {
+  *r += dr;
+  *i += di;
+  if (*i >= n) {
+    *i -= n;
+    *r += 1;
+  }
+}
+
+// Zero the lanes [a, b) of rows [r0, r0 + nr) of a [., stride] matrix, all
+// rows as one run of stores, thread t of nt taking every nt-th: 16-byte
+// stores on the lanes whose address is 16-byte aligned (the same lanes in
+// every row when stride is a multiple of 4), 4-byte ones on the at most 3
+// lanes before and after them (on every lane when stride is not).
+__device__ __forceinline__ void zero_rows(float* base, long long stride, int r0, int nr,
+                                          long long a, long long b, int t, int nt) {
+  if (a >= b) return;
+  float* first = base + r0 * stride + a;
+  const int n = (int)(b - a);
+  const int head = (stride & 3) ? n
+      : min(n, (int)(((16u - (unsigned)((uintptr_t)first & 15u)) & 15u) >> 2));
+  const int nq = (n - head) >> 2, ne = n - 4 * nq;   // quads, 4-byte lanes a row
+  int r, i, dr, di;
+  if (nq > 0)
+    for (run_start(t, nt, nq, &r, &i, &dr, &di); r < nr; run_next(nq, dr, di, &r, &i))
+      reinterpret_cast<float4*>(first + r * stride + head)[i] =
+          make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (ne > 0)
+    for (run_start(t, nt, ne, &r, &i, &dr, &di); r < nr; run_next(ne, dr, di, &r, &i))
+      first[r * stride + (i < head ? i : i + 4 * nq)] = 0.0f;
+}

@@ -19,9 +19,10 @@ only, and they read no node tile: the collider-free substep passes one zero
 hold raw momentum and mass, and the grid update (rows.fold_velocity) is
 done on each window node as its tile is read.  The TPU kernels write particle
 rows through a sequential-grid VMEM handoff; here each job writes exactly
-its own lanes [start, start + len) and the rest of the output is zero (G's
-wrapper zero-fills it; I writes the zeros itself, from the live jobs
-covering the lanes [0, end) in one run, as build_jobs makes them).
+its own lanes [start, start + len) and G and I write the zeros past them
+themselves, from the live jobs covering the lanes [0, end) in one run, as
+build_jobs makes them.  G also patches its rows into the sorted particle
+rows in place, as the JAX substep's dynamic_update_slice does.
 
 Summation order: a particle's sums over its 3 x 3 stencil nodes run in node
 order (ox slowest), a window node's sums over particles in particle order,
@@ -161,6 +162,9 @@ def pcdf_plain(pdata, ntiles, jobs, bcells, jbody, cell_width, group, npad, nc,
     out[0, lane], out[1, lane], out[4, lane] = lo, sd, hi
     for k in range(2):
         out[2 + k, lane] = normal[k]
+    pdata[R2.AFF] = out[0, :npad]
+    pdata[R2.NX:R2.NY + 1] = out[2:4, :npad]
+    pdata[R2.AFF_SPARE] = out[4, :npad]
     return out
 
 
@@ -288,13 +292,21 @@ def pcdf_rows(pdata, ntiles, jobs, bcells, jbody, cell_width: float, group: int,
               chan_free: bool = False):
     """Particle-CDF rows [8, NPAD + G + 128]: aff low, signed distance,
     normal xy, aff high (row 4), on the lanes of gated jobs (zero
-    elsewhere).  pdata: the sorted rows (rows 0..15 are read); btable: the
-    2D body table, read only in chan-free mode."""
+    elsewhere).  pdata: the sorted rows [>= NCHAN, NPAD] (rows 0..15 are
+    read), patched in place: its rows AFF, NX, NY, AFF_SPARE take rows 0,
+    2, 3, 4 of the result on every lane, after its affinity rows were read
+    (pass a clone to keep them); btable: the 2D body table, read only in
+    chan-free mode."""
     if pdata.device.type == "cpu":
         return pcdf_plain(pdata, ntiles, jobs, bcells, jbody, cell_width, group,
                           npad, nc, btable, alldesc, chan_free)
     maxj = jobs["start"].shape[0]
     _check_tiles("pcdf_rows", maxj, nc, chan_free, ntiles)
+    if maxj < 1:
+        raise ValueError("pcdf_rows: the kernel writes its output from >= 1 job slot")
+    if pdata.dtype != torch.float32 or pdata.dim() != 2 or pdata.shape[0] < R2.NCHAN \
+            or pdata.shape[1] != npad:
+        raise ValueError(f"pcdf_rows: pdata must be f32 [>= {R2.NCHAN}, {npad}] rows")
     shapes = _shapes(nc, alldesc, chan_free)
     if btable is None:
         if chan_free:
@@ -302,7 +314,8 @@ def pcdf_rows(pdata, ntiles, jobs, bcells, jbody, cell_width: float, group: int,
         btable = ntiles                     # a pointer the kernel does not read
     jt = job_table(jobs, bcells, jbody)
     R.check_kernel_args(pdata, ntiles, btable, jt)
-    out = torch.zeros((8, npad + group + 128), dtype=torch.float32,
+    # The kernel writes every entry: the live jobs' lanes, and 0 past them.
+    out = torch.empty((8, npad + group + 128), dtype=torch.float32,
                       device=pdata.device)
     _cuda.launch("pcdf2d", "pcdf2d_cuda", "pipppiiiifffpi", pdata, pdata.shape[1],
                  ntiles, btable, jt, maxj, nc, shapes, int(chan_free),

@@ -518,7 +518,8 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     else the node CDF is evaluated on the whole grid, the moving colliders
     merged with static_cdf (the frame's static part, None when no collider
     is static).  record: as for _substep (the 2D kernels' inputs and
-    outputs)."""
+    outputs; its rows are kernel G's input, cloned before G patched them
+    in place into pdata)."""
     grid = cfg.grid
     group, nc = cfg.group, cfg.num_colliders
     h = grid.cell_width
@@ -543,18 +544,17 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
                     *_node_cdf_full(bodies, cfg, static_cdf), nb_total, 64)
             ntiles = bk.gather_tiles(static_chan, src, R2.WPAD, 4)
             jbody = _jbody_gate(ntiles, R2.WVOL)
+        if record is not None:
+            ph["rows"] = rows_all.clone()   # kernel G's input, for the record
+        # Kernel G patches rows AFF..AFF_SPARE (aff low, normal xy, aff
+        # high) of the fresh sorted rows in place with the particle CDF for
+        # P2G and G2P; kernel C reads none of them from rows_all.
         pcdf = pcdf_rows2d(rows_all, ntiles, jobs, bcells, jbody, h, group,
                            npad, nc, btable, alldesc, cfg.chan_free)
-        # Rows AFF..AFF_SPARE (aff low, normal xy, aff high) take the fresh
-        # particle CDF for P2G and G2P.
-        pdata = rows_all[:R2.NCHAN].clone()
-        pdata[R2.AFF] = pcdf[0, :npad]
-        pdata[R2.NX:R2.NY + 1] = pcdf[2:4, :npad]
-        pdata[R2.AFF_SPARE] = pcdf[4, :npad]
     else:
         # No collider: no particle CDF (kernel G), H and I at nc = 0.
-        pdata = rows_all[:R2.NCHAN]
         ntiles, jbody, pcdf = _collider_free_inputs(R2.WPAD, jobs, npad, dev)
+    pdata = rows_all[:R2.NCHAN]
     mm, imp = p2g_tiles2d(pdata, ntiles, btable, jobs, bcells, jbody, h, nc,
                           alldesc, cfg.chan_free)
     grid_mm = torch.zeros((nb_total + 1, 64, 3), dtype=torch.float32, device=dev)
