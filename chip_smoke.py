@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. environment: the card's name and power limit; the CUDA kernels'
-     eleven sources are built from wgsparkl_tpu_torch/csrc, one nvcc each,
+     twelve sources are built from wgsparkl_tpu_torch/csrc, one nvcc each,
      all started together (set-up), and the ptxas reports of kernels G, I
      and E printed;
   2. the 3D main path at full size (sand_box_3d with the paddle, 1,002,001
@@ -27,7 +27,14 @@ Phases (any failure exits non-zero, and no result line is printed):
      neo-Hookean path at full size (elastic_blocks_2d, 490,000 particles,
      15 substeps a frame), and the column on cells three times as wide (36
      particles a cell, group 2048: kernel H's jobs span several of its
-     chunks; 2 timed frames);
+     chunks; 2 timed frames); path 7 (examples/sand2.py at SCALE=1:
+     490,000 particles, floor and walls, three kinematic stirrers and two
+     dynamic plates, `sand2_scene`) and path 8 (the 3D main path with two
+     dynamic plates on the sand, `full_scene_plates`), one warm and 2
+     timed frames each: the same checks, exactly one rigid-solve launch a
+     substep, the plates moved, finite body states, and path 7's rigid
+     update of a substep run again under
+     torch.cuda.set_sync_debug_mode("error");
   5. each kernel against its plain PyTorch version at full size, on the
      inputs of a substep of each scene with its lattice lowered into a
      collider (onto the paddle in 3D, 1.5 cells into the floor in 2D), so
@@ -54,6 +61,13 @@ Phases (any failure exits non-zero, and no result line is printed):
      its stated tolerance, its time and its bound (CUDA events); beside
      kernel C, the share of lanes and of 32-lane warps whose F the
      Drucker-Prager return map replaced (such a warp runs C's second SVD);
+     the rigid solve bit for bit on a substep of path 7 and of path 8 with
+     the plates pressed into the floor and into each other (active
+     dynamic-static and dynamic-dynamic contacts) and on the JAX
+     package's joint scenes (30 chained rigid updates each, the kernel path
+     equal to the plain path); kernel C's fracture branch at full size
+     with four materials (the 3D lattice spinning on the paddle, the 2D
+     elastic blocks in their floor; affinity and phase rows bit for bit);
   5. (path 5) the 3D analytic-shapes path at full size: the main path's
      lattice, models, grid and job table with a static halfspace floor,
      the four static side walls, a kinematic capsule paddle and a kinematic
@@ -70,9 +84,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      ball and capsule; `fold_vel`: 10 substeps each of the sand box, the
      collider-free lattice and the 2D sand column; the 2D chan-free mode: 5
      substeps of the stirred column and of the column lowered into its
-     floor, folded too, each with gated jobs): equal bit for bit to the
-     plain path on the card, and within tolerance of the plain path on the
-     CPU (affinity words exact).
+     floor, folded too, each with gated jobs; dynamic bodies: 5 substeps of
+     a small sand2 with its plates pressed into the floor and each other
+     and of the 3D lattice on a dynamic plate held by a ball joint; 5
+     substeps each of four materials with fracture in 3D and 2D): 21
+     scenes, equal bit for bit to the plain path on the card, and within
+     tolerance of the plain path on the CPU (affinity words exact).
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -103,6 +120,8 @@ SUBSTEPS_NEO2 = 15
 # placed as on the small column (sand_column_2d(nx=24, ny=48, cell width
 # 0.5): 6 wide) and scaled by the full column's width (140 cells of 0.2).
 STIR_SCALE = NX2 * H2 / (24 * 0.5)
+# Path 7: examples/sand2.py at SCALE=1 (700 x 700 particles).
+N_SAND2 = 700
 DEVICE = "cuda:0"
 # The H100 SXM's published peaks (fp32 outside the tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -141,13 +160,22 @@ REPLACES = {
     "g2p2d_chan_free": "wgsparkl_tpu/ops/pallas_transfer2d.py:584",
     "p2g2d_neo": "wgsparkl_tpu/ops/pallas_transfer2d.py:402",
     "p2g2d_chunks": "wgsparkl_tpu/ops/pallas_transfer2d.py:402",
+    "update_rows_fracture": "wgsparkl_tpu/ops/update_rows.py:191",
+    "update_rows2d_fracture": "wgsparkl_tpu/ops/update_rows.py:191",
+    # Port-only: the JAX package's rigid solve is plain XLA (a lax.scan of
+    # contact impulses and the joint sweeps), no pallas_call.
+    "rigid_solve": "wgsparkl_tpu/rigid/contacts.py:183",
+    "rigid_solve_3d": "wgsparkl_tpu/rigid/contacts.py:183",
+    "rigid_solve_joints": "wgsparkl_tpu/rigid/joints.py:168",
 }
 SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_rows",
           "update_rows2d_neo_hookean": "update_rows", "p2g_cdf_shapes": "p2g_cdf",
           "p2g_cdf_chan_free": "p2g_cdf", "g2p_shapes": "g2p", "g2p_chan_free": "g2p",
           "g2p_fold": "g2p", "g2p2d_fold": "g2p2d", "pcdf2d_chan_free": "pcdf2d",
           "pcdf2d_dense": "pcdf2d", "p2g2d_chan_free": "p2g2d", "g2p2d_chan_free": "g2p2d",
-          "p2g2d_neo": "p2g2d", "p2g2d_chunks": "p2g2d"}
+          "p2g2d_neo": "p2g2d", "p2g2d_chunks": "p2g2d",
+          "update_rows_fracture": "update_rows", "update_rows2d_fracture": "update_rows",
+          "rigid_solve_3d": "rigid_solve", "rigid_solve_joints": "rigid_solve"}
 # The rows of the [PCHAN, NPAD] input matrix that kernel C reads (csrc/
 # update_rows.cu, update_kernel and update2d_kernel); it replaces the others
 # with G2P rows, particle-CDF rows or new values.
@@ -156,6 +184,8 @@ C_ROWS_READ_2D = (0, 1, 4, *range(13, 24), *range(27, 32))
 KERNELS_3D = ("p2g_cdf", "g2p", "update_rows", "permute", "compact")
 KERNELS_2D = ("pcdf2d", "p2g2d", "g2p2d", "update_rows2d", "permute", "compact")
 KERNELS_FREE = ("p2g", "g2p", "update_rows", "permute", "compact")
+KERNELS_7 = KERNELS_2D + ("rigid_solve",)
+KERNELS_8 = KERNELS_3D + ("rigid_solve",)
 
 
 def fail(msg: str) -> None:
@@ -260,8 +290,10 @@ def plain_versions():
     from wgsparkl_tpu_torch.ops import (
         compact, g2p, p2g, p2g_cdf, permute, transfer2d, update_rows,
     )
+    from wgsparkl_tpu_torch.rigid import solve
 
-    swaps = [(pipeline, "p2g_cdf_tiles", p2g_cdf.p2g_cdf_plain),
+    swaps = [(pipeline, "rigid_solve", solve.rigid_solve_plain),
+             (pipeline, "p2g_cdf_tiles", p2g_cdf.p2g_cdf_plain),
              (pipeline, "p2g_tiles", p2g.p2g_plain),
              (pipeline, "g2p_rows", g2p.g2p_plain),
              (pipeline, "update_rows", update_rows.update_plain),
@@ -464,6 +496,68 @@ def all_kinematic(device):
                    grid=d.config.grid, by=BY, group=256)
 
 
+def sand2_scene(device, n_side=None, plates=None, shift=None, **mpm_kw):
+    """Path 7: the reference's two-way coupling demo as examples/sand2.py
+    (lines 22-71) builds it at SCALE = n_side / 700: an n_side x n_side
+    Drucker-Prager lattice (density 1000, E = 1e7, nu = 0.2, cell width
+    0.2), a floor and two walls (fixed), a cuboid, a ball and a capsule
+    stirring at +-1 rad/s (kinematic), two dynamic cuboid plates of density
+    500 and 2000, dt (1/60)/10.  plates: ((x, y), (x, y)) in place of the
+    plates' positions; shift moves the lattice; n_side None: N_SAND2."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.models import DruckerPrager, ElasticCoefficients
+    from wgsparkl_tpu_torch.models.drucker_prager import drucker_prager_arrays
+    from wgsparkl_tpu_torch.params import SimulationParams
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+    from wgsparkl_tpu_torch.scenes import _lattice
+    from wgsparkl_tpu_torch.solver import Models, Particles
+
+    n_side = n_side or N_SAND2
+    scale, cw = n_side / 700, 0.2
+    pos = _lattice((n_side, n_side), cw, (0.1, 46.0 * scale + 2.0))
+    if shift is not None:
+        pos = pos + np.asarray(shift, np.float32)
+    n = len(pos)
+    elast = ElasticCoefficients.from_young_modulus(1e7, 0.2)
+    dp = drucker_prager_arrays([DruckerPrager.new(1e7, 0.2)])
+    models = Models.from_arrays(n, elast.lam, elast.mu,
+                                dp={k: np.full(n, v[0]) for k, v in dp.items()},
+                                device=device)
+    e = n_side * cw / 2
+    plates = plates or ((e * 0.4, e * 1.6), (e * 0.9, e * 1.8))
+    bodies = [
+        RigidBodyDesc(Collider.cuboid(e * 4, 1.0), (e / 2, -1.0)),
+        RigidBodyDesc(Collider.cuboid(1.0, e * 4), (-e * 1.2, 0.0)),
+        RigidBodyDesc(Collider.cuboid(1.0, e * 4), (e * 2.2, 0.0)),
+        RigidBodyDesc(Collider.cuboid(e * 0.3, 0.4), (e * 0.5, e * 0.5),
+                      body_type="kinematic", angvel=1.0),
+        RigidBodyDesc(Collider.ball(e * 0.15), (e * 1.0, e * 0.8),
+                      body_type="kinematic", angvel=1.0),
+        RigidBodyDesc(Collider.capsule(e * 0.2, e * 0.08), (e * 0.2, e * 0.9),
+                      body_type="kinematic", angvel=-1.0),
+        RigidBodyDesc(Collider.cuboid(e * 0.15, 0.3), tuple(plates[0]),
+                      body_type="dynamic", density=500.0),
+        RigidBodyDesc(Collider.cuboid(e * 0.15, 0.3), tuple(plates[1]),
+                      body_type="dynamic", density=2000.0),
+    ]
+    return MpmData(SimulationParams.new((1 / 60) / 10, [0.0, -9.81], device=device),
+                   Particles.from_arrays(pos, density=1000.0, radius=cw / 4,
+                                         device=device),
+                   models, bodies, cw,
+                   grid_bounds=(np.array([-e * 1.6, -0.5]),
+                                np.array([e * 2.6, 60.0 * scale + e * 1.5])), **mpm_kw)
+
+
+def sand2_pressed(n_side):
+    """Plate positions of path 7 for the rigid kernel's checks: the light
+    plate sunk 0.05 (5 slops) into the floor, the heavy one on it, 0.2 to
+    the side and sunk 0.05 into it (a dynamic-dynamic contact)."""
+    e = n_side * 0.2 / 2
+    return ((e * 0.4, 0.25), (e * 0.4 + 0.2, 0.8))
+
+
 def stirred_column(d, scale=1.0, chan_free=False, **mpm_kw):
     """Scene d's lattice, models, grid and floor (a sand_column_2d) with a
     kinematic ball and a kinematic capsule stirring the column's foot (the
@@ -513,6 +607,200 @@ def scenes_small_3d(device, shift=None, **kw):
     if shift is not None:
         d.state.particles.pos += torch.tensor(shift, device=device)
     return d
+
+
+def plates_3d(plates):
+    """Path 8's two dynamic cuboid plates (12 x 1 x 12 cells, sand2's
+    densities 500 and 2000) at the positions `plates`."""
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.pipeline import RigidBodyDesc
+
+    return [RigidBodyDesc(Collider.cuboid(6.0, 0.5, 6.0), tuple(xyz), rotation=rot,
+                          body_type="dynamic", density=rho)
+            for xyz, rot, rho in zip(plates, ((0.0, 0.2, 0.0), (0.0, -0.3, 0.0)),
+                                     (500.0, 2000.0))]
+
+
+def plates_on_top():
+    """Path 8's plate positions: on the lattice's top surface (y = 5 + NY /
+    2, 89.5 at full size) sunk one cell, 9 cells either side of the
+    paddle."""
+    y = 5.0 + NY / 2 - 0.5
+    return ((-9.0, y, -9.0), (9.0, y, 9.0))
+
+
+# For the rigid kernel's checks: the light plate sunk 2 slops into the
+# floor and the heavy one on it, sunk 2 slops into it.
+PLATES_3D_PRESSED = ((-12.0, 0.4, -12.0), (-7.0, 1.3, -7.0))
+
+
+def full_scene_plates(dev, plates=None):
+    """Path 8 at full size: the 3D main path (1,002,001 particles, its
+    walls, paddle, grid and job table size) with the two dynamic plates of
+    plates_3d: 8 bodies."""
+    from wgsparkl_tpu_torch.pipeline import MpmData
+
+    d = full_scene(dev)
+    return MpmData(d.params, d.state.particles, d.state.models,
+                   list(d.bodies_desc) + plates_3d(plates or plates_on_top()), 1.0,
+                   grid=d.config.grid,
+                   by=BY, group=GROUP, max_jobs=d.config.max_jobs)
+
+
+def plate_joint_3d(device):
+    """The small 3D sand box lattice (no paddle) lowered 4 cells onto a
+    dynamic plate sunk 2 slops into the floor, the plate's top centre held
+    by a ball joint to a fixed ball inside the lattice."""
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+
+    d = scenes_small_3d(device, (0.0, -4.0, 0.0), with_paddle=False)
+    bodies = list(d.bodies_desc) + [
+        RigidBodyDesc(Collider.cuboid(1.2, 0.6, 1.2), (0.3, 0.5, -0.2),
+                      rotation=(0.0, 0.3, 0.0), body_type="dynamic", density=2000.0),
+        RigidBodyDesc(Collider.ball(0.3), (0.3, 3.0, -0.2))]
+    return MpmData(d.params, d.state.particles, d.state.models, bodies, 1.0,
+                   grid=d.config.grid, by=BY, group=256, chan_free=False,
+                   joints=((5, 6, (0.0, 0.6, 0.0), (0.0, -1.9, 0.0)),))
+
+
+def four_materials(d, shift, spin, stretch):
+    """Scene d's lattice moved by shift (spinning at 1 rad/s when spin),
+    bodies and grid with four materials striped by lane: lam x (1, 2, 1,
+    1.5), mu x (1, 1, 0.5, 1), max_stretch -1 on stripe 0 and `stretch` on
+    the others, every lane intact (phase 1): kernel C's fracture check
+    fires (tests/test_torch_materials_fracture.py's scenes).  d's blocks,
+    group and job table size."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.pipeline import MpmData
+    from wgsparkl_tpu_torch.scenes import spin_velocities
+    from wgsparkl_tpu_torch.solver import Models
+
+    p, m = d.state.particles, d.state.models
+    dev, n = p.pos.device, p.count
+    stripe = np.arange(n) % 4
+    lam = m.lam.cpu().numpy() * np.array([1.0, 2.0, 1.0, 1.5], np.float32)[stripe]
+    mu = m.mu.cpu().numpy() * np.array([1.0, 1.0, 0.5, 1.0], np.float32)[stripe]
+    models = Models.from_arrays(n, lam, mu, dp={k: v.cpu().numpy() for k, v in m.dp.items()},
+                                phase=1.0, max_stretch=np.where(stripe == 0, -1.0, stretch),
+                                device=dev)
+    pos = p.pos + torch.tensor(shift, device=dev)
+    vel = (torch.as_tensor(spin_velocities(p.pos.cpu().numpy()), device=dev) if spin
+           else p.vel)
+    p = dataclasses.replace(p, pos=pos, vel=vel)
+    c = d.config
+    return MpmData(d.params, p, models, d.bodies_desc, c.grid.cell_width, grid=c.grid,
+                   by=c.by, group=c.group, max_jobs=c.max_jobs, chan_free=c.chan_free)
+
+
+def joint_scenes():
+    """(name, bodies, dim, joints) of tests/test_joints.py's scenes and a 2D
+    scene of a ball, a fixed and a prismatic joint on a kinematic anchor."""
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.pipeline import RigidBodyDesc
+
+    D, z = "dynamic", (0.0, 0.0, 0.0)
+    anchor = RigidBodyDesc(Collider.ball(0.1), (0.0, 10.0, 0.0))
+    rod = RigidBodyDesc(Collider.cuboid(0.1, 1.0, 0.1), (1.0, 9.0, 0.0), body_type=D)
+    yield "pendulum", [anchor, rod], 3, ((1, 0, (0.0, 1.0, 0.0), z),)
+    yield "chain", [anchor,
+                    RigidBodyDesc(Collider.cuboid(0.1, 0.5, 0.1), (0.5, 9.5, 0.0),
+                                  body_type=D, density=800.0),
+                    RigidBodyDesc(Collider.cuboid(0.1, 0.5, 0.1), (1.0, 8.5, 0.0),
+                                  body_type=D, density=800.0)], 3, \
+        ((1, 0, (0.0, 0.5, 0.0), z), (2, 1, (0.0, 0.5, 0.0), (0.0, -0.5, 0.0)))
+    yield "fixed", [anchor, rod], 3, ((1, 0, (-1.0, 1.0, 0.0), z, "fixed"),)
+    yield "revolute", [anchor, RigidBodyDesc(Collider.cuboid(1.0, 0.1, 0.1),
+                                             (1.0, 10.0, 0.0), body_type=D)], 3, \
+        ((1, 0, (-1.0, 0.0, 0.0), z, "revolute", (0.0, 0.0, 1.0)),)
+    for ax in ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.3, 0.2, 0.9)):
+        yield f"prismatic {ax}", [anchor, RigidBodyDesc(
+            Collider.cuboid(0.3, 0.2, 0.2), (0.0, 10.0, 0.0), rotation=(0.1, 0.0, 0.2),
+            body_type=D)], 3, ((1, 0, z, z, "prismatic", ax),)
+    yield "2D ball, fixed and prismatic", [
+        RigidBodyDesc(Collider.ball(0.1), (0.0, 10.0), body_type="kinematic",
+                      linvel=(0.1, 0.0), angvel=0.5),
+        RigidBodyDesc(Collider.cuboid(0.1, 1.0), (1.0, 9.0), rotation=0.3, body_type=D),
+        RigidBodyDesc(Collider.cuboid(0.1, 0.5), (1.5, 8.0), body_type=D)], 2, \
+        ((1, 0, (0.0, 1.0), (0.0, 0.0)), (2, 1, (0.0, 0.5), (0.0, -1.0), "fixed"),
+         (2, 0, (0.0, 0.0), (0.0, 0.0), "prismatic", (0.0, 1.0)))
+
+
+def rigid_rig(descs, dim, joints, dev):
+    """(bodies with fresh mass properties, params, config) of a bodies-only
+    scene: every dynamic body contact-resolved, dt 1/240."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.grid import GridConfig
+    from wgsparkl_tpu_torch.params import SimulationParams
+    from wgsparkl_tpu_torch.pipeline import MpmConfig, _normalize_joints, build_rigid_world
+    from wgsparkl_tpu_torch.rigid import body
+
+    cfg = MpmConfig(grid=GridConfig.from_bounds(np.full(dim, -8.0), np.full(dim, 16.0), 0.5),
+                    collider_types=tuple(d.collider.shape_type for d in descs),
+                    dynamic_slots=tuple(i for i, d in enumerate(descs)
+                                        if d.body_type == "dynamic"),
+                    coupling=(2,) * len(descs),
+                    joints=_normalize_joints(joints, descs, dim))
+    params = SimulationParams.new(1.0 / 240, [0.0, -9.81, 0.0][:dim], device=dev)
+    return (body.update_world_mass_properties(build_rigid_world(descs, dim, dev)),
+            params, cfg)
+
+
+@contextlib.contextmanager
+def captured_rigid_solve():
+    """Record the arguments of every rigid_solve call the pipeline makes
+    in the block (and make it): yields the list."""
+    from wgsparkl_tpu_torch import pipeline
+
+    calls, real = [], pipeline.rigid_solve
+
+    def capture(*args):
+        calls.append(args)
+        return real(*args)
+
+    pipeline.rigid_solve = capture
+    try:
+        yield calls
+    finally:
+        pipeline.rigid_solve = real
+
+
+def active_pairs(world, tab):
+    """{(b, c, two_way): active samples} of a rigid solve's inputs (plain
+    candidates)."""
+    from wgsparkl_tpu_torch.rigid import contacts
+
+    B = contacts.BodyScalars(world)
+    out = {}
+    for pair in tab.pairs:
+        _, _, depth = contacts.candidates(B, *pair[:4], tab.offsets)
+        k = int((depth > 0.0).sum())
+        if k:
+            out[(pair[0], pair[2], pair[4])] = k
+    return out
+
+
+def rigid_cost(tab, world, active: int):
+    """(bytes, flops) of a rigid solve: the world's pose, mass, shape and
+    prescribed-velocity tables and the static tables read once, the
+    velocities read and written; ~150 operations a contact sample's terms,
+    ~190 an active sample's impulse a sweep, ~400 a joint's terms and ~110
+    its impulse a sweep."""
+    from wgsparkl_tpu_torch.rigid import contacts, joints
+
+    nj = len(tab.joint_rows)
+    k = len(tab.cand_t) if tab.pairs else 0
+    read = sum(getattr(world, f).numel() for f in (
+        "rot", "pos", "world_com", "inv_mass", "inv_inertia_world", "shape_params",
+        "linvel", "angvel"))
+    vel = world.linvel.numel() + world.angvel.numel()
+    nbytes = 4 * (read + 2 * vel + tab.pair_t.numel() + 2 * k + tab.offsets.numel()
+                  + nj * 19)
+    flops = (150 * k + 190 * active * contacts.CONTACT_ITERATIONS + 400 * nj
+             + 110 * nj * joints.JOINT_ITERATIONS)
+    return nbytes, flops
 
 
 def gate_histogram(rec) -> dict:
@@ -706,6 +994,54 @@ def main() -> None:
         del data
         torch.cuda.empty_cache()
 
+    # ---- path 7: examples/sand2.py at SCALE=1 (dynamic plates, 2D) ----
+    # ---- path 8: the 3D main path with two dynamic plates ----
+    for tag, make, substeps, kernels, what, plates in (
+            ("rigid_solve", lambda: sand2_scene(dev, group=GROUP2), SUBSTEPS2, KERNELS_7,
+             "path 7: sand2 with dynamic plates", (6, 7)),
+            ("rigid_solve_3d", lambda: full_scene_plates(dev), SUBSTEPS, KERNELS_8,
+             "path 8: 3D main path with dynamic plates", (6, 7))):
+        data = make()
+        pos0 = data.state.bodies.pos.clone()
+        counts, state = run_frames(wt, data, substeps, kernels, what, card, kind,
+                                   TIMED_FRAMES_SHORT, gates=True)
+        body = torch.cat([state.bodies.pos, state.bodies.rot, state.bodies.linvel,
+                          state.bodies.angvel], 1)
+        moved = (state.bodies.pos[list(plates)] - pos0[list(plates)]).norm(dim=1)
+        mode = ("chan-free" if data.config.chan_free
+                else "gathered hybrid" if data.config.grid.dim == 3 else "dense")
+        print(f"{what}: CDF mode {mode}; plates moved {moved.tolist()}; plate positions "
+              f"{state.bodies.pos[list(plates)].tolist()}", flush=True)
+        if not bool(torch.isfinite(body).all()) or not bool((moved > 0.0).all()):
+            fail(f"{what}: non-finite body state or a plate that did not move")
+        if counts["rigid_solve"] != (1 + TIMED_FRAMES_SHORT) * substeps:
+            fail(f"{what}: {counts['rigid_solve']} rigid-solve launches, not one a "
+                 f"substep ({(1 + TIMED_FRAMES_SHORT) * substeps})")
+        launches[tag] = counts["rigid_solve"]
+        if tag == "rigid_solve":
+            # The rigid update of a substep issues no host sync (a pageable
+            # host-to-device copy would be one).
+            from wgsparkl_tpu_torch import pipeline
+
+            got, real = [], pipeline.rigid_bodies_update
+            pipeline.rigid_bodies_update = lambda *a: got.append(a) or real(*a)
+            try:
+                step_pallas(state, data.params, data.config, 1)
+            finally:
+                pipeline.rigid_bodies_update = real
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                real(*got[0])
+            except RuntimeError as e:
+                fail(f"{what}: the rigid update synchronises with the host: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            print(f"{what}: the rigid update of a substep ran under "
+                  "torch.cuda.set_sync_debug_mode('error') with no host sync", flush=True)
+        del data, state
+        torch.cuda.empty_cache()
+
     checks = []
 
     def check(name, run_k, run_p, pairs, exact=(), require=None, cost=None,
@@ -879,12 +1215,12 @@ def main() -> None:
 
     # Costs, counted from these inputs: 4 bytes a float read or written once;
     # f32 operations per particle and stencil node from the kernel sources.
-    # Tolerances: kernel A sums its impulses over nodes in another order
-    # than the plain version; its window tiles follow the plain version's
-    # lists order of sums bit for bit; the per-particle outputs of A and B
-    # follow the plain operation order (B's bit for bit); C differs from its
-    # plain version only through libm (expf, logf, sinf); D and E move
-    # integers and must be exact.
+    # Tolerances: kernel A's window tiles and impulses follow the plain
+    # version's order of sums bit for bit (the lists order; the impulses
+    # over window nodes in node order, then over jobs in job order); the
+    # per-particle outputs of A and B follow the plain operation order (B's
+    # bit for bit); C differs from its plain version only through libm
+    # (expf, logf, sinf); D and E move integers and must be exact.
     check("p2g_cdf",
           lambda: p2g_cdf.p2g_cdf_tiles(*args_a),
           lambda: p2g_cdf.p2g_cdf_plain(*args_a),
@@ -892,7 +1228,7 @@ def main() -> None:
                         ("impulses", k[1], p[1], 1e-4),
                         ("particle cdf", k[2][:, :ce], p[2][:, :ce], 1e-5)],
           lambda k, p: [("affinity rows", k[2][[0, 5]], p[2][[0, 5]]),
-                        ("mm tiles", k[0], p[0])],
+                        ("mm tiles", k[0], p[0]), ("impulses", k[1], p[1])],
           lambda p: (None if float(p[1].abs().max()) > 1.0
                      else "the plain impulses are ~0: no contact load"),
           cost=(4 * (24 * ce + nj * wv * 4 + nj * wv * 8 + 8 * ce + njg * 8 * 128),
@@ -991,7 +1327,7 @@ def main() -> None:
               lambda: p2g_cdf.p2g_cdf_tiles(*args_a),
               lambda: p2g_cdf.p2g_cdf_plain(*args_a),
               lambda k, p: [("impulses", k[1], p[1], 1e-4)],
-              lambda k, p: [("mm tiles", k[0], p[0]),
+              lambda k, p: [("mm tiles", k[0], p[0]), ("impulses", k[1], p[1]),
                             ("particle cdf rows", k[2][:, :ce], p[2][:, :ce])],
               lambda p: (None if float(p[1].abs().max()) > 1.0
                          else "the plain impulses are ~0: no contact load"),
@@ -1186,6 +1522,103 @@ def main() -> None:
     del rec, args_hc, data, state
     torch.cuda.empty_cache()
 
+    # ---- 5g. the rigid solve on substeps of paths 7 and 8 with the plates
+    # pressed into the floor and into each other, and on the joint scenes ----
+    from wgsparkl_tpu_torch.rigid import body as body_mod
+    from wgsparkl_tpu_torch.rigid import solve
+
+    for name, make in (
+            ("rigid_solve", lambda: sand2_scene(dev, plates=sand2_pressed(N_SAND2),
+                                                group=GROUP2)),
+            ("rigid_solve_3d", lambda: full_scene_plates(dev, PLATES_3D_PRESSED))):
+        data = make()
+        with captured_rigid_solve() as calls:
+            step_pallas(data.state, data.params, data.config, 1)
+        world, lin, ang, dt_r, slop, tab = calls[0]
+        act = active_pairs(world, tab)
+        print(f"{name} inputs: active contact samples by (dynamic body, collider, "
+              f"two-way) {act}", flush=True)
+        if not any(k[2] for k in act) or not any(not k[2] for k in act):
+            fail(f"{name}: no active dynamic-dynamic or dynamic-static contact: {act}")
+        check(name,
+              lambda: solve.rigid_solve(world, lin, ang, dt_r, slop, tab),
+              lambda: solve.rigid_solve_plain(world, lin, ang, dt_r, slop, tab),
+              lambda k, p: [], lambda k, p: [("linvel", k[0], p[0]), ("angvel", k[1], p[1])],
+              cost=rigid_cost(tab, world, sum(act.values())))
+        del data, world, lin, ang, tab, calls
+        torch.cuda.empty_cache()
+    # The joint scenes: 30 chained rigid updates (random CPIC impulses on the
+    # first), the kernel path equal to the plain path bit for bit.
+    import numpy as np
+    from wgsparkl_tpu_torch import pipeline
+
+    joint_inputs = None
+    for jname, descs, dim, joints in joint_scenes():
+        bodies, params_r, cfg_r = rigid_rig(descs, dim, joints, dev)
+        rng = np.random.default_rng(1)
+        na = 3 if dim == 3 else 1
+        li = torch.as_tensor(rng.normal(size=(len(descs), dim)).astype(np.float32), device=dev)
+        ai = torch.as_tensor(rng.normal(size=(len(descs), na)).astype(np.float32), device=dev)
+        bk = bp = bodies
+        for step in range(30):
+            with captured_rigid_solve() as calls:
+                ok = pipeline.rigid_bodies_update(bk, li, ai, params_r, cfg_r)
+            with plain_versions():
+                op = pipeline.rigid_bodies_update(bp, li, ai, params_r, cfg_r)
+            for f in ("pos", "rot", "linvel", "angvel"):
+                if not torch.equal(getattr(ok, f), getattr(op, f)):
+                    fail(f"joint scene {jname}: body {f} of the kernel path differs from "
+                         f"the plain path at update {step}")
+            if jname == "chain" and step == 10:
+                joint_inputs = calls[0]
+            bk = body_mod.update_world_mass_properties(ok)
+            bp = body_mod.update_world_mass_properties(op)
+            li, ai = li * 0.0, ai * 0.0
+    print("joint scenes (" + "; ".join(j[0] for j in joint_scenes()) + "): 30 rigid "
+          "updates each, the kernel path equal to the plain path bit for bit", flush=True)
+    world, lin, ang, dt_r, slop, tab = joint_inputs
+    check("rigid_solve_joints",
+          lambda: solve.rigid_solve(world, lin, ang, dt_r, slop, tab),
+          lambda: solve.rigid_solve_plain(world, lin, ang, dt_r, slop, tab),
+          lambda k, p: [], lambda k, p: [("linvel", k[0], p[0]), ("angvel", k[1], p[1])],
+          cost=rigid_cost(tab, world, 0))
+    del joint_inputs, world, lin, ang, tab
+
+    # ---- 5h. kernel C's fracture branch at full size: four materials ----
+    for name, make, fn, plain, rows_read, krows, pc_rows, flops, exact_rows in (
+            ("update_rows_fracture",
+             lambda: four_materials(full_scene(dev), (0.0, -3.0, 0.0), True, 1.0005),
+             update_rows.update_rows, update_rows.update_plain, C_ROWS_READ_3D, 12, 6,
+             6000, (16, 20, 21, 22, R.R_PHASE)),
+            ("update_rows2d_fracture",
+             lambda: four_materials(scenes.elastic_blocks_2d(
+                 n_side=NX2, cell_width=H2, device=dev, group=GROUP2), (0.0, -1.5 * H2),
+                 False, 1.00005),
+             update_rows.update_rows2d, update_rows.update2d_plain, C_ROWS_READ_2D, 6, 5,
+             400, (9, 12, 13, 14, R2.R_PHASE))):
+        data = make()
+        cfg = data.config
+        state, diag = step_with_diag(data.state, data.params, cfg, 2)
+        rec = {}
+        step_pallas(state, data.params, cfg, 1, record=rec)
+        torch.cuda.synchronize()
+        if diag.any_overflow() or cfg.n_materials != 4:
+            fail(f"{name}: {diag.summary()}, {cfg.n_materials} materials")
+        args_fc = (rec["rows"], rec["krows"], rec["pcdf"], rec["sorted_ids"],
+                   rec["covered_end"], rec["btable"], rec["mtable"], data.params.dt,
+                   cfg.grid.cell_width, cfg.num_colliders, cfg.n_materials,
+                   rec["nb_total"])
+        ph_row = exact_rows[-1]
+        check(name, lambda: fn(*args_fc), lambda: plain(*args_fc),
+              lambda k, p: [(f"row {r}", k[r], p[r], 1e-4) for r in range(k.shape[0])],
+              lambda k, p: [(f"row {r}", k[r], p[r]) for r in exact_rows],
+              lambda p: (None if int((p[ph_row] != rec["rows"][ph_row]).sum()) > 10
+                         else "fewer than 10 lanes fractured in the substep"),
+              cost=c_cost(rows_read, krows, pc_rows, rec["rows"].shape[0],
+                          rec["rows"].shape[1], int(rec["covered_end"]), flops))
+        del data, state, rec, args_fc
+        torch.cuda.empty_cache()
+
     # ---- 5d. kernel F on a substep of the collider-free path ----
     r = rec_f
     args_f = (r["pdata"], r["ntiles"], r["btable"], r["jobs"], r["bcells"],
@@ -1359,6 +1792,15 @@ def main() -> None:
                                                                           True),
         "2D sand column in its floor (chan-free, fold_vel)": lambda device:
             small_column_2d(device, (0.0, -0.75), chan_free=True, fold_vel=True),
+        "2D sand2 with dynamic plates pressed into the floor and each other":
+            lambda device: sand2_scene(device, 32, sand2_pressed(32), (0.0, -3.5),
+                                       group=128, chan_free=False),
+        "3D dynamic plate on a ball joint": plate_joint_3d,
+        "3D four materials with fracture": lambda device: four_materials(
+            scenes_small_3d(device), (0.0, -3.0, 0.0), True, 1.0005),
+        "2D four materials with fracture": lambda device: four_materials(
+            scenes.elastic_blocks_2d(n_side=24, cell_width=0.5, group=128, device=device),
+            (0.0, -0.75), False, 1.00005),
     }
     for what, make in small_5.items():
         dk, dp = make(dev), make("cpu")
@@ -1371,6 +1813,15 @@ def main() -> None:
         kernels = KERNELS_3D if dk.config.grid.dim == 3 else KERNELS_2D
         if min(counts[k] for k in kernels) <= 0:
             fail(f"{what}: a kernel of the path never launched: {counts}")
+        if dk.config.dynamic_slots and counts["rigid_solve"] != 5:
+            fail(f"{what}: {counts['rigid_solve']} rigid-solve launches in 5 substeps")
+        if "joint" in what:
+            launches["rigid_solve_joints"] = counts["rigid_solve"]
+        if "fracture" in what:
+            c_name = "update_rows" if dk.config.grid.dim == 3 else "update_rows2d"
+            launches[f"{c_name}_fracture"] = counts[c_name]
+            if not bool((sk.models.phase == 0.0).any()):
+                fail(f"{what}: no lane fractured")
         if dk.config.chan_free and dk.config.grid.dim == 2:
             # A chan-free scene proves nothing if no job is gated.
             rec = {}
@@ -1386,7 +1837,8 @@ def main() -> None:
             sp_next = step_pallas(sp, dp.params, dp.config, 1)
             agree(sk, sp_next, what)
             sp = sp_next
-    print("small analytic-shapes scenes (" + "; ".join(small_5) + "): kernel path "
+    print("small analytic-shapes, dynamic-body and fracture scenes ("
+          + "; ".join(small_5) + "): kernel path "
           "equals the plain path on the card and agrees with it on the CPU "
           "substep by substep", flush=True)
     for c in checks:

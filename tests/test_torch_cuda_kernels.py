@@ -6,8 +6,10 @@ box lowered onto the paddle (so kernel A's impulse path carries load), the
 collider-free sand box and on the coupled inputs, kernel C's neo-Hookean
 branch in 3D and 2D, the math probe and every core of the P2G ablation
 probe; the `fold_vel` branches of B and I on folded substeps, the 2D
-chan-free branches of G, H and I on the stirred column, and H on jobs that
-span several of its chunks.  Marked `cuda`: they skip where
+chan-free branches of G, H and I on the stirred column, H on jobs that
+span several of its chunks, and the rigid solve on a substep of a small
+sand2 with its plates pressed into the floor and each other and of a 3D
+plate on a ball joint.  Marked `cuda`: they skip where
 torch sees no CUDA device (run them on a GPU host with
 `python -m pytest --noconftest tests/test_torch_cuda_kernels.py`)."""
 
@@ -536,3 +538,21 @@ def test_p2g2d_kernel_multi_chunk_matches_plain(rec2d_chunks):
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     k2 = transfer2d.p2g_tiles(*args)
     assert torch.equal(k[0], k2[0]) and torch.equal(k[1], k2[1])
+
+
+@pytest.mark.parametrize("scene", ["sand2_pressed", "plate_joint_3d"])
+def test_rigid_solve_kernel_matches_plain(scene):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from wgsparkl_tpu_torch.rigid import solve
+
+    d = (chip_smoke.sand2_scene("cuda", 32, chip_smoke.sand2_pressed(32), (0.0, -3.5),
+                                group=128)
+         if scene == "sand2_pressed" else chip_smoke.plate_joint_3d("cuda"))
+    with chip_smoke.captured_rigid_solve() as calls:
+        step_pallas(d.state, d.params, d.config, 1)
+    assert len(calls) == 1
+    k, p = solve.rigid_solve(*calls[0]), solve.rigid_solve_plain(*calls[0])
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert chip_smoke.active_pairs(calls[0][0], calls[0][5])

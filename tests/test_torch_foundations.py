@@ -161,8 +161,13 @@ def test_main_path_configuration_matches_jax():
     dict(spatial_devices=2)])
 def test_unported_options_raise(kw):
     """Each 3D option the port lacks raises naming its ROADMAP item.  The
-    chan-free CDF mode and fold_vel are ported now: those cases build and
-    carry the option."""
+    chan-free CDF mode, fold_vel and joints are ported now: those cases
+    build and carry the option (the joint normalised to a ball joint)."""
+    if "joints" in kw:
+        d = scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
+        assert d.config.joints == ((0, 5, (0.0, 0.0, 0.0), (0.0, 0.0, 0.0), "ball",
+                                    None),)
+        return
     if kw == dict(chan_free=True):
         d = scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
         assert d.config.chan_free and d.config.static_slots == (0, 1, 2, 3, 4)
@@ -182,12 +187,17 @@ def test_unported_reference_config_raises():
 
 
 def test_one_way_coupling_reference_config_raises():
+    """Per-body coupling is ported now: a one-way body's mode is carried
+    over; an unported option beside it (the dense transfer) still raises."""
     j = jscenes.sand_box_3d(nxz=4, ny=6, transfer="pallas", by=8)
     interop.config_from_reference(j.config)
     one_way = (1,) + tuple(j.config.coupling[1:])
-    with pytest.raises(NotImplementedError, match="coupling"):
-        interop.config_from_reference(dataclasses.replace(j.config,
-                                                          coupling=one_way))
+    cfg = interop.config_from_reference(dataclasses.replace(j.config,
+                                                            coupling=one_way))
+    assert cfg.coupling == one_way and one_way[1:] == (2,) * 5
+    with pytest.raises(NotImplementedError, match="transfer"):
+        interop.config_from_reference(dataclasses.replace(
+            j.config, coupling=one_way, transfer="dense"))
 
 
 # Each call builds with no device and returns one tensor it made.

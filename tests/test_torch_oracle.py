@@ -1,8 +1,8 @@
 """The PyTorch port's main path against the independent numpy CPIC oracle
 (tests/oracle_cpic.py), as test_cpic_oracle.py::test_vs_oracle_cpic_pallas
 holds the JAX kernel path: a sand/elastic block on a static floor pushed
-by a kinematic wall (the port has no dynamic bodies yet, so the oracle
-scene's dynamic plate is left out)."""
+by a kinematic wall, without and with the oracle scene's dynamic plate
+(two-way coupled, no body contacts, as the JAX package's test runs it)."""
 
 import numpy as np
 import torch
@@ -22,7 +22,9 @@ DT = 1e-3
 STEPS = 12
 
 
-def test_step_pallas_matches_cpic_oracle():
+def _run(plate: bool):
+    """The oracle scene through STEPS substeps of the port and of the
+    oracle: (port state, oracle, oracle bodies)."""
     rng = np.random.default_rng(3)
     cw = 0.5
     xs = np.arange(8) * 0.25 - 1.0
@@ -40,6 +42,12 @@ def test_step_pallas_matches_cpic_oracle():
         RigidBodyDesc(Collider.cuboid(0.25, 1.5, 2.0), (-1.6, 1.0, 0.0),
                       body_type="kinematic", linvel=(0.4, 0.0, 0.0)),
     ]
+    obodies = [Body((4.0, 0.5, 4.0), (0.0, -0.5, 0.0)),
+               Body((0.25, 1.5, 2.0), (-1.6, 1.0, 0.0), linvel=(0.4, 0.0, 0.0))]
+    if plate:
+        bodies.append(RigidBodyDesc(Collider.cuboid(0.5, 0.25, 0.5), (0.4, 1.72, -0.2),
+                                    body_type="dynamic", density=400.0))
+        obodies.append(Body((0.5, 0.25, 0.5), (0.4, 1.72, -0.2), density=400.0))
     data = MpmData(
         SimulationParams.new(DT, [0.0, -9.81, 0.0], device="cpu"),
         Particles.from_arrays(pos, density=1200.0, radius=cw / 4, device="cpu"),
@@ -48,11 +56,9 @@ def test_step_pallas_matches_cpic_oracle():
         bodies, cw,
         grid=GridConfig.from_bounds(np.array([-4.0, -2.0, -4.0]),
                                     np.array([4.0, 4.0, 4.0]), cw),
-        group=64, by=4)
-    assert data.config.static_slots == (0,)
+        group=64, by=4, body_contacts=False)
+    assert data.config.static_slots == (0,) and data.config.dynamic_slots == ()
     p, m = data.state.particles, data.state.models
-    obodies = [Body((4.0, 0.5, 4.0), (0.0, -0.5, 0.0)),
-               Body((0.25, 1.5, 2.0), (-1.6, 1.0, 0.0), linvel=(0.4, 0.0, 0.0))]
     g = data.config.grid
     oracle = OracleCpic(
         p.pos.numpy(), p.vel.numpy(), p.mass.numpy(), p.init_volume.numpy(),
@@ -73,6 +79,23 @@ def test_step_pallas_matches_cpic_oracle():
                                atol=5e-4)
     np.testing.assert_allclose(state.bodies.pos.numpy()[1], obodies[1].pos,
                                atol=1e-6)
+    return state, oracle, obodies
+
+
+def test_step_pallas_matches_cpic_oracle():
+    _, oracle, _ = _run(plate=False)
     # Both colliders (the static floor, the moving wall) touched the sand.
     aff = oracle.aff.astype(np.uint32)
     assert (aff & 1).any() and (aff & 2).any()
+
+
+def test_step_pallas_with_dynamic_plate_matches_cpic_oracle():
+    """The dynamic plate on the sand, moved by the CPIC impulses and
+    gravity: its pose and velocities within the JAX package's test's
+    tolerances (tests/test_cpic_oracle.py::test_vs_oracle_cpic_pallas)."""
+    state, _, obodies = _run(plate=True)
+    b = state.bodies
+    np.testing.assert_allclose(b.pos.numpy()[2], obodies[2].pos, atol=1e-5)
+    np.testing.assert_allclose(b.linvel.numpy()[2], obodies[2].linvel, atol=1e-4)
+    np.testing.assert_allclose(b.angvel.numpy()[2], obodies[2].angvel, atol=1e-4)
+    assert np.linalg.norm(obodies[2].linvel) > 1e-6

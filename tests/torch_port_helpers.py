@@ -1,7 +1,8 @@
 """Shared set-up for the tests that hold the PyTorch port against the JAX
 package: scenes built in both packages from the same arrays, and one
 substep of the JAX main path taken apart phase by phase so that each of the
-port's kernels can be fed the reference phase's own inputs."""
+port's kernels can be fed the reference phase's own inputs; `run_both`
+steps a JAX scene in both packages."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 
 from wgsparkl_tpu import scenes
 from wgsparkl_tpu.pipeline import MpmData
+from wgsparkl_tpu.pipeline import step_pallas as jax_step_pallas
 from wgsparkl_tpu_torch.scenes import spin_velocities
 
 BY = 8
@@ -523,3 +525,29 @@ def port_data(jdata: MpmData, chan_free=False, fold_vel=None):
                     grid=interop.config_from_reference(cfg).grid, group=cfg.group,
                     max_jobs=cfg.max_jobs, by=cfg.by, chan_free=chan_free,
                     fold_vel=fold_vel)
+
+
+_jax_step_pallas = jax.jit(jax_step_pallas, static_argnums=(2, 3))
+
+
+def run_both(jdata, substeps=10, each=False):
+    """(JAX state, port state) after `substeps` from the same state; each:
+    one substep at a time, both started from the JAX state, and `each`
+    called on every pair."""
+    from wgsparkl_tpu_torch import interop
+    from wgsparkl_tpu_torch.pipeline import step_pallas
+
+    cfg = interop.config_from_reference(jdata.config)
+    tdata = port_data(jdata, chan_free=jdata.config.chan_free)
+    assert cfg == tdata.config
+    params = interop.params_from_reference(jdata.params, "cpu")
+    if not each:
+        return (_jax_step_pallas(jdata.state, jdata.params, jdata.config, substeps),
+                step_pallas(tdata.state, params, cfg, substeps))
+    state = jdata.state
+    for _ in range(substeps):
+        ref = _jax_step_pallas(state, jdata.params, jdata.config, 1)
+        out = step_pallas(interop.state_from_reference(state, "cpu"), params, cfg, 1)
+        each(ref, out)
+        state = ref
+    return ref, out

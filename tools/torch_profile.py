@@ -3,7 +3,7 @@
     python3 tools/torch_profile.py PATH
 
 PATH is one of 3d, 3d-fold, 3d-neo, 3d-free, 3d-shapes, 3d-shapes-chan-free,
-2d, 2d-fold, 2d-neo, 2d-stirred, 2d-stirred-chan-free.  Builds the
+3d-dyn, 2d, 2d-fold, 2d-neo, 2d-stirred, 2d-stirred-chan-free, sand2.  Builds the
 full-size scene of chip_smoke.py (3d: the 1,002,001-particle sand box with
 the paddle, 20 substeps a frame; 3d-fold: the same with the grid update
 folded into G2P (`fold_vel`); 3d-neo: the same with the neo-Hookean
@@ -15,14 +15,18 @@ mode; 3d-shapes-chan-free: the same in the chan-free mode; 2d: the
 folded; 2d-neo: the 490,000-particle neo-Hookean elastic blocks, 15
 substeps a frame; 2d-stirred: path 6, the sand column stirred by a
 kinematic ball and capsule, in the dense CDF mode; 2d-stirred-chan-free:
-the same chan-free), runs one warm frame and chip_smoke.TIMED_FRAMES (3)
+the same chan-free; 3d-dyn: path 8, the 3D main path with two dynamic
+plates on the sand; sand2: path 7, examples/sand2.py at SCALE=1 with its
+two dynamic plates, 10 substeps a frame), runs one warm frame and chip_smoke.TIMED_FRAMES (3)
 unprofiled frames (host clock around synchronised frames), then one frame
 under torch.profiler.  Prints the frame wall times, the device time of the
 profiled frame, the device's idle share against the median unprofiled
 frame, the device launches (kernels, copies, fills) a substep, the
 kernels by device time per substep: the 40 largest and every hand-written
-one, and on a 2D path kernel G's device ms a substep and a launch.  Fails
-without a CUDA device, and on a 2D path where G did not launch.
+one, on a 2D path kernel G's device ms a substep and a launch, and on
+paths 7 and 8 the rigid solve's.  Fails without a CUDA device, on a 2D
+path where G did not launch and on paths 7 and 8 where the rigid solve
+did not.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ def main() -> None:
     ap.add_argument("path", choices=("3d", "3d-fold", "3d-neo", "3d-free",
                                      "3d-shapes", "3d-shapes-chan-free", "2d",
                                      "2d-fold", "2d-neo", "2d-stirred",
-                                     "2d-stirred-chan-free"))
+                                     "2d-stirred-chan-free", "3d-dyn", "sand2"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("FAIL: torch.cuda.is_available() is False")
@@ -78,6 +82,9 @@ def main() -> None:
                                          chip_smoke.SUBSTEPS2),
         "2d-neo": lambda: (chip_smoke.full_scene_neo_2d(dev),
                            chip_smoke.SUBSTEPS_NEO2),
+        "3d-dyn": lambda: (chip_smoke.full_scene_plates(dev), chip_smoke.SUBSTEPS),
+        "sand2": lambda: (chip_smoke.sand2_scene(dev, group=chip_smoke.GROUP2),
+                          chip_smoke.SUBSTEPS2),
     }[args.path]()
     state, params, cfg = data.state, data.params, data.config
     state = step_pallas(state, params, cfg, substeps)
@@ -127,6 +134,13 @@ def main() -> None:
             sys.exit("FAIL: kernel G (pcdf2d_kernel) did not launch")
         ms, count = sum(r[0] for r in g), sum(r[1] for r in g)
         print(f"kernel G (pcdf2d_kernel): {ms / substeps:.4f} ms a substep, "
+              f"{count / substeps:.1f} launches a substep, {ms / count:.4f} ms a launch")
+    r = [r for r in rows if "rigid_solve_kernel" in r[2]]
+    if args.path in ("3d-dyn", "sand2"):
+        if not r:
+            sys.exit("FAIL: the rigid-solve kernel did not launch")
+        ms, count = sum(x[0] for x in r), sum(x[1] for x in r)
+        print(f"rigid solve (rigid_solve_kernel): {ms / substeps:.4f} ms a substep, "
               f"{count / substeps:.1f} launches a substep, {ms / count:.4f} ms a launch")
 
 

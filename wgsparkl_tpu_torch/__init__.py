@@ -2,8 +2,10 @@
 
 The JAX package ``wgsparkl_tpu`` stays the reference; this package runs the
 same MLS-MPM paths in PyTorch: the 3D sand box and the 2D scenes with
-two-way CPIC rigid coupling, and scenes with no collider, on the bounded
-block grid, with corotated or neo-Hookean elasticity.  The Pallas kernels
+two-way (or per-body one-way) CPIC rigid coupling to fixed, kinematic and
+dynamic bodies with body contacts and joints, and scenes with no collider,
+on the bounded block grid, with corotated or neo-Hookean elasticity,
+several materials and fracture.  The Pallas kernels
 of those paths are rewritten as hand-written CUDA C++ kernels for sm_90a
 (``csrc/``).
 
@@ -27,8 +29,8 @@ _torch.set_float32_matmul_precision("highest")
 def kernel_wrappers():
     """{name: wrapper} of the hand-written kernels: the 3D path's five
     (A-E), the collider-free P2G (F), the 2D path's three (G-I), the dim=2
-    entry of kernel C, the in-kernel math probe and the P2G ablation
-    probe."""
+    entry of kernel C, the rigid solve (body contacts and joints), the
+    in-kernel math probe and the P2G ablation probe."""
     from wgsparkl_tpu_torch.math.probe import math_probe
     from wgsparkl_tpu_torch.ops import transfer2d
     from wgsparkl_tpu_torch.ops.ablation import p2g_ablation
@@ -38,6 +40,7 @@ def kernel_wrappers():
     from wgsparkl_tpu_torch.ops.p2g_cdf import p2g_cdf_tiles
     from wgsparkl_tpu_torch.ops.permute import permute_lanes
     from wgsparkl_tpu_torch.ops.update_rows import update_rows, update_rows2d
+    from wgsparkl_tpu_torch.rigid.solve import rigid_solve
 
     return {
         "p2g_cdf": p2g_cdf_tiles,
@@ -50,6 +53,7 @@ def kernel_wrappers():
         "p2g2d": transfer2d.p2g_tiles,
         "g2p2d": transfer2d.g2p_rows,
         "update_rows2d": update_rows2d,
+        "rigid_solve": rigid_solve,
         "math_probe": math_probe,
         "p2g_ablation": p2g_ablation,
     }

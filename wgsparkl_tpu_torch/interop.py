@@ -33,26 +33,32 @@ def params_from_reference(params, device=None) -> SimulationParams:
                                        resolve(device)))
 
 
+def _plain(x):
+    """A joint's static fields as plain Python values (tuples of floats)."""
+    if isinstance(x, (tuple, list)) or (isinstance(x, np.ndarray) and x.ndim):
+        return tuple(_plain(v) for v in x)
+    return x if x is None or isinstance(x, str) else float(x)
+
+
 def config_from_reference(cfg) -> MpmConfig:
     unsupported = {
         "transfer": cfg.transfer != "pallas", "sparse": cfg.sparse,
         "spatial_devices": cfg.spatial_devices, "mesh_cids": cfg.mesh_cids,
-        "dynamic_slots": cfg.dynamic_slots, "joints": cfg.joints,
         "elastic_model": cfg.elastic_model not in ELASTIC_MODELS,
-        # Only two-way coupling (COUPLING_TWO_WAY = 2; empty means all).
-        "coupling": any(int(c) != 2 for c in cfg.coupling),
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(f"configuration options not ported: {bad}")
     g = cfg.grid
+    joints = tuple((int(j[0]), int(j[1]), *(_plain(x) for x in j[2:])) for j in cfg.joints)
     return MpmConfig(
         grid=GridConfig(tuple(g.shape), float(g.cell_width), tuple(g.origin_cell)),
         collider_types=tuple(cfg.collider_types), group=int(cfg.group),
         max_jobs=int(cfg.max_jobs), by=int(cfg.by),
         n_materials=int(cfg.n_materials), static_slots=tuple(cfg.static_slots),
         elastic_model=cfg.elastic_model, chan_free=bool(cfg.chan_free),
-        fold_vel=bool(cfg.fold_vel))
+        fold_vel=bool(cfg.fold_vel), dynamic_slots=tuple(cfg.dynamic_slots),
+        coupling=tuple(int(c) for c in cfg.coupling), joints=joints)
 
 
 def state_from_reference(state, device=None) -> SimState:

@@ -14,7 +14,11 @@ over its 3^3 stencil inside the job's window:
     stencil order, each offset's particles in particle order, per chunk of
     up to 1024 particles of a job;
   * at gate level 2 the impulses of incompatible (node, particle) pairs
-    against the node's closest body, reduced per job and collider.
+    against the node's closest body, each node's pairs in the lists order,
+    reduced per job and collider over the window nodes in node order, then
+    over the jobs in job order (the kernel's order: a dynamic body's
+    velocity follows from them, so the kernel path and the plain path keep
+    the same bits).
 
 Gate levels (per job): 0 no collider node in the window (no CDF, plain
 P2G), 1 only frame-static colliders, 2 a moving collider may be in reach
@@ -234,16 +238,24 @@ def p2g_cdf_plain(pdata, ntiles, btable, jobs, bcells, jbody, cell_width,
             dsum[..., 2] * x[..., 0] - dsum[..., 0] * x[..., 2],
             dsum[..., 0] * x[..., 1] - dsum[..., 1] * x[..., 0]], -1)
         job2 = (jbody >= 2) & (jobs["len"] > 0)
-        for b in range(nc):
-            mask = ((closest_w == b) & job2[:, None]).to(torch.float32)[..., None]
-            db = (dsum * mask).sum(1)
-            cb = (cr * mask).sum(1)
-            com = [btable[k, b] for k in range(3)]
-            ang = torch.stack([db[:, 1] * com[2] - db[:, 2] * com[1] - cb[:, 0],
-                               db[:, 2] * com[0] - db[:, 0] * com[2] - cb[:, 1],
-                               db[:, 0] * com[1] - db[:, 1] * com[0] - cb[:, 2]], -1)
-            imp[0, 0:3, b] = db.sum(0)
-            imp[0, 3:6, b] = ang.sum(0)
+        slots = torch.arange(nc, device=dev)
+        # Per job and collider [J, nc, 3]: the nodes in window order.
+        db = torch.zeros((maxj, nc, 3), dtype=torch.float32, device=dev)
+        cb = torch.zeros_like(db)
+        for n in range(wvol):
+            m = ((closest_w[:, n, None] == slots) & job2[:, None]).to(torch.float32)
+            db = db + dsum[:, n, None, :] * m[..., None]
+            cb = cb + cr[:, n, None, :] * m[..., None]
+        com = [btable[k, :nc] for k in range(3)]
+        part = torch.stack([db[..., 0], db[..., 1], db[..., 2],
+                            db[..., 1] * com[2] - db[..., 2] * com[1] - cb[..., 0],
+                            db[..., 2] * com[0] - db[..., 0] * com[2] - cb[..., 1],
+                            db[..., 0] * com[1] - db[..., 1] * com[0] - cb[..., 2]], 1)
+        # Then the jobs in job order.
+        acc = torch.zeros((6, nc), dtype=torch.float32, device=dev)
+        for j in range(maxj):
+            acc = acc + part[j]
+        imp[0, 0:6, :nc] = acc
 
     pcdf = torch.zeros((8, npad + group + 128), dtype=torch.float32, device=dev)
     lo, hi = R.aff_halves(aff)

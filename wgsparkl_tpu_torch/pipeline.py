@@ -15,8 +15,13 @@ world then holds one inert body slot) skips every CDF phase: P2G is kernel
 F in 3D and kernel H at nc = 0 in 2D, and the other kernels run with
 nc = 0, a zero gate level and zero particle-CDF rows.
 
-Colliders are analytic: cuboids, balls, capsules and halfspaces, fixed or
-kinematic.  The CDF modes are the JAX package's:
+Colliders are analytic: cuboids, balls, capsules and halfspaces, fixed,
+kinematic or dynamic.  A dynamic body is a moving collider with mass: the
+CPIC impulses move it (two-way coupling, or one-way per body through
+`coupling`), and the rigid update after the kernels resolves its contacts
+with the other colliders and the joints (`rigid_bodies_update`; on the card
+in one launch of the rigid-solve kernel, rigid/solve.py).  The CDF modes
+are the JAX package's:
   * gathered hybrid (the default): the never-moving colliders' node-CDF
     channel grid is built once per frame and gathered per job window; in
     3D the moving colliders are merged in-kernel at the windows of jobs a
@@ -33,7 +38,8 @@ kinematic.  The CDF modes are the JAX package's:
 `fold_vel=True` (off by default, as in the JAX package) skips the grid
 velocity pass: G2P (B or I) reads the raw momentum and mass tiles and does
 the grid update at its window nodes.  Options the JAX package has beyond
-these raise NotImplementedError naming their ROADMAP item.
+these (mesh colliders, the sparse domain, other transfers, multi-device
+sharding) raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -64,8 +70,16 @@ from wgsparkl_tpu_torch.ops.transfer2d import pcdf_rows as pcdf_rows2d
 from wgsparkl_tpu_torch.ops.update_rows import update_rows, update_rows2d
 from wgsparkl_tpu_torch.params import SimulationParams, velocity_limit
 from wgsparkl_tpu_torch.rigid import body as body_mod
+from wgsparkl_tpu_torch.rigid import solve as rigid_tables
 from wgsparkl_tpu_torch.rigid.body import RigidWorld
+from wgsparkl_tpu_torch.rigid.solve import rigid_solve
 from wgsparkl_tpu_torch.solver import Models, Particles, attach_material_table
+
+# Per-body coupling modes (MpmConfig.coupling): a one-way body sees the
+# matter (particle CDF, ghost velocities) but takes no impulse from it.
+COUPLING_ONE_WAY = 1
+COUPLING_TWO_WAY = 2
+
 
 def _unported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
@@ -92,6 +106,14 @@ class MpmConfig:
     elastic_model: str = "corotated"
     chan_free: bool = False
     fold_vel: bool = False
+    # Slots whose contacts the rigid update resolves (the dynamic bodies;
+    # empty when MpmData was built with body_contacts=False).
+    dynamic_slots: Tuple[int, ...] = ()
+    # COUPLING_ONE_WAY / COUPLING_TWO_WAY a slot (empty: all two-way).
+    coupling: Tuple[int, ...] = ()
+    # Normalised joints (b, c, anchor_b, anchor_c, kind, extra), see
+    # _normalize_joints.
+    joints: Tuple = ()
 
     @property
     def num_colliders(self) -> int:
@@ -133,15 +155,14 @@ class RigidBodyDesc:
 
 def build_rigid_world(descs: Sequence[RigidBodyDesc], dim: int = 3,
                       device=None) -> RigidWorld:
-    """The bodies of `descs` (fixed or kinematic) as a RigidWorld on
-    `device` (None: the card)."""
+    """The bodies of `descs` as a RigidWorld on `device` (None: the card);
+    a dynamic body takes its inverse mass (every axis) and inverse inertia
+    from its collider's shape and density."""
     device = resolve(device)
     b = max(len(descs), 1)
     na = 3 if dim == 3 else 1
-    rots, poss, lin, ang, params = [], [], [], [], []
+    rots, poss, lin, ang, params, inv_m, inv_i = [], [], [], [], [], [], []
     for d in descs:
-        if d.body_type == "dynamic":
-            raise _unported("dynamic bodies", "queue 1, item 8")
         poss.append(np.asarray(d.translation, np.float32))
         if dim == 2:
             a = 0.0 if d.rotation is None else float(d.rotation)
@@ -159,10 +180,18 @@ def build_rigid_world(descs: Sequence[RigidBodyDesc], dim: int = 3,
         ang.append(np.zeros(na, np.float32) if d.angvel is None
                    else np.atleast_1d(np.asarray(d.angvel, np.float32)))
         params.append(d.collider.padded_params())
+        if d.body_type == "dynamic":
+            mass, _, inertia = body_mod.shape_mass_properties(d.collider, d.density,
+                                                              dim)
+            inv_m.append(np.full(dim, 1.0 / mass, np.float32))
+            inv_i.append(np.linalg.inv(inertia).astype(np.float32))
+        else:
+            inv_m.append(np.zeros(dim, np.float32))
+            inv_i.append(np.zeros((na, na), np.float32))
     t = lambda x: torch.as_tensor(np.stack(x), device=device)  # noqa: E731
     zd = torch.zeros((b, dim), device=device)
-    zi = torch.zeros((b, na, na), device=device)
     if not descs:
+        zi = torch.zeros((b, na, na), device=device)
         rot = torch.zeros((b, 4 if dim == 3 else 2), device=device)
         rot[:, 0] = 1.0
         return RigidWorld(rot, zd, zd.clone(), torch.zeros((b, na), device=device),
@@ -170,8 +199,70 @@ def build_rigid_world(descs: Sequence[RigidBodyDesc], dim: int = 3,
                           torch.zeros((b, 8), device=device))
     return RigidWorld(rot=t(rots), pos=t(poss), linvel=t(lin), angvel=t(ang),
                       local_com=zd.clone(), world_com=zd.clone(),
-                      inv_mass=zd.clone(), inv_inertia_local=zi,
-                      inv_inertia_world=zi.clone(), shape_params=t(params))
+                      inv_mass=t(inv_m), inv_inertia_local=t(inv_i),
+                      inv_inertia_world=t(inv_i), shape_params=t(params))
+
+
+def _normalize_joints(joints, bodies, dim: int):
+    """User joint specs -> the static MpmConfig.joints tuples (b, c,
+    anchor_b, anchor_c, kind, extra) (a copy of the JAX package's).
+
+    Accepted: (b, c, ab, ac) or (b, c, ab, ac, "ball"); (b, c, ab, ac,
+    "fixed"), the current relative rotation captured as the weld target;
+    (b, c, ab, ac, "revolute", axis), a 3D hinge about axis in b's frame
+    (in 2D the same as ball); (b, c, ab, ac, "prismatic", axis), a slider
+    along axis in b's frame with the relative rotation welded.  The initial
+    rotations come from build_rigid_world on the CPU."""
+    if not joints:
+        return ()
+    rot0 = None
+    out = []
+
+    def _rel0(b, c):
+        """Initial relative rotation rot_b^-1 rot_c as a static tuple."""
+        if dim == 2:
+            (cb, sb), (cc, sc) = rot0[b], rot0[c]
+            return (float(cb * cc + sb * sc), float(cb * sc - sb * cc))
+        wb, xb, yb, zb = rot0[b]
+        w1, x1, y1, z1 = wb, -xb, -yb, -zb
+        w2, x2, y2, z2 = rot0[c]
+        return (
+            float(w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2),
+            float(w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2),
+            float(w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2),
+            float(w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2),
+        )
+
+    for j in joints:
+        b, c = int(j[0]), int(j[1])
+        ab, ac = tuple(map(float, j[2])), tuple(map(float, j[3]))
+        kind = j[4] if len(j) > 4 else "ball"
+        extra = None
+        if kind in ("fixed", "revolute", "prismatic") and rot0 is None:
+            rot0 = build_rigid_world(bodies, dim, "cpu").rot.double().numpy()
+        if kind == "fixed":
+            extra = _rel0(b, c)
+        elif kind == "prismatic":
+            ax = np.asarray(j[5], np.float64)
+            ax = ax / max(np.linalg.norm(ax), 1e-12)
+            extra = (tuple(map(float, ax)), _rel0(b, c))
+        elif kind == "revolute":
+            if dim == 2:
+                kind = "ball"
+            else:
+                from wgsparkl_tpu_torch.math import pose as _pm
+
+                ax = np.asarray(j[5], np.float64)
+                ax = ax / max(np.linalg.norm(ax), 1e-12)
+                q_b = torch.as_tensor(rot0[b], dtype=torch.float32)
+                q_c = torch.as_tensor(rot0[c], dtype=torch.float32)
+                a_world = _pm.quat_rotate(q_b, torch.as_tensor(ax, dtype=torch.float32))
+                ax_c = _pm.quat_inv_rotate(q_c, a_world)
+                extra = (tuple(map(float, ax)), tuple(map(float, ax_c.tolist())))
+        elif kind != "ball":
+            raise ValueError(f"unknown joint kind {kind!r}")
+        out.append((b, c, ab, ac, kind, extra))
+    return tuple(out)
 
 
 def pallas_npad(n: int, group: int) -> int:
@@ -341,9 +432,15 @@ def _norm(x):
 
 
 def rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg: MpmConfig):
-    """Apply the CPIC impulses (two-way coupling on every body), cap
-    velocities, integrate poses, gravity."""
+    """Mask the CPIC impulses of one-way bodies, apply them, cap
+    velocities, integrate poses, add gravity to bodies with mass, then
+    resolve the dynamic bodies' contacts and the joints on the new poses
+    (rigid/solve.py: one kernel launch on the card)."""
     dt = params.dt
+    tab = rigid_tables.tables(cfg, bodies.pos.device)
+    if tab.coupling_mask is not None:
+        lin_imp = lin_imp * tab.coupling_mask
+        ang_imp = ang_imp * tab.coupling_mask
     new_lin, new_ang = body_mod.apply_impulse(bodies, lin_imp, ang_imp)
     nz = (_norm(lin_imp) != 0.0) | (_norm(ang_imp) != 0.0)
     lin_limit = float(torch.tensor(0.1 * cfg.grid.cell_width, dtype=torch.float32)) / dt
@@ -355,6 +452,13 @@ def rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg: MpmConfig):
     new_rot, new_pos = body_mod.integrate_velocity(bodies, new_lin, new_ang, dt)
     mass_mask = (bodies.inv_mass != 0.0).to(new_lin.dtype)
     new_lin = new_lin + params.gravity[None, :] * mass_mask * dt
+    if not tab.empty:
+        # Contacts (slop 5% of a cell), then joints, on the new poses; the
+        # non-dynamic bodies keep their prescribed velocities.
+        world = body_mod.update_world_mass_properties(
+            dataclasses.replace(bodies, rot=new_rot, pos=new_pos))
+        new_lin, new_ang = rigid_solve(world, new_lin, new_ang, dt,
+                                       0.05 * cfg.grid.cell_width, tab)
     return dataclasses.replace(bodies, rot=new_rot, pos=new_pos, linvel=new_lin,
                                angvel=new_ang)
 
@@ -628,7 +732,12 @@ def step_with_diag(state, params, cfg: MpmConfig, num_substeps: int):
 class MpmData:
     """Owns one scene's state and static configuration (port of the
     pallas / bounded-grid branch of wgsparkl_tpu.pipeline.MpmData, 3D and
-    2D).  The state lives on the particles' device."""
+    2D).  The state lives on the particles' device.  transfer defaults to
+    "pallas", the only transfer ported (the JAX package defaults to
+    "dense").  coupling: COUPLING_ONE_WAY / COUPLING_TWO_WAY a body (None:
+    all two-way); body_contacts: resolve the dynamic bodies' contacts (with
+    False they keep their mass but pass through other colliders); joints:
+    see _normalize_joints."""
 
     def __init__(self, params: SimulationParams, particles: Particles,
                  models: Models, bodies: Sequence[RigidBodyDesc],
@@ -637,27 +746,31 @@ class MpmData:
                  transfer: str = "pallas", group: int = 256,
                  max_jobs: int = 0, sparse: bool = False,
                  by: int = 4, joints=(), chan_free: Optional[bool] = None,
-                 fold_vel: Optional[bool] = None, spatial_devices: int = 0):
+                 fold_vel: Optional[bool] = None, spatial_devices: int = 0,
+                 coupling: Optional[Sequence[int]] = None,
+                 body_contacts: bool = True):
         dim = particles.dim
         if dim == 2 and by != 4:
             raise ValueError("2D blocks are 8 x 8: by must be 4")
         if transfer != "pallas":
-            raise _unported(f"transfer={transfer!r}", "queue 1, items 4 and 12")
+            raise _unported(f"transfer={transfer!r}", "queue 1, item 4")
         if sparse:
             raise _unported("the sparse domain", "queue 1, item 10")
         if spatial_devices:
             raise _unported("spatial multi-device sharding", "queue 1, item 11")
-        if joints:
-            raise _unported("joints", "queue 1, item 8")
         if elastic_model not in ELASTIC_MODELS:
             raise ValueError(f"unknown elastic model {elastic_model!r}")
         for b in bodies:
             if b.collider.shape_type not in shp.ANALYTIC:
                 raise _unported("mesh colliders", "queue 1, item 8")
-            if b.body_type == "dynamic":
-                raise _unported("dynamic bodies", "queue 1, item 8")
         if len(bodies) > 16:
             raise ValueError("at most 16 colliders (the 16-bit affinity word)")
+        if coupling is None:
+            coupling = tuple(COUPLING_TWO_WAY for _ in bodies)
+        coupling = tuple(int(c) for c in coupling)
+        if len(coupling) != len(bodies):
+            raise ValueError(f"coupling: one mode a body ({len(bodies)}), "
+                             f"got {len(coupling)}")
         device = particles.pos.device
         if grid is None:
             if grid_bounds is not None:
@@ -696,13 +809,19 @@ class MpmData:
         models, n_mat = attach_material_table(particles, models)
         self.params = params
         self.bodies_desc = tuple(bodies)
+        dynamic_slots = tuple(i for i, b in enumerate(bodies)
+                              if b.body_type == "dynamic")
         self.config = MpmConfig(
             grid=grid, collider_types=collider_types,
             group=group, max_jobs=max_jobs, by=by,
             n_materials=n_mat, static_slots=static_slots,
             elastic_model=elastic_model, chan_free=chan_free,
-            fold_vel=bool(fold_vel))
+            fold_vel=bool(fold_vel),
+            dynamic_slots=dynamic_slots if body_contacts else (),
+            coupling=coupling, joints=_normalize_joints(joints, bodies, dim))
         self.state = SimState(particles=particles, models=models, bodies=world)
+        # The rigid update's static tables, on the state's device now.
+        rigid_tables.tables(self.config, device)
 
     @property
     def num_particles(self) -> int:

@@ -1,6 +1,10 @@
 """Rigid-body state and the coupling ops (port of wgsparkl_tpu/rigid/body.py:
 RigidWorld, update_world_mass_properties, apply_impulse,
-integrate_velocity).  Slots <= 16 (the CPIC affinity word).
+integrate_velocity, shape_mass_properties).  Slots <= 16
+(the CPIC affinity word).  Fixed and kinematic bodies have zero inverse
+mass; dynamic bodies get theirs from shape_mass_properties and are moved by
+the CPIC impulses, gravity, body contacts (rigid/contacts.py) and joints
+(rigid/joints.py).
 
 3D: rot a quaternion [B, 4], angvel [B, 3], inertia [B, 3, 3].
 2D: rot a unit complex [B, 2] (cos, sin), angvel [B, 1], inertia [B, 1, 1].
@@ -10,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from wgsparkl_tpu_torch.math import pose as pose_math
@@ -70,3 +75,48 @@ def integrate_velocity(bodies: RigidWorld, linvel, angvel, dt):
              & torch.all(linvel == 0.0, dim=-1, keepdim=True))
     return (torch.where(still, bodies.rot, new_rot),
             torch.where(still, bodies.pos, new_pos))
+
+
+def shape_mass_properties(collider, density: float, dim: int):
+    """(mass, local_com, inertia) of a primitive shape (host numpy; a copy
+    of the JAX package's): a capsule is a cylinder plus a ball; a halfspace
+    has infinite mass and no inertia."""
+    st = collider.shape_type
+    p = collider.params
+    if st == 0:  # cuboid
+        he = np.asarray(p[:dim], np.float64)
+        mass = density * float(np.prod(2.0 * he))
+        if dim == 3:
+            ex, ey, ez = 2.0 * he
+            inertia = np.diag(mass / 12.0 * np.array(
+                [ey**2 + ez**2, ex**2 + ez**2, ex**2 + ey**2]))
+        else:
+            ex, ey = 2.0 * he
+            inertia = np.array([[mass * (ex**2 + ey**2) / 12.0]])
+        return mass, np.zeros(dim), inertia
+    if st == 1:  # ball
+        r = p[0]
+        if dim == 3:
+            mass = density * (4.0 / 3.0 * np.pi * r**3)
+            i = 0.4 * mass * r * r
+            inertia = np.diag([i, i, i])
+        else:
+            mass = density * (np.pi * r**2)
+            inertia = np.array([[0.5 * mass * r * r]])
+        return mass, np.zeros(dim), inertia
+    if st == 2:  # capsule
+        hh, r = p[0], p[1]
+        if dim == 3:
+            vol_cyl = np.pi * r * r * 2 * hh
+            vol_sph = 4.0 / 3.0 * np.pi * r**3
+            mass = density * (vol_cyl + vol_sph)
+            m_cyl, m_sph = density * vol_cyl, density * vol_sph
+            ixx = m_cyl * (3 * r * r + (2 * hh) ** 2) / 12.0 + m_sph * (
+                0.4 * r * r + hh * hh)
+            iyy = 0.5 * m_cyl * r * r + 0.4 * m_sph * r * r
+            inertia = np.diag([ixx, iyy, ixx])
+        else:
+            mass = density * (4 * hh * r + np.pi * r * r)
+            inertia = np.array([[mass * ((2 * r) ** 2 + (2 * hh + 2 * r) ** 2) / 12.0]])
+        return mass, np.zeros(dim), inertia
+    return np.inf, np.zeros(dim), None
