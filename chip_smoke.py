@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. environment: the card's name and power limit; the CUDA kernels'
-     twelve sources are built from wgsparkl_tpu_torch/csrc, one nvcc each,
+     thirteen sources are built from wgsparkl_tpu_torch/csrc, one nvcc each,
      all started together (set-up), and the ptxas reports of kernels G, I
      and E printed;
   2. the 3D main path at full size (sand_box_3d with the paddle, 1,002,001
@@ -34,7 +34,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      timed frames each: the same checks, exactly one rigid-solve launch a
      substep, the plates moved, finite body states, and path 7's rigid
      update of a substep run again under
-     torch.cuda.set_sync_debug_mode("error");
+     torch.cuda.set_sync_debug_mode("error"); paths 9-11, the mesh
+     colliders (`cut2_scene`, `cut3_scene`, `hf3_scene`: examples/
+     elastic_cut2.py, elastic_cut3.py and heightfield3.py at SCALE=1,
+     490,000, 75,000 and 202,500 particles), one warm and 2 timed frames
+     each: the same checks, exactly one mesh_cdf launch a substep and a
+     mesh pass with finite keys;
   5. each kernel against its plain PyTorch version at full size, on the
      inputs of a substep of each scene with its lattice lowered into a
      collider (onto the paddle in 3D, 1.5 cells into the floor in 2D), so
@@ -68,6 +73,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      equal to the plain path); kernel C's fracture branch at full size
      with four materials (the 3D lattice spinning on the paddle, the 2D
      elastic blocks in their floor; affinity and phase rows bit for bit);
+     the mesh pass (kernel mesh_cdf) on a substep of paths 10 and 9 with
+     the block lowered onto the blades and of path 11 (`mesh_cdf`,
+     `mesh_cdf2d`, `mesh_cdf_heightfield`: keys and affinity words bit
+     for bit), and A and H on those substeps' mesh tiles (`p2g_cdf_mesh`,
+     `p2g2d_mesh`, bit for bit);
   5. (path 5) the 3D analytic-shapes path at full size: the main path's
      lattice, models, grid and job table with a static halfspace floor,
      the four static side walls, a kinematic capsule paddle and a kinematic
@@ -87,9 +97,13 @@ Phases (any failure exits non-zero, and no result line is printed):
      floor, folded too, each with gated jobs; dynamic bodies: 5 substeps of
      a small sand2 with its plates pressed into the floor and each other
      and of the 3D lattice on a dynamic plate held by a ball joint; 5
-     substeps each of four materials with fracture in 3D and 2D): 21
-     scenes, equal bit for bit to the plain path on the card, and within
-     tolerance of the plain path on the CPU (affinity words exact).
+     substeps each of four materials with fracture in 3D and 2D; mesh
+     colliders: 5 substeps each of the trimesh ramp and cuboid floor at by
+     4 and by 8, the 2D polyline tent, a kinematic spinning trimesh paddle
+     in the sand box and the smallest elastic_cut3 block pressed onto its
+     blades with fracture): 26 scenes, equal bit for bit to the plain path
+     on the card, and within tolerance of the plain path on the CPU
+     (affinity words exact).
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -122,6 +136,10 @@ SUBSTEPS_NEO2 = 15
 STIR_SCALE = NX2 * H2 / (24 * 0.5)
 # Path 7: examples/sand2.py at SCALE=1 (700 x 700 particles).
 N_SAND2 = 700
+# Path 9: examples/elastic_cut2.py at SCALE=1 (700 x 700 particles); paths
+# 10 and 11 (elastic_cut3, heightfield3) at SCALE=CUT3_SCALE, HF3_SCALE.
+N_CUT2, CUT3_SCALE, HF3_SCALE = 700, 1.0, 1.0
+SUBSTEPS_CUT2 = 15
 DEVICE = "cuda:0"
 # The H100 SXM's published peaks (fp32 outside the tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -167,6 +185,13 @@ REPLACES = {
     "rigid_solve": "wgsparkl_tpu/rigid/contacts.py:183",
     "rigid_solve_3d": "wgsparkl_tpu/rigid/contacts.py:183",
     "rigid_solve_joints": "wgsparkl_tpu/rigid/joints.py:168",
+    # Port-only: the JAX package's mesh node-CDF pass is plain XLA (a
+    # lax.scan over a sample job table with scatter-min/max), no pallas_call.
+    "mesh_cdf": "wgsparkl_tpu/ops/rigid_cdf.py:89",
+    "mesh_cdf_heightfield": "wgsparkl_tpu/ops/rigid_cdf.py:89",
+    "mesh_cdf2d": "wgsparkl_tpu/ops/rigid_cdf.py:89",
+    "p2g_cdf_mesh": "wgsparkl_tpu/ops/pallas_cdf.py:517",
+    "p2g2d_mesh": "wgsparkl_tpu/ops/pallas_transfer2d.py:402",
 }
 SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_rows",
           "update_rows2d_neo_hookean": "update_rows", "p2g_cdf_shapes": "p2g_cdf",
@@ -175,7 +200,9 @@ SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_row
           "pcdf2d_dense": "pcdf2d", "p2g2d_chan_free": "p2g2d", "g2p2d_chan_free": "g2p2d",
           "p2g2d_neo": "p2g2d", "p2g2d_chunks": "p2g2d",
           "update_rows_fracture": "update_rows", "update_rows2d_fracture": "update_rows",
-          "rigid_solve_3d": "rigid_solve", "rigid_solve_joints": "rigid_solve"}
+          "rigid_solve_3d": "rigid_solve", "rigid_solve_joints": "rigid_solve",
+          "mesh_cdf_heightfield": "mesh_cdf", "mesh_cdf2d": "mesh_cdf",
+          "p2g_cdf_mesh": "p2g_cdf", "p2g2d_mesh": "p2g2d"}
 # The rows of the [PCHAN, NPAD] input matrix that kernel C reads (csrc/
 # update_rows.cu, update_kernel and update2d_kernel); it replaces the others
 # with G2P rows, particle-CDF rows or new values.
@@ -186,6 +213,8 @@ KERNELS_2D = ("pcdf2d", "p2g2d", "g2p2d", "update_rows2d", "permute", "compact")
 KERNELS_FREE = ("p2g", "g2p", "update_rows", "permute", "compact")
 KERNELS_7 = KERNELS_2D + ("rigid_solve",)
 KERNELS_8 = KERNELS_3D + ("rigid_solve",)
+KERNELS_9 = KERNELS_2D + ("mesh_cdf",)
+KERNELS_10 = KERNELS_3D + ("mesh_cdf",)
 
 
 def fail(msg: str) -> None:
@@ -288,11 +317,12 @@ def plain_versions():
     device) for the duration of the block."""
     from wgsparkl_tpu_torch import pipeline
     from wgsparkl_tpu_torch.ops import (
-        compact, g2p, p2g, p2g_cdf, permute, transfer2d, update_rows,
+        compact, g2p, p2g, p2g_cdf, permute, rigid_cdf, transfer2d, update_rows,
     )
     from wgsparkl_tpu_torch.rigid import solve
 
     swaps = [(pipeline, "rigid_solve", solve.rigid_solve_plain),
+             (rigid_cdf, "mesh_node_cdf", rigid_cdf.mesh_node_cdf_plain),
              (pipeline, "p2g_cdf_tiles", p2g_cdf.p2g_cdf_plain),
              (pipeline, "p2g_tiles", p2g.p2g_plain),
              (pipeline, "g2p_rows", g2p.g2p_plain),
@@ -558,6 +588,219 @@ def sand2_pressed(n_side):
     return ((e * 0.4, 0.25), (e * 0.4 + 0.2, 0.8))
 
 
+def cut2_scene(device, n_side=None, shift=None, **mpm_kw):
+    """Path 9: examples/elastic_cut2.py (lines 19-60) at SCALE = n_side / 700:
+    an n_side x n_side elastic block (E = 5e6, nu = 0.2, max_stretch 1.4,
+    cell width 0.2) over a 64-vertex sine-wave polyline ground and six
+    polyline blades, gravity x 2, dt (1/60)/15, group 256; shift moves the
+    lattice; n_side None: N_CUT2."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.models import ElasticCoefficients
+    from wgsparkl_tpu_torch.params import SimulationParams
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+    from wgsparkl_tpu_torch.scenes import _lattice
+    from wgsparkl_tpu_torch.solver import Models, Particles
+
+    n_side = n_side or N_CUT2
+    scale, cw = n_side / 700, 0.2
+    pos = _lattice((n_side, n_side), cw, (0.1, 30.0 * scale))
+    if shift is not None:
+        pos = pos + np.asarray(shift, np.float32)
+    n = len(pos)
+    elast = ElasticCoefficients.from_young_modulus(5e6, 0.2)
+    models = Models.from_arrays(n, elast.lam, elast.mu, phase=1.0, max_stretch=1.4,
+                                device=device)
+    extent = n_side * cw / 2
+    xs = np.linspace(-extent * 1.5, extent * 3.5, 64)
+    ground = np.stack([xs, 0.4 * np.sin(xs * 0.8)], axis=-1)
+    bodies = [RigidBodyDesc(Collider.polyline(ground), (0.0, -0.5))]
+    for k in range(6):
+        cx, top = extent * 0.2 + k * extent * 0.3, 30.0 * scale * 0.6
+        blade = np.array([[cx, top], [cx + 0.15, top - extent * 0.5]], np.float32)
+        bodies.append(RigidBodyDesc(Collider.polyline(blade), (0.0, 0.0)))
+    return MpmData(SimulationParams.new((1 / 60) / 15, [0.0, -9.81 * 2], device=device),
+                   Particles.from_arrays(pos, density=1000.0, radius=cw / 4,
+                                         device=device),
+                   models, bodies, cw,
+                   grid_bounds=(np.array([-extent * 1.5, -2.0]),
+                                np.array([extent * 3.5, 40.0 * scale + extent])),
+                   **{"group": 256, **mpm_kw})
+
+
+def cut3_blade(cx, angle, half_len, height=6.0):
+    """examples/elastic_cut3.py's blade (lines 36-48): a quad rotated about y."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+
+    v = np.array([[-half_len, 0, 0], [half_len, 0, 0], [half_len, height, 0],
+                  [-half_len, height, 0]], np.float32)
+    c, s = np.cos(angle), np.sin(angle)
+    rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    v = v @ rot.T + np.array([cx, 2.0, 0.0], np.float32)
+    return Collider.trimesh(v, np.array([[0, 1, 2], [0, 2, 3]], np.int32))
+
+
+def cut3_scene(device, scale=1.0, shift=None, max_stretch=1.3, vel=None, **mpm_kw):
+    """Path 10: examples/elastic_cut3.py (lines 20-62) at SCALE = scale: a
+    50 x 30 x 50 elastic block at SCALE = 1 (75,000 particles, E = 1e7,
+    nu = 0.2, cell width 1) falling onto a cuboid floor and three thin
+    trimesh blades, gravity x 4, dt (1/60)/20, group 256, by 4; shift moves
+    the lattice, vel gives it a velocity."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.models import ElasticCoefficients
+    from wgsparkl_tpu_torch.params import SimulationParams
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+    from wgsparkl_tpu_torch.scenes import _lattice
+    from wgsparkl_tpu_torch.solver import Models, Particles
+
+    cw = 1.0
+    nx, nyz = max(10, int(50 * scale)), max(6, int(30 * scale))
+    pos = _lattice((nx, nyz, nx), cw, (-nx * cw / 4, 14.0, -nx * cw / 4))
+    if shift is not None:
+        pos = pos + np.asarray(shift, np.float32)
+    n = len(pos)
+    particles = Particles.from_arrays(pos, density=1000.0, radius=cw / 4, device=device)
+    if vel is not None:
+        particles.vel[:] = torch.tensor(vel, dtype=torch.float32, device=device)
+    elast = ElasticCoefficients.from_young_modulus(1e7, 0.2)
+    models = Models.from_arrays(n, elast.lam, elast.mu, phase=1.0,
+                                max_stretch=max_stretch, device=device)
+    extent = nx * cw
+    bodies = [RigidBodyDesc(Collider.cuboid(extent * 3, 1.0, extent * 3), (0, -1.0, 0)),
+              RigidBodyDesc(cut3_blade(-extent / 4, 0.4, extent), (0.0, 0.0, 0.0)),
+              RigidBodyDesc(cut3_blade(0.0, -0.3, extent), (0.0, 0.0, 0.0)),
+              RigidBodyDesc(cut3_blade(extent / 4, 0.1, extent), (0.0, 0.0, 0.0))]
+    return MpmData(SimulationParams.new((1 / 60) / 20, [0.0, -9.81 * 4.0, 0.0],
+                                        device=device),
+                   particles, models, bodies, cw,
+                   grid_bounds=(np.array([-extent, -2.0, -extent]),
+                                np.array([extent, 25.0, extent])),
+                   **{"group": 256, **mpm_kw})
+
+
+def hf3_scene(device, scale=1.0, shift=None, **mpm_kw):
+    """Path 11: examples/heightfield3.py (lines 19-50) at SCALE = scale: a
+    45 x 100 x 45 Drucker-Prager sand lattice at SCALE = 1 (202,500
+    particles, density 2700, E = 2e9, nu = 0.2, cell width 1) dropped on a
+    48 x 48 random rolling heightfield (4,418 triangles, numpy
+    default_rng(0)), dt (1/60)/20, group 256; shift moves the lattice."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.models import DruckerPrager, ElasticCoefficients
+    from wgsparkl_tpu_torch.models.drucker_prager import drucker_prager_arrays
+    from wgsparkl_tpu_torch.params import SimulationParams
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+    from wgsparkl_tpu_torch.scenes import _lattice
+    from wgsparkl_tpu_torch.solver import Models, Particles
+
+    cw = 1.0
+    nxz, ny = max(8, int(45 * scale)), max(12, int(100 * scale))
+    pos = _lattice((nxz, ny, nxz), cw, (-nxz * cw / 4, 16.0, -nxz * cw / 4))
+    if shift is not None:
+        pos = pos + np.asarray(shift, np.float32)
+    n = len(pos)
+    elast = ElasticCoefficients.from_young_modulus(2e9, 0.2)
+    dp = drucker_prager_arrays([DruckerPrager.new(2e9, 0.2)])
+    models = Models.from_arrays(n, elast.lam, elast.mu,
+                                dp={k: np.full(n, v[0]) for k, v in dp.items()},
+                                device=device)
+    rng = np.random.default_rng(0)
+    res = max(16, int(48 * scale))
+    extent = nxz * cw * 1.5
+    heights = 0.15 * np.sin(np.linspace(0, 6, res))[:, None] * np.cos(
+        np.linspace(0, 6, res))[None, :] + 0.04 * rng.standard_normal((res, res))
+    field = Collider.heightfield(heights, (2 * extent, 8.0, 2 * extent))
+    return MpmData(SimulationParams.new((1 / 60) / 20, [0.0, -9.81, 0.0], device=device),
+                   Particles.from_arrays(pos, density=2700.0, radius=cw / 4,
+                                         device=device),
+                   models, [RigidBodyDesc(field, (0.0, 0.0, 0.0))], cw,
+                   grid_bounds=(np.array([-extent, -6.0, -extent]),
+                                np.array([extent, 30.0, extent])),
+                   **{"group": 256, **mpm_kw})
+
+
+def ramp_scene(device, by=4):
+    """tests/test_mesh_colliders.py `_mesh_scene` on the pallas path: an
+    elastic 6^3 block 0.2 above a tilted two-triangle trimesh ramp, with a
+    static cuboid floor, cell width 0.5, group 64."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.models import ElasticCoefficients
+    from wgsparkl_tpu_torch.params import SimulationParams
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+    from wgsparkl_tpu_torch.solver import Models, Particles
+
+    h = 0.5
+    verts = np.array([[-4, 0.0, -4], [4, 1.6, -4], [4, 1.6, 4], [-4, 0.0, 4]], np.float32)
+    ramp = Collider.trimesh(verts, np.array([[0, 2, 1], [0, 3, 2]], np.int32))
+    xs = np.arange(6) * h / 2 + h / 4
+    g = np.meshgrid(xs - 0.75, xs + 0.95, xs - 0.75, indexing="ij")
+    pos = np.stack([a.ravel() for a in g], -1).astype(np.float32)
+    m = ElasticCoefficients.from_young_modulus(1e6, 0.2)
+    return MpmData(SimulationParams.new(1 / 600, [0, -9.81, 0], device=device),
+                   Particles.from_arrays(pos, density=1000.0, radius=h / 4, device=device),
+                   Models.from_arrays(len(pos), m.lam, m.mu, phase=1.0, device=device),
+                   [RigidBodyDesc(ramp, (0.0, 0.0, 0.0)),
+                    RigidBodyDesc(Collider.cuboid(6.0, 0.5, 6.0), (0.0, -1.2, 0.0))],
+                   h, grid_bounds=(np.array([-4.0, -2.0, -4.0]), np.array([4.0, 6.0, 4.0])),
+                   group=64, by=by)
+
+
+def tent_scene(device):
+    """tests/test_mesh_colliders.py's 2D polyline tent over a cuboid floor
+    (an elastic 10 x 10 block, cell width 0.5, group 64)."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.models import ElasticCoefficients
+    from wgsparkl_tpu_torch.params import SimulationParams
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+    from wgsparkl_tpu_torch.solver import Models, Particles
+
+    h = 0.5
+    poly = Collider.polyline(np.array([[-4.0, 0.0], [0.0, 1.0], [4.0, 0.0]], np.float32),
+                             np.array([[0, 1], [1, 2]], np.int32))
+    xs = np.arange(10) * h / 2 + h / 4
+    g = np.meshgrid(xs - 1.25, xs + 1.2, indexing="ij")
+    pos = np.stack([a.ravel() for a in g], -1).astype(np.float32)
+    m = ElasticCoefficients.from_young_modulus(1e6, 0.2)
+    return MpmData(SimulationParams.new(1 / 600, [0, -9.81], device=device),
+                   Particles.from_arrays(pos, density=1000.0, radius=h / 4, device=device),
+                   Models.from_arrays(len(pos), m.lam, m.mu, phase=1.0, device=device),
+                   [RigidBodyDesc(poly, (0.0, 0.0)),
+                    RigidBodyDesc(Collider.cuboid(6.0, 0.5), (0.0, -1.2))],
+                   h, grid_bounds=(np.array([-4.0, -2.0]), np.array([4.0, 6.0])), group=64)
+
+
+def paddle_scene(device):
+    """The small sand box (sand_box_3d(nxz=8, ny=16)) lowered 3 cells, with
+    its cuboid paddle replaced by a kinematic trimesh paddle (a 4 x 12 quad
+    at the paddle's pose) spinning at 2 rad/s about y; by 8, group 256."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch import scenes
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+
+    d = scenes.sand_box_3d(nxz=8, ny=16, with_paddle=False, device=device)
+    quad = Collider.trimesh(
+        np.array([[0, -2, -6], [0, -2, 6], [0, 2, 6], [0, 2, -6]], np.float32),
+        np.array([[0, 1, 2], [0, 2, 3]], np.int32))
+    paddle = RigidBodyDesc(quad, (0.0, 2.0, 0.0), rotation=(0.0, 0.0, -0.5),
+                           body_type="kinematic", angvel=(0.0, -2.0, 0.0))
+    p = d.state.particles
+    p.pos -= torch.tensor([0.0, 3.0, 0.0], device=device)
+    return MpmData(d.params, p, d.state.models, list(d.bodies_desc) + [paddle], 1.0,
+                   grid=d.config.grid, by=BY, group=256)
+
+
 def stirred_column(d, scale=1.0, chan_free=False, **mpm_kw):
     """Scene d's lattice, models, grid and floor (a sand_column_2d) with a
     kinematic ball and a kinematic capsule stirring the column's foot (the
@@ -821,7 +1064,8 @@ def _to(state, device):
             for f in dataclasses.fields(obj)})
 
     return dataclasses.replace(state, particles=mv(state.particles),
-                               models=mv(state.models), bodies=mv(state.bodies))
+                               models=mv(state.models), bodies=mv(state.bodies),
+                               meshes=state.meshes and state.meshes.to(device))
 
 
 def run_frames(wt, data, substeps, kernels, what, card, kind,
@@ -870,6 +1114,60 @@ def run_frames(wt, data, substeps, kernels, what, card, kind,
         print(f"{what}: live jobs by gate level {gate_histogram(rec)} in a substep "
               "after the timed frames", flush=True)
     return counts, state
+
+
+def mesh_inputs(data, state):
+    """The mesh pass's inputs at state's body poses: (world samples, world
+    vertices, primitives, slots, grid, by)."""
+    from wgsparkl_tpu_torch.ops import rigid_cdf
+    from wgsparkl_tpu_torch.rigid import body as body_mod
+
+    bodies = body_mod.update_world_mass_properties(state.bodies)
+    sw, vw = rigid_cdf.world_transform(state.meshes, bodies)
+    m, cfg = state.meshes, data.config
+    return sw, vw, m.sample_prim, m.sample_cid, cfg.grid, cfg.by
+
+
+def mesh_paths(wt, card, kind, launches, frames=TIMED_FRAMES_SHORT):
+    """Paths 9-11 (elastic_cut2, elastic_cut3, heightfield3 at full size):
+    one warm and `frames` timed frames each, exactly one mesh_cdf launch a
+    substep, and a mesh pass with finite keys at the last state."""
+    from wgsparkl_tpu_torch.ops import rigid_cdf
+
+    for tag, make, substeps, kernels, what in (
+            ("mesh_cdf2d", lambda: cut2_scene(DEVICE), SUBSTEPS_CUT2, KERNELS_9,
+             "path 9: elastic_cut2"),
+            ("mesh_cdf", lambda: cut3_scene(DEVICE, CUT3_SCALE), SUBSTEPS, KERNELS_10,
+             "path 10: elastic_cut3"),
+            ("mesh_cdf_heightfield", lambda: hf3_scene(DEVICE, HF3_SCALE), SUBSTEPS,
+             KERNELS_10, "path 11: heightfield3")):
+        data = make()
+        cfg = data.config
+        if cfg.cdf_chan_free or not cfg.mesh_cids or set(cfg.mesh_cids) & set(
+                cfg.static_slots):
+            fail(f"{what}: built as {cfg}")
+        print(f"{what}: {data.state.meshes.count} mesh samples of slots "
+              f"{cfg.mesh_cids}, grid {cfg.grid.shape}", flush=True)
+        counts, state = run_frames(wt, data, substeps, kernels, what, card, kind,
+                                   frames, gates=True)
+        if counts["mesh_cdf"] != (1 + frames) * substeps:
+            fail(f"{what}: {counts['mesh_cdf']} mesh_cdf launches, not one a substep "
+                 f"({(1 + frames) * substeps})")
+        key, word = rigid_cdf.mesh_node_cdf(*mesh_inputs(data, state))
+        fin = int((key < rigid_cdf.INF_KEY).sum())
+        if fin < 100 or not bool((word != 0).any()):
+            fail(f"{what}: the mesh pass is empty ({fin} finite keys)")
+        frac = ("" if tag == "mesh_cdf_heightfield" else
+                f"; {int((state.models.phase == 0.0).sum())} of {data.num_particles} "
+                "lanes fractured")
+        print(f"{what}: {fin} nodes with a mesh key{frac}", flush=True)
+        launches[tag] = counts["mesh_cdf"]
+        if tag == "mesh_cdf2d":
+            launches["p2g2d_mesh"] = counts["p2g2d"]
+        elif tag == "mesh_cdf":
+            launches["p2g_cdf_mesh"] = counts["p2g_cdf"]
+        del data, state, key, word
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -1041,6 +1339,8 @@ def main() -> None:
                   "torch.cuda.set_sync_debug_mode('error') with no host sync", flush=True)
         del data, state
         torch.cuda.empty_cache()
+    # ---- paths 9-11: mesh colliders at full size ----
+    mesh_paths(wt, card, kind, launches)
 
     checks = []
 
@@ -1619,6 +1919,92 @@ def main() -> None:
         del data, state, rec, args_fc
         torch.cuda.empty_cache()
 
+    # ---- 5i. the mesh pass on paths 9-11, A and H on their mesh tiles ----
+    # Each scene with its lattice lowered onto the blades (paths 9 and 10)
+    # or as built (path 11): a substep's inputs after two substeps.  The
+    # kernel and its plain version spell every operation out in one order
+    # and take the minimum and the OR: bit for bit.
+    from wgsparkl_tpu_torch.ops import rigid_cdf
+
+    for name, make in (
+            ("mesh_cdf", lambda: cut3_scene(dev, CUT3_SCALE, shift=(0.0, -7.0, 0.0))),
+            ("mesh_cdf_heightfield", lambda: hf3_scene(dev, HF3_SCALE)),
+            ("mesh_cdf2d", lambda: cut2_scene(dev, shift=(0.0, -13.0 * N_CUT2 / 700)))):
+        data = make()
+        cfg = data.config
+        state, diag = step_with_diag(data.state, data.params, cfg, 2)
+        rec = {}
+        step_pallas(state, data.params, cfg, 1, record=rec)
+        torch.cuda.synchronize()
+        if diag.any_overflow():
+            fail(f"{name}: step diagnostics of the lowered scene: {diag.summary()}")
+        args_m = mesh_inputs(data, state)
+        sw = args_m[0]
+        d = cfg.grid.dim
+        nodes = int(np.prod(cfg.grid.shape))
+        # Samples whose stencil base lies in the grid (the others add nothing).
+        rel = (torch.round(sw / cfg.grid.cell_width) - 1
+               - torch.tensor(cfg.grid.origin_cell, device=dev))
+        s_in = int(((rel >= 0) & (rel < torch.tensor(cfg.grid.shape, device=dev)))
+                   .all(1).sum())
+        pairs = s_in * 3 ** d
+        print(f"{name} inputs: {sw.shape[0]} samples ({s_in} in the grid), "
+              f"{args_m[1].shape[0]} vertices, {pairs} sample-node pairs, {nodes} "
+              f"nodes", flush=True)
+        # Bytes: samples, primitives, slots and vertices read once, the two
+        # node grids written once; operations: ~60 (3D) / 10 (2D) a sample
+        # for its primitive, ~35 / 15 a pair.
+        check(name,
+              lambda: rigid_cdf.mesh_node_cdf(*args_m),
+              lambda: rigid_cdf.mesh_node_cdf_plain(*args_m),
+              lambda k, p: [], lambda k, p: [("keys", k[0], p[0]), ("words", k[1], p[1])],
+              lambda p: (None if int((p[0] < rigid_cdf.INF_KEY).sum()) > 100
+                         and bool((p[1] != 0).any()) else "an empty mesh pass"),
+              cost=(4 * (sw.shape[0] * (2 * d + 1) + args_m[1].numel()) + 8 * nodes,
+                    sw.shape[0] * (60 if d == 3 else 10) + pairs * (35 if d == 3 else 15)))
+        mesh_bits = sum(1 << c for c in cfg.mesh_cids)
+        ce, pg, nj, njg = job_stats(rec)
+        h, npad, nc = cfg.grid.cell_width, rec["rows"].shape[1], cfg.num_colliders
+
+        def touched(aff_lo):
+            """Some covered lane's particle CDF names a mesh slot."""
+            return bool(((aff_lo[:ce].to(torch.int32) & mesh_bits) != 0).any())
+
+        if name == "mesh_cdf":
+            args_a = (rec["rows"][:24].contiguous(), rec["ntiles"], rec["btable"],
+                      rec["jobs"], rec["bcells"], rec["jbody"], h, cfg.by, cfg.group,
+                      npad, nc, rec["moving"], rec["static_desc"], rec["chan_free"])
+            wv = R.window_geom(cfg.by)[1]
+            print(f"p2g_cdf_mesh inputs: {ce} covered particles ({pg} in gated jobs), "
+                  f"live jobs by gate level {gate_histogram(rec)}", flush=True)
+            check("p2g_cdf_mesh",
+                  lambda: p2g_cdf.p2g_cdf_tiles(*args_a),
+                  lambda: p2g_cdf.p2g_cdf_plain(*args_a),
+                  lambda k, p: [("impulses", k[1], p[1], 1e-4)],
+                  lambda k, p: [("mm tiles", k[0], p[0]), ("impulses", k[1], p[1]),
+                                ("particle cdf rows", k[2][:, :ce], p[2][:, :ce])],
+                  lambda p: None if touched(p[2][0]) else "no lane near a mesh",
+                  cost=(4 * (24 * ce + nj * wv * 4 + nj * wv * 8 + 8 * ce
+                             + njg * 8 * 128),
+                        ce * (30 + 27 * 13 * 2) + pg * (27 * (3 * nc + 58) + 200)))
+            del args_a
+        elif name == "mesh_cdf2d":
+            args_h = (rec["pdata"], rec["ntiles"], rec["btable"], rec["jobs"],
+                      rec["bcells"], rec["jbody"], h, nc, rec["alldesc"], rec["chan_free"])
+            print(f"p2g2d_mesh inputs: {ce} covered particles ({pg} in gated jobs), "
+                  f"{nj} live jobs ({njg} gated)", flush=True)
+            check("p2g2d_mesh",
+                  lambda: transfer2d.p2g_tiles(*args_h),
+                  lambda: transfer2d.p2g_plain(*args_h),
+                  lambda k, p: [], lambda k, p: [("mm tiles", k[0], p[0]),
+                                                 ("impulses", k[1], p[1])],
+                  lambda p: (None if touched(rec["pdata"][R2.AFF])
+                             else "no lane near a mesh"),
+                  cost=p2g2d_cost(ce, pg, nj, njg, nc))
+            del args_h
+        del data, state, rec, args_m, sw
+        torch.cuda.empty_cache()
+
     # ---- 5d. kernel F on a substep of the collider-free path ----
     r = rec_f
     args_f = (r["pdata"], r["ntiles"], r["btable"], r["jobs"], r["bcells"],
@@ -1801,6 +2187,16 @@ def main() -> None:
         "2D four materials with fracture": lambda device: four_materials(
             scenes.elastic_blocks_2d(n_side=24, cell_width=0.5, group=128, device=device),
             (0.0, -0.75), False, 1.00005),
+        # Mesh colliders (the dense CDF mode with the mesh pass).
+        "3D trimesh ramp and cuboid floor (mesh)": lambda device: ramp_scene(device),
+        "3D trimesh ramp and cuboid floor, by 8 (mesh)": lambda device: ramp_scene(
+            device, BY),
+        "2D polyline tent and cuboid floor (mesh)": tent_scene,
+        "3D sand box with a kinematic spinning trimesh paddle (mesh)": paddle_scene,
+        "3D small elastic_cut3 pressed onto its blades with fracture (mesh)":
+            lambda device: cut3_scene(device, 0.2, shift=(0.0, -7.0, 0.0),
+                                      max_stretch=1.0002, vel=(0.0, -4.0, 0.0),
+                                      group=64),
     }
     for what, make in small_5.items():
         dk, dp = make(dev), make("cpu")
@@ -1817,9 +2213,12 @@ def main() -> None:
             fail(f"{what}: {counts['rigid_solve']} rigid-solve launches in 5 substeps")
         if "joint" in what:
             launches["rigid_solve_joints"] = counts["rigid_solve"]
+        if dk.config.mesh_cids and counts["mesh_cdf"] != 5:
+            fail(f"{what}: {counts['mesh_cdf']} mesh_cdf launches in 5 substeps")
         if "fracture" in what:
             c_name = "update_rows" if dk.config.grid.dim == 3 else "update_rows2d"
-            launches[f"{c_name}_fracture"] = counts[c_name]
+            if "four materials" in what:
+                launches[f"{c_name}_fracture"] = counts[c_name]
             if not bool((sk.models.phase == 0.0).any()):
                 fail(f"{what}: no lane fractured")
         if dk.config.chan_free and dk.config.grid.dim == 2:
@@ -1837,7 +2236,7 @@ def main() -> None:
             sp_next = step_pallas(sp, dp.params, dp.config, 1)
             agree(sk, sp_next, what)
             sp = sp_next
-    print("small analytic-shapes, dynamic-body and fracture scenes ("
+    print("small analytic-shapes, dynamic-body, fracture and mesh scenes ("
           + "; ".join(small_5) + "): kernel path "
           "equals the plain path on the card and agrees with it on the CPU "
           "substep by substep", flush=True)

@@ -9,7 +9,8 @@ probe; the `fold_vel` branches of B and I on folded substeps, the 2D
 chan-free branches of G, H and I on the stirred column, H on jobs that
 span several of its chunks, and the rigid solve on a substep of a small
 sand2 with its plates pressed into the floor and each other and of a 3D
-plate on a ball joint.  Marked `cuda`: they skip where
+plate on a ball joint, and the mesh pass on a substep of each small mesh
+scene of chip_smoke.py.  Marked `cuda`: they skip where
 torch sees no CUDA device (run them on a GPU host with
 `python -m pytest --noconftest tests/test_torch_cuda_kernels.py`)."""
 
@@ -556,3 +557,28 @@ def test_rigid_solve_kernel_matches_plain(scene):
     k, p = solve.rigid_solve(*calls[0]), solve.rigid_solve_plain(*calls[0])
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     assert chip_smoke.active_pairs(calls[0][0], calls[0][5])
+
+
+@pytest.mark.parametrize("scene", ["ramp", "ramp_by8", "tent", "paddle", "blades"])
+def test_mesh_cdf_kernel_matches_plain(scene):
+    """The mesh pass on a substep of each of chip_smoke.py's small mesh
+    scenes: keys and affinity words bit for bit, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from wgsparkl_tpu_torch.ops import rigid_cdf
+
+    d = {"ramp": lambda: chip_smoke.ramp_scene("cuda"),
+         "ramp_by8": lambda: chip_smoke.ramp_scene("cuda", 8),
+         "tent": lambda: chip_smoke.tent_scene("cuda"),
+         "paddle": lambda: chip_smoke.paddle_scene("cuda"),
+         "blades": lambda: chip_smoke.cut3_scene("cuda", 0.2, shift=(0.0, -7.0, 0.0),
+                                                 group=64)}[scene]()
+    state = step_pallas(d.state, d.params, d.config, 2)
+    args = chip_smoke.mesh_inputs(d, state)
+    before = rigid_cdf.mesh_node_cdf.launches
+    k = rigid_cdf.mesh_node_cdf(*args)
+    assert rigid_cdf.mesh_node_cdf.launches == before + 1
+    p = rigid_cdf.mesh_node_cdf_plain(*args)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert int((p[0] < rigid_cdf.INF_KEY).sum()) > 10

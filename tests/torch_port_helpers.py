@@ -506,7 +506,9 @@ def port_bodies(descs):
     from wgsparkl_tpu_torch.collision.shapes import Collider
     from wgsparkl_tpu_torch.pipeline import RigidBodyDesc
 
-    return [RigidBodyDesc(Collider(d.collider.shape_type, tuple(d.collider.params)),
+    return [RigidBodyDesc(Collider(d.collider.shape_type, tuple(d.collider.params),
+                                   vertices=d.collider.vertices,
+                                   indices=d.collider.indices),
                           tuple(d.translation), d.rotation, d.body_type, d.density,
                           d.linvel, d.angvel) for d in descs]
 

@@ -3,7 +3,8 @@
     python3 tools/torch_profile.py PATH
 
 PATH is one of 3d, 3d-fold, 3d-neo, 3d-free, 3d-shapes, 3d-shapes-chan-free,
-3d-dyn, 2d, 2d-fold, 2d-neo, 2d-stirred, 2d-stirred-chan-free, sand2.  Builds the
+3d-dyn, 2d, 2d-fold, 2d-neo, 2d-stirred, 2d-stirred-chan-free, sand2, cut2,
+cut3, hf3.  Builds the
 full-size scene of chip_smoke.py (3d: the 1,002,001-particle sand box with
 the paddle, 20 substeps a frame; 3d-fold: the same with the grid update
 folded into G2P (`fold_vel`); 3d-neo: the same with the neo-Hookean
@@ -17,16 +18,21 @@ substeps a frame; 2d-stirred: path 6, the sand column stirred by a
 kinematic ball and capsule, in the dense CDF mode; 2d-stirred-chan-free:
 the same chan-free; 3d-dyn: path 8, the 3D main path with two dynamic
 plates on the sand; sand2: path 7, examples/sand2.py at SCALE=1 with its
-two dynamic plates, 10 substeps a frame), runs one warm frame and chip_smoke.TIMED_FRAMES (3)
+two dynamic plates, 10 substeps a frame; cut2: path 9, examples/
+elastic_cut2.py at SCALE=1, 15 substeps a frame; cut3: path 10,
+examples/elastic_cut3.py at SCALE=1; hf3: path 11, examples/heightfield3.py
+at SCALE=1), runs one warm frame and chip_smoke.TIMED_FRAMES (3)
 unprofiled frames (host clock around synchronised frames), then one frame
 under torch.profiler.  Prints the frame wall times, the device time of the
 profiled frame, the device's idle share against the median unprofiled
 frame, the device launches (kernels, copies, fills) a substep, the
 kernels by device time per substep: the 40 largest and every hand-written
-one, on a 2D path kernel G's device ms a substep and a launch, and on
-paths 7 and 8 the rigid solve's.  Fails without a CUDA device, on a 2D
-path where G did not launch and on paths 7 and 8 where the rigid solve
-did not.
+one, on a 2D path kernel G's device ms a substep and a launch, on
+paths 7 and 8 the rigid solve's, and on paths 9-11 the mesh pass's
+(mesh_cdf3_kernel / mesh_cdf2_kernel) and the fracture branch's lanes.
+Fails without a CUDA device, on a 2D path where G did not launch, on
+paths 7 and 8 where the rigid solve did not and on paths 9-11 where the
+mesh pass did not.
 """
 
 from __future__ import annotations
@@ -50,7 +56,8 @@ def main() -> None:
     ap.add_argument("path", choices=("3d", "3d-fold", "3d-neo", "3d-free",
                                      "3d-shapes", "3d-shapes-chan-free", "2d",
                                      "2d-fold", "2d-neo", "2d-stirred",
-                                     "2d-stirred-chan-free", "3d-dyn", "sand2"))
+                                     "2d-stirred-chan-free", "3d-dyn", "sand2",
+                                     "cut2", "cut3", "hf3"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("FAIL: torch.cuda.is_available() is False")
@@ -85,6 +92,9 @@ def main() -> None:
         "3d-dyn": lambda: (chip_smoke.full_scene_plates(dev), chip_smoke.SUBSTEPS),
         "sand2": lambda: (chip_smoke.sand2_scene(dev, group=chip_smoke.GROUP2),
                           chip_smoke.SUBSTEPS2),
+        "cut2": lambda: (chip_smoke.cut2_scene(dev), chip_smoke.SUBSTEPS_CUT2),
+        "cut3": lambda: (chip_smoke.cut3_scene(dev), chip_smoke.SUBSTEPS),
+        "hf3": lambda: (chip_smoke.hf3_scene(dev), chip_smoke.SUBSTEPS),
     }[args.path]()
     state, params, cfg = data.state, data.params, data.config
     state = step_pallas(state, params, cfg, substeps)
@@ -142,6 +152,21 @@ def main() -> None:
         ms, count = sum(x[0] for x in r), sum(x[1] for x in r)
         print(f"rigid solve (rigid_solve_kernel): {ms / substeps:.4f} ms a substep, "
               f"{count / substeps:.1f} launches a substep, {ms / count:.4f} ms a launch")
+    if args.path in ("cut2", "cut3", "hf3"):
+        m = [r for r in rows if "mesh_cdf" in r[2]]
+        if not m:
+            sys.exit("FAIL: the mesh pass (mesh_cdf) did not launch")
+        ms, count = sum(x[0] for x in m), sum(x[1] for x in m)
+        print(f"mesh pass (mesh_cdf): {ms / substeps:.4f} ms a substep, "
+              f"{count / substeps:.1f} launches a substep, {ms / count:.4f} ms a launch; "
+              f"{state.meshes.count} samples")
+        c = [r for r in rows if "update" in r[2] and "::" not in r[2]]
+        m = state.models
+        can = m.max_stretch > 0.0   # lanes that run the fracture check
+        print(f"kernel C ({', '.join(x[2].split('(')[0] for x in c)}): "
+              f"{sum(x[0] for x in c) / substeps:.4f} ms a substep; "
+              f"{int((can & (m.phase == 0.0)).sum())} of {int(can.sum())} lanes "
+              "with a fracture threshold fractured")
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@ wgsparkl_tpu/collision/cdf_channel.py).
 
 Cuboid, ball, capsule and halfspace colliders, in 2D and 3D, with the JAX
 package's operation order (the ball's and the capsule's reciprocal is an
-IEEE division, `math.div`); mesh shapes raise NotImplementedError (ROADMAP
-queue 1, item 8).  Node positions are lists of [M] channels; body poses
+IEEE division, `math.div`).  `node_cdf_channels` skips mesh slots (their
+node CDF is the mesh pass, ops/rigid_cdf.py); `project` raises on a mesh
+shape asked for directly.  Node positions are lists of [M] channels; body poses
 and shape parameters enter as 0-d tensors.  Affinity words are int32
 holding the uint32 bit pattern.
 """
@@ -121,9 +122,9 @@ def project(shape_type, params, q):
         return _proj_capsule(params[0], params[1], q)
     if shape_type == shp.SHAPE_HALFSPACE:
         return _proj_halfspace(q)
-    raise NotImplementedError(
-        f"collider shape {shape_type} (mesh colliders) is not ported yet "
-        "(ROADMAP queue 1, item 8)")
+    raise ValueError(
+        f"collider shape {shape_type} is a mesh: its node CDF is the mesh pass "
+        "(ops/rigid_cdf.py), not a boundary projection")
 
 
 def merge_node_cdf(a, b):
@@ -156,8 +157,8 @@ def collider_cdf(shape_type, rot, trans, params, pos, cap):
 def node_cdf_channels(collider_types, shape_params, rot, trans, pos,
                       cell_width, only=None):
     """pos: d node channels [M].  Returns (dist f32, aff int32, closest
-    int32) over the colliders in `only` (None = all), index order, strictly
-    closer wins."""
+    int32) over the analytic colliders in `only` (None = all), index order,
+    strictly closer wins; mesh slots are skipped."""
     m = pos[0].shape[0]
     dev = pos[0].device
     dist = torch.full((m,), BIG, dtype=torch.float32, device=dev)
@@ -165,7 +166,7 @@ def node_cdf_channels(collider_types, shape_params, rot, trans, pos,
     closest = torch.full((m,), -1, dtype=torch.int32, device=dev)
     cap = 1.5 * cell_width
     for i, st in enumerate(collider_types):
-        if only is not None and i not in only:
+        if st not in shp.ANALYTIC or (only is not None and i not in only):
             continue
         within, inside, di = collider_cdf(st, rot[i], trans[i], shape_params[i],
                                           pos, cap)

@@ -13,6 +13,7 @@ import torch
 
 from wgsparkl_tpu_torch.device import resolve
 from wgsparkl_tpu_torch.grid import GridConfig
+from wgsparkl_tpu_torch.ops.rigid_cdf import MeshColliders
 from wgsparkl_tpu_torch.ops.particle_update import ELASTIC_MODELS
 from wgsparkl_tpu_torch.params import SimulationParams
 from wgsparkl_tpu_torch.pipeline import MpmConfig, SimState
@@ -43,7 +44,7 @@ def _plain(x):
 def config_from_reference(cfg) -> MpmConfig:
     unsupported = {
         "transfer": cfg.transfer != "pallas", "sparse": cfg.sparse,
-        "spatial_devices": cfg.spatial_devices, "mesh_cids": cfg.mesh_cids,
+        "spatial_devices": cfg.spatial_devices,
         "elastic_model": cfg.elastic_model not in ELASTIC_MODELS,
     }
     bad = [k for k, v in unsupported.items() if v]
@@ -58,7 +59,20 @@ def config_from_reference(cfg) -> MpmConfig:
         n_materials=int(cfg.n_materials), static_slots=tuple(cfg.static_slots),
         elastic_model=cfg.elastic_model, chan_free=bool(cfg.chan_free),
         fold_vel=bool(cfg.fold_vel), dynamic_slots=tuple(cfg.dynamic_slots),
-        coupling=tuple(int(c) for c in cfg.coupling), joints=joints)
+        coupling=tuple(int(c) for c in cfg.coupling), joints=joints,
+        mesh_cids=tuple(int(c) for c in cfg.mesh_cids),
+        sample_group=int(cfg.sample_group), sample_chunk=int(cfg.sample_chunk),
+        sample_max_jobs=int(cfg.sample_max_jobs))
+
+
+def meshes_from_reference(meshes, device=None):
+    """The JAX package's MeshColliders (or None) as the port's, so that both
+    packages start from the same samples."""
+    if meshes is None:
+        return None
+    device = resolve(device)
+    return MeshColliders(**{f: _t(getattr(meshes, f), device) for f in (
+        "sample_local", "sample_prim", "sample_cid", "vertices_local", "vertex_cid")})
 
 
 def state_from_reference(state, device=None) -> SimState:
@@ -80,4 +94,5 @@ def state_from_reference(state, device=None) -> SimState:
     bodies = RigidWorld(**{f: _t(getattr(b, f), device) for f in (
         "rot", "pos", "linvel", "angvel", "local_com", "world_com", "inv_mass",
         "inv_inertia_local", "inv_inertia_world", "shape_params")})
-    return SimState(particles=particles, models=models, bodies=bodies)
+    return SimState(particles=particles, models=models, bodies=bodies,
+                    meshes=meshes_from_reference(getattr(state, "meshes", None), device))

@@ -275,7 +275,9 @@ def job_table(jobs, bcells, jbody):
 
 def collider_words(moving, static_desc=()) -> tuple:
     """The kernels' collider arguments: (moving slot mask, static slot
-    mask, shape types packed 2 bits a slot)."""
+    mask, shape types packed 2 bits a slot).  The kernels evaluate
+    analytic colliders only; a mesh reaches them through the node tiles
+    (the mesh pass, ops/rigid_cdf.py)."""
     mov = sta = shapes = 0
     for slot, st in moving:
         mov |= 1 << slot
@@ -283,9 +285,9 @@ def collider_words(moving, static_desc=()) -> tuple:
         sta |= 1 << slot
     for slot, st in tuple(moving) + tuple(static_desc):
         if not 0 <= st <= 3:
-            raise NotImplementedError(
-                f"collider shape {st} (mesh colliders) is not ported yet "
-                "(ROADMAP queue 1, item 8)")
+            raise ValueError(
+                f"collider shape {st} is a mesh: the kernels take analytic "
+                "colliders only (meshes arrive through the node tiles)")
         shapes |= st << (2 * slot)
     return mov, sta, shapes
 

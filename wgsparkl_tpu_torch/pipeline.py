@@ -15,8 +15,12 @@ world then holds one inert body slot) skips every CDF phase: P2G is kernel
 F in 3D and kernel H at nc = 0 in 2D, and the other kernels run with
 nc = 0, a zero gate level and zero particle-CDF rows.
 
-Colliders are analytic: cuboids, balls, capsules and halfspaces, fixed,
-kinematic or dynamic.  A dynamic body is a moving collider with mass: the
+Colliders are analytic (cuboids, balls, capsules and halfspaces, fixed,
+kinematic or dynamic) or meshes (trimeshes and heightfields in 3D,
+polylines in 2D, fixed or kinematic), mixed freely.  A mesh collider's node
+CDF comes from its surface samples through the mesh node-CDF pass
+(ops/rigid_cdf.py, the mesh_cdf kernel); a scene with one runs the dense
+mode.  A dynamic body is a moving collider with mass: the
 CPIC impulses move it (two-way coupling, or one-way per body through
 `coupling`), and the rigid update after the kernels resolves its contacts
 with the other colliders and the joints (`rigid_bodies_update`; on the card
@@ -26,20 +30,21 @@ are the JAX package's:
     channel grid is built once per frame and gathered per job window; in
     3D the moving colliders are merged in-kernel at the windows of jobs a
     conservative reach test marks (gate level 2);
-  * dense: with no never-moving collider in 3D, and with any moving
-    collider in 2D, every substep evaluates the moving colliders' node CDF
-    on the whole grid (merged with the frame's static part in 2D) and
-    gathers it;
+  * dense: with no never-moving collider in 3D, with any moving collider
+    in 2D, and with any mesh collider, every substep evaluates the moving
+    analytic colliders' node CDF and the mesh pass on the whole grid
+    (merged with the frame's static part) and gathers it;
   * chan-free (`chan_free=True` or the construction-time heuristic): no
     channel grid; the kernels evaluate every collider at the window nodes,
     the levels coming from reach tests: in 3D the static ones at gate level
     1 and all at level 2; in 2D all at the one level a reach test against
-    every collider gives.
+    every collider gives.  A mesh scene is never chan-free (the option is
+    kept in the configuration and ignored, as the JAX package does).
 `fold_vel=True` (off by default, as in the JAX package) skips the grid
 velocity pass: G2P (B or I) reads the raw momentum and mass tiles and does
 the grid update at its window nodes.  Options the JAX package has beyond
-these (mesh colliders, the sparse domain, other transfers, multi-device
-sharding) raise NotImplementedError naming their ROADMAP item.
+these (the sparse domain, other transfers, multi-device sharding) raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from wgsparkl_tpu_torch.grid import GridConfig
 from wgsparkl_tpu_torch.math import div
 from wgsparkl_tpu_torch.ops import blocked as bk
 from wgsparkl_tpu_torch.ops import rows as R
+from wgsparkl_tpu_torch.ops import rigid_cdf
 from wgsparkl_tpu_torch.ops import rows2d as R2
 from wgsparkl_tpu_torch.ops.g2p import g2p_rows
 from wgsparkl_tpu_torch.ops.p2g import p2g_tiles
@@ -70,6 +76,7 @@ from wgsparkl_tpu_torch.ops.transfer2d import pcdf_rows as pcdf_rows2d
 from wgsparkl_tpu_torch.ops.update_rows import update_rows, update_rows2d
 from wgsparkl_tpu_torch.params import SimulationParams, velocity_limit
 from wgsparkl_tpu_torch.rigid import body as body_mod
+from wgsparkl_tpu_torch.rigid import sampling
 from wgsparkl_tpu_torch.rigid import solve as rigid_tables
 from wgsparkl_tpu_torch.rigid.body import RigidWorld
 from wgsparkl_tpu_torch.rigid.solve import rigid_solve
@@ -90,6 +97,7 @@ class SimState:
     particles: Particles
     models: Models
     bodies: RigidWorld
+    meshes: Optional[rigid_cdf.MeshColliders] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,10 +122,22 @@ class MpmConfig:
     # Normalised joints (b, c, anchor_b, anchor_c, kind, extra), see
     # _normalize_joints.
     joints: Tuple = ()
+    # Mesh collider slots, and the JAX package's sample job geometry
+    # (group, scan chunk, table size), carried so that both packages'
+    # configurations compare equal; the port's mesh pass runs no job table.
+    mesh_cids: Tuple[int, ...] = ()
+    sample_group: int = 128
+    sample_chunk: int = 32
+    sample_max_jobs: int = 0
 
     @property
     def num_colliders(self) -> int:
         return len(self.collider_types)
+
+    @property
+    def cdf_chan_free(self) -> bool:
+        """The chan-free CDF mode in force: never with a mesh collider."""
+        return self.chan_free and not self.mesh_cids
 
 
 @dataclasses.dataclass
@@ -181,6 +201,11 @@ def build_rigid_world(descs: Sequence[RigidBodyDesc], dim: int = 3,
                    else np.atleast_1d(np.asarray(d.angvel, np.float32)))
         params.append(d.collider.padded_params())
         if d.body_type == "dynamic":
+            if d.collider.shape_type in shp.MESH:
+                # The JAX package has no mass properties for a mesh (its
+                # build fails on the missing inertia): refuse it plainly.
+                raise ValueError("a mesh collider cannot be dynamic: give it "
+                                 "body_type 'fixed' or 'kinematic'")
             mass, _, inertia = body_mod.shape_mass_properties(d.collider, d.density,
                                                               dim)
             inv_m.append(np.full(dim, 1.0 / mass, np.float32))
@@ -314,10 +339,12 @@ def _node_cdf_static(bodies: RigidWorld, cfg: MpmConfig):
                                  only=frozenset(cfg.static_slots))
 
 
-def _node_cdf_full(bodies: RigidWorld, cfg: MpmConfig, static_part=None):
-    """Analytic node CDF at block-major node positions: of every collider,
+def _node_cdf_full(bodies: RigidWorld, cfg: MpmConfig, static_part=None,
+                   meshes=None):
+    """Node CDF at block-major node positions: of every analytic collider,
     or of the moving ones merged with static_part (the static slots' triple
-    of this frame), which gives the same triple exactly."""
+    of this frame), which gives the same triple exactly; then the mesh
+    pass of meshes merged in (a mesh key strictly closer wins)."""
     pos = bk.block_major_node_positions_ch(cfg.grid, cfg.by, bodies.pos.device)
     only = None
     if static_part is not None:
@@ -326,7 +353,12 @@ def _node_cdf_full(bodies: RigidWorld, cfg: MpmConfig, static_part=None):
     tri = cch.node_cdf_channels(cfg.collider_types, bodies.shape_params,
                                 bodies.rot, bodies.pos, pos, cfg.grid.cell_width,
                                 only=only)
-    return tri if static_part is None else cch.merge_node_cdf(static_part, tri)
+    if static_part is not None:
+        tri = cch.merge_node_cdf(static_part, tri)
+    if cfg.mesh_cids:
+        key, word = rigid_cdf.mesh_pass(meshes, bodies, cfg.grid, cfg.by)
+        tri = rigid_cdf.merge_mesh_into_node_cdf(*tri, key, word)
+    return tri
 
 
 def _cdf_chan_grid(node_dist, node_aff, node_closest, nrows: int, bsd: int):
@@ -508,20 +540,26 @@ def _collider_free_inputs(wpad: int, jobs, npad: int, dev):
 
 def _cdf_mode(cfg: MpmConfig):
     """(static_desc, moving): the ((slot, shape), ...) of the never-moving
-    and of the moving colliders, as the kernels take them."""
+    and of the moving analytic colliders, as the kernels take them in the
+    chan-free and gathered-hybrid modes; both empty in a mesh scene, which
+    runs the dense mode."""
+    if cfg.mesh_cids:
+        return (), ()
     desc = tuple(enumerate(cfg.collider_types))
     return (tuple(c for c in desc if c[0] in cfg.static_slots),
             tuple(c for c in desc if c[0] not in cfg.static_slots))
 
 
-def _cdf_phase_3d(bodies, cfg: MpmConfig, static_chan, src, bcells, nb_total):
-    """Node tiles, per-job gate levels and the moving colliders the kernels
-    merge in-kernel, for the CDF mode of cfg (see the module docstring)."""
+def _cdf_phase_3d(bodies, cfg: MpmConfig, static_chan, src, bcells, nb_total,
+                  static_cdf=None, meshes=None):
+    """Node tiles, per-job gate levels and the never-moving and moving
+    colliders the kernels evaluate in-kernel, for the CDF mode of cfg (see
+    the module docstring)."""
     static_desc, moving = _cdf_mode(cfg)
     h = cfg.grid.cell_width
     wsh, wvol, wpad = R.window_geom(cfg.by)
     dev = bcells.device
-    if cfg.chan_free:
+    if cfg.cdf_chan_free:
         # No tiles: level 1 where a static collider may be in reach, 2
         # where a moving one may be.
         jbody = torch.zeros(bcells.shape[0], dtype=torch.int32, device=dev)
@@ -532,24 +570,28 @@ def _cdf_phase_3d(bodies, cfg: MpmConfig, static_chan, src, bcells, nb_total):
             hit = _moving_reach_gate(bcells, bodies, moving, wsh, h)
             jbody = torch.where(hit, 2, jbody).to(torch.int32)
         return (torch.zeros((1, wpad, 4), dtype=torch.float32, device=dev),
-                jbody, moving)
+                jbody, static_desc, moving)
     if static_chan is None:
-        # Dense: no never-moving collider, every collider in the tiles.
-        static_chan = _cdf_chan_grid(*_node_cdf_full(bodies, cfg), nb_total,
-                                     int(np.prod(bk.block_shape(3, cfg.by))))
-        moving = ()
+        # Dense (no never-moving collider, or a mesh): every collider in the
+        # tiles, the static slots' triple of the frame merged in.
+        static_chan = _cdf_chan_grid(*_node_cdf_full(bodies, cfg, static_cdf, meshes),
+                                     nb_total, int(np.prod(bk.block_shape(3, cfg.by))))
+        static_desc, moving = (), ()
     ntiles = bk.gather_tiles(static_chan, src, wpad, 4)
     jbody = _jbody_gate(ntiles, wvol, cfg.static_slots)
     if moving:
         # Gathered hybrid: moving colliders possibly in reach force level 2.
         gate = _moving_reach_gate(bcells, bodies, moving, wsh, h)
         jbody = torch.maximum(jbody, torch.where(gate, 2, 0).to(torch.int32))
-    return ntiles, jbody, moving
+    return ntiles, jbody, static_desc, moving
 
 
 def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
-             mtable, diag: StepDiag, record: Optional[dict] = None):
+             mtable, diag: StepDiag, record: Optional[dict] = None,
+             static_cdf=None, meshes=None):
     """One 3D substep on the [PCHAN, NPAD] rows (lanes >= n are padding).
+    static_cdf: the frame's node-CDF triple of the static slots, merged in
+    the dense mode; meshes: the mesh colliders of the state.
 
     record: when a dict is given, the inputs and outputs of the five
     kernels are stored in it (kernel checks and tests read them); under
@@ -565,16 +607,17 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
     nb_total = ph["nb_total"]
     static_desc, moving = _cdf_mode(cfg)
+    chan_free = cfg.cdf_chan_free
     btable = _body_table(bodies, params, grid)
     if nc > 0:
         # Particle CDF + P2G against the node tiles, colliders evaluated
         # in-kernel where the mode and the gate say so.
         pdata = rows_all[:R.NCHAN].clone()
-        ntiles, jbody, moving = _cdf_phase_3d(bodies, cfg, static_chan, src,
-                                              bcells, nb_total)
+        ntiles, jbody, static_desc, moving = _cdf_phase_3d(
+            bodies, cfg, static_chan, src, bcells, nb_total, static_cdf, meshes)
         mm, imp, pcdf = p2g_cdf_tiles(pdata, ntiles, btable, jobs, bcells, jbody,
                                       h, by, group, npad, nc, moving,
-                                      static_desc, cfg.chan_free)
+                                      static_desc, chan_free)
         pdata[R.AFF] = pcdf[0, :npad]
         pdata[R.NX:R.NZ + 1] = pcdf[2:5, :npad]
         pdata[R.AFF_SPARE] = pcdf[5, :npad]
@@ -595,7 +638,7 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
         grid_mm[..., :3] = _grid_velocity(grid_mm, params, grid)
     ftiles = bk.gather_tiles(grid_mm, src, wpad, 4)
     krows = g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, h, by,
-                     group, npad, nc, moving, static_desc, cfg.chan_free,
+                     group, npad, nc, moving, static_desc, chan_free,
                      cfg.fold_vel)
     rows_out = update_rows(rows_all, krows, pcdf, ph["sorted_ids"],
                            ph["covered_end"], btable, mtable, params.dt, h, nc,
@@ -603,7 +646,7 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     if record is not None:
         record.update(ph, jbody=jbody, ntiles=ntiles, btable=btable,
                       moving=moving, static_desc=static_desc,
-                      chan_free=cfg.chan_free, fold_vel=cfg.fold_vel,
+                      chan_free=chan_free, fold_vel=cfg.fold_vel,
                       pdata=pdata, mm=mm, imp=imp, pcdf=pcdf, ftiles=ftiles,
                       krows=krows, mtable=mtable, rows_out=rows_out,
                       grid_mm=grid_mm)
@@ -613,17 +656,19 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
 
 def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
                 mtable, diag: StepDiag, record: Optional[dict] = None,
-                static_cdf=None):
+                static_cdf=None, meshes=None):
     """One 2D substep on the [32, NPAD] rows (the gathered, dense,
     chan-free and collider-free branches of the JAX package's
     _substep_pallas_rows_2d): in chan-free mode the kernels evaluate every
     collider at the windows of the jobs a reach test gates; else
     static_chan, the frame's channel grid when every collider is static;
-    else the node CDF is evaluated on the whole grid, the moving colliders
-    merged with static_cdf (the frame's static part, None when no collider
-    is static).  record: as for _substep (the 2D kernels' inputs and
-    outputs; its rows are kernel G's input, cloned before G patched them
-    in place into pdata)."""
+    else the node CDF is evaluated on the whole grid, the moving analytic
+    colliders and the mesh pass of meshes merged with static_cdf (the
+    frame's static part, None when no collider is static).  The kernels
+    take the analytic colliders in the chan-free mode and none in the
+    others, where they read only the tiles.  record: as for _substep (the
+    2D kernels' inputs and outputs; its rows are kernel G's input, cloned
+    before G patched them in place into pdata)."""
     grid = cfg.grid
     group, nc = cfg.group, cfg.num_colliders
     h = grid.cell_width
@@ -634,9 +679,10 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
     nb_total = ph["nb_total"]
     btable = _body_table_2d(bodies, params, grid)
-    alldesc = tuple(enumerate(cfg.collider_types))
+    chan_free = cfg.cdf_chan_free
+    alldesc = tuple(sorted(sum(_cdf_mode(cfg), ()))) if chan_free else ()
     if nc > 0:
-        if cfg.chan_free:
+        if chan_free:
             # No tiles: one gate level where any collider may be in reach.
             jbody = _moving_reach_gate(bcells, bodies, alldesc, R2.WSH,
                                        h).to(torch.int32)
@@ -645,7 +691,7 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
             if static_chan is None:
                 # Dense: a collider moves; G, H and I read the same channels.
                 static_chan = _cdf_chan_grid(
-                    *_node_cdf_full(bodies, cfg, static_cdf), nb_total, 64)
+                    *_node_cdf_full(bodies, cfg, static_cdf, meshes), nb_total, 64)
             ntiles = bk.gather_tiles(static_chan, src, R2.WPAD, 4)
             jbody = _jbody_gate(ntiles, R2.WVOL)
         if record is not None:
@@ -654,13 +700,13 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
         # high) of the fresh sorted rows in place with the particle CDF for
         # P2G and G2P; kernel C reads none of them from rows_all.
         pcdf = pcdf_rows2d(rows_all, ntiles, jobs, bcells, jbody, h, group,
-                           npad, nc, btable, alldesc, cfg.chan_free)
+                           npad, nc, btable, alldesc, chan_free)
     else:
         # No collider: no particle CDF (kernel G), H and I at nc = 0.
         ntiles, jbody, pcdf = _collider_free_inputs(R2.WPAD, jobs, npad, dev)
     pdata = rows_all[:R2.NCHAN]
     mm, imp = p2g_tiles2d(pdata, ntiles, btable, jobs, bcells, jbody, h, nc,
-                          alldesc, cfg.chan_free)
+                          alldesc, chan_free)
     grid_mm = torch.zeros((nb_total + 1, 64, 3), dtype=torch.float32, device=dev)
     bk.scatter_tiles(grid_mm, mm, src)
     # The jobs' impulses in one fixed-order reduction (_split_impulses).
@@ -672,14 +718,14 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
         grid_mm[..., :2] = _grid_velocity(grid_mm, params, grid)
     ftiles = bk.gather_tiles(grid_mm, src, R2.WPAD, 4)
     krows = g2p_rows2d(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, h,
-                       group, npad, nc, alldesc, cfg.chan_free, cfg.fold_vel)
+                       group, npad, nc, alldesc, chan_free, cfg.fold_vel)
     rows_out = update_rows2d(rows_all, krows, pcdf, ph["sorted_ids"],
                              ph["covered_end"], btable, mtable, params.dt, h, nc,
                              max(cfg.n_materials, 1), nb_total,
                              cfg.elastic_model)
     if record is not None:
         record.update(ph, jbody=jbody, ntiles=ntiles, btable=btable,
-                      alldesc=alldesc, chan_free=cfg.chan_free,
+                      alldesc=alldesc, chan_free=chan_free,
                       fold_vel=cfg.fold_vel, pdata=pdata, mm=mm, imp=imp,
                       pcdf=pcdf, ftiles=ftiles,
                       krows=krows, mtable=mtable, rows_out=rows_out,
@@ -692,9 +738,9 @@ def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
                 num_substeps: int, return_diag: bool = False,
                 record: Optional[dict] = None):
     """A frame of substeps carrying the [PCHAN, NPAD] row matrix; the
-    static colliders' node CDF (as a channel grid in the gathered modes)
-    is built once per frame.  record: see _substep (filled by the frame's
-    last substep)."""
+    static colliders' node CDF (as a channel grid in the gathered modes,
+    as a triple in the dense mode) is built once per frame.  record: see
+    _substep (filled by the frame's last substep)."""
     dim = cfg.grid.dim
     L, substep = (R, _substep) if dim == 3 else (R2, _substep_2d)
     n = state.particles.count
@@ -702,13 +748,13 @@ def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
     rows = L.pack_rows_padded(state.particles, state.models, npad)
     nb_total = int(np.prod(bk.num_blocks(cfg.grid, cfg.by)))
     static_chan = static_cdf = None
-    if cfg.static_slots and not cfg.chan_free:
+    if cfg.static_slots and not cfg.cdf_chan_free:
         static_cdf = _node_cdf_static(state.bodies, cfg)
-        if dim == 3 or len(cfg.static_slots) == cfg.num_colliders:
+        if not cfg.mesh_cids and (dim == 3
+                                  or len(cfg.static_slots) == cfg.num_colliders):
             static_chan = _cdf_chan_grid(*static_cdf, nb_total,
                                          int(np.prod(bk.block_shape(dim, cfg.by))))
-    if dim == 2:
-        substep = functools.partial(_substep_2d, static_cdf=static_cdf)
+    substep = functools.partial(substep, static_cdf=static_cdf, meshes=state.meshes)
     bodies = state.bodies
     diag = StepDiag.zeros(rows.device)
     for _ in range(num_substeps):
@@ -717,7 +763,8 @@ def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
     particles, models = L.unpack_state_rows(rows[:, :n], state.particles,
                                             state.models,
                                             n_mat=max(cfg.n_materials, 1))
-    out = SimState(particles=particles, models=models, bodies=bodies)
+    out = SimState(particles=particles, models=models, bodies=bodies,
+                   meshes=state.meshes)
     return (out, diag) if return_diag else out
 
 
@@ -729,13 +776,40 @@ def step_with_diag(state, params, cfg: MpmConfig, num_substeps: int):
     return step_pallas(state, params, cfg, num_substeps, return_diag=True)
 
 
+def _sample_meshes(bodies, mesh_cids, dim: int, cell_width: float, device):
+    """(MeshColliders of the mesh slots on device or None, the JAX package's
+    sample job table size for them, 0 without)."""
+    if not mesh_cids:
+        return None, 0
+    parts, vertex_cids, offset = [], [], 0
+    for slot in mesh_cids:
+        col = bodies[slot].collider
+        sample = sampling.sample_polyline if dim == 2 else sampling.sample_trimesh
+        parts.append(sample(col.vertices, col.indices, cell_width, collider_id=slot,
+                            vertex_offset=offset))
+        vertex_cids.append(np.full(len(col.vertices), slot, np.int32))
+        offset += len(col.vertices)
+    comb = sampling.combine(parts)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)  # noqa: E731
+    meshes = rigid_cdf.MeshColliders(
+        sample_local=t(comb.points), sample_prim=t(comb.primitives),
+        sample_cid=t(comb.collider_ids), vertices_local=t(comb.vertices),
+        vertex_cid=t(np.concatenate(vertex_cids)))
+    group, chunk = MpmConfig.sample_group, MpmConfig.sample_chunk
+    max_jobs = -(-comb.count // group) * 4 + 64
+    return meshes, -(-max_jobs // chunk) * chunk
+
+
 class MpmData:
     """Owns one scene's state and static configuration (port of the
     pallas / bounded-grid branch of wgsparkl_tpu.pipeline.MpmData, 3D and
     2D).  The state lives on the particles' device.  transfer defaults to
     "pallas", the only transfer ported (the JAX package defaults to
-    "dense").  coupling: COUPLING_ONE_WAY / COUPLING_TWO_WAY a body (None:
-    all two-way); body_contacts: resolve the dynamic bodies' contacts (with
+    "dense").  Mesh colliders are sampled here (polylines in 2D, trimeshes
+    and heightfields in 3D, at cell_width / sqrt(2)); their slots are never
+    static and the scene runs the dense CDF mode.  coupling:
+    COUPLING_ONE_WAY / COUPLING_TWO_WAY a body (None: all two-way);
+    body_contacts: resolve the dynamic bodies' contacts (with
     False they keep their mass but pass through other colliders); joints:
     see _normalize_joints."""
 
@@ -760,9 +834,6 @@ class MpmData:
             raise _unported("spatial multi-device sharding", "queue 1, item 11")
         if elastic_model not in ELASTIC_MODELS:
             raise ValueError(f"unknown elastic model {elastic_model!r}")
-        for b in bodies:
-            if b.collider.shape_type not in shp.ANALYTIC:
-                raise _unported("mesh colliders", "queue 1, item 8")
         if len(bodies) > 16:
             raise ValueError("at most 16 colliders (the 16-bit affinity word)")
         if coupling is None:
@@ -796,15 +867,20 @@ class MpmData:
             return v is None or not np.any(np.asarray(v, np.float32))
 
         collider_types = tuple(b.collider.shape_type for b in bodies)
+        mesh_cids = tuple(i for i, t in enumerate(collider_types) if t in shp.MESH)
+        meshes, sample_max_jobs = _sample_meshes(bodies, mesh_cids, dim, cell_width,
+                                                 device)
         static_slots = tuple(i for i, b in enumerate(bodies)
                              if b.body_type == "fixed" and zero(b.linvel)
-                             and zero(b.angvel))
+                             and zero(b.angvel) and i not in mesh_cids)
         world = build_rigid_world(bodies, dim, device)
         if chan_free is None:
-            adesc = tuple(enumerate(collider_types))
-            chan_free = _auto_chan_free(grid, by, adesc, world,
-                                        particles.pos.cpu().numpy(),
-                                        params.gravity.cpu().numpy())
+            # The heuristic sees the analytic slots; a mesh scene gathers.
+            adesc = tuple((i, t) for i, t in enumerate(collider_types)
+                          if i not in mesh_cids)
+            chan_free = not mesh_cids and _auto_chan_free(
+                grid, by, adesc, world, particles.pos.cpu().numpy(),
+                params.gravity.cpu().numpy())
         chan_free = bool(chan_free)
         models, n_mat = attach_material_table(particles, models)
         self.params = params
@@ -818,8 +894,10 @@ class MpmData:
             elastic_model=elastic_model, chan_free=chan_free,
             fold_vel=bool(fold_vel),
             dynamic_slots=dynamic_slots if body_contacts else (),
-            coupling=coupling, joints=_normalize_joints(joints, bodies, dim))
-        self.state = SimState(particles=particles, models=models, bodies=world)
+            coupling=coupling, joints=_normalize_joints(joints, bodies, dim),
+            mesh_cids=mesh_cids, sample_max_jobs=sample_max_jobs)
+        self.state = SimState(particles=particles, models=models, bodies=world,
+                              meshes=meshes)
         # The rigid update's static tables, on the state's device now.
         rigid_tables.tables(self.config, device)
 
