@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero, and no result line is printed):
   1. environment: the card's name and power limit; the CUDA kernels'
-     thirteen sources are built from wgsparkl_tpu_torch/csrc, one nvcc each,
+     sources are built from wgsparkl_tpu_torch/csrc, one nvcc each,
      all started together (set-up), and the ptxas reports of kernels G, I
      and E printed;
   2. the 3D main path at full size (sand_box_3d with the paddle, 1,002,001
@@ -39,7 +39,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      elastic_cut2.py, elastic_cut3.py and heightfield3.py at SCALE=1,
      490,000, 75,000 and 202,500 particles), one warm and 2 timed frames
      each: the same checks, exactly one mesh_cdf launch a substep and a
-     mesh pass with finite keys;
+     mesh pass with finite keys; path 12, the sparse domain at full size
+     (bench.py's BENCH_SPARSE=1 run: the main path's lattice, 4^3 blocks,
+     group 1024, max_jobs = kmax 2688, amax 10752, the CDF mode the
+     construction-time pick chooses), one warm and 2 timed frames: the
+     same checks (no job, occupied-block or active-slot overflow), and the
+     most occupied and active blocks of a substep;
   5. each kernel against its plain PyTorch version at full size, on the
      inputs of a substep of each scene with its lattice lowered into a
      collider (onto the paddle in 3D, 1.5 cells into the floor in 2D), so
@@ -77,7 +82,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      the block lowered onto the blades and of path 11 (`mesh_cdf`,
      `mesh_cdf2d`, `mesh_cdf_heightfield`: keys and affinity words bit
      for bit), and A and H on those substeps' mesh tiles (`p2g_cdf_mesh`,
-     `p2g2d_mesh`, bit for bit);
+     `p2g2d_mesh`, bit for bit); A, B and C on a substep of path 12 with
+     its lattice lowered onto the paddle (`p2g_cdf_sparse`, `g2p_sparse`,
+     `update_rows_sparse`: tiles, impulses and every row bit for bit),
+     and the mesh pass's slot-addressed entry on a substep of path 11
+     built sparse with its lattice lowered onto the heightfield
+     (`mesh_cdf_sparse`, keys and words bit for bit);
   5. (path 5) the 3D analytic-shapes path at full size: the main path's
      lattice, models, grid and job table with a static halfspace floor,
      the four static side walls, a kinematic capsule paddle and a kinematic
@@ -101,9 +111,14 @@ Phases (any failure exits non-zero, and no result line is printed):
      colliders: 5 substeps each of the trimesh ramp and cuboid floor at by
      4 and by 8, the 2D polyline tent, a kinematic spinning trimesh paddle
      in the sand box and the smallest elastic_cut3 block pressed onto its
-     blades with fracture): 26 scenes, equal bit for bit to the plain path
-     on the card, and within tolerance of the plain path on the CPU
-     (affinity words exact).
+     blades with fracture; the sparse domain: 10 substeps of the sand box
+     and of tests/test_sparse_domain.py's ballistic spray, 5 of its
+     trimesh ramp and of the sand box at kmax 8, amax 16, whose overflow
+     must be reported): 30 scenes, equal bit for bit to the plain path on
+     the card, and within tolerance of the plain path on the CPU (affinity
+     words exact); then the sand box built sparse and bounded at by 4, 20
+     substeps on the card, within tests/test_sparse_domain.py's tolerances
+     (whether they are bit-equal is printed).
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -192,6 +207,13 @@ REPLACES = {
     "mesh_cdf2d": "wgsparkl_tpu/ops/rigid_cdf.py:89",
     "p2g_cdf_mesh": "wgsparkl_tpu/ops/pallas_cdf.py:517",
     "p2g2d_mesh": "wgsparkl_tpu/ops/pallas_transfer2d.py:402",
+    # The sparse domain (path 12): A, B and C on slot-addressed tiles, and
+    # the mesh pass's slot-addressed entry (the JAX package's
+    # mesh_node_cdf_sparse, plain XLA).
+    "p2g_cdf_sparse": "wgsparkl_tpu/ops/pallas_cdf.py:517",
+    "g2p_sparse": "wgsparkl_tpu/ops/pallas_transfer.py:987",
+    "update_rows_sparse": "wgsparkl_tpu/ops/update_rows.py:191",
+    "mesh_cdf_sparse": "wgsparkl_tpu/ops/rigid_cdf.py:235",
 }
 SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_rows",
           "update_rows2d_neo_hookean": "update_rows", "p2g_cdf_shapes": "p2g_cdf",
@@ -202,7 +224,9 @@ SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_row
           "update_rows_fracture": "update_rows", "update_rows2d_fracture": "update_rows",
           "rigid_solve_3d": "rigid_solve", "rigid_solve_joints": "rigid_solve",
           "mesh_cdf_heightfield": "mesh_cdf", "mesh_cdf2d": "mesh_cdf",
-          "p2g_cdf_mesh": "p2g_cdf", "p2g2d_mesh": "p2g2d"}
+          "p2g_cdf_mesh": "p2g_cdf", "p2g2d_mesh": "p2g2d",
+          "p2g_cdf_sparse": "p2g_cdf", "g2p_sparse": "g2p",
+          "update_rows_sparse": "update_rows", "mesh_cdf_sparse": "mesh_cdf"}
 # The rows of the [PCHAN, NPAD] input matrix that kernel C reads (csrc/
 # update_rows.cu, update_kernel and update2d_kernel); it replaces the others
 # with G2P rows, particle-CDF rows or new values.
@@ -215,6 +239,11 @@ KERNELS_7 = KERNELS_2D + ("rigid_solve",)
 KERNELS_8 = KERNELS_3D + ("rigid_solve",)
 KERNELS_9 = KERNELS_2D + ("mesh_cdf",)
 KERNELS_10 = KERNELS_3D + ("mesh_cdf",)
+# Path 12: bench.py's BENCH_SPARSE=1 run (its lines 104-154): the main
+# path's lattice in the sparse domain, 4^3 blocks, group 1024, its job
+# table (n // 400 + 256) // 128 * 128 and the defaults kmax = max_jobs,
+# amax = 4 kmax.
+BY_SPARSE = 4
 
 
 def fail(msg: str) -> None:
@@ -323,6 +352,7 @@ def plain_versions():
 
     swaps = [(pipeline, "rigid_solve", solve.rigid_solve_plain),
              (rigid_cdf, "mesh_node_cdf", rigid_cdf.mesh_node_cdf_plain),
+             (rigid_cdf, "mesh_node_cdf_sparse", rigid_cdf.mesh_node_cdf_sparse_plain),
              (pipeline, "p2g_cdf_tiles", p2g_cdf.p2g_cdf_plain),
              (pipeline, "p2g_tiles", p2g.p2g_plain),
              (pipeline, "g2p_rows", g2p.g2p_plain),
@@ -352,6 +382,84 @@ def full_scene(dev, **mpm_kw):
     return scenes.sand_box_3d(nxz=NXZ, ny=NY, cell_width=1.0, with_paddle=True,
                               device=dev, by=BY, group=GROUP, max_jobs=max_jobs,
                               **mpm_kw)
+
+
+def full_scene_sparse(dev, **mpm_kw):
+    """Path 12: the main path's 1,002,001 particles in the sparse domain,
+    sized as bench.py sizes its BENCH_SPARSE=1 run."""
+    from wgsparkl_tpu_torch import scenes
+
+    n_est = NXZ * NXZ * NY
+    max_jobs = (n_est // (100 * BY_SPARSE) + 256) // 128 * 128
+    return scenes.sand_box_3d(nxz=NXZ, ny=NY, cell_width=1.0, with_paddle=True,
+                              device=dev, by=BY_SPARSE, group=GROUP,
+                              max_jobs=max_jobs, sparse=True, **mpm_kw)
+
+
+@contextlib.contextmanager
+def sparse_peaks():
+    """The most occupied and active blocks of any sparse substep run in
+    the block (device maxima, read once on exit into the yielded dict's
+    n_occ and n_active)."""
+    from wgsparkl_tpu_torch.ops import blocked as bk
+
+    jobs_f, act_f = bk.build_jobs_sparse, bk.sparse_active_table
+    peak = {}
+
+    def keep(name, value):
+        peak[name] = value if name not in peak else torch.maximum(peak[name], value)
+
+    def jobs(*a, **k):
+        out = jobs_f(*a, **k)
+        keep("n_occ", out[2])
+        return out
+
+    def act(*a, **k):
+        out = act_f(*a, **k)
+        keep("n_active", out[1])
+        return out
+
+    bk.build_jobs_sparse, bk.sparse_active_table = jobs, act
+    try:
+        yield peak
+    finally:
+        bk.build_jobs_sparse, bk.sparse_active_table = jobs_f, act_f
+        for k in list(peak):
+            peak[k] = int(peak[k])
+
+
+def spray_scene(device):
+    """tests/test_sparse_domain.py's ballistic spray: a 6^3 lattice of
+    elastic-plastic particles (E 1e5) at 12 m/s in random directions from
+    numpy default_rng(0), no collider, no gravity, cell 0.5, dt 0.02, on a
+    nominal 4-unit grid it soon leaves (sparse, group 64)."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.grid import GridConfig
+    from wgsparkl_tpu_torch.models import DruckerPrager, ElasticCoefficients
+    from wgsparkl_tpu_torch.models.drucker_prager import drucker_prager_arrays
+    from wgsparkl_tpu_torch.params import SimulationParams
+    from wgsparkl_tpu_torch.pipeline import MpmData
+    from wgsparkl_tpu_torch.solver import Models, Particles
+
+    rng = np.random.default_rng(0)
+    pos = np.stack(np.meshgrid(*([np.arange(6) * 0.5] * 3), indexing="ij"),
+                   -1).reshape(-1, 3) + 1.0
+    n = len(pos)
+    vel = rng.normal(size=(n, 3)) * 12.0
+    elast = ElasticCoefficients.from_young_modulus(1.0e5, 0.2)
+    dpm = drucker_prager_arrays([DruckerPrager.new(1.0e5, 0.2)])
+    models = Models.from_arrays(n, elast.lam, elast.mu,
+                                dp={k: np.full(n, v[0]) for k, v in dpm.items()},
+                                device=device)
+    p = Particles.from_arrays(pos.astype(np.float32), density=1000.0, radius=0.25,
+                              device=device)
+    p = dataclasses.replace(p, vel=torch.as_tensor(vel.astype(np.float32),
+                                                   device=p.pos.device))
+    return MpmData(SimulationParams.new(2e-2, np.zeros(3), device=device), p,
+                   models, [], 0.5,
+                   grid=GridConfig.from_bounds(np.zeros(3), np.full(3, 4.0), 0.5),
+                   group=64, sparse=True)
 
 
 def full_scene_2d(dev, **mpm_kw):
@@ -725,7 +833,7 @@ def hf3_scene(device, scale=1.0, shift=None, **mpm_kw):
                    **{"group": 256, **mpm_kw})
 
 
-def ramp_scene(device, by=4):
+def ramp_scene(device, by=4, **mpm_kw):
     """tests/test_mesh_colliders.py `_mesh_scene` on the pallas path: an
     elastic 6^3 block 0.2 above a tilted two-triangle trimesh ramp, with a
     static cuboid floor, cell width 0.5, group 64."""
@@ -750,7 +858,7 @@ def ramp_scene(device, by=4):
                    [RigidBodyDesc(ramp, (0.0, 0.0, 0.0)),
                     RigidBodyDesc(Collider.cuboid(6.0, 0.5, 6.0), (0.0, -1.2, 0.0))],
                    h, grid_bounds=(np.array([-4.0, -2.0, -4.0]), np.array([4.0, 6.0, 4.0])),
-                   group=64, by=by)
+                   group=64, by=by, **mpm_kw)
 
 
 def tent_scene(device):
@@ -1341,6 +1449,23 @@ def main() -> None:
         torch.cuda.empty_cache()
     # ---- paths 9-11: mesh colliders at full size ----
     mesh_paths(wt, card, kind, launches)
+    # ---- path 12: the 3D main path in the sparse domain ----
+    data = full_scene_sparse(dev)
+    cfg = data.config
+    if not cfg.sparse or cfg.by != BY_SPARSE:
+        fail(f"path 12: built as {cfg}")
+    print(f"path 12: sparse domain, kmax {cfg.kmax}, amax {cfg.amax}, CDF mode "
+          f"{'chan-free' if cfg.cdf_chan_free else 'slot channel grid'} (the "
+          "construction-time pick)", flush=True)
+    with sparse_peaks() as peak:
+        counts, state = run_frames(wt, data, SUBSTEPS, KERNELS_3D,
+                                   "path 12: sparse 3D main path", card, kind,
+                                   TIMED_FRAMES_SHORT, gates=True)
+    print(f"path 12: at most {peak['n_occ']} occupied blocks (kmax {cfg.kmax}) and "
+          f"{peak['n_active']} active blocks (amax {cfg.amax}) in a substep", flush=True)
+    launches.update((f"{k}_sparse", counts[k]) for k in ("p2g_cdf", "g2p", "update_rows"))
+    del data, state
+    torch.cuda.empty_cache()
 
     checks = []
 
@@ -2005,6 +2130,92 @@ def main() -> None:
         del data, state, rec, args_m, sw
         torch.cuda.empty_cache()
 
+    # ---- 5j. path 12: A, B and C on slot-addressed tiles; the mesh pass's
+    # slot entry on path 11 built sparse ----
+    # Path 12 with its lattice lowered 3 cells onto the paddle: a substep's
+    # inputs after two substeps.  A's tiles and impulses, B's rows and all
+    # of C's rows bit for bit.
+    from wgsparkl_tpu_torch.ops import blocked
+
+    data = full_scene_sparse(dev)
+    cfg = data.config
+    data.state.particles.pos += torch.tensor([0.0, -3.0, 0.0], device=dev)
+    state, diag = step_with_diag(data.state, data.params, cfg, 2)
+    rec = {}
+    step_pallas(state, data.params, cfg, 1, record=rec)
+    torch.cuda.synchronize()
+    if diag.any_overflow():
+        fail(f"step diagnostics of lowered path 12: {diag.summary()}")
+    h, npad, nc = cfg.grid.cell_width, rec["rows"].shape[1], cfg.num_colliders
+    mode = (rec["moving"], rec["static_desc"], rec["chan_free"])
+    args_a = (rec["rows"][:24].contiguous(), rec["ntiles"], rec["btable"], rec["jobs"],
+              rec["bcells"], rec["jbody"], h, cfg.by, GROUP, npad, nc, *mode)
+    args_b = (rec["pdata"], rec["ftiles"], rec["ntiles"], rec["btable"], rec["jobs"],
+              rec["bcells"], rec["jbody"], h, cfg.by, GROUP, npad, nc, *mode)
+    args_c = (rec["rows"], rec["krows"], rec["pcdf"], rec["sorted_ids"],
+              rec["covered_end"], rec["btable"], rec["mtable"], data.params.dt, h, nc,
+              max(cfg.n_materials, 1), rec["live_below"])
+    ce, pg, nj, njg = job_stats(rec)
+    wv = R.window_geom(cfg.by)[1]
+    n_act = int((rec["act"] < blocked.SPARSE_SENTINEL).sum())
+    print(f"path 12 kernel inputs (lowered): {ce} covered particles ({pg} in gated "
+          f"jobs), live jobs by gate level {gate_histogram(rec)}, {n_act} active "
+          f"slots, the longest job {int(rec['jobs']['len'].max())} particles, NPAD "
+          f"{npad}", flush=True)
+    check("p2g_cdf_sparse",
+          lambda: p2g_cdf.p2g_cdf_tiles(*args_a),
+          lambda: p2g_cdf.p2g_cdf_plain(*args_a),
+          lambda k, p: [("impulses", k[1], p[1], 1e-4)],
+          lambda k, p: [("mm tiles", k[0], p[0]), ("impulses", k[1], p[1]),
+                        ("particle cdf rows", k[2][:, :ce], p[2][:, :ce])],
+          lambda p: (None if float(p[1].abs().max()) > 1.0
+                     else "the plain impulses are ~0: no contact load"),
+          cost=(4 * (24 * ce + nj * wv * 4 + nj * wv * 8 + 8 * ce + njg * 8 * 128),
+                ce * (30 + 27 * 13 * 2) + pg * (27 * (3 * nc + 58) + 200)))
+    check("g2p_sparse",
+          lambda: g2p.g2p_rows(*args_b), lambda: g2p.g2p_plain(*args_b),
+          lambda k, p: [], lambda k, p: [("rows", k[:, :ce], p[:, :ce])],
+          cost=g2p_cost(ce, pg, nj, njg, wv))
+    check("update_rows_sparse",
+          lambda: update_rows.update_rows(*args_c),
+          lambda: update_rows.update_plain(*args_c),
+          lambda k, p: [(f"row {r}", k[r], p[r], 1e-4) for r in range(k.shape[0])],
+          lambda k, p: [(f"row {r}", k[r], p[r]) for r in range(k.shape[0])],
+          cost=c_cost(C_ROWS_READ_3D, 12, 6, rec["rows"].shape[0], npad, ce, 6000))
+    del rec, args_a, args_b, args_c, data, state
+    torch.cuda.empty_cache()
+    # The slot-addressed mesh pass on path 11 built sparse, its lattice
+    # lowered 15.5 cells onto the heightfield (the active slots reach the
+    # surface only there): a substep's inputs after two substeps, keys and
+    # words bit for bit.
+    data = hf3_scene(dev, HF3_SCALE, shift=(0.0, -15.5, 0.0), sparse=True)
+    cfg = data.config
+    state, diag = step_with_diag(data.state, data.params, cfg, 2)
+    rec = {}
+    step_pallas(state, data.params, cfg, 1, record=rec)
+    torch.cuda.synchronize()
+    if diag.any_overflow() or not cfg.sparse or not cfg.mesh_cids:
+        fail(f"path 11 built sparse: {diag.summary()}, built as {cfg}")
+    sw, vw, prim, cid, grid, _ = mesh_inputs(data, state)
+    args_m = (sw, vw, prim, cid, grid, rec["act"], cfg.amax)
+    n_act = int((rec["act"] < blocked.SPARSE_SENTINEL).sum())
+    pairs = sw.shape[0] * 27
+    print(f"mesh_cdf_sparse inputs: {sw.shape[0]} samples, {vw.shape[0]} vertices, "
+          f"{n_act} active slots of amax {cfg.amax}", flush=True)
+    # Bytes: samples, primitives, slots, vertices and the active table read
+    # once, the two slot node grids written once; operations: ~60 a sample,
+    # ~35 a pair and ~3 a probe of its ~14-probe binary search.
+    check("mesh_cdf_sparse",
+          lambda: rigid_cdf.mesh_node_cdf_sparse(*args_m),
+          lambda: rigid_cdf.mesh_node_cdf_sparse_plain(*args_m),
+          lambda k, p: [], lambda k, p: [("keys", k[0], p[0]), ("words", k[1], p[1])],
+          lambda p: (None if int((p[0] < rigid_cdf.INF_KEY).sum()) > 100
+                     and bool((p[1] != 0).any()) else "an empty mesh pass"),
+          cost=(4 * (sw.shape[0] * 7 + vw.numel() + n_act) + 8 * (cfg.amax + 1) * 64,
+                sw.shape[0] * 60 + pairs * (35 + 42)))
+    del data, state, rec, args_m, sw, vw
+    torch.cuda.empty_cache()
+
     # ---- 5d. kernel F on a substep of the collider-free path ----
     r = rec_f
     args_f = (r["pdata"], r["ntiles"], r["btable"], r["jobs"], r["bcells"],
@@ -2142,6 +2353,10 @@ def main() -> None:
             jitter=0.5, elastic=True, by=BY, group=256, fold_vel=True),
         "2D sand column (fold_vel)": lambda device: small_column_2d(
             device, fold_vel=True),
+        # The sparse domain: tests/test_sparse_domain.py's box and spray.
+        "3D sparse sand box": lambda device: scenes.sand_box_3d(
+            nxz=8, ny=16, device=device, group=64, sparse=True),
+        "3D sparse ballistic spray (collider-free)": spray_scene,
     }
     for what, make in small_10.items():
         dk, dp = make(dev), make("cpu")
@@ -2154,14 +2369,42 @@ def main() -> None:
             fail(f"{what}: kernel F never launched: {counts}")
         if ("fold_vel" in what) != dk.config.fold_vel:
             fail(f"{what}: built with fold_vel={dk.config.fold_vel}")
+        if ("sparse" in what) != dk.config.sparse or (dk.config.sparse and min(
+                counts[k] for k in (KERNELS_3D if dk.config.num_colliders
+                                    else KERNELS_FREE)) <= 0):
+            fail(f"{what}: built with sparse={dk.config.sparse}, launches {counts}")
         with plain_versions():
             same(sk, step_pallas(dk.state, dk.params, dk.config, 10), what)
         agree(sk, step_pallas(dp.state, dp.params, dp.config, 10), what)
     print("small scenes (3D sand box, contact, collider-free and neo-Hookean; "
           "2D sand column, elastic blocks and collider-free column; the 3D sand "
-          "box, the 3D collider-free lattice and the 2D sand column folded): "
-          "kernel path equals the plain path on the card and agrees with it "
-          "on the CPU", flush=True)
+          "box, the 3D collider-free lattice and the 2D sand column folded; the "
+          "sparse sand box and spray): kernel path equals the plain path on the "
+          "card and agrees with it on the CPU", flush=True)
+    # Sparse against bounded on the card: the 8 x 16 sand box (by 4, group
+    # 64) built both ways, 20 substeps, held to tests/test_sparse_domain.py's
+    # tolerances (positions 1e-5, velocities 1e-4, affinity words exact,
+    # body positions 1e-6).
+    db, ds = (scenes.sand_box_3d(nxz=8, ny=16, device=dev, group=64, sparse=sp)
+              for sp in (False, True))
+    sb = step_pallas(db.state, db.params, db.config, 20)
+    ss = step_pallas(ds.state, ds.params, ds.config, 20)
+    ib, is_ = torch.argsort(sb.particles.ids), torch.argsort(ss.particles.ids)
+    errs = {f: float((getattr(ss.particles, f)[is_] - getattr(sb.particles, f)[ib])
+                     .abs().max()) for f in ("pos", "vel", "def_grad", "affine")}
+    body_err = float((ss.bodies.pos - sb.bodies.pos).abs().max())
+    if (not errs["pos"] <= 1e-5 or not errs["vel"] <= 1e-4 or not body_err <= 1e-6
+            or not torch.equal(ss.particles.cdf_affinity[is_],
+                               sb.particles.cdf_affinity[ib])):
+        fail(f"sparse box against bounded: max differences {errs}, bodies {body_err}, "
+             "or affinity words differ")
+    bit = all(v == 0.0 for v in errs.values()) and all(
+        torch.equal(getattr(ss.bodies, f), getattr(sb.bodies, f))
+        for f in ("pos", "rot", "linvel", "angvel"))
+    print(f"sparse sand box against bounded (by 4, 20 substeps, on the card): max "
+          f"differences {errs}, bodies {body_err}; affinity words equal; bit-equal: "
+          f"{bit}", flush=True)
+    del db, ds, sb, ss
     # The analytic-shapes slice, 5 substeps each; against the CPU each
     # substep starts both paths from the CPU state (contact from the start).
     small_5 = {
@@ -2197,6 +2440,13 @@ def main() -> None:
             lambda device: cut3_scene(device, 0.2, shift=(0.0, -7.0, 0.0),
                                       max_stretch=1.0002, vel=(0.0, -4.0, 0.0),
                                       group=64),
+        # The sparse domain: the ramp (the slot channel grid with the
+        # slot-addressed mesh pass) and the box past its capacities.
+        "3D sparse trimesh ramp and cuboid floor (mesh)": lambda device: ramp_scene(
+            device, sparse=True),
+        "3D sparse sand box at kmax 8, amax 16 (overflow)": lambda device:
+            scenes.sand_box_3d(nxz=8, ny=16, device=device, group=64, sparse=True,
+                               kmax=8, amax=16),
     }
     for what, make in small_5.items():
         dk, dp = make(dev), make("cpu")
@@ -2213,8 +2463,16 @@ def main() -> None:
             fail(f"{what}: {counts['rigid_solve']} rigid-solve launches in 5 substeps")
         if "joint" in what:
             launches["rigid_solve_joints"] = counts["rigid_solve"]
-        if dk.config.mesh_cids and counts["mesh_cdf"] != 5:
-            fail(f"{what}: {counts['mesh_cdf']} mesh_cdf launches in 5 substeps")
+        mesh_key = "mesh_cdf_sparse" if dk.config.sparse else "mesh_cdf"
+        if dk.config.mesh_cids and counts[mesh_key] != 5:
+            fail(f"{what}: {counts[mesh_key]} {mesh_key} launches in 5 substeps")
+        if dk.config.sparse and dk.config.mesh_cids:
+            launches["mesh_cdf_sparse"] = counts["mesh_cdf_sparse"]
+        if "overflow" in what:
+            _, dg = step_with_diag(dk.state, dk.params, dk.config, 1)
+            if not (int(dg.sparse_occ_overflow) > 0 and int(dg.sparse_act_overflow) > 0):
+                fail(f"{what}: the overflow is not reported: {dg.summary()}")
+            print(f"{what}: {dg.summary()}", flush=True)
         if "fracture" in what:
             c_name = "update_rows" if dk.config.grid.dim == 3 else "update_rows2d"
             if "four materials" in what:

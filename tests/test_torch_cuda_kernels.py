@@ -9,8 +9,9 @@ probe; the `fold_vel` branches of B and I on folded substeps, the 2D
 chan-free branches of G, H and I on the stirred column, H on jobs that
 span several of its chunks, and the rigid solve on a substep of a small
 sand2 with its plates pressed into the floor and each other and of a 3D
-plate on a ball joint, and the mesh pass on a substep of each small mesh
-scene of chip_smoke.py.  Marked `cuda`: they skip where
+plate on a ball joint, the mesh pass on a substep of each small mesh
+scene of chip_smoke.py, and A (or F), B, C and the slot-addressed mesh
+pass on its small sparse scenes.  Marked `cuda`: they skip where
 torch sees no CUDA device (run them on a GPU host with
 `python -m pytest --noconftest tests/test_torch_cuda_kernels.py`)."""
 
@@ -582,3 +583,53 @@ def test_mesh_cdf_kernel_matches_plain(scene):
     p = rigid_cdf.mesh_node_cdf_plain(*args)
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
     assert int((p[0] < rigid_cdf.INF_KEY).sum()) > 10
+
+
+@pytest.mark.parametrize("scene", ["ramp", "spray", "box_overflow"])
+def test_sparse_kernels_match_plain(scene):
+    """The sparse domain on chip_smoke.py's small sparse scenes: a
+    substep's A (or F), B and C against their plain versions, bit for bit,
+    and on the ramp the slot-addressed mesh pass (keys and words, one
+    launch a call)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from wgsparkl_tpu_torch.ops import rigid_cdf
+
+    d = {"ramp": lambda: chip_smoke.ramp_scene("cuda", sparse=True),
+         "spray": lambda: chip_smoke.spray_scene("cuda"),
+         "box_overflow": lambda: scenes.sand_box_3d(
+             nxz=8, ny=16, device="cuda", group=64, sparse=True, kmax=8,
+             amax=16)}[scene]()
+    cfg = d.config
+    state = step_pallas(d.state, d.params, cfg, 2)
+    r = {}
+    step_pallas(state, d.params, cfg, 1, record=r)
+    h, npad, nc = cfg.grid.cell_width, r["rows"].shape[1], cfg.num_colliders
+    mode = (r["moving"], r["static_desc"], r["chan_free"])
+    jobs = (r["jobs"], r["bcells"], r["jbody"], h, cfg.by)
+    if nc:
+        args = (r["rows"][:24].contiguous(), r["ntiles"], r["btable"], *jobs,
+                cfg.group, npad, nc, *mode)
+        k, p = p2g_cdf.p2g_cdf_tiles(*args), p2g_cdf.p2g_cdf_plain(*args)
+    else:
+        args = (r["pdata"], r["ntiles"], r["btable"], *jobs, nc)
+        k, p = p2g.p2g_tiles(*args), p2g.p2g_plain(*args)
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    args = (r["pdata"], r["ftiles"], r["ntiles"], r["btable"], *jobs, cfg.group, npad,
+            nc, *mode)
+    ce = int(r["covered_end"])
+    assert torch.equal(g2p.g2p_rows(*args)[:, :ce], g2p.g2p_plain(*args)[:, :ce])
+    args = (r["rows"], r["krows"], r["pcdf"], r["sorted_ids"], r["covered_end"],
+            r["btable"], r["mtable"], d.params.dt, h, nc, max(cfg.n_materials, 1),
+            r["live_below"])
+    assert torch.equal(update_rows.update_rows(*args), update_rows.update_plain(*args))
+    if scene == "ramp":
+        sw, vw, prim, cid, grid, _ = chip_smoke.mesh_inputs(d, state)
+        args = (sw, vw, prim, cid, grid, r["act"], cfg.amax)
+        before = rigid_cdf.mesh_node_cdf_sparse.launches
+        k = rigid_cdf.mesh_node_cdf_sparse(*args)
+        assert rigid_cdf.mesh_node_cdf_sparse.launches == before + 1
+        p = rigid_cdf.mesh_node_cdf_sparse_plain(*args)
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        assert int((p[0] < rigid_cdf.INF_KEY).sum()) > 10

@@ -161,8 +161,10 @@ def test_main_path_configuration_matches_jax():
     dict(spatial_devices=2)])
 def test_unported_options_raise(kw):
     """Each 3D option the port lacks raises naming its ROADMAP item.  The
-    chan-free CDF mode, fold_vel and joints are ported now: those cases
-    build and carry the option (the joint normalised to a ball joint)."""
+    chan-free CDF mode, fold_vel, joints and the sparse domain are ported
+    now: those cases build and carry the option (the joint normalised to a
+    ball joint; the sparse domain with the JAX package's kmax and amax
+    defaults, at by 4, the only block height it takes)."""
     if "joints" in kw:
         d = scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
         assert d.config.joints == ((0, 5, (0.0, 0.0, 0.0), (0.0, 0.0, 0.0), "ball",
@@ -176,6 +178,12 @@ def test_unported_options_raise(kw):
         d = scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
         assert d.config.fold_vel and not d.config.chan_free
         return
+    if kw == dict(sparse=True):
+        d = scenes.sand_box_3d(nxz=4, ny=6, device="cpu", **kw)
+        c = d.config
+        assert c.sparse and c.kmax == c.max_jobs and c.amax == 4 * c.max_jobs
+        assert c.by == 4 and c.amax % 8 == 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
 
@@ -184,6 +192,35 @@ def test_unported_reference_config_raises():
     j = jscenes.sand_box_3d(nxz=4, ny=6)
     with pytest.raises(NotImplementedError):
         interop.config_from_reference(dataclasses.replace(j.config))
+
+
+def test_sparse_reference_config_is_carried():
+    """A JAX sparse configuration comes over with sparse, kmax and amax,
+    and equals the port's own construction of the same scene."""
+    j = jscenes.sand_box_3d(nxz=4, ny=6, transfer="pallas", sparse=True, kmax=40,
+                            amax=100)
+    cfg = interop.config_from_reference(j.config)
+    assert (cfg.sparse, cfg.kmax, cfg.amax) == (True, 40, 104)
+    assert cfg == scenes.sand_box_3d(nxz=4, ny=6, device="cpu", sparse=True, kmax=40,
+                                     amax=100).config
+
+
+@pytest.mark.parametrize("case", ["2d", "by8"])
+def test_sparse_refuses_2d_and_by8(case):
+    """The sparse domain is 3D-only and takes 4^3 blocks: both packages
+    raise ValueError otherwise."""
+    if case == "2d":
+        calls = (lambda: jscenes.sand_column_2d(nx=4, ny=4, transfer="pallas",
+                                                sparse=True),
+                 lambda: scenes.sand_column_2d(nx=4, ny=4, device="cpu", sparse=True))
+    else:
+        calls = (lambda: jscenes.sand_box_3d(nxz=4, ny=6, transfer="pallas",
+                                             sparse=True, by=8),
+                 lambda: scenes.sand_box_3d(nxz=4, ny=6, device="cpu", sparse=True,
+                                            by=8))
+    for call in calls:
+        with pytest.raises(ValueError, match="sparse"):
+            call()
 
 
 def test_one_way_coupling_reference_config_raises():

@@ -515,8 +515,8 @@ def port_bodies(descs):
 
 def port_data(jdata: MpmData, chan_free=False, fold_vel=None):
     """The port's MpmData of a JAX scene's initial particles, models and
-    bodies, on its grid, blocks, group and job table size (chan_free None:
-    the heuristic)."""
+    bodies, on its grid, blocks, group and job table size, bounded or
+    sparse with its kmax and amax (chan_free None: the heuristic)."""
     from wgsparkl_tpu_torch import interop
     from wgsparkl_tpu_torch.pipeline import MpmData as TMpmData
 
@@ -526,7 +526,8 @@ def port_data(jdata: MpmData, chan_free=False, fold_vel=None):
                     st.models, port_bodies(jdata.bodies_desc), cfg.grid.cell_width,
                     grid=interop.config_from_reference(cfg).grid, group=cfg.group,
                     max_jobs=cfg.max_jobs, by=cfg.by, chan_free=chan_free,
-                    fold_vel=fold_vel)
+                    fold_vel=fold_vel, sparse=cfg.sparse, kmax=cfg.kmax,
+                    amax=cfg.amax)
 
 
 _jax_step_pallas = jax.jit(jax_step_pallas, static_argnums=(2, 3))

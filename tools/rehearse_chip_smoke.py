@@ -1,6 +1,6 @@
 """CPU rehearsal of chip_smoke.py, for a host without a CUDA device.
 
-    python3 tools/rehearse_chip_smoke.py            # every phase, ~75 s
+    python3 tools/rehearse_chip_smoke.py            # every phase, ~2 min
     REHEARSE_ONLY=mesh python3 tools/rehearse_chip_smoke.py   # paths 9-11
 
 Stubs torch.cuda, nvidia-smi and the nvcc build, counts launches where the
@@ -77,6 +77,7 @@ for n in ("p2g_cdf_tiles", "g2p_rows", "update_rows", "permute_lanes", "pcdf_row
     counted(pipeline, n)
 counted(compact, "compact_flagged")
 counted(rigid_cdf, "mesh_node_cdf")
+counted(rigid_cdf, "mesh_node_cdf_sparse")
 counted(probe, "math_probe")
 # The ablation probe's partial stages exist only as kernels.
 _full = ablation.p2g_ablation

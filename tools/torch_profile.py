@@ -4,7 +4,7 @@
 
 PATH is one of 3d, 3d-fold, 3d-neo, 3d-free, 3d-shapes, 3d-shapes-chan-free,
 3d-dyn, 2d, 2d-fold, 2d-neo, 2d-stirred, 2d-stirred-chan-free, sand2, cut2,
-cut3, hf3.  Builds the
+cut3, hf3, sparse, hf3-sparse.  Builds the
 full-size scene of chip_smoke.py (3d: the 1,002,001-particle sand box with
 the paddle, 20 substeps a frame; 3d-fold: the same with the grid update
 folded into G2P (`fold_vel`); 3d-neo: the same with the neo-Hookean
@@ -21,7 +21,9 @@ plates on the sand; sand2: path 7, examples/sand2.py at SCALE=1 with its
 two dynamic plates, 10 substeps a frame; cut2: path 9, examples/
 elastic_cut2.py at SCALE=1, 15 substeps a frame; cut3: path 10,
 examples/elastic_cut3.py at SCALE=1; hf3: path 11, examples/heightfield3.py
-at SCALE=1), runs one warm frame and chip_smoke.TIMED_FRAMES (3)
+at SCALE=1; sparse: path 12, the 3d lattice in the sparse domain as
+bench.py's BENCH_SPARSE=1 run builds it; hf3-sparse: path 11 built
+sparse), runs one warm frame and chip_smoke.TIMED_FRAMES (3)
 unprofiled frames (host clock around synchronised frames), then one frame
 under torch.profiler.  Prints the frame wall times, the device time of the
 profiled frame, the device's idle share against the median unprofiled
@@ -29,7 +31,10 @@ frame, the device launches (kernels, copies, fills) a substep, the
 kernels by device time per substep: the 40 largest and every hand-written
 one, on a 2D path kernel G's device ms a substep and a launch, on
 paths 7 and 8 the rigid solve's, and on paths 9-11 the mesh pass's
-(mesh_cdf3_kernel / mesh_cdf2_kernel) and the fracture branch's lanes.
+(mesh_cdf3_kernel / mesh_cdf2_kernel) and the fracture branch's lanes,
+on the sparse paths the slot channel grid's ms a call (CUDA events around
+`pipeline._sparse_chan_grid` on a substep's active table) and its share
+of a substep's device time.
 Fails without a CUDA device, on a 2D path where G did not launch, on
 paths 7 and 8 where the rigid solve did not and on paths 9-11 where the
 mesh pass did not.
@@ -57,7 +62,8 @@ def main() -> None:
                                      "3d-shapes", "3d-shapes-chan-free", "2d",
                                      "2d-fold", "2d-neo", "2d-stirred",
                                      "2d-stirred-chan-free", "3d-dyn", "sand2",
-                                     "cut2", "cut3", "hf3"))
+                                     "cut2", "cut3", "hf3", "sparse",
+                                     "hf3-sparse"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("FAIL: torch.cuda.is_available() is False")
@@ -95,6 +101,9 @@ def main() -> None:
         "cut2": lambda: (chip_smoke.cut2_scene(dev), chip_smoke.SUBSTEPS_CUT2),
         "cut3": lambda: (chip_smoke.cut3_scene(dev), chip_smoke.SUBSTEPS),
         "hf3": lambda: (chip_smoke.hf3_scene(dev), chip_smoke.SUBSTEPS),
+        "sparse": lambda: (chip_smoke.full_scene_sparse(dev), chip_smoke.SUBSTEPS),
+        "hf3-sparse": lambda: (chip_smoke.hf3_scene(dev, sparse=True),
+                               chip_smoke.SUBSTEPS),
     }[args.path]()
     state, params, cfg = data.state, data.params, data.config
     state = step_pallas(state, params, cfg, substeps)
@@ -152,7 +161,7 @@ def main() -> None:
         ms, count = sum(x[0] for x in r), sum(x[1] for x in r)
         print(f"rigid solve (rigid_solve_kernel): {ms / substeps:.4f} ms a substep, "
               f"{count / substeps:.1f} launches a substep, {ms / count:.4f} ms a launch")
-    if args.path in ("cut2", "cut3", "hf3"):
+    if args.path in ("cut2", "cut3", "hf3", "hf3-sparse"):
         m = [r for r in rows if "mesh_cdf" in r[2]]
         if not m:
             sys.exit("FAIL: the mesh pass (mesh_cdf) did not launch")
@@ -167,6 +176,23 @@ def main() -> None:
               f"{sum(x[0] for x in c) / substeps:.4f} ms a substep; "
               f"{int((can & (m.phase == 0.0)).sum())} of {int(can.sum())} lanes "
               "with a fracture threshold fractured")
+
+    if args.path in ("sparse", "hf3-sparse"):
+        from wgsparkl_tpu_torch import pipeline
+        from wgsparkl_tpu_torch.ops import blocked as bk
+        from wgsparkl_tpu_torch.rigid import body as body_mod
+
+        rec = {}
+        step_pallas(state, params, cfg, 1, record=rec)
+        bodies = body_mod.update_world_mass_properties(state.bodies)
+        act = rec["act"]
+        ms = chip_smoke.cuda_ms(
+            lambda: pipeline._sparse_chan_grid(bodies, state.meshes, cfg, act), reps=20)
+        n_act = int((act < bk.SPARSE_SENTINEL).sum())
+        print(f"slot channel grid (_sparse_chan_grid, {cfg.num_colliders} colliders at "
+              f"{act.shape[0] * 64} slot nodes, {n_act} slots active): {ms:.4f} ms a "
+              f"call (CUDA events), {ms / (device_ms / substeps):.3f} of a substep's "
+              "device time")
 
 
 if __name__ == "__main__":

@@ -5,7 +5,8 @@ same MLS-MPM paths in PyTorch: the 3D sand box and the 2D scenes with
 two-way (or per-body one-way) CPIC rigid coupling to fixed, kinematic and
 dynamic bodies with body contacts and joints, mesh colliders (trimesh,
 heightfield, polyline), and scenes with no collider,
-on the bounded block grid, with corotated or neo-Hookean elasticity,
+on the bounded block grid or (3D) the sparse, unbounded domain, with
+corotated or neo-Hookean elasticity,
 several materials and fracture.  The Pallas kernels
 of those paths are rewritten as hand-written CUDA C++ kernels for sm_90a
 (``csrc/``).
@@ -31,8 +32,8 @@ def kernel_wrappers():
     """{name: wrapper} of the hand-written kernels: the 3D path's five
     (A-E), the collider-free P2G (F), the 2D path's three (G-I), the dim=2
     entry of kernel C, the rigid solve (body contacts and joints), the
-    mesh node-CDF pass, the in-kernel math probe and the P2G ablation
-    probe."""
+    mesh node-CDF pass (bounded and sparse entries), the in-kernel math
+    probe and the P2G ablation probe."""
     from wgsparkl_tpu_torch.math.probe import math_probe
     from wgsparkl_tpu_torch.ops import transfer2d
     from wgsparkl_tpu_torch.ops.ablation import p2g_ablation
@@ -41,7 +42,7 @@ def kernel_wrappers():
     from wgsparkl_tpu_torch.ops.p2g import p2g_tiles
     from wgsparkl_tpu_torch.ops.p2g_cdf import p2g_cdf_tiles
     from wgsparkl_tpu_torch.ops.permute import permute_lanes
-    from wgsparkl_tpu_torch.ops.rigid_cdf import mesh_node_cdf
+    from wgsparkl_tpu_torch.ops.rigid_cdf import mesh_node_cdf, mesh_node_cdf_sparse
     from wgsparkl_tpu_torch.ops.update_rows import update_rows, update_rows2d
     from wgsparkl_tpu_torch.rigid.solve import rigid_solve
 
@@ -58,6 +59,7 @@ def kernel_wrappers():
         "update_rows2d": update_rows2d,
         "rigid_solve": rigid_solve,
         "mesh_cdf": mesh_node_cdf,
+        "mesh_cdf_sparse": mesh_node_cdf_sparse,
         "math_probe": math_probe,
         "p2g_ablation": p2g_ablation,
     }

@@ -23,10 +23,21 @@
 // the divisions are IEEE and the build has -fmad=false, so the two agree
 // bit for bit.  A sample whose base cell lies outside the grid adds
 // nothing; a node past the grid's high edge is skipped.
+// The sparse domain's entry (mesh_cdf_sparse_cuda; JAX:
+// ops/rigid_cdf.py `mesh_node_cdf_sparse` (:235), the same scan addressed
+// to the active-slot table) runs the same thread per sample with another
+// address: the grid is unbounded, so there is no grid-box test; a sample
+// whose block digits leave +-511 (the sentinel key) adds nothing, and a
+// stencil node's packed block key is found by binary search in the sorted
+// active table act (log2 of ~10^4 slots: 14 probes, from L2), the node
+// dropped where its block is not active.  Its address is slot * 64 + its
+// row-major cell in the 4^3 block.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define THREADS 128
+#define SPARSE_HALF 512
+#define SPARSE_DIM 1024
 
 struct Grid {
   int shape[3], origin[3], bsh[3], nb[3];
@@ -52,6 +63,50 @@ __device__ __forceinline__ long long node_addr(const Grid& g, const int* c) {
   return blk * (g.bsh[0] * g.bsh[1]) + inner;
 }
 
+// Floor division by 4 and its remainder, negative cells included.
+__device__ __forceinline__ int floor4(int x) { return (x - (x & 3)) / 4; }
+
+// The bounded grid's addressing: the base cell must lie in the grid, a node
+// past the grid's high edge is skipped.
+struct BoxAddr {
+  Grid g;
+  __device__ __forceinline__ bool sample_ok(const int* rel) const {
+    for (int a = 0; a < 3; ++a)
+      if (rel[a] < 0 || rel[a] >= g.shape[a]) return false;
+    return true;
+  }
+  __device__ __forceinline__ long long node(const int* c) const {
+    if (c[0] >= g.shape[0] || c[1] >= g.shape[1] || c[2] >= g.shape[2]) return -1;
+    return node_addr<3>(g, c);
+  }
+};
+
+// The sparse domain's: the base block's digits in [0, SPARSE_DIM - 1), a
+// node's block looked up in the sorted active table (-1: not active).
+struct SlotAddr {
+  const int* act;
+  int nact;
+  __device__ __forceinline__ bool sample_ok(const int* rel) const {
+    for (int a = 0; a < 3; ++a) {
+      const int dig = floor4(rel[a]) + SPARSE_HALF;
+      if (dig < 0 || dig >= SPARSE_DIM - 1) return false;
+    }
+    return true;
+  }
+  __device__ __forceinline__ long long node(const int* c) const {
+    const int bx = floor4(c[0]), by = floor4(c[1]), bz = floor4(c[2]);
+    const int key = ((bx + SPARSE_HALF) * SPARSE_DIM + bz + SPARSE_HALF) * SPARSE_DIM
+                    + by + SPARSE_HALF;
+    int lo = 0, hi = nact;   // first slot whose key is >= key
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (__ldg(act + mid) < key) lo = mid + 1; else hi = mid;
+    }
+    if (lo == nact || __ldg(act + lo) != key) return -1;
+    return (long long)lo * 64 + ((c[0] & 3) * 4 + (c[1] & 3)) * 4 + (c[2] & 3);
+  }
+};
+
 __device__ __forceinline__ void put(int* key, int* word, long long a, float sd,
                                     int cid) {
   const int k = (__float_as_int(fabsf(sd)) & (int)0xFFFFFFF0) | cid;
@@ -70,17 +125,17 @@ __device__ __forceinline__ void cross3(const float* a, const float* b, float* o)
   o[2] = a[0] * b[1] - a[1] * b[0];
 }
 
+template <class Addr>
 __global__ void __launch_bounds__(THREADS) mesh_cdf3_kernel(
     const float* __restrict__ sw, const float* __restrict__ vw,
     const int* __restrict__ prim, const int* __restrict__ cids, long long s, Grid g,
-    int* __restrict__ key, int* __restrict__ word) {
+    Addr addr, int* __restrict__ key, int* __restrict__ word) {
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= s) return;
   int rel[3];
-  for (int a = 0; a < 3; ++a) {
+  for (int a = 0; a < 3; ++a)
     rel[a] = (int)rintf(__fdiv_rn(sw[i * 3 + a], g.h)) - 1 - g.origin[a];
-    if (rel[a] < 0 || rel[a] >= g.shape[a]) return;
-  }
+  if (!addr.sample_ok(rel)) return;
   const int cid = cids[i];
   float va[3], vb[3], vc[3];
   for (int a = 0; a < 3; ++a) {
@@ -105,7 +160,8 @@ __global__ void __launch_bounds__(THREADS) mesh_cdf3_kernel(
     for (int ky = 0; ky < 3; ++ky) {
       for (int kz = 0; kz < 3; ++kz) {
         const int c[3] = {rel[0] + kx, rel[1] + ky, rel[2] + kz};
-        if (c[0] >= g.shape[0] || c[1] >= g.shape[1] || c[2] >= g.shape[2]) continue;
+        const long long at = addr.node(c);
+        if (at < 0) continue;
         float ap[3], bp[3], cp[3];
         for (int a = 0; a < 3; ++a) {
           const float x = (float)(c[a] + g.origin[a]) * g.h;
@@ -115,7 +171,7 @@ __global__ void __launch_bounds__(THREADS) mesh_cdf3_kernel(
         }
         if (!(dot3(e1, ap) <= 0.0f && dot3(e2, bp) <= 0.0f && dot3(e3, cp) >= 0.0f))
           continue;
-        put(key, word, node_addr<3>(g, c), __fdiv_rn(dot3(n, ap), den), cid);
+        put(key, word, at, __fdiv_rn(dot3(n, ap), den), cid);
       }
     }
   }
@@ -171,10 +227,29 @@ extern "C" int mesh_cdf_cuda(const float* sw, const float* vw, const int* prim,
   g.h = h;
   const unsigned blocks = (unsigned)((s + THREADS - 1) / THREADS);
   if (dim == 3)
-    mesh_cdf3_kernel<<<blocks, THREADS, 0, stream>>>(sw, vw, prim, cids, s, g, key,
-                                                     word);
+    mesh_cdf3_kernel<<<blocks, THREADS, 0, stream>>>(sw, vw, prim, cids, s, g,
+                                                     BoxAddr{g}, key, word);
   else
     mesh_cdf2_kernel<<<blocks, THREADS, 0, stream>>>(sw, vw, prim, cids, s, g, key,
                                                      word);
+  return (int)cudaGetLastError();
+}
+
+// The sparse domain's pass: key and word hold (amax + 1) x 64 nodes, slot
+// by slot; act [nact] the sorted active table.
+extern "C" int mesh_cdf_sparse_cuda(const float* sw, const float* vw, const int* prim,
+                                    const int* cids, long long s, long long or0,
+                                    long long or1, long long or2, float h,
+                                    const int* act, long long nact, int* key,
+                                    int* word, cudaStream_t stream) {
+  if (s <= 0) return 0;
+  Grid g = {};
+  g.origin[0] = (int)or0;
+  g.origin[1] = (int)or1;
+  g.origin[2] = (int)or2;
+  g.h = h;
+  const unsigned blocks = (unsigned)((s + THREADS - 1) / THREADS);
+  mesh_cdf3_kernel<<<blocks, THREADS, 0, stream>>>(sw, vw, prim, cids, s, g,
+                                                   SlotAddr{act, (int)nact}, key, word);
   return (int)cudaGetLastError();
 }

@@ -43,7 +43,7 @@ def _plain(x):
 
 def config_from_reference(cfg) -> MpmConfig:
     unsupported = {
-        "transfer": cfg.transfer != "pallas", "sparse": cfg.sparse,
+        "transfer": cfg.transfer != "pallas",
         "spatial_devices": cfg.spatial_devices,
         "elastic_model": cfg.elastic_model not in ELASTIC_MODELS,
     }
@@ -62,7 +62,8 @@ def config_from_reference(cfg) -> MpmConfig:
         coupling=tuple(int(c) for c in cfg.coupling), joints=joints,
         mesh_cids=tuple(int(c) for c in cfg.mesh_cids),
         sample_group=int(cfg.sample_group), sample_chunk=int(cfg.sample_chunk),
-        sample_max_jobs=int(cfg.sample_max_jobs))
+        sample_max_jobs=int(cfg.sample_max_jobs), sparse=bool(cfg.sparse),
+        kmax=int(cfg.kmax), amax=int(cfg.amax))
 
 
 def meshes_from_reference(meshes, device=None):

@@ -1,5 +1,7 @@
 """Block-grid addressing, sort keys, job tables and window tile moves
-(port of the bounded-grid subset of wgsparkl_tpu/ops/blocked.py).
+(port of the bounded-grid and sparse-domain subset of
+wgsparkl_tpu/ops/blocked.py; the sparse domain's keys and tables at the
+end).
 
 Blocks are 4 x by x 4 nodes in 3D, 8 x 8 in 2D; flat block ids enumerate
 blocks gravity (y) fastest ((x, z, y) order in 3D, (x, y) in 2D, x
@@ -245,3 +247,151 @@ def block_major_node_positions_ch(cfg: GridConfig, by: int, device):
                 + int(cfg.origin_cell[a]))
         out.append(cell.to(torch.float32) * cfg.cell_width)
     return out
+
+
+# ------------------------------------------------------------ sparse domain
+#
+# The unbounded 3D domain (port of the JAX package's sparse functions):
+# blocks are 4^3 nodes anywhere within +-511 block coordinates of the grid
+# origin.  A block's packed key holds its (x, z, y) digits of SPARSE_DIM
+# (gravity fastest, as the bounded flat ids); the top digit is reserved so
+# that a +1 neighbour never carries into the next digit.  Each substep the
+# occupied blocks come from the sorted particle keys, their {0,1}^3
+# neighbourhood forms the sorted active table, and grid storage is
+# [amax + 1, 64, C] slots into that table (slot amax: the ghost).
+
+SPARSE_HALF = 512
+SPARSE_DIM = 2 * SPARSE_HALF
+SPARSE_SENTINEL = 1 << 30     # out-of-range block, dead job, table padding
+
+
+def sparse_octant_deltas() -> Tuple[int, ...]:
+    """Packed-key delta of each {0,1}^3 neighbour, octants in np.ndindex
+    order (window_map's)."""
+    stride = (SPARSE_DIM * SPARSE_DIM, 1, SPARSE_DIM)
+    return tuple(int(sum(e[a] * stride[a] for a in range(3)))
+                 for e in np.ndindex(2, 2, 2))
+
+
+def particle_sparse_keys_ch(pch, cfg: GridConfig):
+    """Packed block key per lane of the 3 position channels pch (block of
+    the stencil base cell round(p / h) - 1); blocks past +-(SPARSE_HALF - 1)
+    of the origin get SPARSE_SENTINEL."""
+    digs, ok = [], None
+    for a in range(3):
+        base = torch.round(div(pch[a], cfg.cell_width)).to(torch.int32) - 1
+        dig = torch.div(base - int(cfg.origin_cell[a]), 4,
+                        rounding_mode="floor") + SPARSE_HALF
+        oka = (dig >= 0) & (dig < SPARSE_DIM - 1)
+        ok = oka if ok is None else ok & oka
+        digs.append(dig)
+    key = (digs[0] * SPARSE_DIM + digs[2]) * SPARSE_DIM + digs[1]
+    return torch.where(ok, key, SPARSE_SENTINEL).to(torch.int32)
+
+
+def sparse_key_coords(key):
+    """Packed key -> [..., 3] int32 block coords relative to the origin
+    (garbage for sentinel keys)."""
+    y = torch.remainder(key, SPARSE_DIM)
+    rest = torch.div(key, SPARSE_DIM, rounding_mode="floor")
+    z = torch.remainder(rest, SPARSE_DIM)
+    x = torch.div(rest, SPARSE_DIM, rounding_mode="floor")
+    return (torch.stack([x, y, z], dim=-1) - SPARSE_HALF).to(torch.int32)
+
+
+def _first_of_run(x):
+    first = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    first[1:] = x[1:] != x[:-1]
+    return first
+
+
+def build_jobs_sparse(sorted_keys, group: int, max_jobs: int, kmax: int):
+    """Job table and occupied-block table from sorted packed keys: (jobs
+    {key (SPARSE_SENTINEL for dead jobs), start, len, needed}, okeys
+    [min(kmax, N)] sorted occupied keys padded with the sentinel, n_occ
+    (distinct occupied blocks before truncation)), bit-equal to the JAX
+    package's: the blocks past kmax get no job of their own, but the last
+    kept block's count runs over their lanes (freeze_truncated_blocks cuts
+    it back).
+
+    The first rank of each occupied block comes from kernel E, which packs
+    the ranks of the flagged lanes (block boundaries) in lane order: keys
+    reach 2^30, past E's exact f32 range, so the keys are read back from
+    sorted_keys at those ranks.  That is what the JAX package's sort of
+    (key, rank) pairs gives, since sorted keys already come in rank order."""
+    from wgsparkl_tpu_torch.ops.compact import compact_flagged
+
+    dev = sorted_keys.device
+    n = sorted_keys.shape[0]
+    if n >= 2 ** 24:
+        raise ValueError("build_jobs_sparse: ranks must stay below 2^24")
+    cap = min(kmax, n)
+    occ = _first_of_run(sorted_keys) & (sorted_keys < SPARSE_SENTINEL)
+    lane = torch.arange(n, dtype=torch.int32, device=dev)
+    cvals, _ = compact_flagged(lane.to(torch.float32)[None, :], occ, cap)
+    brank = torch.clamp(cvals[0], max=float(n)).to(torch.int32)
+    valid = brank < n
+    bkey = torch.where(valid, sorted_keys[torch.clamp(brank, max=n - 1).long()],
+                       SPARSE_SENTINEL).to(torch.int32)
+    n_occ = occ.sum(dtype=torch.int32)
+    first_over = torch.searchsorted(
+        sorted_keys, torch.full((1,), SPARSE_SENTINEL, dtype=sorted_keys.dtype,
+                                device=dev)).to(torch.int32)
+    nxt = torch.cat([brank[1:], torch.full((1,), n, dtype=torch.int32, device=dev)])
+    nxt = torch.where(nxt < n, nxt, first_over)
+    counts = torch.where(valid, nxt - brank, 0)
+    cum = torch.cumsum((counts + (group - 1)) // group, 0, dtype=torch.int32)
+    total = cum[-1]
+    job_idx = torch.arange(max_jobs, dtype=torch.int32, device=dev)
+    jb = torch.searchsorted(cum, job_idx, right=True).to(torch.int32)
+    live = job_idx < total
+    jb_safe = torch.where(live, torch.clamp(jb, max=cap - 1), 0).long()
+    prev = torch.where(jb_safe > 0, cum[torch.clamp(jb_safe - 1, min=0)], 0)
+    rank = job_idx - prev
+    start = brank[jb_safe] + rank * group
+    length = torch.where(live, torch.clamp(counts[jb_safe] - rank * group, 0, group), 0)
+    return ({"key": torch.where(live, bkey[jb_safe], SPARSE_SENTINEL).to(torch.int32),
+             "start": start.to(torch.int32), "len": length.to(torch.int32),
+             "needed": total}, bkey, n_occ)
+
+
+def freeze_truncated_blocks(jobs, okeys, sorted_keys):
+    """The job table of build_jobs_sparse cut back to the kept blocks'
+    lanes.  Under occupied-block overflow that table lets the last kept
+    block's count run to the first out-of-range lane, so its jobs would
+    carry the truncated blocks' particles through a window that does not
+    hold them; cut at the end of the last kept block's own run, the
+    truncated blocks' particles get no job and freeze."""
+    last = torch.max(torch.where(okeys < SPARSE_SENTINEL, okeys, -1))
+    end = torch.searchsorted(sorted_keys, last.reshape(1).to(sorted_keys.dtype),
+                             right=True).to(torch.int32)
+    length = torch.clamp(torch.minimum(jobs["len"], end - jobs["start"]), min=0)
+    return dict(jobs, len=length.to(torch.int32))
+
+
+def sparse_active_table(okeys, amax: int):
+    """The sorted active table, occupied blocks and their {0,1}^3
+    neighbours: (act [amax] padded with the sentinel, n_active before
+    truncation)."""
+    cand = torch.cat([okeys + dl for dl in sparse_octant_deltas()])
+    cand = torch.sort(torch.clamp(cand, max=SPARSE_SENTINEL)).values
+    isf = _first_of_run(cand) & (cand < SPARSE_SENTINEL)
+    act = torch.sort(torch.where(isf, cand, SPARSE_SENTINEL)).values[:amax]
+    return act.to(torch.int32), isf.sum(dtype=torch.int32)
+
+
+def sparse_slots(act, queries, ghost_slot: int):
+    """Slot of each query key in the sorted active table; ghost_slot when
+    it is absent or the sentinel."""
+    s = torch.clamp(torch.searchsorted(act, queries.to(act.dtype).contiguous()),
+                    max=act.shape[0] - 1)
+    found = (act[s] == queries) & (queries < SPARSE_SENTINEL)
+    return torch.where(found, s, ghost_slot).to(torch.int32)
+
+
+def window_sources_slots(tgts):
+    """[J, 216] slot-addressed grid row (slot * 64 + cell) of every window
+    node of a 4^3 block: tgts [8, J] holds the slot of each job's octant
+    neighbour, octants in sparse_octant_deltas order."""
+    octs, cells = _window_tables((1, 1, 1), 4, tgts.device)[1:]
+    return tgts.long()[octs].T * 64 + cells[None, :]

@@ -1,5 +1,6 @@
 """The mesh node-CDF pass: grid-node signed distances to mesh colliders (port
-of wgsparkl_tpu/ops/rigid_cdf.py, bounded grid; the port-only kernel
+of wgsparkl_tpu/ops/rigid_cdf.py, the bounded grid's `mesh_node_cdf` and the
+sparse domain's `mesh_node_cdf_sparse`; the port-only kernel
 csrc/mesh_cdf.cu).
 
 Mesh colliders (trimesh and heightfield in 3D, polyline in 2D) reach the
@@ -14,7 +15,14 @@ d the signed distance to the primitive's plane or line, and per node the
 smallest key wins; it also sets the affinity bit 1 << slot, and the sign
 bit 1 << (slot + 16) where d < 0.
 
-Both results are int32 words over the nodes in block-major storage order:
+In the sparse domain (`mesh_node_cdf_sparse`) the nodes are those of the
+active slots, slot by slot (slot * 64 + the node's row-major cell in its
+4^3 block; the ghost slot stays empty): a sample whose block key is the
+sentinel adds nothing, and a stencil node whose block is not in the
+active table is dropped, as the JAX package's slot scatter drops it.
+
+On the bounded grid both results are int32 words over the nodes in
+block-major storage order:
 keys filled with the bits of +inf (0x7F800000), affinity words with 0.  A
 key is never negative (the distance is an absolute value), so the signed
 int32 minimum orders keys as their distances; the slot in the low nibble
@@ -99,21 +107,18 @@ def _cross(a, b):
             a[0] * b[1] - a[1] * b[0]]
 
 
-def mesh_node_cdf_plain(sample_w, verts_w, prim, cid, grid: GridConfig, by: int):
-    """Plain version of mesh_node_cdf, in the kernel's order of operations
-    (dots and crosses spelled out, IEEE divisions): (key, word), int32 [M]
-    over the M grid nodes in block-major order."""
+def _pass_plain(sample_w, verts_w, prim, cid, grid: GridConfig, m: int, sample_ok,
+                place):
+    """The pass in the kernels' order of operations (dots and crosses
+    spelled out, IEEE divisions) onto m nodes: sample_ok(rel) -> [S] bool
+    for the grid-relative base cells rel (d int32 [S]); place(cell) ->
+    ([S] bool, [S] node index) of a stencil node's grid-relative cell."""
     d = grid.dim
     h = grid.cell_width
-    bsh, nb, m = _geometry(grid, by)
-    st = bk.storage_strides(nb)
     dev = sample_w.device
-    rel, ok = [], torch.ones(sample_w.shape[0], dtype=torch.bool, device=dev)
-    for a in range(d):
-        r = (torch.round(div(sample_w[:, a], h)).to(torch.int32) - 1
-             - int(grid.origin_cell[a]))
-        ok = ok & (r >= 0) & (r < grid.shape[a])
-        rel.append(r)
+    rel = [torch.round(div(sample_w[:, a], h)).to(torch.int32) - 1
+           - int(grid.origin_cell[a]) for a in range(d)]
+    ok = sample_ok(rel)
     p = prim.long()
     va = [verts_w[p[:, 0], a] for a in range(d)]
     vb = [verts_w[p[:, 1], a] for a in range(d)]
@@ -135,9 +140,8 @@ def mesh_node_cdf_plain(sample_w, verts_w, prim, cid, grid: GridConfig, by: int)
     keys, words, addrs = [], [], []
     for k in itertools.product(range(3), repeat=d):
         cell = [rel[a] + k[a] for a in range(d)]
-        valid = ok
-        for a in range(d):
-            valid = valid & (cell[a] < grid.shape[a])
+        inside, addr = place(cell)
+        valid = ok & inside
         x = [(cell[a] + int(grid.origin_cell[a])).to(torch.float32) * h
              for a in range(d)]
         ap = [x[a] - va[a] for a in range(d)]
@@ -153,17 +157,12 @@ def mesh_node_cdf_plain(sample_w, verts_w, prim, cid, grid: GridConfig, by: int)
             signed = _dot(perp, ap) / plen
         key = (torch.abs(signed).view(torch.int32) & -16) | cid
         word = bits[cid.long()] | torch.where(signed < 0.0, bits[cid.long() + 16], 0)
-        blk = sum((cell[a] // bsh[a]) * st[a] for a in range(d))
-        inner = cell[0] % bsh[0]
-        for a in range(1, d):
-            inner = inner * bsh[a] + cell[a] % bsh[a]
-        addr = blk * int(np.prod(bsh)) + inner
         keys.append(key)
         words.append(word.to(torch.int32))
         addrs.append(torch.where(valid, addr, m).long())
     key = torch.cat(keys)
     if bool((key < 0).any()):
-        raise AssertionError("mesh_node_cdf_plain: a negative key")
+        raise AssertionError("mesh node-CDF pass: a negative key")
     addr = torch.cat(addrs)
     key_grid = torch.full((m + 1,), INF_KEY, dtype=torch.int32, device=dev)
     key_grid.scatter_reduce_(0, addr, key, reduce="amin")
@@ -179,6 +178,47 @@ def mesh_node_cdf_plain(sample_w, verts_w, prim, cid, grid: GridConfig, by: int)
     return key_grid[:m], word_grid[:m]
 
 
+def mesh_node_cdf_plain(sample_w, verts_w, prim, cid, grid: GridConfig, by: int):
+    """Plain version of mesh_node_cdf: (key, word), int32 [M] over the M
+    grid nodes in block-major order."""
+    d = grid.dim
+    bsh, nb, m = _geometry(grid, by)
+    st = bk.storage_strides(nb)
+
+    def sample_ok(rel):
+        ok = torch.ones(sample_w.shape[0], dtype=torch.bool, device=sample_w.device)
+        for a in range(d):
+            ok = ok & (rel[a] >= 0) & (rel[a] < grid.shape[a])
+        return ok
+
+    def place(cell):
+        inside = cell[0] < grid.shape[0]
+        for a in range(1, d):
+            inside = inside & (cell[a] < grid.shape[a])
+        blk = sum((cell[a] // bsh[a]) * st[a] for a in range(d))
+        inner = cell[0] % bsh[0]
+        for a in range(1, d):
+            inner = inner * bsh[a] + cell[a] % bsh[a]
+        return inside, blk * int(np.prod(bsh)) + inner
+
+    return _pass_plain(sample_w, verts_w, prim, cid, grid, m, sample_ok, place)
+
+
+def _check_pass_args(sample_w, verts_w, prim, cid, d: int):
+    s = sample_w.shape[0]
+    if (sample_w.dtype != torch.float32 or verts_w.dtype != torch.float32
+            or prim.dtype != torch.int32 or cid.dtype != torch.int32):
+        raise TypeError("the mesh pass takes f32 positions and int32 ids")
+    if (tuple(sample_w.shape) != (s, d) or tuple(prim.shape) != (s, d)
+            or tuple(cid.shape) != (s,) or verts_w.dim() != 2
+            or verts_w.shape[1] != d):
+        raise ValueError("the mesh pass: sample_w [S, d], prim [S, d], cid [S], "
+                         "verts_w [V, d]")
+    for t in (sample_w, verts_w, prim, cid):
+        if not t.is_contiguous() or t.device != sample_w.device:
+            raise ValueError("the mesh pass: contiguous tensors on one device")
+
+
 def mesh_node_cdf(sample_w, verts_w, prim, cid, grid: GridConfig, by: int):
     """(key, word), int32 [M] over the grid nodes in block-major order: the
     two fills and one launch of the mesh_cdf kernel.  sample_w [S, d] and
@@ -187,17 +227,7 @@ def mesh_node_cdf(sample_w, verts_w, prim, cid, grid: GridConfig, by: int):
         return mesh_node_cdf_plain(sample_w, verts_w, prim, cid, grid, by)
     d = grid.dim
     s = sample_w.shape[0]
-    if (sample_w.dtype != torch.float32 or verts_w.dtype != torch.float32
-            or prim.dtype != torch.int32 or cid.dtype != torch.int32):
-        raise TypeError("mesh_node_cdf takes f32 positions and int32 ids")
-    if (tuple(sample_w.shape) != (s, d) or tuple(prim.shape) != (s, d)
-            or tuple(cid.shape) != (s,) or verts_w.dim() != 2
-            or verts_w.shape[1] != d):
-        raise ValueError("mesh_node_cdf: sample_w [S, d], prim [S, d], cid [S], "
-                         "verts_w [V, d]")
-    for t in (sample_w, verts_w, prim, cid):
-        if not t.is_contiguous() or t.device != sample_w.device:
-            raise ValueError("mesh_node_cdf: contiguous tensors on one device")
+    _check_pass_args(sample_w, verts_w, prim, cid, d)
     bsh, _, m = _geometry(grid, by)
     shape = tuple(grid.shape) + (1,) * (3 - d)
     origin = tuple(grid.origin_cell) + (0,) * (3 - d)
@@ -219,6 +249,66 @@ def mesh_pass(meshes: MeshColliders, bodies, grid: GridConfig, by: int):
     sample_w, verts_w = world_transform(meshes, bodies)
     return mesh_node_cdf(sample_w, verts_w, meshes.sample_prim, meshes.sample_cid,
                          grid, by)
+
+
+def mesh_node_cdf_sparse_plain(sample_w, verts_w, prim, cid, grid: GridConfig,
+                                act, amax: int):
+    """Plain version of mesh_node_cdf_sparse: (key, word), int32 [(amax + 1)
+    x 64] over the nodes of the active slots (slot-major, nodes row-major in
+    the 4^3 block; the ghost slot amax stays empty)."""
+    def sample_ok(rel):
+        ok = torch.ones(sample_w.shape[0], dtype=torch.bool, device=sample_w.device)
+        for a in range(3):
+            dig = torch.div(rel[a], 4, rounding_mode="floor") + bk.SPARSE_HALF
+            ok = ok & (dig >= 0) & (dig < bk.SPARSE_DIM - 1)
+        return ok
+
+    def place(cell):
+        dig = [torch.div(c, 4, rounding_mode="floor") + bk.SPARSE_HALF for c in cell]
+        key = (dig[0] * bk.SPARSE_DIM + dig[2]) * bk.SPARSE_DIM + dig[1]
+        slot = bk.sparse_slots(act, key, amax)
+        inner = ((cell[0] % 4) * 4 + cell[1] % 4) * 4 + cell[2] % 4
+        return slot < amax, slot * 64 + inner
+
+    return _pass_plain(sample_w, verts_w, prim, cid, grid, (amax + 1) * 64,
+                       sample_ok, place)
+
+
+def mesh_node_cdf_sparse(sample_w, verts_w, prim, cid, grid: GridConfig, act,
+                         amax: int):
+    """The mesh pass addressed to the sparse domain's active slots (3D):
+    (key, word), int32 [(amax + 1) x 64], nodes of slot s at s * 64 + their
+    row-major cell in the block.  A sample whose block key is the sentinel
+    adds nothing, and a stencil node whose block is not in act (sorted
+    packed keys, [<= amax]) is dropped: the fills and one launch of the
+    mesh_cdf kernel's slot-addressed entry."""
+    if sample_w.device.type == "cpu":
+        return mesh_node_cdf_sparse_plain(sample_w, verts_w, prim, cid, grid, act,
+                                          amax)
+    _check_pass_args(sample_w, verts_w, prim, cid, 3)
+    if act.dtype != torch.int32 or act.dim() != 1 or not act.is_contiguous() \
+            or act.device != sample_w.device or act.shape[0] > amax:
+        raise ValueError("mesh_node_cdf_sparse: act contiguous int32 [<= amax] on "
+                         "the samples' device")
+    m = (amax + 1) * 64
+    key = torch.full((m,), INF_KEY, dtype=torch.int32, device=sample_w.device)
+    word = torch.zeros((m,), dtype=torch.int32, device=sample_w.device)
+    _cuda.launch("mesh_cdf", "mesh_cdf_sparse_cuda", "ppppi" + "iii" + "fpipp",
+                 sample_w, verts_w, prim, cid, sample_w.shape[0],
+                 *grid.origin_cell, np.float32(grid.cell_width), act, act.shape[0],
+                 key, word)
+    mesh_node_cdf_sparse.launches += 1
+    return key, word
+
+
+mesh_node_cdf_sparse.launches = 0
+
+
+def mesh_pass_sparse(meshes: MeshColliders, bodies, grid: GridConfig, act, amax: int):
+    """The sparse mesh pass of the bodies' current poses: (key, word)."""
+    sample_w, verts_w = world_transform(meshes, bodies)
+    return mesh_node_cdf_sparse(sample_w, verts_w, meshes.sample_prim,
+                                meshes.sample_cid, grid, act, amax)
 
 
 def merge_mesh_into_node_cdf(node_dist, node_aff, node_closest, key, word):

@@ -1,8 +1,8 @@
-"""The MPM step on the bounded block grid (port of the kernel-path subset of
-wgsparkl_tpu/pipeline.py: MpmConfig, MpmData, RigidBodyDesc,
-build_rigid_world, StepDiag, step / step_pallas / step_with_diag, the
-bounded 3D branch of `_substep_pallas_rows` and the bounded branch of
-`_substep_pallas_rows_2d`).
+"""The MPM step on the bounded block grid and the sparse 3D domain (port of
+the kernel-path subset of wgsparkl_tpu/pipeline.py: MpmConfig, MpmData,
+RigidBodyDesc, build_rigid_world, StepDiag, step / step_pallas /
+step_with_diag, the bounded and sparse branches of `_substep_pallas_rows`,
+`_sparse_chan_grid`, and the bounded branch of `_substep_pallas_rows_2d`).
 
 One 3D substep, in order: block sort keys; stable sort and row permute
 (kernel D); job table (kernel E inside build_jobs); window gather of the
@@ -42,9 +42,19 @@ are the JAX package's:
     kept in the configuration and ignored, as the JAX package does).
 `fold_vel=True` (off by default, as in the JAX package) skips the grid
 velocity pass: G2P (B or I) reads the raw momentum and mass tiles and does
-the grid update at its window nodes.  Options the JAX package has beyond
-these (the sparse domain, other transfers, multi-device sharding) raise
-NotImplementedError naming their ROADMAP item.
+the grid update at its window nodes.
+
+The sparse domain (`MpmData(..., sparse=True)`, 3D, 4^3 blocks) has no grid
+box: particles sort by packed block keys (ops/blocked.py), the occupied
+blocks (at most kmax get jobs) and their {0,1}^3 neighbours form the
+active table (at most amax slots), and the grid is [amax + 1, 64, 4] slots
+into it, the ghost slot amax reading zero.  The window moves address slots
+(the job's octant neighbours looked up in the table); kernels A-F run
+unchanged.  Outside the chan-free mode every substep evaluates every
+collider's node CDF, and the mesh pass on slots, at the active slots' nodes
+(`_sparse_chan_grid`), and the kernels evaluate no collider; there is no
+frame hoist.  Options the JAX package has beyond these (other transfers,
+multi-device sharding) raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -129,6 +139,11 @@ class MpmConfig:
     sample_group: int = 128
     sample_chunk: int = 32
     sample_max_jobs: int = 0
+    # The sparse domain: occupied blocks with jobs (kmax) and active slots
+    # (amax) a substep.
+    sparse: bool = False
+    kmax: int = 0
+    amax: int = 0
 
     @property
     def num_colliders(self) -> int:
@@ -142,21 +157,28 @@ class MpmConfig:
 
 @dataclasses.dataclass
 class StepDiag:
-    """On-device health counter of one frame (0 = healthy): the most jobs
-    a substep needed beyond max_jobs (their particles are masked out)."""
+    """On-device health counters of one frame (0 = healthy), the most over
+    its substeps of: the jobs needed beyond max_jobs (their particles are
+    masked out); in the sparse domain the distinct occupied blocks beyond
+    kmax (their particles freeze) and the active blocks beyond amax (their
+    nodes read the zero ghost)."""
 
     job_overflow: torch.Tensor
+    sparse_occ_overflow: torch.Tensor
+    sparse_act_overflow: torch.Tensor
 
     @classmethod
     def zeros(cls, device="cpu") -> "StepDiag":
-        return cls(torch.zeros((), dtype=torch.int32, device=device))
+        return cls(*(torch.zeros((), dtype=torch.int32, device=device)
+                     for _ in dataclasses.fields(cls)))
 
     def any_overflow(self) -> bool:
-        return bool(self.job_overflow > 0)
+        return any(bool(getattr(self, f.name) > 0) for f in dataclasses.fields(self))
 
     def summary(self) -> str:
-        jo = int(self.job_overflow)
-        return "OK" if jo <= 0 else f"OVERFLOW: job_overflow={jo}"
+        flags = [f"{f.name}={int(getattr(self, f.name))}"
+                 for f in dataclasses.fields(self) if int(getattr(self, f.name)) > 0]
+        return "OK" if not flags else "OVERFLOW: " + ", ".join(flags)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -496,36 +518,67 @@ def rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg: MpmConfig):
 
 
 def _job_phase(rows_all, cfg: MpmConfig, n: int, diag: StepDiag):
-    """Sort and job table of one substep (both dimensions): the sorted rows
-    and their ids, the permutation, the job table (starts masked into the
-    padded lanes), the jobs' block origin cells and window sources, and the
-    covered rank prefix.  Counts the job-table overflow into diag."""
+    """Sort and job table of one substep (both dimensions, bounded or
+    sparse): the sorted rows and their ids, the permutation, the job table
+    (starts masked into the padded lanes), the jobs' block origin cells and
+    window sources, the covered rank prefix, the grid's block rows
+    (grid_rows, plus the ghost) and kernel C's live_below.  Counts the
+    overflows into diag; a sparse substep also returns the active table
+    (act) and the jobs' octant slots (tgts)."""
     grid, by, group = cfg.grid, cfg.by, cfg.group
     dim = grid.dim
     npad = rows_all.shape[1]
     dev = rows_all.device
-    nb = bk.num_blocks(grid, by)
-    nb_total = int(np.prod(nb))
     # Sort: gravity-fastest block keys, padding lanes to the very tail.
     lane = torch.arange(npad, device=dev)
-    keys = bk.particle_sort_keys_ch([rows_all[a] for a in range(dim)], grid, by)
-    keys = torch.where(lane < n, keys, nb_total + 1).to(torch.int32)
+    pch = [rows_all[a] for a in range(dim)]
+    if cfg.sparse:
+        live_below = bk.SPARSE_SENTINEL
+        keys = bk.particle_sparse_keys_ch(pch, grid)
+    else:
+        nb = bk.num_blocks(grid, by)
+        live_below = int(np.prod(nb))
+        keys = bk.particle_sort_keys_ch(pch, grid, by)
+    keys = torch.where(lane < n, keys, live_below + 1).to(torch.int32)
     sorted_ids, perm = torch.sort(keys, stable=True)
     perm = perm.to(torch.int32)
     rows = permute_lanes(rows_all, perm)
-    jobs = bk.build_jobs(sorted_ids, nb_total, group, cfg.max_jobs)
+    out = {}
+    if cfg.sparse:
+        jobs, okeys, n_occ = bk.build_jobs_sparse(sorted_ids, group, cfg.max_jobs,
+                                                  cfg.kmax)
+        # Blocks past kmax freeze: no job runs over their lanes.
+        jobs = bk.freeze_truncated_blocks(jobs, okeys, sorted_ids)
+        act, n_active = bk.sparse_active_table(okeys, cfg.amax)
+        diag.sparse_occ_overflow = torch.maximum(diag.sparse_occ_overflow,
+                                                 n_occ - cfg.kmax)
+        diag.sparse_act_overflow = torch.maximum(diag.sparse_act_overflow,
+                                                 n_active - cfg.amax)
+        tgts = torch.stack([bk.sparse_slots(act, jobs["key"] + dl, cfg.amax)
+                            for dl in bk.sparse_octant_deltas()])
+        origin = torch.tensor(grid.origin_cell, dtype=torch.int32, device=dev)
+        bcells = (bk.sparse_key_coords(jobs["key"]) * 4 + origin).to(torch.int32)
+        grid_rows, src = cfg.amax, bk.window_sources_slots(tgts)
+        out.update(act=act, tgts=tgts)
+        where = {"key": jobs["key"]}
+    else:
+        jobs = bk.build_jobs(sorted_ids, live_below, group, cfg.max_jobs)
+        block = bk.key_to_block(jobs["block"], nb, dim)
+        bcells = bk.block_origin_cells(block, nb, by, grid.origin_cell)
+        grid_rows, src = live_below, bk.window_sources(block, nb, by)
+        out.update(nb_total=live_below)
+        where = {"block": block}
     diag.job_overflow = torch.maximum(diag.job_overflow,
                                       (jobs["needed"] - cfg.max_jobs).to(torch.int32))
     live = jobs["len"] > 0
     covered_end = torch.max(torch.where(live, jobs["start"] + jobs["len"], 0))
     starts = torch.where(live, torch.clamp(jobs["start"], max=npad - group),
                          npad - group).to(torch.int32)
-    jobs = {"start": starts, "len": jobs["len"],
-            "block": bk.key_to_block(jobs["block"], nb, dim)}
-    bcells = bk.block_origin_cells(jobs["block"], nb, by, grid.origin_cell)
-    return dict(unsorted=rows_all, perm=perm, rows=rows, sorted_ids=sorted_ids,
-                jobs=jobs, bcells=bcells, covered_end=covered_end,
-                src=bk.window_sources(jobs["block"], nb, by), nb_total=nb_total)
+    jobs = {"start": starts, "len": jobs["len"], **where}
+    out.update(unsorted=rows_all, perm=perm, rows=rows, sorted_ids=sorted_ids,
+               jobs=jobs, bcells=bcells, covered_end=covered_end, src=src,
+               grid_rows=grid_rows, live_below=live_below)
+    return out
 
 
 def _collider_free_inputs(wpad: int, jobs, npad: int, dev):
@@ -542,19 +595,41 @@ def _cdf_mode(cfg: MpmConfig):
     """(static_desc, moving): the ((slot, shape), ...) of the never-moving
     and of the moving analytic colliders, as the kernels take them in the
     chan-free and gathered-hybrid modes; both empty in a mesh scene, which
-    runs the dense mode."""
-    if cfg.mesh_cids:
+    runs the dense mode, and in the sparse domain outside the chan-free
+    mode, whose slot channel grid holds every collider."""
+    if cfg.mesh_cids or (cfg.sparse and not cfg.cdf_chan_free):
         return (), ()
     desc = tuple(enumerate(cfg.collider_types))
     return (tuple(c for c in desc if c[0] in cfg.static_slots),
             tuple(c for c in desc if c[0] not in cfg.static_slots))
 
 
-def _cdf_phase_3d(bodies, cfg: MpmConfig, static_chan, src, bcells, nb_total,
-                  static_cdf=None, meshes=None):
+def _sparse_chan_grid(bodies, meshes, cfg: MpmConfig, act):
+    """Channel grid [amax + 1, 64, 4] of the sparse domain: every analytic
+    collider's node CDF at the nodes of the active slots (block coords x 4
+    + origin + cell offset, times h, slot by slot, nodes row-major), with
+    the mesh pass on the same slots merged in."""
+    grid = cfg.grid
+    dev = act.device
+    off = torch.tensor(list(np.ndindex(4, 4, 4)), dtype=torch.int32, device=dev)
+    origin = torch.tensor(grid.origin_cell, dtype=torch.int32, device=dev)
+    cells = (bk.sparse_key_coords(act)[:, None, :] * 4 + origin + off[None])
+    npos = [(cells[..., a].to(torch.float32) * grid.cell_width).reshape(-1)
+            for a in range(3)]
+    tri = cch.node_cdf_channels(cfg.collider_types, bodies.shape_params, bodies.rot,
+                                bodies.pos, npos, grid.cell_width)
+    if cfg.mesh_cids:
+        key, word = rigid_cdf.mesh_pass_sparse(meshes, bodies, grid, act, cfg.amax)
+        n = act.shape[0] * 64
+        tri = rigid_cdf.merge_mesh_into_node_cdf(*tri, key[:n], word[:n])
+    return _cdf_chan_grid(*tri, cfg.amax, 64)
+
+
+def _cdf_phase_3d(bodies, cfg: MpmConfig, static_chan, src, bcells, grid_rows,
+                  static_cdf=None, meshes=None, act=None):
     """Node tiles, per-job gate levels and the never-moving and moving
     colliders the kernels evaluate in-kernel, for the CDF mode of cfg (see
-    the module docstring)."""
+    the module docstring); act: the sparse domain's active table."""
     static_desc, moving = _cdf_mode(cfg)
     h = cfg.grid.cell_width
     wsh, wvol, wpad = R.window_geom(cfg.by)
@@ -571,11 +646,14 @@ def _cdf_phase_3d(bodies, cfg: MpmConfig, static_chan, src, bcells, nb_total,
             jbody = torch.where(hit, 2, jbody).to(torch.int32)
         return (torch.zeros((1, wpad, 4), dtype=torch.float32, device=dev),
                 jbody, static_desc, moving)
-    if static_chan is None:
+    if cfg.sparse:
+        # Every collider at the active slots' nodes, every substep.
+        static_chan = _sparse_chan_grid(bodies, meshes, cfg, act)
+    elif static_chan is None:
         # Dense (no never-moving collider, or a mesh): every collider in the
         # tiles, the static slots' triple of the frame merged in.
         static_chan = _cdf_chan_grid(*_node_cdf_full(bodies, cfg, static_cdf, meshes),
-                                     nb_total, int(np.prod(bk.block_shape(3, cfg.by))))
+                                     grid_rows, int(np.prod(bk.block_shape(3, cfg.by))))
         static_desc, moving = (), ()
     ntiles = bk.gather_tiles(static_chan, src, wpad, 4)
     jbody = _jbody_gate(ntiles, wvol, cfg.static_slots)
@@ -605,7 +683,7 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     bodies = body_mod.update_world_mass_properties(bodies)
     ph = _job_phase(rows_all, cfg, n, diag)
     rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
-    nb_total = ph["nb_total"]
+    grid_rows = ph["grid_rows"]
     static_desc, moving = _cdf_mode(cfg)
     chan_free = cfg.cdf_chan_free
     btable = _body_table(bodies, params, grid)
@@ -614,7 +692,8 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
         # in-kernel where the mode and the gate say so.
         pdata = rows_all[:R.NCHAN].clone()
         ntiles, jbody, static_desc, moving = _cdf_phase_3d(
-            bodies, cfg, static_chan, src, bcells, nb_total, static_cdf, meshes)
+            bodies, cfg, static_chan, src, bcells, grid_rows, static_cdf, meshes,
+            ph.get("act"))
         mm, imp, pcdf = p2g_cdf_tiles(pdata, ntiles, btable, jobs, bcells, jbody,
                                       h, by, group, npad, nc, moving,
                                       static_desc, chan_free)
@@ -627,9 +706,13 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
         ntiles, jbody, pcdf = _collider_free_inputs(wpad, jobs, npad, dev)
         mm, imp = p2g_tiles(pdata, ntiles, btable, jobs, bcells, jbody, h, by,
                             nc)
-    grid_mm = torch.zeros((nb_total + 1, 16 * by, 4), dtype=torch.float32,
+    grid_mm = torch.zeros((grid_rows + 1, 16 * by, 4), dtype=torch.float32,
                           device=dev)
     bk.scatter_tiles(grid_mm, mm, src)
+    if cfg.sparse:
+        # The slot scatter drops tiles aimed at the ghost (dead jobs, and
+        # octants missing from an overflowed table): the ghost reads zero.
+        grid_mm[grid_rows].zero_()
     lin_imp = imp[0, 0:3, :bodies.count].T
     ang_imp = imp[0, 3:6, :bodies.count].T
 
@@ -642,7 +725,8 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
                      cfg.fold_vel)
     rows_out = update_rows(rows_all, krows, pcdf, ph["sorted_ids"],
                            ph["covered_end"], btable, mtable, params.dt, h, nc,
-                           max(cfg.n_materials, 1), nb_total, cfg.elastic_model)
+                           max(cfg.n_materials, 1), ph["live_below"],
+                           cfg.elastic_model)
     if record is not None:
         record.update(ph, jbody=jbody, ntiles=ntiles, btable=btable,
                       moving=moving, static_desc=static_desc,
@@ -677,7 +761,7 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     bodies = body_mod.update_world_mass_properties(bodies)
     ph = _job_phase(rows_all, cfg, n, diag)
     rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
-    nb_total = ph["nb_total"]
+    nb_total = ph["grid_rows"]
     btable = _body_table_2d(bodies, params, grid)
     chan_free = cfg.cdf_chan_free
     alldesc = tuple(sorted(sum(_cdf_mode(cfg), ()))) if chan_free else ()
@@ -746,9 +830,11 @@ def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
     n = state.particles.count
     npad = pallas_npad(n, cfg.group)
     rows = L.pack_rows_padded(state.particles, state.models, npad)
-    nb_total = int(np.prod(bk.num_blocks(cfg.grid, cfg.by)))
     static_chan = static_cdf = None
-    if cfg.static_slots and not cfg.cdf_chan_free:
+    if cfg.static_slots and not cfg.cdf_chan_free and not cfg.sparse:
+        # The frame hoist of the static colliders (none in the sparse
+        # domain, whose nodes change with the active table).
+        nb_total = int(np.prod(bk.num_blocks(cfg.grid, cfg.by)))
         static_cdf = _node_cdf_static(state.bodies, cfg)
         if not cfg.mesh_cids and (dim == 3
                                   or len(cfg.static_slots) == cfg.num_colliders):
@@ -807,7 +893,10 @@ class MpmData:
     "pallas", the only transfer ported (the JAX package defaults to
     "dense").  Mesh colliders are sampled here (polylines in 2D, trimeshes
     and heightfields in 3D, at cell_width / sqrt(2)); their slots are never
-    static and the scene runs the dense CDF mode.  coupling:
+    static and the scene runs the dense CDF mode.  sparse: the unbounded 3D
+    domain (by 4 only; the grid keeps only its cell width and origin), with
+    kmax occupied blocks (default max_jobs) and amax active slots (default
+    4 kmax, rounded up to a multiple of 8) a substep.  coupling:
     COUPLING_ONE_WAY / COUPLING_TWO_WAY a body (None: all two-way);
     body_contacts: resolve the dynamic bodies' contacts (with
     False they keep their mass but pass through other colliders); joints:
@@ -818,18 +907,21 @@ class MpmData:
                  cell_width: float, grid: Optional[GridConfig] = None,
                  grid_bounds=None, elastic_model: str = "corotated",
                  transfer: str = "pallas", group: int = 256,
-                 max_jobs: int = 0, sparse: bool = False,
-                 by: int = 4, joints=(), chan_free: Optional[bool] = None,
+                 max_jobs: int = 0, sparse: bool = False, kmax: int = 0,
+                 amax: int = 0, by: int = 4, joints=(),
+                 chan_free: Optional[bool] = None,
                  fold_vel: Optional[bool] = None, spatial_devices: int = 0,
                  coupling: Optional[Sequence[int]] = None,
                  body_contacts: bool = True):
         dim = particles.dim
+        if sparse and dim != 2 and by != 4:
+            raise ValueError("the sparse domain uses isotropic 4^3 blocks (by=4)")
+        if sparse and dim == 2:
+            raise ValueError("the sparse (unbounded) domain is 3D-only")
         if dim == 2 and by != 4:
             raise ValueError("2D blocks are 8 x 8: by must be 4")
         if transfer != "pallas":
             raise _unported(f"transfer={transfer!r}", "queue 1, item 4")
-        if sparse:
-            raise _unported("the sparse domain", "queue 1, item 10")
         if spatial_devices:
             raise _unported("spatial multi-device sharding", "queue 1, item 11")
         if elastic_model not in ELASTIC_MODELS:
@@ -862,6 +954,9 @@ class MpmData:
         max_jobs = -(-max_jobs // 32) * 32
         if auto_jobs:
             max_jobs = -(-max_jobs // 64) * 64
+        if sparse:
+            kmax = kmax or max_jobs
+            amax = -(-(amax or 4 * kmax) // 8) * 8
 
         def zero(v):
             return v is None or not np.any(np.asarray(v, np.float32))
@@ -895,7 +990,8 @@ class MpmData:
             fold_vel=bool(fold_vel),
             dynamic_slots=dynamic_slots if body_contacts else (),
             coupling=coupling, joints=_normalize_joints(joints, bodies, dim),
-            mesh_cids=mesh_cids, sample_max_jobs=sample_max_jobs)
+            mesh_cids=mesh_cids, sample_max_jobs=sample_max_jobs,
+            sparse=bool(sparse), kmax=kmax, amax=amax)
         self.state = SimState(particles=particles, models=models, bodies=world,
                               meshes=meshes)
         # The rigid update's static tables, on the state's device now.

@@ -43,7 +43,9 @@ def sand_box_3d(nxz: int = 45, ny: int = 100, cell_width: float = 1.0,
                 num_substeps: int = 20, gravity_factor: float = 1.0,
                 with_paddle: bool = True, device=None, **mpm_kw) -> MpmData:
     """3D Drucker-Prager sand in a box of five static walls, with an optional
-    kinematic paddle spinning about y (the reference's sand3 example)."""
+    kinematic paddle spinning about y (the reference's sand3 example).
+    mpm_kw go to MpmData, e.g. sparse=True, kmax=, amax= for the sparse
+    domain."""
     pos = _lattice((nxz, ny, nxz), cell_width,
                    (-nxz * cell_width / 4, 10.0 * cell_width / 2,
                     -nxz * cell_width / 4))
