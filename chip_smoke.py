@@ -44,7 +44,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      group 1024, max_jobs = kmax 2688, amax 10752, the CDF mode the
      construction-time pick chooses), one warm and 2 timed frames: the
      same checks (no job, occupied-block or active-slot overflow), and the
-     most occupied and active blocks of a substep;
+     most occupied and active blocks of a substep (StepDiag); path 12b,
+     path 11 built sparse, one warm and 2 timed frames: the same checks
+     and exactly one slot-addressed mesh_cdf launch a substep;
   5. each kernel against its plain PyTorch version at full size, on the
      inputs of a substep of each scene with its lattice lowered into a
      collider (onto the paddle in 3D, 1.5 cells into the floor in 2D), so
@@ -113,9 +115,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      in the sand box and the smallest elastic_cut3 block pressed onto its
      blades with fracture; the sparse domain: 10 substeps of the sand box
      and of tests/test_sparse_domain.py's ballistic spray, 5 of its
-     trimesh ramp and of the sand box at kmax 8, amax 16, whose overflow
-     must be reported): 30 scenes, equal bit for bit to the plain path on
-     the card, and within tolerance of the plain path on the CPU (affinity
+     trimesh ramp, of the sand box at kmax 8, amax 16, whose overflow
+     must be reported, and of the sand box lowered onto its floor and
+     paddle in the chan-free mode, with gated jobs): 31 scenes, equal bit
+     for bit to the plain path on the card, and within tolerance of the
+     plain path on the CPU (affinity
      words exact); then the sand box built sparse and bounded at by 4, 20
      substeps on the card, within tests/test_sparse_domain.py's tolerances
      (whether they are bit-equal is printed).
@@ -394,38 +398,6 @@ def full_scene_sparse(dev, **mpm_kw):
     return scenes.sand_box_3d(nxz=NXZ, ny=NY, cell_width=1.0, with_paddle=True,
                               device=dev, by=BY_SPARSE, group=GROUP,
                               max_jobs=max_jobs, sparse=True, **mpm_kw)
-
-
-@contextlib.contextmanager
-def sparse_peaks():
-    """The most occupied and active blocks of any sparse substep run in
-    the block (device maxima, read once on exit into the yielded dict's
-    n_occ and n_active)."""
-    from wgsparkl_tpu_torch.ops import blocked as bk
-
-    jobs_f, act_f = bk.build_jobs_sparse, bk.sparse_active_table
-    peak = {}
-
-    def keep(name, value):
-        peak[name] = value if name not in peak else torch.maximum(peak[name], value)
-
-    def jobs(*a, **k):
-        out = jobs_f(*a, **k)
-        keep("n_occ", out[2])
-        return out
-
-    def act(*a, **k):
-        out = act_f(*a, **k)
-        keep("n_active", out[1])
-        return out
-
-    bk.build_jobs_sparse, bk.sparse_active_table = jobs, act
-    try:
-        yield peak
-    finally:
-        bk.build_jobs_sparse, bk.sparse_active_table = jobs_f, act_f
-        for k in list(peak):
-            peak[k] = int(peak[k])
 
 
 def spray_scene(device):
@@ -950,11 +922,11 @@ def stirred_column_2d(device, chan_free=False):
 
 
 def scenes_small_3d(device, shift=None, **kw):
-    """The small 3D sand box of the CPU tests (8 x 16 x 8 lattice, by=8,
-    group=256); shift moves its lattice."""
+    """The small 3D sand box of the CPU tests (8 x 16 x 8 lattice, by=8 and
+    group=256 unless kw says otherwise); shift moves its lattice."""
     from wgsparkl_tpu_torch import scenes
 
-    d = scenes.sand_box_3d(nxz=8, ny=16, device=device, by=BY, group=256, **kw)
+    d = scenes.sand_box_3d(nxz=8, ny=16, device=device, **{"by": BY, "group": 256, **kw})
     if shift is not None:
         d.state.particles.pos += torch.tensor(shift, device=device)
     return d
@@ -1216,6 +1188,10 @@ def run_frames(wt, data, substeps, kernels, what, card, kind,
           f"{elapsed:.3f} s -> {sps:.3f} steps/s, {sps * n / 1e6:.2f} M "
           f"particle-updates/s; diag of all {len(diags)} frames OK; launches "
           f"{ {k: counts[k] for k in kernels} }", flush=True)
+    if cfg.sparse:
+        print(f"{what}: at most {max(int(d.sparse_n_occ) for d in diags)} occupied "
+              f"blocks (kmax {cfg.kmax}) and {max(int(d.sparse_n_active) for d in diags)} "
+              f"active blocks (amax {cfg.amax}) in a substep", flush=True)
     if gates:
         rec = {}
         step_pallas(state, data.params, cfg, 1, record=rec)
@@ -1457,13 +1433,25 @@ def main() -> None:
     print(f"path 12: sparse domain, kmax {cfg.kmax}, amax {cfg.amax}, CDF mode "
           f"{'chan-free' if cfg.cdf_chan_free else 'slot channel grid'} (the "
           "construction-time pick)", flush=True)
-    with sparse_peaks() as peak:
-        counts, state = run_frames(wt, data, SUBSTEPS, KERNELS_3D,
-                                   "path 12: sparse 3D main path", card, kind,
-                                   TIMED_FRAMES_SHORT, gates=True)
-    print(f"path 12: at most {peak['n_occ']} occupied blocks (kmax {cfg.kmax}) and "
-          f"{peak['n_active']} active blocks (amax {cfg.amax}) in a substep", flush=True)
+    counts, state = run_frames(wt, data, SUBSTEPS, KERNELS_3D,
+                               "path 12: sparse 3D main path", card, kind,
+                               TIMED_FRAMES_SHORT, gates=True)
     launches.update((f"{k}_sparse", counts[k]) for k in ("p2g_cdf", "g2p", "update_rows"))
+    del data, state
+    torch.cuda.empty_cache()
+    # Path 12b: path 11 (heightfield3 at SCALE=1) built sparse, the slot
+    # channel grid with the mesh pass's slot entry every substep.
+    data = hf3_scene(dev, HF3_SCALE, sparse=True)
+    cfg = data.config
+    if not cfg.sparse or not cfg.mesh_cids or cfg.cdf_chan_free:
+        fail(f"path 12b: built as {cfg}")
+    counts, state = run_frames(wt, data, SUBSTEPS, KERNELS_3D,
+                               "path 12b: heightfield3 built sparse", card, kind,
+                               TIMED_FRAMES_SHORT)
+    if counts["mesh_cdf_sparse"] != (1 + TIMED_FRAMES_SHORT) * SUBSTEPS:
+        fail(f"path 12b: {counts['mesh_cdf_sparse']} mesh_cdf_sparse launches, not "
+             f"one a substep ({(1 + TIMED_FRAMES_SHORT) * SUBSTEPS})")
+    launches["mesh_cdf_sparse"] = counts["mesh_cdf_sparse"]
     del data, state
     torch.cuda.empty_cache()
 
@@ -2190,12 +2178,15 @@ def main() -> None:
     # words bit for bit.
     data = hf3_scene(dev, HF3_SCALE, shift=(0.0, -15.5, 0.0), sparse=True)
     cfg = data.config
+    wt.reset_launch_counts()
     state, diag = step_with_diag(data.state, data.params, cfg, 2)
     rec = {}
     step_pallas(state, data.params, cfg, 1, record=rec)
     torch.cuda.synchronize()
-    if diag.any_overflow() or not cfg.sparse or not cfg.mesh_cids:
-        fail(f"path 11 built sparse: {diag.summary()}, built as {cfg}")
+    n_mesh = wt.launch_counts()["mesh_cdf_sparse"]
+    if diag.any_overflow() or not cfg.sparse or not cfg.mesh_cids or n_mesh != 3:
+        fail(f"path 11 built sparse: {diag.summary()}, {n_mesh} mesh_cdf_sparse "
+             f"launches in 3 substeps, built as {cfg}")
     sw, vw, prim, cid, grid, _ = mesh_inputs(data, state)
     args_m = (sw, vw, prim, cid, grid, rec["act"], cfg.amax)
     n_act = int((rec["act"] < blocked.SPARSE_SENTINEL).sum())
@@ -2204,7 +2195,10 @@ def main() -> None:
           f"{n_act} active slots of amax {cfg.amax}", flush=True)
     # Bytes: samples, primitives, slots, vertices and the active table read
     # once, the two slot node grids written once; operations: ~60 a sample,
-    # ~35 a pair and ~3 a probe of its ~14-probe binary search.
+    # ~35 a pair (as the bounded mesh_cdf entry), and the slot lookups the
+    # function needs: a sample's 27 nodes fall in at most 8 blocks, each a
+    # binary search of ceil(log2(amax + 1)) probes of ~3 operations.
+    probes = int(np.ceil(np.log2(cfg.amax + 1)))
     check("mesh_cdf_sparse",
           lambda: rigid_cdf.mesh_node_cdf_sparse(*args_m),
           lambda: rigid_cdf.mesh_node_cdf_sparse_plain(*args_m),
@@ -2212,7 +2206,7 @@ def main() -> None:
           lambda p: (None if int((p[0] < rigid_cdf.INF_KEY).sum()) > 100
                      and bool((p[1] != 0).any()) else "an empty mesh pass"),
           cost=(4 * (sw.shape[0] * 7 + vw.numel() + n_act) + 8 * (cfg.amax + 1) * 64,
-                sw.shape[0] * 60 + pairs * (35 + 42)))
+                sw.shape[0] * (60 + 8 * probes * 3) + pairs * 35))
     del data, state, rec, args_m, sw, vw
     torch.cuda.empty_cache()
 
@@ -2447,6 +2441,11 @@ def main() -> None:
         "3D sparse sand box at kmax 8, amax 16 (overflow)": lambda device:
             scenes.sand_box_3d(nxz=8, ny=16, device=device, group=64, sparse=True,
                                kmax=8, amax=16),
+        # The chan-free mode in the sparse domain: every collider in-kernel
+        # at window nodes placed from the packed keys' block coordinates.
+        "3D sparse sand box lowered onto its floor and paddle (chan-free)":
+            lambda device: scenes_small_3d(device, (0.0, -4.5, 0.0), by=BY_SPARSE,
+                                           group=64, sparse=True, chan_free=True),
     }
     for what, make in small_5.items():
         dk, dp = make(dev), make("cpu")
@@ -2466,8 +2465,6 @@ def main() -> None:
         mesh_key = "mesh_cdf_sparse" if dk.config.sparse else "mesh_cdf"
         if dk.config.mesh_cids and counts[mesh_key] != 5:
             fail(f"{what}: {counts[mesh_key]} {mesh_key} launches in 5 substeps")
-        if dk.config.sparse and dk.config.mesh_cids:
-            launches["mesh_cdf_sparse"] = counts["mesh_cdf_sparse"]
         if "overflow" in what:
             _, dg = step_with_diag(dk.state, dk.params, dk.config, 1)
             if not (int(dg.sparse_occ_overflow) > 0 and int(dg.sparse_act_overflow) > 0):
@@ -2479,7 +2476,7 @@ def main() -> None:
                 launches[f"{c_name}_fracture"] = counts[c_name]
             if not bool((sk.models.phase == 0.0).any()):
                 fail(f"{what}: no lane fractured")
-        if dk.config.chan_free and dk.config.grid.dim == 2:
+        if dk.config.chan_free and (dk.config.grid.dim == 2 or dk.config.sparse):
             # A chan-free scene proves nothing if no job is gated.
             rec = {}
             step_pallas(dk.state, dk.params, dk.config, 1, record=rec)

@@ -172,13 +172,15 @@ def test_permute_and_compact_kernels_are_exact(rec):
     # Kernel E's edge cases (tests/test_torch_permute_compact.py's, and a
     # million lanes): N a multiple of 1024 and not, below one 16384-lane
     # tile and over 61 of them, no flag, every flag, more flags than cap,
-    # R = 1 and 2, and a flag view that starts off a 16-byte boundary.
+    # R = 0 (the index row only, as the sparse job table takes it), 1 and
+    # 2, and a flag view that starts off a 16-byte boundary.
     rng = np.random.default_rng(6)
     for density, n, cap, r in ((0.01, 8192, 300, 2), (0.05, 8192, 300, 2),
                                (0.0, 8192, 300, 2), (1e-3, 10_000, 300, 1),
                                (0.05, 700, 300, 2), (1.0, 3000, 4000, 2),
                                (0.05, 8192, 100, 1), (1.0, 5000, 1000, 1),
-                               (1e-3, 1_000_003, 9000, 1), (1.0, 1_000_003, 20_000, 2)):
+                               (1e-3, 1_000_003, 9000, 1), (1.0, 1_000_003, 20_000, 2),
+                               (1e-3, 1_000_003, 2688, 0), (0.05, 8192, 100, 0)):
         vals = torch.as_tensor(rng.integers(0, 2 ** 24, (r, n)).astype(np.float32))
         flag = torch.as_tensor(rng.random(n) < density)
         _compact_exact(vals.cuda(), flag.cuda(), cap)

@@ -22,8 +22,8 @@ two dynamic plates, 10 substeps a frame; cut2: path 9, examples/
 elastic_cut2.py at SCALE=1, 15 substeps a frame; cut3: path 10,
 examples/elastic_cut3.py at SCALE=1; hf3: path 11, examples/heightfield3.py
 at SCALE=1; sparse: path 12, the 3d lattice in the sparse domain as
-bench.py's BENCH_SPARSE=1 run builds it; hf3-sparse: path 11 built
-sparse), runs one warm frame and chip_smoke.TIMED_FRAMES (3)
+bench.py's BENCH_SPARSE=1 run builds it; hf3-sparse: path 12b, path
+11 built sparse), runs one warm frame and chip_smoke.TIMED_FRAMES (3)
 unprofiled frames (host clock around synchronised frames), then one frame
 under torch.profiler.  Prints the frame wall times, the device time of the
 profiled frame, the device's idle share against the median unprofiled

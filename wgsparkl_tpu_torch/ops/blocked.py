@@ -314,11 +314,12 @@ def build_jobs_sparse(sorted_keys, group: int, max_jobs: int, kmax: int):
     kept block's count runs over their lanes (freeze_truncated_blocks cuts
     it back).
 
-    The first rank of each occupied block comes from kernel E, which packs
-    the ranks of the flagged lanes (block boundaries) in lane order: keys
-    reach 2^30, past E's exact f32 range, so the keys are read back from
-    sorted_keys at those ranks.  That is what the JAX package's sort of
-    (key, rank) pairs gives, since sorted keys already come in rank order."""
+    The first rank of each occupied block is the index row of kernel E,
+    which packs the indices of the flagged lanes (block boundaries) in lane
+    order, with no value row: keys reach 2^30, past E's exact f32 range, so
+    the keys are read back from sorted_keys at those ranks.  That is what
+    the JAX package's sort of (key, rank) pairs gives, since sorted keys
+    already come in rank order."""
     from wgsparkl_tpu_torch.ops.compact import compact_flagged
 
     dev = sorted_keys.device
@@ -327,9 +328,9 @@ def build_jobs_sparse(sorted_keys, group: int, max_jobs: int, kmax: int):
         raise ValueError("build_jobs_sparse: ranks must stay below 2^24")
     cap = min(kmax, n)
     occ = _first_of_run(sorted_keys) & (sorted_keys < SPARSE_SENTINEL)
-    lane = torch.arange(n, dtype=torch.int32, device=dev)
-    cvals, _ = compact_flagged(lane.to(torch.float32)[None, :], occ, cap)
-    brank = torch.clamp(cvals[0], max=float(n)).to(torch.int32)
+    cidx, _ = compact_flagged(torch.empty((0, n), dtype=torch.float32, device=dev),
+                              occ, cap)
+    brank = torch.clamp(cidx[0], max=float(n)).to(torch.int32)
     valid = brank < n
     bkey = torch.where(valid, sorted_keys[torch.clamp(brank, max=n - 1).long()],
                        SPARSE_SENTINEL).to(torch.int32)

@@ -157,27 +157,34 @@ class MpmConfig:
 
 @dataclasses.dataclass
 class StepDiag:
-    """On-device health counters of one frame (0 = healthy), the most over
-    its substeps of: the jobs needed beyond max_jobs (their particles are
-    masked out); in the sparse domain the distinct occupied blocks beyond
-    kmax (their particles freeze) and the active blocks beyond amax (their
-    nodes read the zero ghost)."""
+    """On-device counters of one frame, the most over its substeps of: the
+    jobs needed beyond max_jobs (their particles are masked out); in the
+    sparse domain the distinct occupied blocks beyond kmax (their particles
+    freeze) and the active blocks beyond amax (their nodes read the zero
+    ghost).  The three *_overflow counters are 0 when healthy; the sparse
+    domain also keeps its peak occupied (sparse_n_occ) and active
+    (sparse_n_active) blocks, which are no fault."""
 
     job_overflow: torch.Tensor
     sparse_occ_overflow: torch.Tensor
     sparse_act_overflow: torch.Tensor
+    sparse_n_occ: torch.Tensor
+    sparse_n_active: torch.Tensor
 
     @classmethod
     def zeros(cls, device="cpu") -> "StepDiag":
         return cls(*(torch.zeros((), dtype=torch.int32, device=device)
                      for _ in dataclasses.fields(cls)))
 
+    def _overflows(self):
+        return [(f.name, int(getattr(self, f.name))) for f in dataclasses.fields(self)
+                if f.name.endswith("_overflow")]
+
     def any_overflow(self) -> bool:
-        return any(bool(getattr(self, f.name) > 0) for f in dataclasses.fields(self))
+        return any(v > 0 for _, v in self._overflows())
 
     def summary(self) -> str:
-        flags = [f"{f.name}={int(getattr(self, f.name))}"
-                 for f in dataclasses.fields(self) if int(getattr(self, f.name)) > 0]
+        flags = [f"{k}={v}" for k, v in self._overflows() if v > 0]
         return "OK" if not flags else "OVERFLOW: " + ", ".join(flags)
 
 
@@ -550,12 +557,14 @@ def _job_phase(rows_all, cfg: MpmConfig, n: int, diag: StepDiag):
         # Blocks past kmax freeze: no job runs over their lanes.
         jobs = bk.freeze_truncated_blocks(jobs, okeys, sorted_ids)
         act, n_active = bk.sparse_active_table(okeys, cfg.amax)
+        diag.sparse_n_occ = torch.maximum(diag.sparse_n_occ, n_occ)
+        diag.sparse_n_active = torch.maximum(diag.sparse_n_active, n_active)
         diag.sparse_occ_overflow = torch.maximum(diag.sparse_occ_overflow,
                                                  n_occ - cfg.kmax)
         diag.sparse_act_overflow = torch.maximum(diag.sparse_act_overflow,
                                                  n_active - cfg.amax)
-        tgts = torch.stack([bk.sparse_slots(act, jobs["key"] + dl, cfg.amax)
-                            for dl in bk.sparse_octant_deltas()])
+        deltas = torch.tensor(bk.sparse_octant_deltas(), dtype=torch.int32, device=dev)
+        tgts = bk.sparse_slots(act, jobs["key"][None, :] + deltas[:, None], cfg.amax)
         origin = torch.tensor(grid.origin_cell, dtype=torch.int32, device=dev)
         bcells = (bk.sparse_key_coords(jobs["key"]) * 4 + origin).to(torch.int32)
         grid_rows, src = cfg.amax, bk.window_sources_slots(tgts)
