@@ -46,7 +46,15 @@ Phases (any failure exits non-zero, and no result line is printed):
      same checks (no job, occupied-block or active-slot overflow), and the
      most occupied and active blocks of a substep (StepDiag); path 12b,
      path 11 built sparse, one warm and 2 timed frames: the same checks
-     and exactly one slot-addressed mesh_cdf launch a substep;
+     and exactly one slot-addressed mesh_cdf launch a substep; paths 13
+     and 13b, the main path's scene (its 1,002,001 particles, five static
+     walls, the kinematic paddle, 20 substeps) and the 2D column (490,000
+     particles, 10 substeps) on the dense transfer (`dense_scene`,
+     `dense_scene_2d`: the row-major grid), and path 14, the main scene on
+     the blocked transfer (4^3 blocks, group 256, the automatic job
+     table), one warm and 2 timed frames each: finite positions, exactly
+     one launch each of dense_pcdf, dense_p2g and dense_g2p a substep,
+     steps/s, and on path 14 its live jobs within max_jobs (a host check);
   5. each kernel against its plain PyTorch version at full size, on the
      inputs of a substep of each scene with its lattice lowered into a
      collider (onto the paddle in 3D, 1.5 cells into the floor in 2D), so
@@ -89,7 +97,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      `update_rows_sparse`: tiles, impulses and every row bit for bit),
      and the mesh pass's slot-addressed entry on a substep of path 11
      built sparse with its lattice lowered onto the heightfield
-     (`mesh_cdf_sparse`, keys and words bit for bit);
+     (`mesh_cdf_sparse`, keys and words bit for bit); the dense transfer's
+     kernels on a substep of path 13 lowered onto the paddle and of path
+     13b lowered 1.5 cells into its floor (`dense_pcdf`, `dense_p2g`,
+     `dense_g2p` and their `*2d` entries: every output bit for bit, P2G's
+     grid part beside `index_put_(accumulate=True)` under
+     torch.use_deterministic_algorithms(True));
   5. (path 5) the 3D analytic-shapes path at full size: the main path's
      lattice, models, grid and job table with a static halfspace floor,
      the four static side walls, a kinematic capsule paddle and a kinematic
@@ -117,9 +130,13 @@ Phases (any failure exits non-zero, and no result line is printed):
      and of tests/test_sparse_domain.py's ballistic spray, 5 of its
      trimesh ramp, of the sand box at kmax 8, amax 16, whose overflow
      must be reported, and of the sand box lowered onto its floor and
-     paddle in the chan-free mode, with gated jobs): 31 scenes, equal bit
-     for bit to the plain path on the card, and within tolerance of the
-     plain path on the CPU (affinity
+     paddle in the chan-free mode, with gated jobs; the dense and blocked
+     transfers: 10 substeps of the dense sand box and of the dense 2D
+     column, 5 of the CPIC oracle scene with its dynamic plate, of the
+     dense trimesh ramp and of tests/test_blocked.py's box with bodies on
+     the blocked transfer at max_jobs 8): 36 scenes, equal bit for bit to
+     the plain path on the card, and within tolerance of the plain path on
+     the CPU (affinity
      words exact); then the sand box built sparse and bounded at by 4, 20
      substeps on the card, within tests/test_sparse_domain.py's tolerances
      (whether they are bit-equal is printed).
@@ -135,6 +152,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 SUBSTEPS = 20
@@ -218,6 +236,14 @@ REPLACES = {
     "g2p_sparse": "wgsparkl_tpu/ops/pallas_transfer.py:987",
     "update_rows_sparse": "wgsparkl_tpu/ops/update_rows.py:191",
     "mesh_cdf_sparse": "wgsparkl_tpu/ops/rigid_cdf.py:235",
+    # Port-only: the JAX package's dense transfer is plain XLA (a gather
+    # and a scatter-add over (particle, stencil node) pairs), no pallas_call.
+    "dense_pcdf": "wgsparkl_tpu/collision/cdf.py:166",
+    "dense_p2g": "wgsparkl_tpu/ops/transfer.py:51",
+    "dense_g2p": "wgsparkl_tpu/ops/transfer.py:132",
+    "dense_pcdf2d": "wgsparkl_tpu/collision/cdf.py:166",
+    "dense_p2g2d": "wgsparkl_tpu/ops/transfer.py:51",
+    "dense_g2p2d": "wgsparkl_tpu/ops/transfer.py:132",
 }
 SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_rows",
           "update_rows2d_neo_hookean": "update_rows", "p2g_cdf_shapes": "p2g_cdf",
@@ -230,7 +256,9 @@ SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_row
           "mesh_cdf_heightfield": "mesh_cdf", "mesh_cdf2d": "mesh_cdf",
           "p2g_cdf_mesh": "p2g_cdf", "p2g2d_mesh": "p2g2d",
           "p2g_cdf_sparse": "p2g_cdf", "g2p_sparse": "g2p",
-          "update_rows_sparse": "update_rows", "mesh_cdf_sparse": "mesh_cdf"}
+          "update_rows_sparse": "update_rows", "mesh_cdf_sparse": "mesh_cdf",
+          "dense_pcdf2d": "dense_pcdf", "dense_p2g2d": "dense_p2g",
+          "dense_g2p2d": "dense_g2p"}
 # The rows of the [PCHAN, NPAD] input matrix that kernel C reads (csrc/
 # update_rows.cu, update_kernel and update2d_kernel); it replaces the others
 # with G2P rows, particle-CDF rows or new values.
@@ -243,6 +271,10 @@ KERNELS_7 = KERNELS_2D + ("rigid_solve",)
 KERNELS_8 = KERNELS_3D + ("rigid_solve",)
 KERNELS_9 = KERNELS_2D + ("mesh_cdf",)
 KERNELS_10 = KERNELS_3D + ("mesh_cdf",)
+# Paths 13, 13b (the dense transfer) and 14 (the blocked transfer).
+KERNELS_DENSE = ("dense_pcdf", "dense_p2g", "dense_g2p", "update_rows")
+KERNELS_DENSE_2D = ("dense_pcdf", "dense_p2g", "dense_g2p", "update_rows2d")
+KERNELS_BLOCKED = KERNELS_DENSE + ("permute", "compact")
 # Path 12: bench.py's BENCH_SPARSE=1 run (its lines 104-154): the main
 # path's lattice in the sparse domain, 4^3 blocks, group 1024, its job
 # table (n // 400 + 256) // 128 * 128 and the defaults kmax = max_jobs,
@@ -349,12 +381,16 @@ def plain_versions():
     """Route both paths' kernel calls to their plain versions (on any
     device) for the duration of the block."""
     from wgsparkl_tpu_torch import pipeline
+    from wgsparkl_tpu_torch.collision import cdf
     from wgsparkl_tpu_torch.ops import (
-        compact, g2p, p2g, p2g_cdf, permute, rigid_cdf, transfer2d, update_rows,
+        compact, g2p, p2g, p2g_cdf, permute, rigid_cdf, transfer, transfer2d, update_rows,
     )
     from wgsparkl_tpu_torch.rigid import solve
 
     swaps = [(pipeline, "rigid_solve", solve.rigid_solve_plain),
+             (pipeline, "dense_pcdf", cdf.pcdf_rows_plain),
+             (pipeline, "dense_p2g", transfer.p2g_plain),
+             (pipeline, "dense_g2p", transfer.g2p_plain),
              (rigid_cdf, "mesh_node_cdf", rigid_cdf.mesh_node_cdf_plain),
              (rigid_cdf, "mesh_node_cdf_sparse", rigid_cdf.mesh_node_cdf_sparse_plain),
              (pipeline, "p2g_cdf_tiles", p2g_cdf.p2g_cdf_plain),
@@ -432,6 +468,137 @@ def spray_scene(device):
                    models, [], 0.5,
                    grid=GridConfig.from_bounds(np.zeros(3), np.full(3, 4.0), 0.5),
                    group=64, sparse=True)
+
+
+def dense_scene(dev, **mpm_kw):
+    """Paths 13 (transfer="dense") and 14 ("blocked"): the main path's scene,
+    sand_box_3d(nxz=77, ny=169, with_paddle=True), 1,002,001 particles, on
+    the row-major grid (4^3 blocks for the blocked sort, the JAX package's
+    group 256 and automatic job table)."""
+    from wgsparkl_tpu_torch import scenes
+
+    return scenes.sand_box_3d(nxz=NXZ, ny=NY, cell_width=1.0, with_paddle=True,
+                              device=dev, **mpm_kw)
+
+
+def dense_scene_2d(dev, **mpm_kw):
+    """Path 13b: the 2D throughput column (490,000 particles) on the dense
+    transfer."""
+    from wgsparkl_tpu_torch import scenes
+
+    return scenes.sand_column_2d(nx=NX2, ny=NY2, cell_width=H2, device=dev,
+                                 transfer="dense", **mpm_kw)
+
+
+def cpic_scene(device, plate=True):
+    """tests/test_cpic_oracle.py's scene on the dense transfer: an elastic
+    and sand block on a static floor pushed by a kinematic wall, under a
+    dynamic plate (two-way coupled, no body contacts)."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.grid import GridConfig
+    from wgsparkl_tpu_torch.models import ElasticCoefficients
+    from wgsparkl_tpu_torch.models.drucker_prager import (
+        DruckerPrager, drucker_prager_arrays,
+    )
+    from wgsparkl_tpu_torch.params import SimulationParams
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+    from wgsparkl_tpu_torch.solver import Models, Particles
+
+    rng = np.random.default_rng(3)
+    xs, ys, zs = np.arange(8) * 0.25 - 1.0, np.arange(5) * 0.25 + 0.15, np.arange(6) * 0.25 - 0.7
+    pos = np.stack(np.meshgrid(xs, ys, zs, indexing="ij"), -1).reshape(-1, 3)
+    pos = (pos + rng.uniform(-0.02, 0.02, pos.shape)).astype(np.float32)
+    n = len(pos)
+    elast = ElasticCoefficients.from_young_modulus(5.0e5, 0.2)
+    dp = {k: np.full(n, v[0]) for k, v in drucker_prager_arrays(
+        [DruckerPrager.new(5.0e5, 0.2)]).items()}
+    bodies = [RigidBodyDesc(Collider.cuboid(4.0, 0.5, 4.0), (0.0, -0.5, 0.0)),
+              RigidBodyDesc(Collider.cuboid(0.25, 1.5, 2.0), (-1.6, 1.0, 0.0),
+                            body_type="kinematic", linvel=(0.4, 0.0, 0.0))]
+    if plate:
+        bodies.append(RigidBodyDesc(Collider.cuboid(0.5, 0.25, 0.5), (0.4, 1.72, -0.2),
+                                    body_type="dynamic", density=400.0))
+    return MpmData(SimulationParams.new(1e-3, [0.0, -9.81, 0.0], device=device),
+                   Particles.from_arrays(pos, density=1200.0, radius=0.125, device=device),
+                   Models.from_arrays(n, elast.lam, elast.mu, dp=dp,
+                                      phase=(pos[:, 0] > 0.0).astype(np.float32),
+                                      device=device),
+                   bodies, 0.5, grid=GridConfig.from_bounds(
+                       np.array([-4.0, -2.0, -4.0]), np.array([4.0, 4.0, 4.0]), 0.5),
+                   transfer="dense", body_contacts=False)
+
+
+def blocked_box(device):
+    """tests/test_blocked.py's 3D scene with bodies (512 jittered particles
+    on a static floor beside a dynamic ball, cell width 0.5) on the blocked
+    transfer, group 64, at max_jobs 8: the table drops lanes."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.models import ElasticCoefficients
+    from wgsparkl_tpu_torch.models.drucker_prager import (
+        DruckerPrager, drucker_prager_arrays,
+    )
+    from wgsparkl_tpu_torch.params import SimulationParams
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+    from wgsparkl_tpu_torch.solver import Models, Particles
+
+    h = 0.5
+    rng = np.random.default_rng(0)
+    xs = np.arange(8) * h / 2 + h / 4
+    g = np.meshgrid(xs, xs + 1.0, xs, indexing="ij")
+    pos = (np.stack([a.ravel() for a in g], -1)
+           + rng.uniform(-0.05 * h, 0.05 * h, (512, 3))).astype(np.float32)
+    m = ElasticCoefficients.from_young_modulus(1e6, 0.2)
+    dp = drucker_prager_arrays([DruckerPrager.new(1e6, 0.2)] * 512)
+    return MpmData(SimulationParams.new(1 / 600, [0.0, -9.81, 0.0], device=device),
+                   Particles.from_arrays(pos, density=1500.0, radius=h / 4, device=device),
+                   Models.from_arrays(512, m.lam, m.mu, dp=dp, device=device),
+                   [RigidBodyDesc(Collider.cuboid(10.0, 0.5, 10.0), (1.0, -0.5, 1.0)),
+                    RigidBodyDesc(Collider.ball(0.8), (1.0, 0.3, 1.0), body_type="dynamic",
+                                  density=500.0)],
+                   h, grid_bounds=(np.array([-2.0, -1.0, -2.0]), np.array([4.0, 4.0, 4.0])),
+                   transfer="blocked", group=64, job_chunk=8, max_jobs=8,
+                   body_contacts=False)
+
+
+def dense_paths(wt, card, kind, launches, frames=TIMED_FRAMES_SHORT):
+    """Paths 13, 13b and 14 at full size: one warm and `frames` timed frames
+    each, exactly one launch of each dense kernel a substep; path 14's live
+    jobs must fit its table (a check of this script's, on the host)."""
+    from wgsparkl_tpu_torch.pipeline import step_dense
+
+    for tag, make, substeps, kernels, what in (
+            ("", lambda: dense_scene(DEVICE, transfer="dense"), SUBSTEPS, KERNELS_DENSE,
+             "path 13: 3D dense transfer"),
+            ("2d", lambda: dense_scene_2d(DEVICE), SUBSTEPS2, KERNELS_DENSE_2D,
+             "path 13b: 2D dense transfer"),
+            ("_blocked", lambda: dense_scene(DEVICE, transfer="blocked"), SUBSTEPS,
+             KERNELS_BLOCKED, "path 14: 3D blocked transfer")):
+        data = make()
+        cfg = data.config
+        if cfg.transfer != ("blocked" if tag == "_blocked" else "dense"):
+            fail(f"{what}: built as {cfg}")
+        counts, state = run_frames(wt, data, substeps, kernels, what, card, kind, frames)
+        for k in KERNELS_DENSE[:3]:
+            if counts[k] != (1 + frames) * substeps:
+                fail(f"{what}: {counts[k]} {k} launches, not one a substep "
+                     f"({(1 + frames) * substeps})")
+        if tag == "_blocked":
+            rec = {}
+            step_dense(state, data.params, cfg, 1, record=rec)
+            need, live = int(rec["jobs"]["needed"]), int(rec["live"])
+            print(f"{what}: {need} live jobs of max_jobs {cfg.max_jobs} (group "
+                  f"{cfg.group}), {live} of {data.num_particles} lanes in a live job",
+                  flush=True)
+            if need > cfg.max_jobs:
+                fail(f"{what}: the live jobs overflow the job table")
+        else:
+            launches.update((f"{k}{tag}", counts[k]) for k in KERNELS_DENSE[:3])
+        del data, state
+        torch.cuda.empty_cache()
 
 
 def full_scene_2d(dev, **mpm_kw):
@@ -1454,6 +1621,8 @@ def main() -> None:
     launches["mesh_cdf_sparse"] = counts["mesh_cdf_sparse"]
     del data, state
     torch.cuda.empty_cache()
+    # ---- paths 13, 13b, 14: the dense and blocked transfers ----
+    dense_paths(wt, card, kind, launches)
 
     checks = []
 
@@ -2273,6 +2442,80 @@ def main() -> None:
     del inputs
     torch.cuda.empty_cache()
 
+    # ---- 5b. the dense transfer's kernels at full size ----
+    # A substep of path 13 with its lattice lowered onto the paddle and of
+    # path 13b lowered 1.5 cells into its floor, so that the CPIC impulses
+    # carry load.  Every output bit for bit (the plain versions sum in the
+    # kernels' order).  Costs, counted from these inputs (4 bytes a value
+    # read or written once): dense_pcdf reads d + 2 rows a particle and the
+    # node distance and affinity, writes 8 rows, ~(8 + 3 nc + (d + 1)(2d +
+    # 5)) operations a stencil node and ~250 for the solve; dense_p2g reads
+    # d^2 + 3d + 3 rows a particle, its sorted lane and the cell starts, the
+    # node affinity and closest body, writes the grid, ~50 operations a
+    # pair and ~60 more an impulse pair; dense_g2p reads 3d + 2 rows a
+    # particle and the grid velocity, node affinity and closest body,
+    # writes its 16 (8) rows, ~(4 + 3 d^2) operations a stencil node.
+    from wgsparkl_tpu_torch.collision import cdf as dcdf
+    from wgsparkl_tpu_torch.ops import transfer as dtr
+    from wgsparkl_tpu_torch.pipeline import step_dense
+
+    for tag, make, shift in (
+            ("", lambda: dense_scene(dev, transfer="dense"), (0.0, -3.0, 0.0)),
+            ("2d", lambda: dense_scene_2d(dev), (0.0, -1.5 * H2))):
+        data = make()
+        cfg = data.config
+        data.state.particles.pos += torch.tensor(shift, device=dev)
+        state = step_dense(data.state, data.params, cfg, 2)
+        rec = {}
+        step_dense(state, data.params, cfg, 1, record=rec)
+        torch.cuda.synchronize()
+        n, nc, grid = state.particles.count, cfg.num_colliders, cfg.grid
+        d, m, rows = grid.dim, grid.num_nodes, rec["rows"]
+        npad, kk = rows.shape[1], 3 ** grid.dim
+        mext = int(np.prod([s_ + 2 for s_ in grid.shape]))
+        args_1 = (rows, n, rec["node_dist"], rec["node_aff"], grid, nc)
+        check(f"dense_pcdf{tag}", lambda: dcdf.dense_pcdf(*args_1),
+              lambda: dcdf.pcdf_rows_plain(*args_1), lambda k, p: [],
+              lambda k, p: [("particle-CDF rows", k, p)],
+              lambda p: (None if int((p[0, :n] != 0).sum()) > 100
+                         else "few particles near a collider"),
+              cost=(4 * ((d + 2) * n + 8 * npad + 2 * m),
+                    n * (kk * (8 + 3 * nc + (d + 1) * (2 * d + 5)) + 250)))
+        args_2 = (rows, rec["pcdf"], n, rec["live"], rec["node_aff"],
+                  rec["node_closest"], rec["btable"], grid, nc, state.bodies.count)
+        node, vals = dtr.p2g_pairs(*args_2[:-1])
+        mmv = vals[:, :d + 1].contiguous()
+        nimp = int((vals[:, d + 1:] != 0).any(1).sum())
+        lib_out = torch.zeros((m, d + 1), dtype=torch.float32, device=dev)
+
+        def library():
+            torch.use_deterministic_algorithms(True)
+            try:
+                lib_out.zero_()
+                lib_out.index_put_((node,), mmv, accumulate=True)
+            finally:
+                torch.use_deterministic_algorithms(False)
+
+        print(f"dense_p2g{tag} inputs: {n} particles, {node.shape[0]} pairs on "
+              f"{m} nodes ({nimp} impulse pairs)", flush=True)
+        check(f"dense_p2g{tag}", lambda: dtr.dense_p2g(*args_2),
+              lambda: dtr.p2g_plain(*args_2), lambda k, p: [],
+              lambda k, p: [("grid", k[0], p[0]), ("linear impulses", k[1], p[1]),
+                            ("angular impulses", k[2], p[2])],
+              lambda p: None if float(p[1].abs().max()) > 0.0 else "no CPIC impulse",
+              cost=(4 * ((d * d + 3 * d + 4) * n + mext + 1 + (d + 3) * m),
+                    node.shape[0] * 50 + nimp * 60), library=library)
+        del node, vals, mmv, lib_out
+        args_3 = (rows, rec["pcdf"], n, rec["live"], rec["grid_vel"], rec["node_aff"],
+                  rec["node_closest"], rec["btable"], grid, nc)
+        check(f"dense_g2p{tag}", lambda: dtr.dense_g2p(*args_3),
+              lambda: dtr.g2p_plain(*args_3), lambda k, p: [],
+              lambda k, p: [("G2P rows", k, p)],
+              cost=(4 * ((3 * d + 2) * n + rec["krows"].shape[0] * npad + (d + 2) * m),
+                    n * kk * (4 + 3 * d * d)))
+        del data, state, rec, rows, args_1, args_2, args_3
+        torch.cuda.empty_cache()
+
     # ---- 6. kernel path vs plain path on small scenes ----
     def agree(sk, sp, what):
         ik = torch.argsort(sk.particles.ids.cpu())
@@ -2494,6 +2737,43 @@ def main() -> None:
     print("small analytic-shapes, dynamic-body, fracture and mesh scenes ("
           + "; ".join(small_5) + "): kernel path "
           "equals the plain path on the card and agrees with it on the CPU "
+          "substep by substep", flush=True)
+    # The dense and blocked transfers: (substeps, scene), against the CPU
+    # substep by substep.
+    small_dense = {
+        "3D dense sand box": (10, lambda device: scenes.sand_box_3d(
+            nxz=8, ny=16, device=device, transfer="dense")),
+        "3D dense CPIC oracle scene with its dynamic plate": (5, cpic_scene),
+        "2D dense sand column": (10, lambda device: scenes.sand_column_2d(
+            nx=24, ny=48, cell_width=0.5, device=device, transfer="dense")),
+        "3D dense trimesh ramp and cuboid floor (mesh)": (5, lambda device: ramp_scene(
+            device, transfer="dense")),
+        "3D blocked box with bodies at max_jobs 8": (5, blocked_box),
+    }
+    for what, (steps, make) in small_dense.items():
+        dk, dp = make(dev), make("cpu")
+        wt.reset_launch_counts()
+        sk = step_dense(dk.state, dk.params, dk.config, steps)
+        counts = wt.launch_counts()
+        if min(counts[k] for k in KERNELS_DENSE[:3]) != steps:
+            fail(f"{what}: not one launch of each dense kernel a substep: {counts}")
+        if dk.config.mesh_cids and counts["mesh_cdf"] != steps:
+            fail(f"{what}: {counts['mesh_cdf']} mesh_cdf launches in {steps} substeps")
+        if "max_jobs" in what:
+            rec = {}
+            step_dense(dk.state, dk.params, dk.config, 1, record=rec)
+            if not int(rec["jobs"]["needed"]) > dk.config.max_jobs:
+                fail(f"{what}: the job table does not overflow")
+        with plain_versions():
+            same(sk, step_dense(dk.state, dk.params, dk.config, steps), what)
+        sp = dp.state
+        for _ in range(steps):
+            sk = step_dense(_to(sp, dev), dk.params, dk.config, 1)
+            sp_next = step_dense(sp, dp.params, dp.config, 1)
+            agree(sk, sp_next, what)
+            sp = sp_next
+    print("small dense and blocked scenes (" + "; ".join(small_dense) + "): kernel "
+          "path equals the plain path on the card and agrees with it on the CPU "
           "substep by substep", flush=True)
     for c in checks:
         c["launches"] = launches[c["name"]]

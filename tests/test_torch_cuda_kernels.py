@@ -10,8 +10,10 @@ chan-free branches of G, H and I on the stirred column, H on jobs that
 span several of its chunks, and the rigid solve on a substep of a small
 sand2 with its plates pressed into the floor and each other and of a 3D
 plate on a ball joint, the mesh pass on a substep of each small mesh
-scene of chip_smoke.py, and A (or F), B, C and the slot-addressed mesh
-pass on its small sparse scenes.  Marked `cuda`: they skip where
+scene of chip_smoke.py, A (or F), B, C and the slot-addressed mesh
+pass on its small sparse scenes, and the dense transfer's kernels with C
+in its centred mode, 2D and 3D, with and without the blocked transfer's
+lane mask.  Marked `cuda`: they skip where
 torch sees no CUDA device (run them on a GPU host with
 `python -m pytest --noconftest tests/test_torch_cuda_kernels.py`)."""
 
@@ -635,3 +637,53 @@ def test_sparse_kernels_match_plain(scene):
         p = rigid_cdf.mesh_node_cdf_sparse_plain(*args)
         assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
         assert int((p[0] < rigid_cdf.INF_KEY).sum()) > 10
+
+
+@pytest.mark.parametrize("scene", ["3d", "2d", "3d_masked", "2d_masked"])
+def test_dense_kernels_match_plain(scene):
+    """The dense transfer's kernels (dense_pcdf, dense_p2g with its impulses,
+    dense_g2p, and C in its centred mode) on a substep of the small sand
+    box lowered onto the paddle and of the small sand column lowered into
+    its floor, dense, and blocked with a job table too small for them (the
+    lane mask drops lanes): bit for bit against their plain versions, and
+    the same bits on a second launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from wgsparkl_tpu_torch.collision import cdf
+    from wgsparkl_tpu_torch.ops import transfer
+    from wgsparkl_tpu_torch.pipeline import step_dense
+
+    kw = (dict(transfer="blocked", group=64, job_chunk=8, max_jobs=8)
+          if scene.endswith("masked") else dict(transfer="dense"))
+    if scene.startswith("3d"):
+        d = scenes.sand_box_3d(nxz=8, ny=16, device="cuda", **kw)
+        d.state.particles.pos += torch.tensor([0.0, -3.0, 0.0], device="cuda")
+    else:
+        d = scenes.sand_column_2d(nx=24, ny=48, cell_width=0.5, device="cuda", **kw)
+        d.state.particles.pos += torch.tensor([0.0, -0.75], device="cuda")
+    cfg = d.config
+    state = step_dense(d.state, d.params, cfg, 2)
+    r = {}
+    step_dense(state, d.params, cfg, 1, record=r)
+    n, nc, grid = state.particles.count, cfg.num_colliders, cfg.grid
+    if scene.endswith("masked"):
+        assert int(r["live"]) < n
+    args = (r["rows"], n, r["node_dist"], r["node_aff"], grid, nc)
+    k = cdf.dense_pcdf(*args)
+    assert torch.equal(k, cdf.pcdf_rows_plain(*args)) and torch.equal(k, cdf.dense_pcdf(*args))
+    assert torch.equal(k, r["pcdf"])
+    args = (r["rows"], r["pcdf"], n, r["live"], r["node_aff"], r["node_closest"],
+            r["btable"], grid, nc, state.bodies.count)
+    k, p, k2 = transfer.dense_p2g(*args), transfer.p2g_plain(*args), transfer.dense_p2g(*args)
+    assert float(p[1].abs().max()) > 0.0
+    assert all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(k, p, k2))
+    args = (r["rows"], r["pcdf"], n, r["live"], r["grid_vel"], r["node_aff"],
+            r["node_closest"], r["btable"], grid, nc)
+    k = transfer.dense_g2p(*args)
+    assert torch.equal(k, transfer.g2p_plain(*args)) and torch.equal(k, transfer.dense_g2p(*args))
+    upd, plain = ((update_rows.update_rows, update_rows.update_plain) if grid.dim == 3
+                  else (update_rows.update_rows2d, update_rows.update2d_plain))
+    zero = torch.zeros(r["rows"].shape[1], dtype=torch.int32, device="cuda")
+    args = (r["rows"], r["krows"], r["pcdf"], zero, n, r["btable"], r["mtable"],
+            d.params.dt, grid.cell_width, nc, r["n_mat"], 1, cfg.elastic_model)
+    assert torch.equal(upd(*args, centered=True), plain(*args, centered=True))

@@ -161,10 +161,12 @@ def test_main_path_configuration_matches_jax():
     dict(spatial_devices=2)])
 def test_unported_options_raise(kw):
     """Each 3D option the port lacks raises naming its ROADMAP item.  The
-    chan-free CDF mode, fold_vel, joints and the sparse domain are ported
-    now: those cases build and carry the option (the joint normalised to a
-    ball joint; the sparse domain with the JAX package's kmax and amax
-    defaults, at by 4, the only block height it takes)."""
+    chan-free CDF mode, fold_vel, joints, the sparse domain and the dense
+    transfer are ported now: those cases build and carry the option (the
+    joint normalised to a ball joint; the sparse domain with the JAX
+    package's kmax and amax defaults, at by 4, the only block height it
+    takes; the dense transfer at by 4 with no job table, by 8 refused as
+    in the JAX package)."""
     if "joints" in kw:
         d = scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
         assert d.config.joints == ((0, 5, (0.0, 0.0, 0.0), (0.0, 0.0, 0.0), "ball",
@@ -178,6 +180,12 @@ def test_unported_options_raise(kw):
         d = scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
         assert d.config.fold_vel and not d.config.chan_free
         return
+    if kw == dict(transfer="dense"):
+        d = scenes.sand_box_3d(nxz=4, ny=6, device="cpu", **kw)
+        assert d.config.transfer == "dense" and d.config.max_jobs == 0
+        with pytest.raises(ValueError, match="pallas"):
+            scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
+        return
     if kw == dict(sparse=True):
         d = scenes.sand_box_3d(nxz=4, ny=6, device="cpu", **kw)
         c = d.config
@@ -189,9 +197,12 @@ def test_unported_options_raise(kw):
 
 
 def test_unported_reference_config_raises():
+    """The JAX package's default (dense) configuration comes over now;
+    multi-device sharding, which the port lacks, still raises."""
     j = jscenes.sand_box_3d(nxz=4, ny=6)
+    assert interop.config_from_reference(j.config).transfer == "dense"
     with pytest.raises(NotImplementedError):
-        interop.config_from_reference(dataclasses.replace(j.config))
+        interop.config_from_reference(dataclasses.replace(j.config, spatial_devices=2))
 
 
 def test_sparse_reference_config_is_carried():
@@ -225,16 +236,17 @@ def test_sparse_refuses_2d_and_by8(case):
 
 def test_one_way_coupling_reference_config_raises():
     """Per-body coupling is ported now: a one-way body's mode is carried
-    over; an unported option beside it (the dense transfer) still raises."""
+    over; an unported option beside it (multi-device sharding) still
+    raises."""
     j = jscenes.sand_box_3d(nxz=4, ny=6, transfer="pallas", by=8)
     interop.config_from_reference(j.config)
     one_way = (1,) + tuple(j.config.coupling[1:])
     cfg = interop.config_from_reference(dataclasses.replace(j.config,
                                                             coupling=one_way))
     assert cfg.coupling == one_way and one_way[1:] == (2,) * 5
-    with pytest.raises(NotImplementedError, match="transfer"):
+    with pytest.raises(NotImplementedError, match="spatial_devices"):
         interop.config_from_reference(dataclasses.replace(
-            j.config, coupling=one_way, transfer="dense"))
+            j.config, coupling=one_way, spatial_devices=2))
 
 
 # Each call builds with no device and returns one tensor it made.

@@ -2,6 +2,7 @@
 
     python3 tools/rehearse_chip_smoke.py            # every phase, ~2 min
     REHEARSE_ONLY=mesh python3 tools/rehearse_chip_smoke.py   # paths 9-11
+    REHEARSE_ONLY=dense python3 tools/rehearse_chip_smoke.py  # paths 13-14
 
 Stubs torch.cuda, nvidia-smi and the nvcc build, counts launches where the
 pipeline calls each kernel wrapper (a wrapper counts only its CUDA
@@ -73,7 +74,8 @@ def counted(mod, name):
 
 
 for n in ("p2g_cdf_tiles", "g2p_rows", "update_rows", "permute_lanes", "pcdf_rows2d",
-          "p2g_tiles2d", "g2p_rows2d", "update_rows2d", "p2g_tiles", "rigid_solve"):
+          "p2g_tiles2d", "g2p_rows2d", "update_rows2d", "p2g_tiles", "rigid_solve",
+          "dense_pcdf", "dense_p2g", "dense_g2p"):
     counted(pipeline, n)
 counted(compact, "compact_flagged")
 counted(rigid_cdf, "mesh_node_cdf")
@@ -101,5 +103,8 @@ only = os.environ.get("REHEARSE_ONLY")
 if only == "mesh":
     import wgsparkl_tpu_torch as wt
     cs.mesh_paths(wt, "CPU rehearsal", "CPU rehearsal", {}, 1)
+elif only == "dense":
+    import wgsparkl_tpu_torch as wt
+    cs.dense_paths(wt, "CPU rehearsal", "CPU rehearsal", {}, 1)
 else:
     cs.main()

@@ -4,7 +4,7 @@
 
 PATH is one of 3d, 3d-fold, 3d-neo, 3d-free, 3d-shapes, 3d-shapes-chan-free,
 3d-dyn, 2d, 2d-fold, 2d-neo, 2d-stirred, 2d-stirred-chan-free, sand2, cut2,
-cut3, hf3, sparse, hf3-sparse.  Builds the
+cut3, hf3, sparse, hf3-sparse, dense, dense-2d, blocked.  Builds the
 full-size scene of chip_smoke.py (3d: the 1,002,001-particle sand box with
 the paddle, 20 substeps a frame; 3d-fold: the same with the grid update
 folded into G2P (`fold_vel`); 3d-neo: the same with the neo-Hookean
@@ -23,7 +23,9 @@ elastic_cut2.py at SCALE=1, 15 substeps a frame; cut3: path 10,
 examples/elastic_cut3.py at SCALE=1; hf3: path 11, examples/heightfield3.py
 at SCALE=1; sparse: path 12, the 3d lattice in the sparse domain as
 bench.py's BENCH_SPARSE=1 run builds it; hf3-sparse: path 12b, path
-11 built sparse), runs one warm frame and chip_smoke.TIMED_FRAMES (3)
+11 built sparse; dense: path 13, the 3d lattice on the dense transfer;
+dense-2d: path 13b, the 2d column on the dense transfer; blocked: path 14,
+the 3d lattice on the blocked transfer), runs one warm frame and chip_smoke.TIMED_FRAMES (3)
 unprofiled frames (host clock around synchronised frames), then one frame
 under torch.profiler.  Prints the frame wall times, the device time of the
 profiled frame, the device's idle share against the median unprofiled
@@ -34,7 +36,8 @@ paths 7 and 8 the rigid solve's, and on paths 9-11 the mesh pass's
 (mesh_cdf3_kernel / mesh_cdf2_kernel) and the fracture branch's lanes,
 on the sparse paths the slot channel grid's ms a call (CUDA events around
 `pipeline._sparse_chan_grid` on a substep's active table) and its share
-of a substep's device time.
+of a substep's device time, on the dense and blocked paths each dense
+kernel's device ms and launches a substep.
 Fails without a CUDA device, on a 2D path where G did not launch, on
 paths 7 and 8 where the rigid solve did not and on paths 9-11 where the
 mesh pass did not.
@@ -63,12 +66,12 @@ def main() -> None:
                                      "2d-fold", "2d-neo", "2d-stirred",
                                      "2d-stirred-chan-free", "3d-dyn", "sand2",
                                      "cut2", "cut3", "hf3", "sparse",
-                                     "hf3-sparse"))
+                                     "hf3-sparse", "dense", "dense-2d", "blocked"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("FAIL: torch.cuda.is_available() is False")
     from wgsparkl_tpu_torch import _cuda
-    from wgsparkl_tpu_torch.pipeline import step_pallas
+    from wgsparkl_tpu_torch.pipeline import step, step_pallas
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -104,19 +107,24 @@ def main() -> None:
         "sparse": lambda: (chip_smoke.full_scene_sparse(dev), chip_smoke.SUBSTEPS),
         "hf3-sparse": lambda: (chip_smoke.hf3_scene(dev, sparse=True),
                                chip_smoke.SUBSTEPS),
+        "dense": lambda: (chip_smoke.dense_scene(dev, transfer="dense"),
+                          chip_smoke.SUBSTEPS),
+        "dense-2d": lambda: (chip_smoke.dense_scene_2d(dev), chip_smoke.SUBSTEPS2),
+        "blocked": lambda: (chip_smoke.dense_scene(dev, transfer="blocked"),
+                            chip_smoke.SUBSTEPS),
     }[args.path]()
     state, params, cfg = data.state, data.params, data.config
-    state = step_pallas(state, params, cfg, substeps)
+    state = step(state, params, cfg, substeps)
     torch.cuda.synchronize()
     walls = []
     for _ in range(chip_smoke.TIMED_FRAMES):
         t0 = time.time()
-        state = step_pallas(state, params, cfg, substeps)
+        state = step(state, params, cfg, substeps)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.time() - t0))
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        state = step_pallas(state, params, cfg, substeps)
+        state = step(state, params, cfg, substeps)
         torch.cuda.synchronize()
     # Device-side events only (kernels, copies, fills): the CPU operators
     # that launched them carry the same device time again.
@@ -176,6 +184,16 @@ def main() -> None:
               f"{sum(x[0] for x in c) / substeps:.4f} ms a substep; "
               f"{int((can & (m.phase == 0.0)).sum())} of {int(can.sum())} lanes "
               "with a fracture threshold fractured")
+
+    if args.path in ("dense", "dense-2d", "blocked"):
+        for name in ("dense_pcdf_kernel", "dense_p2g_nodes", "dense_p2g_impulses",
+                     "dense_g2p_kernel"):
+            k = [x for x in rows if name in x[2]]
+            if not k:
+                sys.exit(f"FAIL: {name} did not launch")
+            ms, count = sum(x[0] for x in k), sum(x[1] for x in k)
+            print(f"{name}: {ms / substeps:.4f} ms a substep, {count / substeps:.1f} "
+                  f"launches a substep, {ms / count:.4f} ms a launch")
 
     if args.path in ("sparse", "hf3-sparse"):
         from wgsparkl_tpu_torch import pipeline

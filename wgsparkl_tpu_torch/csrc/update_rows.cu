@@ -195,8 +195,8 @@ __global__ void __launch_bounds__(UPDATE_THREADS, 4) update_kernel(
     const float* __restrict__ pcdf, const int* __restrict__ sids,
     const int* __restrict__ ce, const float* __restrict__ btable,
     const float* __restrict__ mtable, long long npad, long long kstride,
-    long long pstride, int nc, int n_mat, int live_below, int model, float dt,
-    float h, float invd, float limit, float pen_thresh, float corr_min,
+    long long pstride, int nc, int n_mat, int live_below, int model, int centered,
+    float dt, float h, float invd, float limit, float pen_thresh, float corr_min,
     float* __restrict__ out) {
   long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= npad) return;
@@ -213,7 +213,8 @@ __global__ void __launch_bounds__(UPDATE_THREADS, 4) update_kernel(
   F3 f;
   for (int i = 0; i < 3; ++i)
     for (int k = 0; k < 3; ++k) {
-      grad[i][k] = ig ? invd * (krows[(3 + 3 * i + k) * kstride + l] - v[i] * pos[k])
+      grad[i][k] = ig ? invd * (krows[(3 + 3 * i + k) * kstride + l]
+                                - (centered ? 0.0f : v[i] * pos[k]))
                       : 0.0f;
       f.m[i][k] = row(R_F0 + 3 * i + k);
     }
@@ -453,8 +454,8 @@ __global__ void update2d_kernel(
     const float* __restrict__ pcdf, const int* __restrict__ sids,
     const int* __restrict__ ce, const float* __restrict__ btable,
     const float* __restrict__ mtable, long long npad, long long kstride,
-    long long pstride, int nc, int n_mat, int live_below, int model, float dt,
-    float h, float invd, float limit, float pen_thresh, float corr_min,
+    long long pstride, int nc, int n_mat, int live_below, int model, int centered,
+    float dt, float h, float invd, float limit, float pen_thresh, float corr_min,
     float* __restrict__ out) {
   long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (l >= npad) return;
@@ -470,7 +471,8 @@ __global__ void update2d_kernel(
   float grad[2][2], f[2][2];
   for (int i = 0; i < 2; ++i)
     for (int k = 0; k < 2; ++k) {
-      grad[i][k] = ig ? invd * (krows[(2 + 2 * i + k) * kstride + l] - v[i] * pos[k])
+      grad[i][k] = ig ? invd * (krows[(2 + 2 * i + k) * kstride + l]
+                                - (centered ? 0.0f : v[i] * pos[k]))
                       : 0.0f;
       f[i][k] = row(R2_F0 + 2 * i + k);
     }
@@ -637,13 +639,15 @@ extern "C" int update_rows2d_cuda(
     const float* rows, const float* krows, const float* pcdf, const int* sids,
     const int* ce, const float* btable, const float* mtable, long long npad,
     long long kstride, long long pstride, long long nc, long long n_mat,
-    long long live_below, long long model, float dt, float h, float invd,
+    long long live_below, long long model, long long centered, float dt, float h,
+    float invd,
     float limit, float pen_thresh, float corr_min, float* out,
     cudaStream_t stream) {
   unsigned blocks = (unsigned)((npad + 127) / 128);
   update2d_kernel<<<blocks, 128, 0, stream>>>(
       rows, krows, pcdf, sids, ce, btable, mtable, npad, kstride, pstride,
-      (int)nc, (int)n_mat, (int)live_below, (int)model, dt, h, invd, limit,
+      (int)nc, (int)n_mat, (int)live_below, (int)model, (int)centered, dt, h, invd,
+      limit,
       pen_thresh, corr_min, out);
   return (int)cudaGetLastError();
 }
@@ -652,13 +656,15 @@ extern "C" int update_rows_cuda(
     const float* rows, const float* krows, const float* pcdf, const int* sids,
     const int* ce, const float* btable, const float* mtable, long long npad,
     long long kstride, long long pstride, long long nc, long long n_mat,
-    long long live_below, long long model, float dt, float h, float invd,
+    long long live_below, long long model, long long centered, float dt, float h,
+    float invd,
     float limit, float pen_thresh, float corr_min, float* out,
     cudaStream_t stream) {
   unsigned blocks = (unsigned)((npad + UPDATE_THREADS - 1) / UPDATE_THREADS);
   update_kernel<<<blocks, UPDATE_THREADS, 0, stream>>>(
       rows, krows, pcdf, sids, ce, btable, mtable, npad, kstride, pstride,
-      (int)nc, (int)n_mat, (int)live_below, (int)model, dt, h, invd, limit,
+      (int)nc, (int)n_mat, (int)live_below, (int)model, (int)centered, dt, h, invd,
+      limit,
       pen_thresh, corr_min, out);
   return (int)cudaGetLastError();
 }

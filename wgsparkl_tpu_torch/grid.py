@@ -1,4 +1,7 @@
-"""Dense bounded MPM grid geometry (port of wgsparkl_tpu/grid.py)."""
+"""Dense bounded MPM grid geometry (port of wgsparkl_tpu/grid.py).
+
+The dense transfer addresses nodes row-major (the last axis fastest) by
+flat index; that grid need not be whole blocks."""
 
 from __future__ import annotations
 
@@ -6,6 +9,7 @@ import dataclasses
 from typing import Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,6 +23,37 @@ class GridConfig:
     @property
     def dim(self) -> int:
         return len(self.shape)
+
+    @property
+    def num_nodes(self) -> int:
+        return int(np.prod(self.shape))
+
+    def node_position_channels(self, device=None):
+        """d channels [num_nodes] of the nodes' world coordinates, row-major."""
+        idx = torch.arange(self.num_nodes, dtype=torch.int32, device=device)
+        out, stride = [], self.num_nodes
+        for a in range(self.dim):
+            stride //= self.shape[a]
+            coord = (idx // stride) % self.shape[a] + int(self.origin_cell[a])
+            out.append(coord.to(torch.float32) * self.cell_width)
+        return out
+
+    def flatten_index(self, cell):
+        """World integer cells [..., d] -> row-major flat node index [...]
+        (no clip)."""
+        flat = cell[..., 0] - int(self.origin_cell[0])
+        for a in range(1, self.dim):
+            flat = flat * self.shape[a] + (cell[..., a] - int(self.origin_cell[a]))
+        return flat
+
+    def in_bounds(self, cell):
+        """World integer cells [..., d] -> bool [...]: the node is on the grid."""
+        ok = None
+        for a in range(self.dim):
+            i = cell[..., a] - int(self.origin_cell[a])
+            oka = (i >= 0) & (i < self.shape[a])
+            ok = oka if ok is None else ok & oka
+        return ok
 
     @staticmethod
     def from_bounds(lo, hi, cell_width: float, margin_cells: int = 3) -> "GridConfig":

@@ -43,7 +43,6 @@ def _plain(x):
 
 def config_from_reference(cfg) -> MpmConfig:
     unsupported = {
-        "transfer": cfg.transfer != "pallas",
         "spatial_devices": cfg.spatial_devices,
         "elastic_model": cfg.elastic_model not in ELASTIC_MODELS,
     }
@@ -54,7 +53,8 @@ def config_from_reference(cfg) -> MpmConfig:
     joints = tuple((int(j[0]), int(j[1]), *(_plain(x) for x in j[2:])) for j in cfg.joints)
     return MpmConfig(
         grid=GridConfig(tuple(g.shape), float(g.cell_width), tuple(g.origin_cell)),
-        collider_types=tuple(cfg.collider_types), group=int(cfg.group),
+        collider_types=tuple(cfg.collider_types), transfer=str(cfg.transfer),
+        group=int(cfg.group), job_chunk=int(cfg.job_chunk),
         max_jobs=int(cfg.max_jobs), by=int(cfg.by),
         n_materials=int(cfg.n_materials), static_slots=tuple(cfg.static_slots),
         elastic_model=cfg.elastic_model, chan_free=bool(cfg.chan_free),

@@ -69,6 +69,15 @@ def particle_sort_keys_ch(pch, cfg: GridConfig, by: int = 4):
     return torch.where(ok, flat, int(np.prod(nb))).to(torch.int32)
 
 
+def particle_block_ids(pos, cfg: GridConfig):
+    """Flat home-block id [N] of particles at pos [N, d] (the blocked
+    transfer's 4^3 / 8^2 blocks): the block of the stencil base cell
+    round(p / h) - 1; particles off the grid get NB (the overflow bucket,
+    sorted last).  The sort itself (JAX's sort_by_block) is
+    pipeline.sort_by_block, on the row matrix."""
+    return particle_sort_keys_ch([pos[:, a] for a in range(pos.shape[1])], cfg)
+
+
 def key_to_block(key, nb, dim: int):
     """Sort key -> storage block id: the identity (storage is y-fastest)."""
     return key

@@ -8,7 +8,10 @@ contact velocity from the body table, the material constants by id, and
 particle_update_channels with the corotated or the neo-Hookean stress
 (`elastic_model`; the kernel takes its index in ELASTIC_MODELS).  Lanes
 are live iff id < live_below and rank < covered_end; dead lanes keep their
-position and get zero velocity inputs.
+position and get zero velocity inputs.  The G2P rows hold the velocity and
+the moments sum_k w_k v_i x_k, from which the gradient is D^-1 (S - v p^T);
+with `centered` (the dense transfer's G2P) the moments are already centred
+on the particle, sum_k w_k v_i (x_k - p), and the gradient is D^-1 S.
 `update_rows` is the 3D branch, `update_rows2d` the 2D one (rows of
 ops/rows2d.py); each counts its own launches.
 """
@@ -51,7 +54,7 @@ def _rigid_velocity(pos, aff, btable, nc: int):
 
 
 def _update_plain(L, d, rows_all, krows, pcdf, sorted_ids, covered_end, btable,
-                  mtable, dt, h, nc, n_mat, live_below, elastic_model):
+                  mtable, dt, h, nc, n_mat, live_below, elastic_model, centered):
     npad = rows_all.shape[1]
     lane = torch.arange(npad, device=rows_all.device)
     ig = (sorted_ids < live_below) & (lane < covered_end)
@@ -59,7 +62,8 @@ def _update_plain(L, d, rows_all, krows, pcdf, sorted_ids, covered_end, btable,
     pos = [row(rows_all, k) for k in range(d)]
     v = [torch.where(ig, row(krows, k), 0.0) for k in range(d)]
     inv = inv_d(h)
-    grad = {(i, k): torch.where(ig, inv * (row(krows, d + d * i + k) - v[i] * pos[k]),
+    grad = {(i, k): torch.where(ig, inv * (row(krows, d + d * i + k)
+                                           - (0.0 if centered else v[i] * pos[k])),
                                 0.0)
             for i in range(d) for k in range(d)}
     f = {(i, k): row(rows_all, L.R_F0 + d * i + k)
@@ -96,18 +100,20 @@ def _update_plain(L, d, rows_all, krows, pcdf, sorted_ids, covered_end, btable,
 
 def update_plain(rows_all, krows, pcdf, sorted_ids, covered_end, btable,
                  mtable, dt: float, h: float, nc: int, n_mat: int,
-                 live_below: int, elastic_model: str = "corotated"):
+                 live_below: int, elastic_model: str = "corotated",
+                 centered: bool = False):
     return _update_plain(R, 3, rows_all, krows, pcdf, sorted_ids, covered_end,
                          btable, mtable, dt, h, nc, n_mat, live_below,
-                         elastic_model)
+                         elastic_model, centered)
 
 
 def update2d_plain(rows_all, krows, pcdf, sorted_ids, covered_end, btable,
                    mtable, dt: float, h: float, nc: int, n_mat: int,
-                   live_below: int, elastic_model: str = "corotated"):
+                   live_below: int, elastic_model: str = "corotated",
+                   centered: bool = False):
     return _update_plain(R2, 2, rows_all, krows, pcdf, sorted_ids, covered_end,
                          btable, mtable, dt, h, nc, n_mat, live_below,
-                         elastic_model)
+                         elastic_model, centered)
 
 
 def kernel_scalars(dt: float, h: float):
@@ -120,7 +126,7 @@ def kernel_scalars(dt: float, h: float):
 
 def _launch(symbol, pchan, nkrows, rows_all, krows, pcdf, sorted_ids,
             covered_end, btable, mtable, dt, h, nc, n_mat, live_below,
-            elastic_model):
+            elastic_model, centered):
     """Check the arguments of one dimension's entry and launch it."""
     npad = rows_all.shape[1]
     if (rows_all.shape[0] != pchan or krows.shape[0] != nkrows
@@ -138,21 +144,23 @@ def _launch(symbol, pchan, nkrows, rows_all, krows, pcdf, sorted_ids,
     R.check_kernel_args(rows_all, krows, pcdf, sorted_ids, ce, btable, mtable)
     out = torch.empty_like(rows_all)
     _cuda.launch(
-        "update_rows", symbol, "pppppppiiiiiiiffffffp",
+        "update_rows", symbol, "pppppppiiiiiiiiffffffp",
         rows_all, krows, pcdf, sorted_ids, ce, btable, mtable,
         npad, krows.shape[1], pcdf.shape[1], nc, n_mat, live_below,
-        ELASTIC_MODELS.index(elastic_model), *kernel_scalars(dt, h), out)
+        ELASTIC_MODELS.index(elastic_model), int(centered), *kernel_scalars(dt, h),
+        out)
     return out
 
 
 def update_rows(rows_all, krows, pcdf, sorted_ids, covered_end, btable,
                 mtable, dt: float, h: float, nc: int, n_mat: int,
-                live_below: int, elastic_model: str = "corotated"):
+                live_below: int, elastic_model: str = "corotated",
+                centered: bool = False):
     """Next-substep rows [PCHAN, NPAD] (see the module docstring).
     krows [16, >=NPAD] and pcdf [8, >=NPAD] are read on their first NPAD
     lanes; covered_end is a 0-d int tensor or an int."""
     args = (rows_all, krows, pcdf, sorted_ids, covered_end, btable, mtable,
-            dt, h, nc, n_mat, live_below, elastic_model)
+            dt, h, nc, n_mat, live_below, elastic_model, centered)
     if rows_all.device.type == "cpu":
         return update_plain(*args)
     out = _launch("update_rows_cuda", R.PCHAN, 16, *args)
@@ -165,12 +173,13 @@ update_rows.launches = 0
 
 def update_rows2d(rows_all, krows, pcdf, sorted_ids, covered_end, btable,
                   mtable, dt: float, h: float, nc: int, n_mat: int,
-                  live_below: int, elastic_model: str = "corotated"):
+                  live_below: int, elastic_model: str = "corotated",
+                  centered: bool = False):
     """The dim=2 branch: next-substep 2D rows [32, NPAD] from the rows, the
     2D G2P rows [8, >=NPAD] (velocity, moments), the 2D particle-CDF rows
     [8, >=NPAD] (aff low, sd, normal, aff high) and the 2D body table."""
     args = (rows_all, krows, pcdf, sorted_ids, covered_end, btable, mtable,
-            dt, h, nc, n_mat, live_below, elastic_model)
+            dt, h, nc, n_mat, live_below, elastic_model, centered)
     if rows_all.device.type == "cpu":
         return update2d_plain(*args)
     out = _launch("update_rows2d_cuda", R2.PCHAN, 8, *args)

@@ -1,8 +1,23 @@
-"""The MPM step on the bounded block grid and the sparse 3D domain (port of
-the kernel-path subset of wgsparkl_tpu/pipeline.py: MpmConfig, MpmData,
-RigidBodyDesc, build_rigid_world, StepDiag, step / step_pallas /
-step_with_diag, the bounded and sparse branches of `_substep_pallas_rows`,
-`_sparse_chan_grid`, and the bounded branch of `_substep_pallas_rows_2d`).
+"""The MPM step on the bounded block grid, the sparse 3D domain and the dense
+grid (port of wgsparkl_tpu/pipeline.py: MpmConfig, MpmData, RigidBodyDesc,
+build_rigid_world, StepDiag, step / step_pallas / step_with_diag, the
+bounded and sparse branches of `_substep_pallas_rows`, `_sparse_chan_grid`,
+the bounded branch of `_substep_pallas_rows_2d`, and the dense and blocked
+transfers' `substep` and `substep_blocked`).
+
+`transfer` picks the path.  "pallas" (the port's default) is the kernel
+path below; "dense" (the JAX package's default) and "blocked" run the
+dense transfer on the whole row-major node grid, 3D or 2D (`_substep_dense`,
+in the JAX package's order): world mass properties; the node CDF of every
+collider every substep (no frame hoist; mesh colliders through the mesh
+pass); the particle CDF (kernel dense_pcdf); P2G with the CPIC impulses
+(kernel dense_p2g); the grid update; G2P with ghost velocities (kernel
+dense_g2p); the particle update (kernel C on the row matrix, carried through
+the frame as on the kernel path); the rigid update.  "blocked" first sorts
+the rows by home block (kernel D) and builds the job table (kernel E):
+particles come back block-sorted, and the lanes of jobs past max_jobs take
+no part in P2G and get zero velocity and gradient from G2P
+(ops/blocked_transfer.py).  Neither keeps a StepDiag counter.
 
 One 3D substep, in order: block sort keys; stable sort and row permute
 (kernel D); job table (kernel E inside build_jobs); window gather of the
@@ -53,8 +68,8 @@ into it, the ghost slot amax reading zero.  The window moves address slots
 unchanged.  Outside the chan-free mode every substep evaluates every
 collider's node CDF, and the mesh pass on slots, at the active slots' nodes
 (`_sparse_chan_grid`), and the kernels evaluate no collider; there is no
-frame hoist.  Options the JAX package has beyond these (other transfers,
-multi-device sharding) raise NotImplementedError naming their ROADMAP item.
+frame hoist.  Multi-device sharding, which the JAX package has beyond
+these, raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -68,6 +83,7 @@ import torch
 
 from wgsparkl_tpu_torch.collision import cdf_channel as cch
 from wgsparkl_tpu_torch.collision import shapes as shp
+from wgsparkl_tpu_torch.collision.cdf import dense_pcdf
 from wgsparkl_tpu_torch.device import resolve
 from wgsparkl_tpu_torch.grid import GridConfig
 from wgsparkl_tpu_torch.math import div
@@ -75,11 +91,14 @@ from wgsparkl_tpu_torch.ops import blocked as bk
 from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.ops import rigid_cdf
 from wgsparkl_tpu_torch.ops import rows2d as R2
+from wgsparkl_tpu_torch.ops.blocked_transfer import live_end
 from wgsparkl_tpu_torch.ops.g2p import g2p_rows
 from wgsparkl_tpu_torch.ops.p2g import p2g_tiles
 from wgsparkl_tpu_torch.ops.p2g_cdf import p2g_cdf_tiles
 from wgsparkl_tpu_torch.ops.particle_update import ELASTIC_MODELS
 from wgsparkl_tpu_torch.ops.permute import permute_lanes
+from wgsparkl_tpu_torch.ops.transfer import dense_g2p, dense_p2g
+from wgsparkl_tpu_torch.ops.transfer import grid_update as _grid_velocity
 from wgsparkl_tpu_torch.ops.transfer2d import g2p_rows as g2p_rows2d
 from wgsparkl_tpu_torch.ops.transfer2d import p2g_tiles as p2g_tiles2d
 from wgsparkl_tpu_torch.ops.transfer2d import pcdf_rows as pcdf_rows2d
@@ -112,11 +131,18 @@ class SimState:
 
 @dataclasses.dataclass(frozen=True)
 class MpmConfig:
-    """Static configuration of the bounded-grid kernel path."""
+    """Static configuration of a scene's step.  transfer: "pallas" (the
+    kernel path), "dense" or "blocked"; group / max_jobs: the job table of
+    the pallas and blocked paths; job_chunk: the JAX package's job chunk,
+    to which MpmData rounds max_jobs.  No step reads job_chunk (the port
+    runs no chunked job scan), so it takes no part in comparisons: two
+    configurations that step alike compare equal."""
 
     grid: GridConfig
     collider_types: Tuple[int, ...] = ()
+    transfer: str = "pallas"
     group: int = 256
+    job_chunk: int = dataclasses.field(default=32, compare=False)
     max_jobs: int = 0
     by: int = 4
     n_materials: int = 1
@@ -477,17 +503,6 @@ def _auto_chan_free(grid, by, desc, bodies, pos, gravity) -> bool:
     return True
 
 
-def _grid_velocity(grid_mm, params: SimulationParams, grid: GridConfig):
-    """Momentum -> velocity + gravity + one-cell-per-step clamp on grid rows
-    [..., d + 1] (momentum, mass)."""
-    d = grid.dim
-    mass = grid_mm[..., d:]
-    inv_mass = torch.where(mass > 0.0, 1.0 / torch.clamp(mass, min=1e-30), 0.0)
-    vel = (grid_mm[..., :d] + mass * params.gravity * params.dt) * inv_mass
-    lim = velocity_limit(grid.cell_width, params.dt)
-    return torch.clamp(vel, -lim, lim)
-
-
 def _norm(x):
     return torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
 
@@ -827,6 +842,139 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     return rows_out, bodies
 
 
+@functools.lru_cache(maxsize=None)
+def _block_major_index(grid: GridConfig, device):
+    """[M] int64: the block-major index (4^3 / 8^2 blocks) of each
+    row-major node, to read the mesh pass on the row-major grid."""
+    bsh = bk.block_shape(grid.dim, 4)
+    st = bk.storage_strides(bk.num_blocks(grid, 4))
+    cells = torch.stack(torch.meshgrid(*(torch.arange(s, device=device)
+                                         for s in grid.shape), indexing="ij"), -1)
+    cells = cells.reshape(-1, grid.dim)
+    blk = sum((cells[:, a] // bsh[a]) * st[a] for a in range(grid.dim))
+    inner = cells[:, 0] % bsh[0]
+    for a in range(1, grid.dim):
+        inner = inner * bsh[a] + cells[:, a] % bsh[a]
+    return blk * int(np.prod(bsh)) + inner
+
+
+def _dense_node_cdf(bodies, cfg: MpmConfig, meshes=None):
+    """Node CDF (dist f32, aff int32, closest int32) [M] of every collider
+    on the row-major grid: the analytic colliders at the node positions,
+    then the mesh pass (on 4^3 / 8^2 blocks, the grid whole blocks as in
+    the JAX package) merged in."""
+    grid = cfg.grid
+    dev = bodies.pos.device
+    tri = cch.node_cdf_channels(cfg.collider_types, bodies.shape_params, bodies.rot,
+                                bodies.pos, grid.node_position_channels(dev),
+                                grid.cell_width)
+    if cfg.mesh_cids:
+        key, word = rigid_cdf.mesh_pass(meshes, bodies, grid, 4)
+        idx = _block_major_index(grid, dev)
+        tri = rigid_cdf.merge_mesh_into_node_cdf(*tri, key[idx], word[idx])
+    return tri
+
+
+def _cdf_rows(rows, d: int):
+    """[8, NPAD] particle-CDF rows of the rows' own affinity word, signed
+    distance and normal (what a collider-free substep carries over)."""
+    L = R if d == 3 else R2
+    pcdf = torch.zeros((8, rows.shape[1]), dtype=torch.float32, device=rows.device)
+    pcdf[0] = rows[L.AFF]
+    pcdf[1] = rows[L.R_SD]
+    pcdf[2:2 + d] = rows[L.NX:L.NX + d]
+    pcdf[2 + d] = rows[L.AFF_SPARE]
+    return pcdf
+
+
+def sort_by_block(rows, block_ids):
+    """The [C, NPAD] row matrix, every particle and model field, stably
+    sorted by block id (port of wgsparkl_tpu/ops/blocked.py:734, the
+    reference's finalize_particles_sort, sort.wgsl:117-137; kernel D moves
+    the rows): (sorted rows, sorted ids)."""
+    sorted_ids, perm = torch.sort(block_ids, stable=True)
+    return permute_lanes(rows, perm.to(torch.int32)), sorted_ids
+
+
+def _sort_phase(rows, cfg: MpmConfig, n: int):
+    """The blocked transfer's sort: the rows stably sorted by home block
+    (4^3 / 8^2 blocks, padding lanes last; kernel D) and the job table
+    (kernel E inside build_jobs)."""
+    grid = cfg.grid
+    nb_total = int(np.prod(bk.num_blocks(grid)))
+    lane = torch.arange(rows.shape[1], device=rows.device)
+    keys = bk.particle_block_ids(rows[:grid.dim].T, grid)
+    keys = torch.where(lane < n, keys, nb_total + 1).to(torch.int32)
+    rows, sorted_ids = sort_by_block(rows, keys)
+    return rows, bk.build_jobs(sorted_ids, nb_total, cfg.group, cfg.max_jobs)
+
+
+def _substep_dense(rows, bodies, params, cfg: MpmConfig, n: int, n_t, zero_ids,
+                   mtable, n_mat: int, record: Optional[dict] = None, meshes=None):
+    """One substep of the dense or the blocked transfer on the [PCHAN, NPAD]
+    rows (3D or 2D; the order of the module docstring).  n_t: n as a
+    one-element int32 tensor on the rows' device; zero_ids: int32 zeros
+    [NPAD] (kernel C then takes every lane below n as live).  record: when
+    a dict is given, the kernels' inputs and outputs are stored in it."""
+    grid = cfg.grid
+    d, nc = grid.dim, cfg.num_colliders
+    bodies = body_mod.update_world_mass_properties(bodies)
+    jobs, live = None, n_t
+    if cfg.transfer == "blocked":
+        rows, jobs = _sort_phase(rows, cfg, n)
+        live = live_end(jobs)
+    btable = (_body_table if d == 3 else _body_table_2d)(bodies, params, grid)
+    node_dist = node_aff = node_closest = None
+    if nc > 0:
+        node_dist, node_aff, node_closest = _dense_node_cdf(bodies, cfg, meshes)
+        pcdf = dense_pcdf(rows, n, node_dist, node_aff, grid, nc)
+    else:
+        pcdf = _cdf_rows(rows, d)
+    grid_mm, lin_imp, ang_imp = dense_p2g(rows, pcdf, n, live, node_aff, node_closest,
+                                          btable, grid, nc, bodies.count)
+    grid_vel = _grid_velocity(grid_mm, params, grid)
+    krows = dense_g2p(rows, pcdf, n, live, grid_vel, node_aff, node_closest, btable,
+                      grid, nc)
+    update = update_rows if d == 3 else update_rows2d
+    rows_out = update(rows, krows, pcdf, zero_ids, n_t, btable, mtable, params.dt,
+                      grid.cell_width, nc, n_mat, 1, cfg.elastic_model, centered=True)
+    if record is not None:
+        record.update(rows=rows, jobs=jobs, live=live, btable=btable,
+                      node_dist=node_dist, node_aff=node_aff, node_closest=node_closest,
+                      pcdf=pcdf, grid_mm=grid_mm, lin_imp=lin_imp, ang_imp=ang_imp,
+                      grid_vel=grid_vel, krows=krows, mtable=mtable, n_mat=n_mat,
+                      rows_out=rows_out)
+    bodies = rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg)
+    return rows_out, bodies
+
+
+def step_dense(state: SimState, params: SimulationParams, cfg: MpmConfig,
+               num_substeps: int, record: Optional[dict] = None):
+    """A frame of dense or blocked substeps (cfg.transfer) carrying the
+    [PCHAN, NPAD] row matrix, packed and unpacked once; a state without a
+    material table gets one (the row matrix carries material ids).  The
+    blocked transfer returns the particles block-sorted.  record: see
+    _substep_dense (filled by the frame's last substep)."""
+    dim = cfg.grid.dim
+    L = R if dim == 3 else R2
+    models, n_mat = state.models, max(cfg.n_materials, 1)
+    if models.mat_table is None:
+        models, n_mat = attach_material_table(state.particles, models)
+    n = state.particles.count
+    npad = pallas_npad(n, cfg.group)
+    rows = L.pack_rows_padded(state.particles, models, npad)
+    n_t = torch.full((1,), n, dtype=torch.int32, device=rows.device)
+    zero_ids = torch.zeros(npad, dtype=torch.int32, device=rows.device)
+    bodies = state.bodies
+    for _ in range(num_substeps):
+        rows, bodies = _substep_dense(rows, bodies, params, cfg, n, n_t, zero_ids,
+                                      models.mat_table, n_mat, record, state.meshes)
+    particles, models = L.unpack_state_rows(rows[:, :n], state.particles, models,
+                                            n_mat=n_mat)
+    return SimState(particles=particles, models=models, bodies=bodies,
+                    meshes=state.meshes)
+
+
 def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
                 num_substeps: int, return_diag: bool = False,
                 record: Optional[dict] = None):
@@ -864,11 +1012,19 @@ def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
 
 
 def step(state, params, cfg: MpmConfig, num_substeps: int):
-    return step_pallas(state, params, cfg, num_substeps)
+    """num_substeps substeps of cfg.transfer's path."""
+    if cfg.transfer == "pallas":
+        return step_pallas(state, params, cfg, num_substeps)
+    return step_dense(state, params, cfg, num_substeps)
 
 
 def step_with_diag(state, params, cfg: MpmConfig, num_substeps: int):
-    return step_pallas(state, params, cfg, num_substeps, return_diag=True)
+    """`step` and the frame's StepDiag (zero on the dense and blocked paths,
+    which keep no counter, as in the JAX package)."""
+    if cfg.transfer == "pallas":
+        return step_pallas(state, params, cfg, num_substeps, return_diag=True)
+    return (step_dense(state, params, cfg, num_substeps),
+            StepDiag.zeros(state.particles.pos.device))
 
 
 def _sample_meshes(bodies, mesh_cids, dim: int, cell_width: float, device):
@@ -896,11 +1052,14 @@ def _sample_meshes(bodies, mesh_cids, dim: int, cell_width: float, device):
 
 
 class MpmData:
-    """Owns one scene's state and static configuration (port of the
-    pallas / bounded-grid branch of wgsparkl_tpu.pipeline.MpmData, 3D and
-    2D).  The state lives on the particles' device.  transfer defaults to
-    "pallas", the only transfer ported (the JAX package defaults to
-    "dense").  Mesh colliders are sampled here (polylines in 2D, trimeshes
+    """Owns one scene's state and static configuration (port of
+    wgsparkl_tpu.pipeline.MpmData, 3D and 2D).  The state lives on the
+    particles' device.  transfer: "pallas" (the default here; the JAX
+    package defaults to "dense"), "dense" or "blocked" (see the module
+    docstring); the blocked and pallas paths size an automatic job table
+    (max_jobs 0) as the JAX package does, 4 ceil(N / group) + 64 rounded up
+    to job_chunk and to 64, and an explicit one to job_chunk; by != 4 and
+    the sparse domain are pallas-only.  Mesh colliders are sampled here (polylines in 2D, trimeshes
     and heightfields in 3D, at cell_width / sqrt(2)); their slots are never
     static and the scene runs the dense CDF mode.  sparse: the unbounded 3D
     domain (by 4 only; the grid keeps only its cell width and origin), with
@@ -916,6 +1075,7 @@ class MpmData:
                  cell_width: float, grid: Optional[GridConfig] = None,
                  grid_bounds=None, elastic_model: str = "corotated",
                  transfer: str = "pallas", group: int = 256,
+                 job_chunk: int = 32,
                  max_jobs: int = 0, sparse: bool = False, kmax: int = 0,
                  amax: int = 0, by: int = 4, joints=(),
                  chan_free: Optional[bool] = None,
@@ -923,14 +1083,16 @@ class MpmData:
                  coupling: Optional[Sequence[int]] = None,
                  body_contacts: bool = True):
         dim = particles.dim
+        if transfer not in ("dense", "blocked", "pallas"):
+            raise ValueError(f"unknown transfer {transfer!r}")
+        if transfer != "pallas" and (sparse or by != 4):
+            raise ValueError("the sparse domain and by != 4 need transfer='pallas'")
         if sparse and dim != 2 and by != 4:
             raise ValueError("the sparse domain uses isotropic 4^3 blocks (by=4)")
         if sparse and dim == 2:
             raise ValueError("the sparse (unbounded) domain is 3D-only")
         if dim == 2 and by != 4:
             raise ValueError("2D blocks are 8 x 8: by must be 4")
-        if transfer != "pallas":
-            raise _unported(f"transfer={transfer!r}", "queue 1, item 4")
         if spatial_devices:
             raise _unported("spatial multi-device sharding", "queue 1, item 11")
         if elastic_model not in ELASTIC_MODELS:
@@ -951,18 +1113,21 @@ class MpmData:
                 pos = particles.pos.cpu().numpy()
                 lo, hi = pos.min(0) - 8 * cell_width, pos.max(0) + 8 * cell_width
             grid = GridConfig.from_bounds(lo, hi, cell_width)
-        if dim == 3 and grid.shape[1] % by:
+        if transfer == "blocked":
+            bk.num_blocks(grid)     # raises unless the grid is whole blocks
+        if dim == 3 and transfer == "pallas" and grid.shape[1] % by:
             grid = dataclasses.replace(
                 grid, shape=(grid.shape[0], grid.shape[1] + by - grid.shape[1] % by,
                              grid.shape[2]))
-        auto_jobs = max_jobs == 0
+        # The reference's rounding (job_chunk, then its band_chunk 64), kept
+        # so both packages size their job tables alike.
+        auto_jobs = max_jobs == 0 and transfer in ("blocked", "pallas")
         if auto_jobs:
             max_jobs = -(-particles.count // group) * 4 + 64
-        # The reference's rounding (job_chunk 32, band_chunk 64), kept so
-        # both packages size their job tables alike.
-        max_jobs = -(-max_jobs // 32) * 32
-        if auto_jobs:
+        max_jobs = -(-max_jobs // job_chunk) * job_chunk
+        if auto_jobs and max_jobs % 64:
             max_jobs = -(-max_jobs // 64) * 64
+            max_jobs = -(-max_jobs // job_chunk) * job_chunk
         if sparse:
             kmax = kmax or max_jobs
             amax = -(-(amax or 4 * kmax) // 8) * 8
@@ -982,7 +1147,7 @@ class MpmData:
             # The heuristic sees the analytic slots; a mesh scene gathers.
             adesc = tuple((i, t) for i, t in enumerate(collider_types)
                           if i not in mesh_cids)
-            chan_free = not mesh_cids and _auto_chan_free(
+            chan_free = transfer == "pallas" and not mesh_cids and _auto_chan_free(
                 grid, by, adesc, world, particles.pos.cpu().numpy(),
                 params.gravity.cpu().numpy())
         chan_free = bool(chan_free)
@@ -992,8 +1157,8 @@ class MpmData:
         dynamic_slots = tuple(i for i, b in enumerate(bodies)
                               if b.body_type == "dynamic")
         self.config = MpmConfig(
-            grid=grid, collider_types=collider_types,
-            group=group, max_jobs=max_jobs, by=by,
+            grid=grid, collider_types=collider_types, transfer=transfer,
+            group=group, job_chunk=job_chunk, max_jobs=max_jobs, by=by,
             n_materials=n_mat, static_slots=static_slots,
             elastic_model=elastic_model, chan_free=chan_free,
             fold_vel=bool(fold_vel),
