@@ -55,6 +55,19 @@ Phases (any failure exits non-zero, and no result line is printed):
      table), one warm and 2 timed frames each: finite positions, exactly
      one launch each of dense_pcdf, dense_p2g and dense_g2p a substep,
      steps/s, and on path 14 its live jobs within max_jobs (a host check);
+     paths 15-15d, multi-device stepping (`parallel_paths`), the ranks
+     spawned processes sharing the card through gloo (each buffer staged
+     through pinned host memory; again on NCCL, a card a rank, where the
+     machine has one a rank), each printing its backend and world size:
+     15, the main scene padded to 1,002,004 lanes and particle-sharded over
+     4 ranks; 15b, the main scene in 4 x slabs on its grid widened to 112
+     x-nodes; 15c, the 2D column in 2 slabs; 15d, path 12 in 4 slabs
+     (halo_cap 2048, the peak boundary plane printed); one substep, then
+     the rest of a frame: no StepDiag fault on any rank, every live
+     particle kept, bodies bit-equal across ranks, every kernel launched,
+     after the substep the gathered state within 1e-5 in position and
+     1e-4 in velocity of the unsharded step on the same grid (the frame's
+     difference printed), steps/s labelled as a correctness run;
   5. each kernel against its plain PyTorch version at full size, on the
      inputs of a substep of each scene with its lattice lowered into a
      collider (onto the paddle in 3D, 1.5 cells into the floor in 2D), so
@@ -102,7 +115,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      13b lowered 1.5 cells into its floor (`dense_pcdf`, `dense_p2g`,
      `dense_g2p` and their `*2d` entries: every output bit for bit, P2G's
      grid part beside `index_put_(accumulate=True)` under
-     torch.use_deterministic_algorithms(True));
+     torch.use_deterministic_algorithms(True)); A, F and H beside the same
+     call on their (particle, node) pairs (`tile_pairs_library`); every
+     kernel of paths 15-15d on the rows of one rank (`record_rank`:
+     `*_sharded`, `*_spatial`, `*_spatial2d`, `*_spatial_sparse`; 2D:
+     kernel I's premise after the second sort);
   5. (path 5) the 3D analytic-shapes path at full size: the main path's
      lattice, models, grid and job table with a static halfspace floor,
      the four static side walls, a kinematic capsule paddle and a kinematic
@@ -139,7 +156,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      the CPU (affinity
      words exact); then the sand box built sparse and bounded at by 4, 20
      substeps on the card, within tests/test_sparse_domain.py's tolerances
-     (whether they are bit-equal is printed).
+     (whether they are bit-equal is printed); then five 2-rank scenes
+     (`parallel_small_scenes`: particle-sharded pallas and dense sand
+     boxes, the spatial 3D lattice, 2D column and sparse lattice with
+     lateral velocities, migrants landing), the kernel path equal to the
+     plain path bit for bit on every rank.
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -147,6 +168,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -599,6 +621,452 @@ def dense_paths(wt, card, kind, launches, frames=TIMED_FRAMES_SHORT):
             launches.update((f"{k}{tag}", counts[k]) for k in KERNELS_DENSE[:3])
         del data, state
         torch.cuda.empty_cache()
+
+
+# ---- paths 15-15d: multi-device stepping (wgsparkl_tpu_torch/parallel) ----
+# The ranks share the one card through gloo, each buffer staged through
+# pinned host memory; where the machine has a card a rank, the path runs
+# again on NCCL.  Correctness runs: their steps/s are no multi-device speed.
+WORLD_15 = 4
+MIGRATION_CAP = 2048
+# Path 15d's halo_cap: its boundary planes hold at most ~800 active blocks.
+HALO_CAP_15D = 2048
+# The rows of one rank are held against the plain versions (record_rank).
+RECORD_KEYS = ("rows", "unsorted", "perm", "sorted_ids", "jobs", "bcells", "jbody",
+               "ntiles", "btable", "moving", "static_desc", "chan_free", "alldesc",
+               "pdata", "mm", "imp", "pcdf", "ftiles", "krows", "mtable",
+               "covered_end", "live_below", "nb_total", "act", "fold_vel")
+
+
+def _tree(fn, x):
+    """fn on every tensor / array of a record's nested dicts and tuples."""
+    if isinstance(x, dict):
+        return {k: _tree(fn, v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_tree(fn, v) for v in x)
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return fn(x)
+    return x
+
+
+def record_rank(world: int) -> int:
+    """The rank whose rows are recorded: a middle rank, which receives
+    migrants from both sides, where there is one, else rank 0 (on the
+    small 2-rank scenes the rank that most migrants reach)."""
+    return 1 if world > 2 else 0
+
+
+def record_after(comm, state, params, cfg, more: int = 0):
+    """Rank hook after a path's frames: one more substep, every rank with
+    its exchanges, recording the kernels' inputs and outputs, then `more`
+    substeps.  Returns (the recording rank's record as numpy, None on the
+    others; the last state as numpy when more, else None)."""
+    from wgsparkl_tpu_torch.parallel import domain
+    from wgsparkl_tpu_torch.pipeline import step_pallas
+
+    rec = {}
+    state = step_pallas(state, params, cfg, 1, record=rec, comm=comm)
+    if more:
+        state = step_pallas(state, params, cfg, more, comm=comm)
+    kept = (_tree(lambda t: t.cpu().numpy(), {k: rec[k] for k in RECORD_KEYS if k in rec})
+            if comm.rank == record_rank(comm.world) else None)
+    return kept, (domain.map_state(lambda t: t.cpu().numpy(), state) if more else None)
+
+
+def plain_setup():
+    """Rank set-up: route every kernel call of the rank to its plain version
+    (for the rank's whole life)."""
+    plain_versions().__enter__()
+
+
+def widened(data, world: int):
+    """data with its grid (the sparse domain's nominal grid) widened at the
+    high x end to whole slabs of `world` ranks, particles unchanged: the
+    main scene's 108 x-nodes (27 blocks of 4) to 112 (28 blocks, 7 a slab
+    on 4 ranks)."""
+    from wgsparkl_tpu_torch.ops import blocked as bk
+
+    g = data.config.grid
+    bx = bk.block_shape(g.dim)[0]
+    nbx = -(-(g.shape[0] // bx) // world) * world
+    data.config = dataclasses.replace(data.config, grid=dataclasses.replace(
+        g, shape=(nbx * bx,) + tuple(g.shape[1:])))
+    return data
+
+
+def spatial_scene(device, dim: int = 3, sparse: bool = False):
+    """tests/test_parallel.py's spatial scenes: in 3D (its _spatial_scene)
+    a 24 x 8 x 8 elastic lattice over a floor with lateral velocities of up
+    to 12 m/s (seed 7), 10 x-blocks; in 2D a 64 x 16 column with up to 14
+    m/s (seed 11) on a 120-node-wide grid; group 64."""
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.grid import GridConfig
+    from wgsparkl_tpu_torch.models import ElasticCoefficients
+    from wgsparkl_tpu_torch.params import SimulationParams
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+    from wgsparkl_tpu_torch.solver import Models, Particles
+
+    if dim == 3:
+        rng = np.random.default_rng(7)
+        grid = GridConfig.from_bounds(np.zeros(3), np.array([32.0, 16.0, 8.0]), 1.0)
+        axes = (np.arange(24) * 0.5 + 10.0, np.arange(8) * 0.5 + 2.0,
+                np.arange(8) * 0.5 + 2.0)
+        vmax, floor = 12.0, RigidBodyDesc(Collider.cuboid(40.0, 1.0, 40.0),
+                                          (16.0, -0.9, 4.0))
+    else:
+        rng = np.random.default_rng(11)
+        grid = GridConfig.from_bounds(np.zeros(2), np.array([120.0, 24.0]), 1.0)
+        axes = (np.arange(64) * 0.5 + 44.0, np.arange(16) * 0.5 + 2.0)
+        vmax, floor = 14.0, RigidBodyDesc(Collider.cuboid(200.0, 1.0), (60.0, -0.9))
+    pos = np.stack(np.meshgrid(*axes, indexing="ij"), -1).reshape(-1, dim)
+    n = len(pos)
+    vel = np.zeros((n, dim), np.float32)
+    vel[:, 0] = rng.uniform(-vmax, vmax, n)
+    p = Particles.from_arrays(pos.astype(np.float32), density=1000.0, radius=0.25,
+                              device=device)
+    p.vel = torch.as_tensor(vel, device=device)
+    e = ElasticCoefficients.from_young_modulus(1.0e6, 0.2)
+    models = Models.from_arrays(n, e.lam, e.mu, phase=1.0, device=device)
+    params = SimulationParams.new(dt=2e-3, gravity=np.eye(dim)[1] * -9.81, device=device)
+    return MpmData(params, p, models, [floor], 1.0, grid=grid, group=64, job_chunk=8,
+                   sparse=sparse)
+
+
+def live_by_id(state, n: int, what: str):
+    """(ids, positions, velocities) of the live lanes (id >= 0, mass > 0) of
+    a gathered state, by id; fails unless there are n of them."""
+    p = state.particles
+    ids, mass = np.asarray(p.ids), np.asarray(p.mass)
+    live = (ids >= 0) & (mass > 0)
+    if int(live.sum()) != n or len(np.unique(ids[live])) != n:
+        fail(f"{what}: {int(live.sum())} live particles ({len(np.unique(ids[live]))} "
+             f"distinct ids), not {n}")
+    o = np.argsort(ids[live])
+    return ids[live][o], np.asarray(p.pos)[live][o], np.asarray(p.vel)[live][o]
+
+
+def run_ranks(data, cfg, world, frames, what, backend="gloo", after=None,
+              setup=None, pad=False):
+    """data's state (padded to the world with zero-mass lanes when pad)
+    sharded over `world` ranks (spatially under a spatial cfg) and stepped
+    there frame by frame; returns launch.step_job's results."""
+    from wgsparkl_tpu_torch.parallel import domain, launch
+
+    state = data.state
+    if pad:
+        state = domain.pad_state(state, cfg.grid, domain.pad_particle_count(
+            data.num_particles, world))
+    shards = [domain.shard_state_spatial(state, cfg, r) if cfg.spatial_devices
+              else domain.shard_state(state, r, world) for r in range(world)]
+    shards = [domain.map_state(lambda t: t.cpu().numpy(), s) for s in shards]
+    params = dataclasses.replace(data.params, gravity=data.params.gravity.cpu())
+    devices = ([f"cuda:{r}" for r in range(world)] if backend == "nccl"
+               else [DEVICE] * world)
+    print(f"{what}: backend {backend}, world size {world}, ranks on {devices}"
+          + (" (buffers staged through pinned host memory)"
+             if backend == "gloo" and DEVICE != "cpu" else ""), flush=True)
+    del state
+    torch.cuda.empty_cache()
+    return launch.run(launch.step_job, world, args=(params, cfg, frames, after),
+                      rank_args=[(s,) for s in shards], backend=backend,
+                      devices=devices, setup=setup, timeout=900)
+
+
+def check_ranks(res, what, n, kernels):
+    """The gates of a multi-device run: no StepDiag fault on any rank in any
+    frame, finite positions, every live particle kept, the bodies bit-equal
+    across the ranks, every kernel of the path launched.  Returns the
+    launch counts summed over the ranks."""
+    from wgsparkl_tpu_torch.parallel import domain
+
+    for i in range(len(res[0]["diags"])):
+        diag = res[0]["diags"][i]
+        bad = {k: v.tolist() for k, v in diag.items()
+               if k in ("job_overflow", "sparse_occ_overflow", "sparse_act_overflow",
+                        "migration_dropped", "live_lost", "halo_dropped") and v.max() > 0}
+        if bad:
+            fail(f"{what}: frame {i}: StepDiag faults per rank {bad}")
+    last = [r["states"][-1] for r in res]
+    st = domain.gather_state(last)
+    if not np.isfinite(st.particles.pos).all():
+        fail(f"{what}: non-finite positions")
+    live_by_id(st, n, what)
+    for f in ("pos", "rot", "linvel", "angvel"):
+        a, b = getattr(last[0].bodies, f), getattr(last[-1].bodies, f)
+        if not np.array_equal(a.view(np.uint32), b.view(np.uint32)):
+            fail(f"{what}: body {f} differs between rank 0 and rank {len(res) - 1}")
+    counts = {k: sum(r["launches"][k] for r in res) for k in res[0]["launches"]}
+    if min(counts[k] for k in kernels) <= 0:
+        fail(f"{what}: a kernel of the path never launched: {counts}")
+    return counts
+
+
+def parallel_paths(wt, card, kind, launches, records):
+    """Paths 15, 15b, 15c, 15d at full size (the ranks gloo-staged on the
+    one card; again on NCCL where there is a card a rank): one substep and
+    the rest of a frame.  After the substep the gathered state, matched by
+    id, must be within 1e-5 in position and 1e-4 in velocity of the
+    unsharded step on the same grid (the frame's difference is printed);
+    check_ranks' gates after each.  launches gets the ranks' summed
+    counts; records the recording rank's last substep, for phase 5."""
+    from wgsparkl_tpu_torch.ops import blocked as bk
+    from wgsparkl_tpu_torch.parallel import domain, spatial_config
+    from wgsparkl_tpu_torch.pipeline import step_pallas, step_with_diag
+
+    def path_15():
+        return full_scene(DEVICE), None
+
+    def path_15b():
+        d = widened(full_scene(DEVICE), WORLD_15)
+        return d, spatial_config(d.config, WORLD_15, MIGRATION_CAP)
+
+    def path_15c():
+        d = widened(full_scene_2d(DEVICE), 2)
+        return d, spatial_config(d.config, 2, MIGRATION_CAP)
+
+    def path_15d():
+        d = widened(full_scene_sparse(DEVICE), WORLD_15)
+        return d, spatial_config(d.config, WORLD_15, MIGRATION_CAP, HALO_CAP_15D)
+
+    for tag, make, world, substeps, kernels, what in (
+            ("sharded", path_15, WORLD_15, SUBSTEPS, KERNELS_3D,
+             "path 15: main scene particle-sharded"),
+            ("spatial", path_15b, WORLD_15, SUBSTEPS, KERNELS_3D,
+             "path 15b: main scene in x slabs"),
+            ("spatial2d", path_15c, 2, SUBSTEPS2, KERNELS_2D,
+             "path 15c: 2D column in x slabs"),
+            ("spatial_sparse", path_15d, WORLD_15, SUBSTEPS, KERNELS_3D,
+             "path 15d: sparse main scene in x slabs")):
+        data, cfg_sp = make()
+        base = data.config
+        cfg = cfg_sp or base
+        n = data.num_particles
+        print(f"{what}: {n} particles, grid {base.grid.shape} ({bk.num_blocks(base.grid)} "
+              f"blocks), max_jobs {base.max_jobs}, migration_cap "
+              f"{cfg.migration_cap if cfg_sp else '-'}, halo_cap "
+              f"{cfg.halo_cap if cfg_sp and cfg.sparse else '-'}", flush=True)
+        # The unsharded step on the same grid: one substep, then the frame.
+        ref1, diag = step_with_diag(data.state, data.params, base, 1)
+        ref = step_pallas(ref1, data.params, base, substeps - 1)
+        if diag.any_overflow():
+            fail(f"{what}: the unsharded substep: {diag.summary()}")
+        refs = [domain.map_state(lambda t: t.cpu().numpy(), s) for s in (ref1, ref)]
+        refs = [live_by_id(s, n, what + " (unsharded)") for s in refs]
+        del ref1, ref
+        for backend in ("gloo", "nccl"):
+            if backend == "nccl" and torch.cuda.device_count() < world:
+                print(f"{what}: NCCL not run ({torch.cuda.device_count()} card(s) for "
+                      f"{world} ranks; NCCL takes one card a rank)", flush=True)
+                continue
+            res = run_ranks(data, cfg, world, [1, substeps - 1], f"{what} [{backend}]",
+                            backend, after=record_after, pad=cfg_sp is None)
+            counts = check_ranks(res, f"{what} [{backend}]", n, kernels)
+            errs = []
+            for i, (rid, rpos, rvel) in enumerate(refs):
+                ids, pos, vel = live_by_id(domain.gather_state(
+                    [r["states"][i] for r in res]), n, what)
+                if not np.array_equal(ids, rid):
+                    fail(f"{what}: the ranks' ids differ from the unsharded step's")
+                errs.append((float(np.abs(pos - rpos).max()),
+                             float(np.abs(vel - rvel).max())))
+            if not (errs[0][0] <= 1e-5 and errs[0][1] <= 1e-4):
+                fail(f"{what} [{backend}]: after one substep {errs[0][0]:.3e} in position, "
+                     f"{errs[0][1]:.3e} in velocity from the unsharded step "
+                     "(bounds 1e-5, 1e-4)")
+            diag = res[0]["diags"][-1]
+            shipped = sum(d["migrated"] for d in res[0]["diags"])
+            per_rank = [int(((r["states"][-1].particles.ids >= 0)
+                             & (r["states"][-1].particles.mass > 0)).sum()) for r in res]
+            secs = res[0]["seconds"]
+            sps = (substeps - 1) / secs[1]
+            print(f"{what} [{backend}]: against the unsharded step after one substep "
+                  f"{errs[0][0]:.3e} in position, {errs[0][1]:.3e} in velocity; after "
+                  f"the frame ({substeps} substeps) {errs[1][0]:.3e}, {errs[1][1]:.3e}; "
+                  f"every live particle kept, no StepDiag fault, bodies bit-equal "
+                  f"across ranks; per rank: live particles {per_rank}, migrants "
+                  f"shipped in the frame {shipped.tolist()}, dropped "
+                  f"{diag['migration_dropped'].tolist()}"
+                  + (f", peak occupied / active blocks {diag['sparse_n_occ'].tolist()} / "
+                     f"{diag['sparse_n_active'].tolist()}, peak boundary-plane active "
+                     f"blocks {diag['halo_n_plane'].tolist()} (halo_cap {cfg.halo_cap}), "
+                     f"halo dropped {diag['halo_dropped'].tolist()}" if cfg.sparse else "")
+                  + f"; launches { {k: counts[k] for k in kernels} }", flush=True)
+            print(f"{what} [{backend}]: {substeps - 1} substeps in {secs[1]:.3f} s -> "
+                  f"{sps:.3f} steps/s ({backend}-staged, one card: correctness only)"
+                  if backend == "gloo" else
+                  f"{what} [nccl]: {substeps - 1} substeps in {secs[1]:.3f} s -> "
+                  f"{sps:.3f} steps/s on {world} cards", flush=True)
+            if backend == "gloo":
+                launches.update((f"{k}_{tag}", counts[k]) for k in kernels)
+                records[tag] = (_tree(torch.as_tensor, res[record_rank(world)]["after"][0]),
+                                cfg, data.params.dt)
+            del res
+        del data
+        torch.cuda.empty_cache()
+
+
+def tile_pairs_library(pdata, jobs, bcells, h: float, wsh, maxj: int):
+    """The library yardstick of a P2G into job-window tiles (kernels A, F,
+    H): index_put_(accumulate=True) under deterministic algorithms (a sort
+    of the pair indices) of the (particle, stencil node) pairs of the
+    covered lanes, each the weighted momentum with the affine term and the
+    mass, into [maxj * window nodes, d + 1].  The pairs are built here, as
+    for the dense P2G's row; returns (the call, the pair count)."""
+    from wgsparkl_tpu_torch.ops import rows as R
+    from wgsparkl_tpu_torch.ops import rows2d as R2
+
+    d = len(wsh)
+    L = R if d == 3 else R2
+    wvol = int(np.prod(wsh))
+    jid, lane = R.job_lanes(jobs)
+    pd = pdata[:, lane]
+    bc = bcells.to(torch.int64)[jid]
+    w, nidx, valid = R.stencil([pd[a] for a in range(d)], bc, R.f32(1.0 / h), wsh)
+    coords, rest = [], nidx
+    for a in reversed(range(d)):
+        coords.insert(0, rest % wsh[a])
+        rest = rest // wsh[a]
+    dp = [(coords[a] + bc[:, a:a + 1]).to(torch.float32) * h - pd[a][:, None]
+          for a in range(d)]
+    m = pd[L.PM][:, None]
+    vals = []
+    for i in range(d):
+        mp = m * pd[L.VX + i][:, None]
+        for j in range(d):
+            mp = mp + pd[L.A0 + i * d + j][:, None] * dp[j]
+        vals.append(w * mp)
+    vals.append(w * m)
+    node = (jid[:, None] * wvol + nidx)[valid]
+    vals = torch.stack(vals, -1)[valid].contiguous()
+    out = torch.zeros((maxj * wvol, d + 1), dtype=torch.float32, device=pdata.device)
+
+    def library():
+        torch.use_deterministic_algorithms(True)
+        try:
+            out.zero_()
+            out.index_put_((node,), vals, accumulate=True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    return library, int(node.shape[0])
+
+
+def jobs_premise(rec, what: str) -> None:
+    """Kernel I's premise (it owns its whole output) on a recorded 2D
+    substep: the live jobs are the table's first slots and cover the
+    sorted lanes [0, covered_end) in one run."""
+    ln, st = rec["jobs"]["len"].cpu(), rec["jobs"]["start"].cpu()
+    k = int((ln > 0).sum())
+    ok = (k > 0 and bool((ln[:k] > 0).all()) and int(st[0]) == 0
+          and torch.equal(st[1:k], (st[:k - 1] + ln[:k - 1]).to(st.dtype))
+          and int(rec["covered_end"]) == int(ln[:k].sum()))
+    if not ok:
+        fail(f"{what}: the live jobs do not cover lanes [0, end) in one run")
+    print(f"{what}: kernel I's premise holds ({k} live jobs cover lanes [0, "
+          f"{int(rec['covered_end'])}) in one run)", flush=True)
+
+
+def _same_leaves(a, b, what: str) -> None:
+    """Two states (numpy leaves) equal bit for bit, leaf by leaf."""
+    from wgsparkl_tpu_torch.parallel import domain
+
+    flat = []
+    domain.map_state(lambda x: flat.append(x) or x, a)
+    other = []
+    domain.map_state(lambda x: other.append(x) or x, b)
+    for x, y in zip(flat, other):
+        x, y = np.ascontiguousarray(x), np.ascontiguousarray(y)
+        if x.shape != y.shape or x.tobytes() != y.tobytes():
+            fail(f"{what}: the kernel path's state differs from the plain path's")
+
+
+def parallel_small_scenes(dev) -> None:
+    """Phase 6's multi-device scenes on 2 ranks sharing the card (gloo): the
+    kernel path against the plain path (ranks whose kernel calls go to the
+    plain versions), every leaf of every rank's state bit for bit, the
+    bodies bit-equal across the ranks.  The spatial scenes run a substep,
+    then record the second (where the first migrants land on rank 0), then
+    8 more: migrants must have landed on the recording rank in the recorded
+    substep, and in 2D kernel I's premise must hold after its second
+    sort."""
+    from wgsparkl_tpu_torch import scenes
+    from wgsparkl_tpu_torch.ops import rows as R
+    from wgsparkl_tpu_torch.ops import rows2d as R2
+    from wgsparkl_tpu_torch.parallel import domain, launch, spatial_config
+
+    world = 2
+    cases = {
+        "particle-sharded 3D sand box": (lambda: scenes.sand_box_3d(
+            nxz=8, ny=16, device=dev, by=BY, group=256), {}, 5, KERNELS_3D),
+        "3D lattice in x slabs with lateral velocities": (
+            lambda: spatial_scene(dev), dict(migration_cap=512), 1, KERNELS_3D),
+        "2D column in x slabs with lateral velocities": (
+            lambda: spatial_scene(dev, 2), dict(migration_cap=512), 1, KERNELS_2D),
+        "sparse 3D lattice in x slabs": (
+            lambda: spatial_scene(dev, 3, True), dict(migration_cap=512, halo_cap=256),
+            1, KERNELS_3D),
+        "particle-sharded 3D dense sand box": (lambda: scenes.sand_box_3d(
+            nxz=8, ny=16, device=dev, transfer="dense"), {}, 5, KERNELS_DENSE),
+    }
+    jobs = [[] for _ in range(world)]
+    for make, sp, steps, _ in cases.values():
+        d = make()
+        cfg = spatial_config(d.config, world, **sp) if sp else d.config
+        params = dataclasses.replace(d.params, gravity=d.params.gravity.cpu())
+        for r in range(world):
+            shard = (domain.shard_state_spatial(d.state, cfg, r) if sp
+                     else domain.shard_state(d.state, r, world))
+            jobs[r].append((domain.map_state(lambda t: t.cpu().numpy(), shard), params,
+                            cfg, [steps],
+                            functools.partial(record_after, more=8) if sp else None))
+    run = dict(world=world, rank_args=[(j,) for j in jobs], devices=[DEVICE] * world)
+    kern = launch.run(launch.step_jobs, **run)
+    plain = launch.run(launch.step_jobs, setup=plain_setup, **run)
+    for i, (what, (_, sp, steps, kernels)) in enumerate(cases.items()):
+        counts = {k: sum(r[i]["launches"][k] for r in kern) for k in kernels}
+        if min(counts.values()) <= 0:
+            fail(f"{what}: a kernel of the path never launched: {counts}")
+        for r in range(world):
+            _same_leaves(kern[r][i]["states"][-1], plain[r][i]["states"][-1],
+                         f"{what}, rank {r}")
+            if sp:
+                _same_leaves(kern[r][i]["after"][1], plain[r][i]["after"][1],
+                             f"{what}, rank {r}, substep 10")
+            faults = {k: v.tolist() for k, v in kern[r][i]["diags"][-1].items()
+                      if k in ("job_overflow", "migration_dropped", "live_lost",
+                               "halo_dropped", "sparse_occ_overflow",
+                               "sparse_act_overflow") and v.max() > 0}
+            if faults:
+                fail(f"{what}: StepDiag faults {faults}")
+        last = [r[i]["after"][1] if sp else r[i]["states"][-1] for r in kern]
+        b0, b1 = last[0].bodies, last[-1].bodies
+        if not all(np.array_equal(getattr(b0, f).view(np.uint32),
+                                  getattr(b1, f).view(np.uint32))
+                   for f in ("pos", "rot", "linvel", "angvel")):
+            fail(f"{what}: the bodies differ between the ranks")
+        if sp:
+            rec = _tree(torch.as_tensor, kern[record_rank(world)][i]["after"][0])
+            cfg = jobs[0][i][2]
+            pm = R.PM if cfg.grid.dim == 3 else R2.PM
+            npad = rec["unsorted"].shape[1]
+            moved = int((rec["unsorted"][pm, npad - 2 * cfg.migration_cap:] > 0).sum())
+            if moved == 0:
+                fail(f"{what}: no migrant landed on rank {record_rank(world)} in the "
+                     "recorded substep")
+            if cfg.grid.dim == 2:
+                jobs_premise(rec, f"{what} ({moved} migrants landed)")
+    print(f"multi-device small scenes on {world} ranks ({'; '.join(cases)}): the "
+          "kernel path equals the plain path bit for bit on every rank, bodies "
+          "bit-equal across ranks", flush=True)
+
+# The entries of the kernel line that paths 15-15d add: each kernel on the
+# rows of one rank (record_rank) of a path.
+PARALLEL_KERNELS = {"sharded": KERNELS_3D, "spatial": KERNELS_3D,
+                    "spatial2d": KERNELS_2D, "spatial_sparse": KERNELS_3D}
+for _tag, _ks in PARALLEL_KERNELS.items():
+    for _k in _ks:
+        REPLACES[f"{_k}_{_tag}"] = REPLACES[_k]
+        SOURCE[f"{_k}_{_tag}"] = SOURCE.get(_k, _k)
 
 
 def full_scene_2d(dev, **mpm_kw):
@@ -1623,6 +2091,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     # ---- paths 13, 13b, 14: the dense and blocked transfers ----
     dense_paths(wt, card, kind, launches)
+    # ---- paths 15-15d: multi-device stepping, ranks sharing the card ----
+    records = {}
+    parallel_paths(wt, card, kind, launches, records)
 
     checks = []
 
@@ -1803,6 +2274,9 @@ def main() -> None:
     # per-particle outputs of A and B follow the plain operation order (B's
     # bit for bit); C differs from its plain version only through libm
     # (expf, logf, sinf); D and E move integers and must be exact.
+    lib_a, n_pairs = tile_pairs_library(rec["rows"], rec["jobs"], rec["bcells"], h,
+                                        R.window_geom(BY)[0], rec["jobs"]["len"].shape[0])
+    print(f"p2g_cdf library yardstick: {n_pairs} (particle, node) pairs", flush=True)
     check("p2g_cdf",
           lambda: p2g_cdf.p2g_cdf_tiles(*args_a),
           lambda: p2g_cdf.p2g_cdf_plain(*args_a),
@@ -1814,7 +2288,9 @@ def main() -> None:
           lambda p: (None if float(p[1].abs().max()) > 1.0
                      else "the plain impulses are ~0: no contact load"),
           cost=(4 * (24 * ce + nj * wv * 4 + nj * wv * 8 + 8 * ce + njg * 8 * 128),
-                ce * (30 + 27 * 13 * 2) + pg * (27 * (3 * nc + 58) + 200)))
+                ce * (30 + 27 * 13 * 2) + pg * (27 * (3 * nc + 58) + 200)),
+          library=lib_a)
+    del lib_a
     check("g2p",
           lambda: g2p.g2p_rows(*args_b), lambda: g2p.g2p_plain(*args_b),
           lambda k, p: [], lambda k, p: [("rows", k[:, :ce], p[:, :ce])],
@@ -1951,6 +2427,9 @@ def main() -> None:
     # G, H and I sum in the plain versions' order: bit for bit.  The dim=2
     # entry of C differs from its plain version only through libm.
     check_pcdf2d("pcdf2d", args_g, job_stats(rec))
+    lib_h, n_pairs = tile_pairs_library(rec["pdata"], rec["jobs"], rec["bcells"], h,
+                                        R2.WSH, rec["jobs"]["len"].shape[0])
+    print(f"p2g2d library yardstick: {n_pairs} (particle, node) pairs", flush=True)
     check("p2g2d",
           lambda: transfer2d.p2g_tiles(*args_h),
           lambda: transfer2d.p2g_plain(*args_h),
@@ -1958,7 +2437,8 @@ def main() -> None:
                                          ("impulses", k[1], p[1])],
           lambda p: (None if float(p[1].abs().max()) > 1e-3
                      else "the plain impulses are ~0: no contact load"),
-          cost=p2g2d_cost(ce, pg, nj, njg, nc))
+          cost=p2g2d_cost(ce, pg, nj, njg, nc), library=lib_h)
+    del lib_h
     width = npad + GROUP2 + 128
     check("g2p2d",
           lambda: transfer2d.g2p_rows(*args_i),
@@ -2389,13 +2869,17 @@ def main() -> None:
           f"jobs of {maxj}", flush=True)
     # Bit for bit: every node sums its pairs in the lists order, as the
     # plain version does.
+    lib_f, _ = tile_pairs_library(r["pdata"], r["jobs"], r["bcells"],
+                                  cfg_f.grid.cell_width, R.window_geom(BY)[0], maxj)
     check("p2g",
           lambda: p2g.p2g_tiles(*args_f), lambda: p2g.p2g_plain(*args_f),
           lambda k, p: [], lambda k, p: [("mm tiles", k[0], p[0]),
                                          ("impulses", k[1], p[1])],
           lambda p: (None if float(p[0][..., 3].sum()) > 0.0
                      else "no mass reached the grid"),
-          cost=(4 * (16 * ce + maxj * wv * 8), ce * (40 + 27 * 28) + nj * wv * 20))
+          cost=(4 * (16 * ce + maxj * wv * 8), ce * (40 + 27 * 28) + nj * wv * 20),
+          library=lib_f)
+    del lib_f
     del rec_f, r, args_f
     torch.cuda.empty_cache()
 
@@ -2515,6 +2999,106 @@ def main() -> None:
                     n * kk * (4 + 3 * d * d)))
         del data, state, rec, rows, args_1, args_2, args_3
         torch.cuda.empty_cache()
+
+    # ---- 5k. paths 15-15d: each kernel on the rows of one rank ----
+    # The recording rank's substep after a path's frame (a middle rank,
+    # receiving migrants from both sides on the spatial paths): the same
+    # entries and tolerances as the single-device paths', the rows of a
+    # rank holding mass-0 slack lanes and migrants landed on the tail pads.
+    for tag, (rec, cfg_r, dt) in records.items():
+        rec = _tree(lambda t: t.to(dev), rec)
+        h, npad, nc = cfg_r.grid.cell_width, rec["rows"].shape[1], cfg_r.num_colliders
+        d = cfg_r.grid.dim
+        ce, pg, nj, njg = job_stats(rec)
+        pm = R.PM if d == 3 else R2.PM
+        cap = cfg_r.migration_cap
+        moved = (int((rec["unsorted"][pm, npad - 2 * cap:] > 0).sum())
+                 if cfg_r.spatial_devices else 0)
+        print(f"{tag} kernel inputs (rank {record_rank(cfg_r.spatial_devices or WORLD_15)}"
+              f"): {ce} covered particles ({pg} in gated jobs), {nj} live jobs ({njg} "
+              f"gated), NPAD {npad}, {moved} migrants on the tail pads", flush=True)
+        if d == 3:
+            mode = (rec["moving"], rec["static_desc"], rec["chan_free"])
+            args_a = (rec["rows"][:24].contiguous(), rec["ntiles"], rec["btable"],
+                      rec["jobs"], rec["bcells"], rec["jbody"], h, cfg_r.by, cfg_r.group,
+                      npad, nc, *mode)
+            args_b = (rec["pdata"], rec["ftiles"], rec["ntiles"], rec["btable"],
+                      rec["jobs"], rec["bcells"], rec["jbody"], h, cfg_r.by, cfg_r.group,
+                      npad, nc, *mode)
+            args_c = (rec["rows"], rec["krows"], rec["pcdf"], rec["sorted_ids"],
+                      rec["covered_end"], rec["btable"], rec["mtable"], dt, h, nc,
+                      max(cfg_r.n_materials, 1), rec["live_below"])
+            wv = R.window_geom(cfg_r.by)[1]
+            check(f"p2g_cdf_{tag}",
+                  lambda: p2g_cdf.p2g_cdf_tiles(*args_a),
+                  lambda: p2g_cdf.p2g_cdf_plain(*args_a),
+                  lambda k, p: [("impulses", k[1], p[1], 1e-4)],
+                  lambda k, p: [("mm tiles", k[0], p[0]), ("impulses", k[1], p[1]),
+                                ("particle cdf rows", k[2][:, :ce], p[2][:, :ce])],
+                  cost=(4 * (24 * ce + nj * wv * 4 + nj * wv * 8 + 8 * ce + njg * 8 * 128),
+                        ce * (30 + 27 * 13 * 2) + pg * (27 * (3 * nc + 58) + 200)))
+            check(f"g2p_{tag}",
+                  lambda: g2p.g2p_rows(*args_b), lambda: g2p.g2p_plain(*args_b),
+                  lambda k, p: [], lambda k, p: [("rows", k[:, :ce], p[:, :ce])],
+                  cost=g2p_cost(ce, pg, nj, njg, wv))
+            check(f"update_rows_{tag}",
+                  lambda: update_rows.update_rows(*args_c),
+                  lambda: update_rows.update_plain(*args_c),
+                  lambda k, p: [(f"row {r}", k[r], p[r], 1e-4) for r in range(k.shape[0])],
+                  lambda k, p: [(f"row {r}", k[r], p[r]) for r in (16, 20, 21, 22)],
+                  cost=c_cost(C_ROWS_READ_3D, 12, 6, rec["rows"].shape[0], npad, ce, 6000))
+            del args_a, args_b, args_c
+        else:
+            jobs = (rec["jobs"], rec["bcells"], rec["jbody"], h)
+            args_g = (rec["rows"], rec["ntiles"]) + jobs + (cfg_r.group, npad, nc)
+            args_h = (rec["pdata"], rec["ntiles"], rec["btable"]) + jobs + (nc,)
+            args_i = ((rec["pdata"], rec["ftiles"], rec["ntiles"], rec["btable"]) + jobs
+                      + (cfg_r.group, npad, nc))
+            args_c2 = (rec["rows"], rec["krows"], rec["pcdf"], rec["sorted_ids"],
+                       rec["covered_end"], rec["btable"], rec["mtable"], dt, h, nc,
+                       max(cfg_r.n_materials, 1), rec["nb_total"])
+            jobs_premise(rec, f"{tag} (rank {record_rank(cfg_r.spatial_devices)})")
+            check_pcdf2d(f"pcdf2d_{tag}", args_g, job_stats(rec))
+            check(f"p2g2d_{tag}",
+                  lambda: transfer2d.p2g_tiles(*args_h),
+                  lambda: transfer2d.p2g_plain(*args_h),
+                  lambda k, p: [], lambda k, p: [("mm tiles", k[0], p[0]),
+                                                 ("impulses", k[1], p[1])],
+                  cost=p2g2d_cost(ce, pg, nj, njg, nc))
+            check(f"g2p2d_{tag}",
+                  lambda: transfer2d.g2p_rows(*args_i),
+                  lambda: transfer2d.g2p_plain(*args_i),
+                  lambda k, p: [], lambda k, p: [("rows", k, p)],
+                  cost=g2p2d_cost(ce, pg, nj, njg, npad + cfg_r.group + 128))
+            check(f"update_rows2d_{tag}",
+                  lambda: update_rows.update_rows2d(*args_c2),
+                  lambda: update_rows.update2d_plain(*args_c2),
+                  lambda k, p: [(f"row {r}", k[r], p[r], 1e-4) for r in range(k.shape[0])],
+                  lambda k, p: [(f"row {r}", k[r], p[r]) for r in (9, 12, 13, 14)],
+                  cost=c_cost(C_ROWS_READ_2D, 6, 5, rec["rows"].shape[0], npad, ce, 400))
+            del args_g, args_h, args_i, args_c2
+        # D on the substep's last sort (under migration the second), E on its
+        # sorted keys' run starts (a lane-index row: sparse keys pass E's
+        # exact f32).
+        check(f"permute_{tag}",
+              lambda: permute.permute_lanes(rec["unsorted"], rec["perm"]),
+              lambda: permute.permute_plain(rec["unsorted"], rec["perm"]),
+              lambda k, p: [], lambda k, p: [("rows", k, p)],
+              cost=(4 * (2 * rec["unsorted"].shape[0] * npad + npad), 0),
+              library=lambda: rec["unsorted"].index_select(1, rec["perm"]))
+        sids = rec["sorted_ids"]
+        first = torch.ones_like(sids, dtype=torch.bool)
+        first[1:] = sids[1:] != sids[:-1]
+        vals = torch.arange(npad, device=dev, dtype=torch.float32)[None, :]
+        cap_e = min((cfg_r.amax if cfg_r.sparse else int(rec["nb_total"])) + 3, npad)
+        check(f"compact_{tag}",
+              lambda: compact.compact_flagged(vals, first, cap_e),
+              lambda: compact.compact_plain(vals, first, cap_e),
+              lambda k, p: [], lambda k, p: [("values", k[0], p[0]), ("ok", k[1], p[1])],
+              cost=(npad + 4 * int(first.sum()) + 4 * 2 * cap_e, 0))
+        del rec, sids, first, vals
+        torch.cuda.empty_cache()
+    del records
 
     # ---- 6. kernel path vs plain path on small scenes ----
     def agree(sk, sp, what):
@@ -2775,6 +3359,7 @@ def main() -> None:
     print("small dense and blocked scenes (" + "; ".join(small_dense) + "): kernel "
           "path equals the plain path on the card and agrees with it on the CPU "
           "substep by substep", flush=True)
+    parallel_small_scenes(dev)
     for c in checks:
         c["launches"] = launches[c["name"]]
     print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)

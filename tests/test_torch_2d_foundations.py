@@ -28,6 +28,7 @@ from wgsparkl_tpu_torch.models import drucker_prager as dp
 from wgsparkl_tpu_torch.models.elasticity import kirchoff_stress_corotated_ch2
 from wgsparkl_tpu_torch.ops import blocked as bk
 from wgsparkl_tpu_torch.ops import rows2d as R2
+from wgsparkl_tpu_torch.parallel import spatial_config
 from wgsparkl_tpu_torch.rigid import body as body_mod
 
 torch.set_num_threads(2)
@@ -342,22 +343,32 @@ def _fold_vel_2d():
                                  fold_vel=True)
 
 
-_PORTED_2D = {_chan_free_2d: "chan_free", _fold_vel_2d: "fold_vel"}
+def _spatial_2d():
+    """The column's 3 x-blocks split in 3 slabs through spatial_config (2
+    do not divide them and raise), as in the JAX package."""
+    d = scenes.sand_column_2d(nx=4, ny=4, cell_width=0.5, device="cpu")
+    with pytest.raises(ValueError, match="divide"):
+        spatial_config(d.config, 2)
+    d.config = spatial_config(d.config, 3)
+    return d
+
+
+_PORTED_2D = {_chan_free_2d: "chan_free", _fold_vel_2d: "fold_vel",
+              _spatial_2d: "spatial_devices"}
 
 
 @pytest.mark.parametrize("make", [
     _chan_free_2d,
     None,
     _fold_vel_2d,
-    lambda: scenes.sand_column_2d(nx=4, ny=4, cell_width=0.5, device="cpu",
-                                  spatial_devices=2),
+    _spatial_2d,
     _moving_floor_2d,
 ], ids=["chan_free", "neo_hookean", "fold_vel", "spatial", "moving_collider"])
 def test_unported_2d_options_raise(make):
     """Each 2D option the port lacks raises naming its ROADMAP item.  2D
-    neo-Hookean, 2D moving colliders, the 2D chan-free CDF mode and
-    fold_vel are ported now: those cases build and carry the model, the
-    moving slot or the option."""
+    neo-Hookean, 2D moving colliders, the 2D chan-free CDF mode, fold_vel
+    and spatial slabs are ported now: those cases build and carry the
+    model, the moving slot or the option."""
     if make in _PORTED_2D:
         d = make()
         assert getattr(d.config, _PORTED_2D[make])

@@ -45,6 +45,7 @@ from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.ops import rows2d as R2
 from wgsparkl_tpu_torch.ops import transfer as ttr
 from wgsparkl_tpu_torch.ops.update_rows import _rigid_velocity
+from wgsparkl_tpu_torch.parallel import spatial_config
 from wgsparkl_tpu_torch.params import SimulationParams
 from wgsparkl_tpu_torch.pipeline import (MpmData, RigidBodyDesc, _body_table,
                                          _body_table_2d, pallas_npad, step)
@@ -416,8 +417,9 @@ def test_dense_matches_cpic_oracle(plate):
 def test_config_from_reference_dense_and_blocked(transfer):
     """config_from_reference carries transfer and job_chunk, and the port's
     MpmData sizes the job table as the JAX package does (4 ceil(N / group)
-    + 64, rounded to job_chunk and 64; none for dense); spatial sharding is
-    still refused."""
+    + 64, rounded to job_chunk and 64; none for dense); the multi-device
+    fields come over too, and spatial slabs take the pallas transfer only,
+    as in the JAX package."""
     jd = cpic_scene()[0]
     from wgsparkl_tpu.pipeline import MpmData as JMpmData
 
@@ -432,5 +434,7 @@ def test_config_from_reference_dense_and_blocked(transfer):
                  grid=cfg.grid, **kw)
     assert td.config.max_jobs == cfg.max_jobs == (128 if transfer == "blocked" else 0)
     assert dataclasses.replace(td.config, n_materials=1) == cfg
-    with pytest.raises(NotImplementedError, match="spatial_devices"):
-        interop.config_from_reference(dataclasses.replace(jd.config, spatial_devices=2))
+    sp = interop.config_from_reference(dataclasses.replace(jd.config, spatial_devices=2))
+    assert sp.spatial_devices == 2 and dataclasses.replace(sp, spatial_devices=0) == cfg
+    with pytest.raises(ValueError, match="pallas"):
+        spatial_config(cfg, 2)

@@ -23,6 +23,7 @@ from wgsparkl_tpu_torch.collision import cdf_channel as cch
 from wgsparkl_tpu_torch.math import probe, svd
 from wgsparkl_tpu_torch.models import drucker_prager as dp
 from wgsparkl_tpu_torch.ops import rows as R
+from wgsparkl_tpu_torch.parallel import spatial_config
 from wgsparkl_tpu_torch.params import SimulationParams
 from wgsparkl_tpu_torch.pipeline import build_rigid_world
 from wgsparkl_tpu_torch.rigid import body as body_mod
@@ -161,12 +162,14 @@ def test_main_path_configuration_matches_jax():
     dict(spatial_devices=2)])
 def test_unported_options_raise(kw):
     """Each 3D option the port lacks raises naming its ROADMAP item.  The
-    chan-free CDF mode, fold_vel, joints, the sparse domain and the dense
-    transfer are ported now: those cases build and carry the option (the
-    joint normalised to a ball joint; the sparse domain with the JAX
-    package's kmax and amax defaults, at by 4, the only block height it
-    takes; the dense transfer at by 4 with no job table, by 8 refused as
-    in the JAX package)."""
+    chan-free CDF mode, fold_vel, joints, the sparse domain, the dense
+    transfer and multi-device sharding are ported now: those cases build
+    and carry the option (the joint normalised to a ball joint; the sparse
+    domain with the JAX package's kmax and amax defaults, at by 4, the only
+    block height it takes; the dense transfer at by 4 with no job table, by
+    8 refused as in the JAX package; spatial slabs through
+    parallel.spatial_config, as in the JAX package, whose MpmData takes no
+    spatial_devices: 2 slabs over 8 x-blocks, 3 refused)."""
     if "joints" in kw:
         d = scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
         assert d.config.joints == ((0, 5, (0.0, 0.0, 0.0), (0.0, 0.0, 0.0), "ball",
@@ -186,6 +189,16 @@ def test_unported_options_raise(kw):
         with pytest.raises(ValueError, match="pallas"):
             scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
         return
+    if kw == dict(spatial_devices=2):
+        d = scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu")
+        cfg = spatial_config(d.config, 2)
+        assert (cfg.spatial_devices, cfg.migration_cap, cfg.halo_cap) == (2, 2048, 1024)
+        assert dataclasses.replace(cfg, spatial_devices=0) == d.config
+        with pytest.raises(ValueError, match="divide"):
+            spatial_config(d.config, 3)
+        with pytest.raises(TypeError):
+            scenes.sand_box_3d(nxz=4, ny=6, by=8, device="cpu", **kw)
+        return
     if kw == dict(sparse=True):
         d = scenes.sand_box_3d(nxz=4, ny=6, device="cpu", **kw)
         c = d.config
@@ -197,12 +210,17 @@ def test_unported_options_raise(kw):
 
 
 def test_unported_reference_config_raises():
-    """The JAX package's default (dense) configuration comes over now;
-    multi-device sharding, which the port lacks, still raises."""
+    """The JAX package's default (dense) configuration comes over now, and
+    so do its multi-device fields (spatial_devices, migration_cap,
+    halo_cap); an elastic model the port lacks still raises."""
     j = jscenes.sand_box_3d(nxz=4, ny=6)
     assert interop.config_from_reference(j.config).transfer == "dense"
+    cfg = interop.config_from_reference(dataclasses.replace(
+        j.config, spatial_devices=2, migration_cap=64, halo_cap=32))
+    assert (cfg.spatial_devices, cfg.migration_cap, cfg.halo_cap) == (2, 64, 32)
     with pytest.raises(NotImplementedError):
-        interop.config_from_reference(dataclasses.replace(j.config, spatial_devices=2))
+        interop.config_from_reference(dataclasses.replace(j.config,
+                                                          elastic_model="hencky"))
 
 
 def test_sparse_reference_config_is_carried():
@@ -236,17 +254,18 @@ def test_sparse_refuses_2d_and_by8(case):
 
 def test_one_way_coupling_reference_config_raises():
     """Per-body coupling is ported now: a one-way body's mode is carried
-    over; an unported option beside it (multi-device sharding) still
-    raises."""
+    over, and with it the spatial decomposition beside it (ported too):
+    the configuration equals the port's own spatial_config of the same
+    scene."""
     j = jscenes.sand_box_3d(nxz=4, ny=6, transfer="pallas", by=8)
     interop.config_from_reference(j.config)
     one_way = (1,) + tuple(j.config.coupling[1:])
     cfg = interop.config_from_reference(dataclasses.replace(j.config,
                                                             coupling=one_way))
     assert cfg.coupling == one_way and one_way[1:] == (2,) * 5
-    with pytest.raises(NotImplementedError, match="spatial_devices"):
-        interop.config_from_reference(dataclasses.replace(
-            j.config, coupling=one_way, spatial_devices=2))
+    both = interop.config_from_reference(dataclasses.replace(
+        j.config, coupling=one_way, spatial_devices=2))
+    assert both == spatial_config(cfg, 2) and both.coupling == one_way
 
 
 # Each call builds with no device and returns one tensor it made.

@@ -3,6 +3,12 @@
     python3 tools/rehearse_chip_smoke.py            # every phase, ~2 min
     REHEARSE_ONLY=mesh python3 tools/rehearse_chip_smoke.py   # paths 9-11
     REHEARSE_ONLY=dense python3 tools/rehearse_chip_smoke.py  # paths 13-14
+    REHEARSE_ONLY=parallel python3 tools/rehearse_chip_smoke.py  # paths 15-15d
+
+Paths 15-15d and phase 6's multi-device scenes run their ranks as spawned
+CPU processes on gloo; a spawned rank imports this script again (as
+__mp_main__), which gives it the same stubs, counters and sizes, and only
+the run below stays in the parent.
 
 Stubs torch.cuda, nvidia-smi and the nvcc build, counts launches where the
 pipeline calls each kernel wrapper (a wrapper counts only its CUDA
@@ -92,7 +98,7 @@ ablation.probe_inputs = lambda n=20000, *a, device=None, **k: _inputs(
 
 cs.DEVICE = "cpu"
 cs.NXZ, cs.NY = 12, 24
-cs.NX2, cs.NY2, cs.H2, cs.GROUP2 = 64, 64, 0.5, 128
+cs.NX2, cs.NY2, cs.H2, cs.GROUP2 = 256, 64, 0.5, 128
 cs.STIR_SCALE = cs.NX2 * cs.H2 / 12
 cs.N_SAND2 = 64
 cs.N_CUT2, cs.CUT3_SCALE, cs.HF3_SCALE = 48, 0.2, 0.2
@@ -100,11 +106,14 @@ cs.SUBSTEPS, cs.SUBSTEPS2, cs.SUBSTEPS_NEO2, cs.SUBSTEPS_CUT2 = 4, 4, 4, 4
 cs.TIMED_FRAMES = 1
 cs.TIMED_FRAMES_SHORT = 1
 only = os.environ.get("REHEARSE_ONLY")
-if only == "mesh":
+if __name__ == "__main__":
     import wgsparkl_tpu_torch as wt
-    cs.mesh_paths(wt, "CPU rehearsal", "CPU rehearsal", {}, 1)
-elif only == "dense":
-    import wgsparkl_tpu_torch as wt
-    cs.dense_paths(wt, "CPU rehearsal", "CPU rehearsal", {}, 1)
-else:
-    cs.main()
+    if only == "mesh":
+        cs.mesh_paths(wt, "CPU rehearsal", "CPU rehearsal", {}, 1)
+    elif only == "dense":
+        cs.dense_paths(wt, "CPU rehearsal", "CPU rehearsal", {}, 1)
+    elif only == "parallel":
+        cs.parallel_paths(wt, "CPU rehearsal", "CPU rehearsal", {}, {})
+        cs.parallel_small_scenes("cpu")
+    else:
+        cs.main()

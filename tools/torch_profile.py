@@ -4,7 +4,8 @@
 
 PATH is one of 3d, 3d-fold, 3d-neo, 3d-free, 3d-shapes, 3d-shapes-chan-free,
 3d-dyn, 2d, 2d-fold, 2d-neo, 2d-stirred, 2d-stirred-chan-free, sand2, cut2,
-cut3, hf3, sparse, hf3-sparse, dense, dense-2d, blocked.  Builds the
+cut3, hf3, sparse, hf3-sparse, dense, dense-2d, blocked, sharded, spatial.
+Builds the
 full-size scene of chip_smoke.py (3d: the 1,002,001-particle sand box with
 the paddle, 20 substeps a frame; 3d-fold: the same with the grid update
 folded into G2P (`fold_vel`); 3d-neo: the same with the neo-Hookean
@@ -25,7 +26,9 @@ at SCALE=1; sparse: path 12, the 3d lattice in the sparse domain as
 bench.py's BENCH_SPARSE=1 run builds it; hf3-sparse: path 12b, path
 11 built sparse; dense: path 13, the 3d lattice on the dense transfer;
 dense-2d: path 13b, the 2d column on the dense transfer; blocked: path 14,
-the 3d lattice on the blocked transfer), runs one warm frame and chip_smoke.TIMED_FRAMES (3)
+the 3d lattice on the blocked transfer; sharded: path 15, the 3d lattice
+particle-sharded over 4 ranks; spatial: path 15b, the 3d lattice in 4 x
+slabs on its widened grid), runs one warm frame and chip_smoke.TIMED_FRAMES (3)
 unprofiled frames (host clock around synchronised frames), then one frame
 under torch.profiler.  Prints the frame wall times, the device time of the
 profiled frame, the device's idle share against the median unprofiled
@@ -37,7 +40,14 @@ paths 7 and 8 the rigid solve's, and on paths 9-11 the mesh pass's
 on the sparse paths the slot channel grid's ms a call (CUDA events around
 `pipeline._sparse_chan_grid` on a substep's active table) and its share
 of a substep's device time, on the dense and blocked paths each dense
-kernel's device ms and launches a substep.
+kernel's device ms and launches a substep.  The sharded and spatial paths
+run their 4 ranks on the one card through gloo (buffers staged through
+pinned host memory: a correctness set-up, not a multi-device speed), every
+rank stepping the frames, and profile rank 0 (sharded) or the middle rank
+1 (spatial); they also print the device and host ms a substep of the
+profiler spans "exchange" (the grid's sum or halo exchange and the
+impulses' sums, staging included) and "migrate_x" (the migration and the
+second sort) and their shares of the rank's device time and frame wall.
 Fails without a CUDA device, on a 2D path where G did not launch, on
 paths 7 and 8 where the rigid solve did not and on paths 9-11 where the
 mesh pass did not.
@@ -46,6 +56,8 @@ mesh pass did not.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import os
 import statistics
 import subprocess
@@ -59,6 +71,119 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 import chip_smoke  # noqa: E402
 
 
+ACTS = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+
+# Profiler spans of the multi-device step (pipeline: record_function).
+SPANS = ("exchange", "migrate_x")
+
+
+def device_rows(prof):
+    """(device ms, calls, name) of each device-side event (kernels, copies,
+    fills), largest first: the CPU operators that launched them carry the
+    same device time again, and a span's device-side row (its extent on the
+    device's timeline, idle gaps included) is left out."""
+    rows = []
+    for e in prof.key_averages():
+        if (getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA
+                or e.key in SPANS):
+            continue
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0.0)
+        if dt > 0:
+            rows.append((dt / 1e3, e.count, e.key))
+    if not rows:
+        sys.exit("FAIL: the profiler recorded no device events")
+    return sorted(rows, reverse=True)
+
+
+def report(rows, walls, substeps) -> float:
+    """Print the frame walls, the profiled frame's device time, idle share
+    and launches, and the kernels by device time; returns the device ms."""
+    device_ms = sum(r[0] for r in rows)
+    median = statistics.median(walls)
+    print("unprofiled frame wall ms: " + ", ".join(f"{w:.3f}" for w in walls))
+    print(f"profiled frame: device time {device_ms:.3f} ms "
+          f"({device_ms / substeps:.3f} ms a substep); idle share against the "
+          f"median unprofiled frame {1.0 - device_ms / median:.3f}; "
+          f"{sum(r[1] for r in rows) / substeps:.1f} device launches a substep")
+    print("device ms a substep, calls a substep, kernel:")
+    # The 40 largest, then the port's own kernels among the rest (their
+    # names carry no namespace, unlike PyTorch's and CUB's).
+    own = [r for r in rows[40:] if "::" not in r[2] and not r[2].startswith("Mem")]
+    for ms, count, key in rows[:40] + own:
+        print(f"  {ms / substeps:8.4f}  {count / substeps:6.1f}  {key[:110]}")
+    return device_ms
+
+
+def profile_rank(comm, state, params, cfg, profiled: int):
+    """Rank hook: a warm frame and chip_smoke.TIMED_FRAMES timed frames on
+    every rank, then one frame under torch.profiler on rank `profiled`;
+    returns that rank's frame walls, device rows and spans (name, device
+    ms of the kernels launched inside, host ms, device-timeline extent ms,
+    calls), None on the others."""
+    from wgsparkl_tpu_torch.pipeline import step_pallas
+
+    substeps = chip_smoke.SUBSTEPS
+    state = step_pallas(state, params, cfg, substeps, comm=comm)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(chip_smoke.TIMED_FRAMES):
+        t0 = time.time()
+        state = step_pallas(state, params, cfg, substeps, comm=comm)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.time() - t0))
+    me = comm.rank == profiled
+    with (torch.profiler.profile(activities=ACTS, acc_events=True) if me
+          else contextlib.nullcontext()) as prof:
+        state = step_pallas(state, params, cfg, substeps, comm=comm)
+        torch.cuda.synchronize()
+    if not me:
+        return None
+    host, extent = {}, {}
+    for e in prof.key_averages():
+        if e.key in SPANS:
+            on_device = getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+            if on_device:
+                extent[e.key] = getattr(e, "device_time_total", 0.0) / 1e3
+            else:
+                host[e.key] = (getattr(e, "device_time_total", 0.0) / 1e3,
+                               e.cpu_time_total / 1e3, e.count)
+    spans = [(k, *host[k][:2], extent.get(k, 0.0), host[k][2]) for k in host]
+    return walls, device_rows(prof), spans
+
+
+def profile_ranks(path: str, card: str) -> None:
+    """Path 15 (sharded) or 15b (spatial) on 4 ranks sharing the card: the
+    profile of one rank (rank 0, or the middle rank 1 in slabs)."""
+    from wgsparkl_tpu_torch.parallel import spatial_config
+
+    world, substeps = chip_smoke.WORLD_15, chip_smoke.SUBSTEPS
+    data = chip_smoke.full_scene(torch.device(chip_smoke.DEVICE))
+    cfg, profiled = data.config, 0
+    if path == "spatial":
+        chip_smoke.widened(data, world)
+        cfg = spatial_config(data.config, world, chip_smoke.MIGRATION_CAP)
+        profiled = chip_smoke.record_rank(world)
+    res = chip_smoke.run_ranks(data, cfg, world, [], f"{path} path",
+                               after=functools.partial(profile_rank, profiled=profiled),
+                               pad=path == "sharded")
+    walls, rows, spans = res[profiled]["after"]
+    print(f"{path} path, {data.num_particles} particles over {world} ranks sharing "
+          f"one card (gloo, host-staged: a correctness set-up), rank {profiled} "
+          f"profiled, {substeps} substeps a frame, on {torch.cuda.get_device_name(0)} "
+          f"({card})")
+    device_ms = report(rows, walls, substeps)
+    median = statistics.median(walls)
+    for name, dms, hms, ext, count in spans:
+        print(f"span {name}: its kernels and copies {dms / substeps:.4f} ms a substep "
+              f"({dms / device_ms:.3f} of the rank's device time), host "
+              f"{hms / substeps:.4f} ms a substep ({hms / median:.3f} of the median "
+              f"frame wall), extent on the device's timeline {ext / substeps:.4f} ms "
+              f"a substep, {count / substeps:.1f} calls a substep")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("path", choices=("3d", "3d-fold", "3d-neo", "3d-free",
@@ -66,7 +191,8 @@ def main() -> None:
                                      "2d-fold", "2d-neo", "2d-stirred",
                                      "2d-stirred-chan-free", "3d-dyn", "sand2",
                                      "cut2", "cut3", "hf3", "sparse",
-                                     "hf3-sparse", "dense", "dense-2d", "blocked"))
+                                     "hf3-sparse", "dense", "dense-2d", "blocked",
+                                     "sharded", "spatial"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("FAIL: torch.cuda.is_available() is False")
@@ -78,6 +204,9 @@ def main() -> None:
         capture_output=True, text=True, check=True).stdout.strip()
     _cuda.build(_cuda.sources())
     dev = torch.device("cuda:0")
+    if args.path in ("sharded", "spatial"):
+        profile_ranks(args.path, card)
+        return
     data, substeps = {
         "3d": lambda: (chip_smoke.full_scene(dev), chip_smoke.SUBSTEPS),
         "3d-fold": lambda: (chip_smoke.full_scene(dev, fold_vel=True),
@@ -122,39 +251,13 @@ def main() -> None:
         state = step(state, params, cfg, substeps)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.time() - t0))
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+    with torch.profiler.profile(activities=ACTS, acc_events=True) as prof:
         state = step(state, params, cfg, substeps)
         torch.cuda.synchronize()
-    # Device-side events only (kernels, copies, fills): the CPU operators
-    # that launched them carry the same device time again.
-    rows = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        dt = getattr(e, "self_device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "self_cuda_time_total", 0.0)
-        if dt > 0:
-            rows.append((dt / 1e3, e.count, e.key))
-    if not rows:
-        sys.exit("FAIL: the profiler recorded no device events")
-    rows.sort(reverse=True)
-    device_ms = sum(r[0] for r in rows)
-    median = statistics.median(walls)
+    rows = device_rows(prof)
     print(f"{args.path} path, {data.num_particles} particles, {substeps} substeps "
           f"a frame, on {torch.cuda.get_device_name(0)} ({card})")
-    print("unprofiled frame wall ms: " + ", ".join(f"{w:.3f}" for w in walls))
-    print(f"profiled frame: device time {device_ms:.3f} ms "
-          f"({device_ms / substeps:.3f} ms a substep); idle share against the "
-          f"median unprofiled frame {1.0 - device_ms / median:.3f}; "
-          f"{sum(r[1] for r in rows) / substeps:.1f} device launches a substep")
-    print("device ms a substep, calls a substep, kernel:")
-    # The 40 largest, then the port's own kernels among the rest (their
-    # names carry no namespace, unlike PyTorch's and CUB's).
-    own = [r for r in rows[40:] if "::" not in r[2] and not r[2].startswith("Mem")]
-    for ms, count, key in rows[:40] + own:
-        print(f"  {ms / substeps:8.4f}  {count / substeps:6.1f}  {key[:110]}")
+    device_ms = report(rows, walls, substeps)
     if args.path.startswith("2d"):
         g = [r for r in rows if "pcdf2d_kernel" in r[2]]
         if not g:

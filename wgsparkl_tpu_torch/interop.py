@@ -42,13 +42,9 @@ def _plain(x):
 
 
 def config_from_reference(cfg) -> MpmConfig:
-    unsupported = {
-        "spatial_devices": cfg.spatial_devices,
-        "elastic_model": cfg.elastic_model not in ELASTIC_MODELS,
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
-        raise NotImplementedError(f"configuration options not ported: {bad}")
+    if cfg.elastic_model not in ELASTIC_MODELS:
+        raise NotImplementedError(
+            f"configuration option not ported: elastic_model={cfg.elastic_model!r}")
     g = cfg.grid
     joints = tuple((int(j[0]), int(j[1]), *(_plain(x) for x in j[2:])) for j in cfg.joints)
     return MpmConfig(
@@ -63,7 +59,9 @@ def config_from_reference(cfg) -> MpmConfig:
         mesh_cids=tuple(int(c) for c in cfg.mesh_cids),
         sample_group=int(cfg.sample_group), sample_chunk=int(cfg.sample_chunk),
         sample_max_jobs=int(cfg.sample_max_jobs), sparse=bool(cfg.sparse),
-        kmax=int(cfg.kmax), amax=int(cfg.amax))
+        kmax=int(cfg.kmax), amax=int(cfg.amax),
+        spatial_devices=int(cfg.spatial_devices), migration_cap=int(cfg.migration_cap),
+        halo_cap=int(cfg.halo_cap))
 
 
 def meshes_from_reference(meshes, device=None):

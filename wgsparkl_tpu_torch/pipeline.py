@@ -68,8 +68,16 @@ into it, the ghost slot amax reading zero.  The window moves address slots
 unchanged.  Outside the chan-free mode every substep evaluates every
 collider's node CDF, and the mesh pass on slots, at the active slots' nodes
 (`_sparse_chan_grid`), and the kernels evaluate no collider; there is no
-frame hoist.  Multi-device sharding, which the JAX package has beyond
-these, raises NotImplementedError naming its ROADMAP item.
+frame hoist.
+
+Every step takes an optional `comm` (parallel/comm.py), this rank's view of
+a multi-device run, in the place of the JAX package's axis_name: with one,
+the substeps sum the grid and the rigid impulses over the ranks after P2G
+(the particle-sharded mode, every transfer), or, under a configuration with
+spatial_devices (parallel/domain.spatial_config, the pallas path), migrate
+the particles that left the rank's x slab after the sort and exchange the
+slab's boundary plane after P2G (`_migrate_x`, `_halo_exchange_x`,
+`_halo_exchange_sparse`); parallel/domain.py builds the sharded step.
 """
 
 from __future__ import annotations
@@ -115,10 +123,6 @@ from wgsparkl_tpu_torch.solver import Models, Particles, attach_material_table
 # matter (particle CDF, ghost velocities) but takes no impulse from it.
 COUPLING_ONE_WAY = 1
 COUPLING_TWO_WAY = 2
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass
@@ -170,6 +174,14 @@ class MpmConfig:
     sparse: bool = False
     kmax: int = 0
     amax: int = 0
+    # Spatial x-slab decomposition (parallel/domain.spatial_config): the x
+    # axis is split into spatial_devices slabs, one a rank; particles that
+    # cross a slab boundary migrate through buffers of migration_cap lanes
+    # a side; the sparse halo exchange ships at most halo_cap (key, row)
+    # pairs a boundary plane.
+    spatial_devices: int = 0
+    migration_cap: int = 2048
+    halo_cap: int = 1024
 
     @property
     def num_colliders(self) -> int:
@@ -187,15 +199,31 @@ class StepDiag:
     jobs needed beyond max_jobs (their particles are masked out); in the
     sparse domain the distinct occupied blocks beyond kmax (their particles
     freeze) and the active blocks beyond amax (their nodes read the zero
-    ghost).  The three *_overflow counters are 0 when healthy; the sparse
-    domain also keeps its peak occupied (sparse_n_occ) and active
-    (sparse_n_active) blocks, which are no fault."""
+    ghost).  Under the spatial decomposition also: the slab crossers beyond
+    migration_cap, summed over substeps (they stay parked outside the
+    slab); the live lanes past the shard's capacity at the frame's end
+    (lost); and the sparse boundary-plane slots beyond halo_cap, summed
+    (their exchange is dropped).  These six (FAULTS) are 0 when healthy;
+    the sparse domain also keeps its peak occupied (sparse_n_occ) and
+    active (sparse_n_active) blocks, its spatial halo exchange the peak
+    active blocks of a boundary plane (halo_n_plane, to size halo_cap), and
+    the spatial decomposition the movers a rank shipped (migrated, summed),
+    which are no fault.  The sharded step returns each counter
+    as a [world] vector of the ranks' values."""
 
     job_overflow: torch.Tensor
     sparse_occ_overflow: torch.Tensor
     sparse_act_overflow: torch.Tensor
     sparse_n_occ: torch.Tensor
     sparse_n_active: torch.Tensor
+    migration_dropped: torch.Tensor
+    live_lost: torch.Tensor
+    halo_dropped: torch.Tensor
+    halo_n_plane: torch.Tensor
+    migrated: torch.Tensor
+
+    FAULTS = ("job_overflow", "sparse_occ_overflow", "sparse_act_overflow",
+              "migration_dropped", "live_lost", "halo_dropped")
 
     @classmethod
     def zeros(cls, device="cpu") -> "StepDiag":
@@ -203,8 +231,7 @@ class StepDiag:
                      for _ in dataclasses.fields(cls)))
 
     def _overflows(self):
-        return [(f.name, int(getattr(self, f.name))) for f in dataclasses.fields(self)
-                if f.name.endswith("_overflow")]
+        return [(k, int(getattr(self, k).max())) for k in self.FAULTS]
 
     def any_overflow(self) -> bool:
         return any(v > 0 for _, v in self._overflows())
@@ -539,33 +566,200 @@ def rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg: MpmConfig):
                                angvel=new_ang)
 
 
-def _job_phase(rows_all, cfg: MpmConfig, n: int, diag: StepDiag):
+def _spatial(cfg: MpmConfig, comm) -> int:
+    """The slab count of a spatial substep (0 when not spatial)."""
+    return cfg.spatial_devices if comm is not None else 0
+
+
+def _slab_keys(cfg: MpmConfig, rank: int, world: int, live_key: int):
+    """(lo, hi): the sort keys of this rank's x slab, [lo, hi).  The keys sort
+    x-slowest; the edge ranks own everything beyond their slab (lo 0 on the
+    first; hi live_key on the last, and in the sparse domain, whose slabs
+    split the nominal grid's x blocks, lo 0 and hi live_key at the edges)."""
+    nb = bk.num_blocks(cfg.grid, cfg.by)
+    wx = nb[0] // world
+    if cfg.sparse:
+        dd2 = bk.SPARSE_DIM * bk.SPARSE_DIM
+        lo = (bk.SPARSE_HALF + rank * wx) * dd2 if rank > 0 else 0
+        hi = ((bk.SPARSE_HALF + (rank + 1) * wx) * dd2 if rank < world - 1
+              else live_key)
+        return lo, hi
+    xstride = int(np.prod(nb[1:]))
+    return rank * wx * xstride, (rank + 1) * wx * xstride
+
+
+def _migrate_x(rows, sorted_ids, lo_key: int, hi_key: int, live_key: int,
+               capx: int, comm, diag: StepDiag, sort_rows, pm: int):
+    """Particle migration between x-slab owners through buffers of capx
+    lanes a side (the JAX package's _migrate_x).  After the sort the movers
+    to the left (keys below lo_key) are a prefix and those to the right
+    (keys in [hi_key, live_key)) end at the live boundary; each side's
+    first capx movers ship to the neighbour, every row of the lanes past
+    the count zeroed; the sent lanes' mass is zeroed here (they sort to the
+    tail), the received ones land on the last 2 capx lanes (dead padding)
+    and the rows sort again.  Movers beyond capx stay parked outside the
+    slab and count in diag.migration_dropped, the shipped ones in
+    diag.migrated.  Returns sort_rows' result on the migrated rows."""
+    npad = rows.shape[1]
+    dev = rows.device
+    lane = torch.arange(npad, device=dev)
+    bounds = torch.tensor([lo_key, hi_key, live_key], dtype=sorted_ids.dtype,
+                          device=dev)
+    nl, nr0, nov = torch.searchsorted(sorted_ids, bounds).to(torch.int32).unbind()
+    li = torch.arange(capx, device=dev)
+
+    def win(start, count):
+        st = torch.clamp(start, 0, npad - capx)
+        buf = rows.index_select(1, st + li)
+        return torch.where((li < count)[None, :], buf, 0.0)
+
+    cl = torch.clamp(nl, max=capx)
+    cr = torch.clamp(nov - nr0, max=capx)
+    diag.migration_dropped = (diag.migration_dropped + (nl - cl)
+                              + (nov - nr0 - cr)).to(torch.int32)
+    diag.migrated = (diag.migrated + cl + cr).to(torch.int32)
+    from_right = comm.shift(win(torch.zeros_like(nl), cl), -1)
+    from_left = comm.shift(win(nr0, cr), +1)
+    out = (lane < cl) | ((lane >= nr0) & (lane < nr0 + cr))
+    rows[pm] = torch.where(out, 0.0, rows[pm])
+    rows[:, npad - 2 * capx:npad - capx] = from_left
+    rows[:, npad - capx:] = from_right
+    return sort_rows(rows)
+
+
+def _halo_exchange_x(grid_mm, p2: int, rank: int, wx: int, comm):
+    """The bounded grid's halo exchange in place of the whole-grid sum (the
+    JAX package's _halo_exchange_x): a window reaches one block past the
+    slab in x, so a rank's P2G lands in its slab and one overhang plane of
+    p2 blocks.  The overhang goes right and is added into the owner's first
+    plane; the owner's reduced first plane comes back left into the
+    overhang for G2P.  The first rank adds the zeros it receives; the last
+    keeps its overhang (there is no owner past it)."""
+    flat = grid_mm.reshape(grid_mm.shape[0], -1)
+    nb_total = flat.shape[0] - 1
+    ov = min((rank + 1) * wx * p2, nb_total + 1 - p2)
+    recv = comm.shift(flat[ov:ov + p2], +1)
+    first = rank * wx * p2
+    flat[first:first + p2] = flat[first:first + p2] + recv
+    back = comm.shift(flat[first:first + p2], -1)
+    if rank < comm.world - 1:
+        flat[ov:ov + p2] = back
+    return grid_mm
+
+
+def _halo_exchange_sparse(grid_mm, act, amax: int, lo_key: int, hi_key: int,
+                          halo_cap: int, comm, diag: StepDiag):
+    """The sparse domain's halo exchange (the JAX package's
+    _halo_exchange_sparse): the boundary plane's active slots travel as
+    (key, row) pairs, at most H = min(halo_cap, amax) a plane.  The
+    overhang (keys from hi_key on) goes right and is added into the owner's
+    slots of the same keys; a key the owner lacks routes to the ghost slot
+    with a zero payload (only the sender's particles touch that node, and
+    its own copy is whole).  Then the owner's reduced first plane (keys in
+    [lo_key, lo_key + one x plane)) comes back left and overwrites the
+    sender's slots.  The ghost stays zero; the pairs beyond H count in
+    diag.halo_dropped, the larger plane's pairs in diag.halo_n_plane (a
+    peak)."""
+    sent = bk.SPARSE_SENTINEL
+    dd2 = bk.SPARSE_DIM * bk.SPARSE_DIM
+    H = min(halo_cap, amax)
+    dev = act.device
+    flat = grid_mm.reshape(amax + 1, -1)
+    li = torch.arange(H, device=dev)
+
+    def plane(first, last):
+        s = torch.clamp(first, 0, amax - H)
+        ok = (li >= first - s) & (li < last - s)
+        idx = s + li
+        keys = torch.where(ok, act[idx], sent)
+        rows = flat.index_select(0, idx) * ok[:, None].to(torch.float32)
+        return keys, rows, torch.clamp(last - first - H, min=0)
+
+    def search(key):
+        return torch.searchsorted(act, torch.tensor([key], dtype=act.dtype,
+                                                    device=dev))[0].to(torch.int32)
+
+    i_over, i_sent = search(hi_key), search(sent)
+    i0, i1 = search(lo_key), search(min(lo_key + dd2, sent))
+    diag.halo_n_plane = torch.maximum(diag.halo_n_plane,
+                                      torch.maximum(i_sent - i_over, i1 - i0))
+    hkeys, hrows, drop1 = plane(i_over, i_sent)
+    rk, rr = comm.shift(hkeys, +1), comm.shift(hrows, +1)
+    slots = bk.sparse_slots(act, rk, amax).long()
+    flat.index_add_(0, slots, torch.where((slots < amax)[:, None], rr, 0.0))
+    bkeys, brows, drop2 = plane(i0, i1)
+    bkr, brr = comm.shift(bkeys, -1), comm.shift(brows, -1)
+    slots2 = bk.sparse_slots(act, bkr, amax).long()
+    flat[slots2] = torch.where((slots2 < amax)[:, None], brr, 0.0)
+    diag.halo_dropped = (diag.halo_dropped + drop1 + drop2).to(torch.int32)
+    return grid_mm
+
+
+def _exchange(grid_mm, lin_imp, ang_imp, ph, cfg: MpmConfig, comm, diag):
+    """After P2G on a rank of a multi-device run: the grid summed over the
+    ranks, or under the spatial decomposition its halo exchanged; the
+    impulses summed (a profiler span, "exchange")."""
+    with torch.profiler.record_function("exchange"):
+        if _spatial(cfg, comm) and cfg.sparse:
+            grid_mm = _halo_exchange_sparse(grid_mm, ph["act"], cfg.amax, ph["lo_key"],
+                                            ph["hi_key"], cfg.halo_cap, comm, diag)
+        elif _spatial(cfg, comm):
+            nb = bk.num_blocks(cfg.grid, cfg.by)
+            grid_mm = _halo_exchange_x(grid_mm, int(np.prod(nb[1:])), comm.rank,
+                                       nb[0] // comm.world, comm)
+        else:
+            grid_mm = comm.psum(grid_mm)
+        return grid_mm, comm.psum(lin_imp), comm.psum(ang_imp)
+
+
+def _job_phase(rows_all, cfg: MpmConfig, n: int, diag: StepDiag, comm=None):
     """Sort and job table of one substep (both dimensions, bounded or
     sparse): the sorted rows and their ids, the permutation, the job table
     (starts masked into the padded lanes), the jobs' block origin cells and
     window sources, the covered rank prefix, the grid's block rows
     (grid_rows, plus the ghost) and kernel C's live_below.  Counts the
     overflows into diag; a sparse substep also returns the active table
-    (act) and the jobs' octant slots (tgts)."""
+    (act) and the jobs' octant slots (tgts).  Under the spatial
+    decomposition (cfg.spatial_devices and a comm) the lanes sort by mass
+    (a lane of mass 0, padding or migrated out, to the very tail, past the
+    overflow bucket), the slab's movers migrate between the sort and the
+    job table (`_migrate_x`, a second sort; unsorted and perm are then the
+    second sort's), and lo_key / hi_key hold the slab's keys."""
     grid, by, group = cfg.grid, cfg.by, cfg.group
     dim = grid.dim
     npad = rows_all.shape[1]
     dev = rows_all.device
+    spatial = _spatial(cfg, comm)
+    pm = R.PM if dim == 3 else R2.PM
     # Sort: gravity-fastest block keys, padding lanes to the very tail.
     lane = torch.arange(npad, device=dev)
-    pch = [rows_all[a] for a in range(dim)]
     if cfg.sparse:
         live_below = bk.SPARSE_SENTINEL
-        keys = bk.particle_sparse_keys_ch(pch, grid)
     else:
         nb = bk.num_blocks(grid, by)
         live_below = int(np.prod(nb))
-        keys = bk.particle_sort_keys_ch(pch, grid, by)
-    keys = torch.where(lane < n, keys, live_below + 1).to(torch.int32)
-    sorted_ids, perm = torch.sort(keys, stable=True)
-    perm = perm.to(torch.int32)
-    rows = permute_lanes(rows_all, perm)
+
+    def sort_rows(rows_in):
+        pch = [rows_in[a] for a in range(dim)]
+        keys = (bk.particle_sparse_keys_ch(pch, grid) if cfg.sparse
+                else bk.particle_sort_keys_ch(pch, grid, by))
+        live = rows_in[pm] > 0.0 if spatial else lane < n
+        keys = torch.where(live, keys, live_below + 1).to(torch.int32)
+        sorted_ids, perm = torch.sort(keys, stable=True)
+        perm = perm.to(torch.int32)
+        return rows_in, permute_lanes(rows_in, perm), sorted_ids, perm
+
+    rows_all, rows, sorted_ids, perm = sort_rows(rows_all)
     out = {}
+    if spatial:
+        lo_key, hi_key = _slab_keys(cfg, comm.rank, comm.world, live_below)
+        # A profiler span (tools/torch_profile.py spatial): the moves and
+        # the second sort.
+        with torch.profiler.record_function("migrate_x"):
+            rows_all, rows, sorted_ids, perm = _migrate_x(
+                rows, sorted_ids, lo_key, hi_key, live_below, cfg.migration_cap,
+                comm, diag, sort_rows, pm)
+        out.update(lo_key=lo_key, hi_key=hi_key)
     if cfg.sparse:
         jobs, okeys, n_occ = bk.build_jobs_sparse(sorted_ids, group, cfg.max_jobs,
                                                   cfg.kmax)
@@ -690,10 +884,11 @@ def _cdf_phase_3d(bodies, cfg: MpmConfig, static_chan, src, bcells, grid_rows,
 
 def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
              mtable, diag: StepDiag, record: Optional[dict] = None,
-             static_cdf=None, meshes=None):
+             static_cdf=None, meshes=None, comm=None):
     """One 3D substep on the [PCHAN, NPAD] rows (lanes >= n are padding).
     static_cdf: the frame's node-CDF triple of the static slots, merged in
-    the dense mode; meshes: the mesh colliders of the state.
+    the dense mode; meshes: the mesh colliders of the state; comm: this
+    rank's Comm in a multi-device run (see the module docstring).
 
     record: when a dict is given, the inputs and outputs of the five
     kernels are stored in it (kernel checks and tests read them); under
@@ -705,7 +900,7 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     npad = rows_all.shape[1]
     dev = rows_all.device
     bodies = body_mod.update_world_mass_properties(bodies)
-    ph = _job_phase(rows_all, cfg, n, diag)
+    ph = _job_phase(rows_all, cfg, n, diag, comm)
     rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
     grid_rows = ph["grid_rows"]
     static_desc, moving = _cdf_mode(cfg)
@@ -739,6 +934,9 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
         grid_mm[grid_rows].zero_()
     lin_imp = imp[0, 0:3, :bodies.count].T
     ang_imp = imp[0, 3:6, :bodies.count].T
+    if comm is not None:
+        grid_mm, lin_imp, ang_imp = _exchange(grid_mm, lin_imp, ang_imp, ph, cfg,
+                                              comm, diag)
 
     # Grid velocity (or folded into G2P), G2P, particle update, bodies.
     if not cfg.fold_vel:
@@ -764,7 +962,7 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
 
 def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
                 mtable, diag: StepDiag, record: Optional[dict] = None,
-                static_cdf=None, meshes=None):
+                static_cdf=None, meshes=None, comm=None):
     """One 2D substep on the [32, NPAD] rows (the gathered, dense,
     chan-free and collider-free branches of the JAX package's
     _substep_pallas_rows_2d): in chan-free mode the kernels evaluate every
@@ -776,14 +974,14 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     take the analytic colliders in the chan-free mode and none in the
     others, where they read only the tiles.  record: as for _substep (the
     2D kernels' inputs and outputs; its rows are kernel G's input, cloned
-    before G patched them in place into pdata)."""
+    before G patched them in place into pdata); comm: as for _substep."""
     grid = cfg.grid
     group, nc = cfg.group, cfg.num_colliders
     h = grid.cell_width
     npad = rows_all.shape[1]
     dev = rows_all.device
     bodies = body_mod.update_world_mass_properties(bodies)
-    ph = _job_phase(rows_all, cfg, n, diag)
+    ph = _job_phase(rows_all, cfg, n, diag, comm)
     rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
     nb_total = ph["grid_rows"]
     btable = _body_table_2d(bodies, params, grid)
@@ -821,6 +1019,9 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     imp_sum = imp.sum(0)
     lin_imp = imp_sum[0:2, :bodies.count].T
     ang_imp = imp_sum[2:3, :bodies.count].T
+    if comm is not None:
+        grid_mm, lin_imp, ang_imp = _exchange(grid_mm, lin_imp, ang_imp, ph, cfg,
+                                              comm, diag)
 
     if not cfg.fold_vel:
         grid_mm[..., :2] = _grid_velocity(grid_mm, params, grid)
@@ -910,12 +1111,14 @@ def _sort_phase(rows, cfg: MpmConfig, n: int):
 
 
 def _substep_dense(rows, bodies, params, cfg: MpmConfig, n: int, n_t, zero_ids,
-                   mtable, n_mat: int, record: Optional[dict] = None, meshes=None):
+                   mtable, n_mat: int, record: Optional[dict] = None, meshes=None,
+                   comm=None):
     """One substep of the dense or the blocked transfer on the [PCHAN, NPAD]
     rows (3D or 2D; the order of the module docstring).  n_t: n as a
     one-element int32 tensor on the rows' device; zero_ids: int32 zeros
     [NPAD] (kernel C then takes every lane below n as live).  record: when
-    a dict is given, the kernels' inputs and outputs are stored in it."""
+    a dict is given, the kernels' inputs and outputs are stored in it;
+    comm: this rank's Comm (the grid and impulses summed after P2G)."""
     grid = cfg.grid
     d, nc = grid.dim, cfg.num_colliders
     bodies = body_mod.update_world_mass_properties(bodies)
@@ -932,6 +1135,9 @@ def _substep_dense(rows, bodies, params, cfg: MpmConfig, n: int, n_t, zero_ids,
         pcdf = _cdf_rows(rows, d)
     grid_mm, lin_imp, ang_imp = dense_p2g(rows, pcdf, n, live, node_aff, node_closest,
                                           btable, grid, nc, bodies.count)
+    if comm is not None:
+        grid_mm, lin_imp, ang_imp = _exchange(grid_mm, lin_imp, ang_imp, None, cfg,
+                                              comm, None)
     grid_vel = _grid_velocity(grid_mm, params, grid)
     krows = dense_g2p(rows, pcdf, n, live, grid_vel, node_aff, node_closest, btable,
                       grid, nc)
@@ -949,12 +1155,13 @@ def _substep_dense(rows, bodies, params, cfg: MpmConfig, n: int, n_t, zero_ids,
 
 
 def step_dense(state: SimState, params: SimulationParams, cfg: MpmConfig,
-               num_substeps: int, record: Optional[dict] = None):
+               num_substeps: int, record: Optional[dict] = None, comm=None):
     """A frame of dense or blocked substeps (cfg.transfer) carrying the
     [PCHAN, NPAD] row matrix, packed and unpacked once; a state without a
     material table gets one (the row matrix carries material ids).  The
     blocked transfer returns the particles block-sorted.  record: see
-    _substep_dense (filled by the frame's last substep)."""
+    _substep_dense (filled by the frame's last substep); comm: this rank's
+    Comm in a particle-sharded run."""
     dim = cfg.grid.dim
     L = R if dim == 3 else R2
     models, n_mat = state.models, max(cfg.n_materials, 1)
@@ -968,7 +1175,8 @@ def step_dense(state: SimState, params: SimulationParams, cfg: MpmConfig,
     bodies = state.bodies
     for _ in range(num_substeps):
         rows, bodies = _substep_dense(rows, bodies, params, cfg, n, n_t, zero_ids,
-                                      models.mat_table, n_mat, record, state.meshes)
+                                      models.mat_table, n_mat, record, state.meshes,
+                                      comm)
     particles, models = L.unpack_state_rows(rows[:, :n], state.particles, models,
                                             n_mat=n_mat)
     return SimState(particles=particles, models=models, bodies=bodies,
@@ -977,15 +1185,20 @@ def step_dense(state: SimState, params: SimulationParams, cfg: MpmConfig,
 
 def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
                 num_substeps: int, return_diag: bool = False,
-                record: Optional[dict] = None):
+                record: Optional[dict] = None, comm=None):
     """A frame of substeps carrying the [PCHAN, NPAD] row matrix; the
     static colliders' node CDF (as a channel grid in the gathered modes,
     as a triple in the dense mode) is built once per frame.  record: see
-    _substep (filled by the frame's last substep)."""
+    _substep (filled by the frame's last substep); comm: this rank's Comm
+    in a multi-device run.  Under the spatial decomposition the rows carry
+    2 migration_cap more lanes of slack (where migrants land), and the live
+    lanes past the shard's n at the frame's end count in
+    StepDiag.live_lost."""
     dim = cfg.grid.dim
     L, substep = (R, _substep) if dim == 3 else (R2, _substep_2d)
     n = state.particles.count
-    npad = pallas_npad(n, cfg.group)
+    slack = 2 * cfg.migration_cap if _spatial(cfg, comm) else 0
+    npad = pallas_npad(n + slack, cfg.group)
     rows = L.pack_rows_padded(state.particles, state.models, npad)
     static_chan = static_cdf = None
     if cfg.static_slots and not cfg.cdf_chan_free and not cfg.sparse:
@@ -997,12 +1210,17 @@ def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
                                   or len(cfg.static_slots) == cfg.num_colliders):
             static_chan = _cdf_chan_grid(*static_cdf, nb_total,
                                          int(np.prod(bk.block_shape(dim, cfg.by))))
-    substep = functools.partial(substep, static_cdf=static_cdf, meshes=state.meshes)
+    substep = functools.partial(substep, static_cdf=static_cdf, meshes=state.meshes,
+                                comm=comm)
     bodies = state.bodies
     diag = StepDiag.zeros(rows.device)
     for _ in range(num_substeps):
         rows, bodies = substep(rows, bodies, params, cfg, n, static_chan,
                                state.models.mat_table, diag, record)
+    if slack:
+        # Live lanes sort first: any past n are cut off with the padding.
+        live = (rows[L.PM] > 0.0).sum(dtype=torch.int32)
+        diag.live_lost = torch.maximum(diag.live_lost, live - n)
     particles, models = L.unpack_state_rows(rows[:, :n], state.particles,
                                             state.models,
                                             n_mat=max(cfg.n_materials, 1))
@@ -1079,7 +1297,7 @@ class MpmData:
                  max_jobs: int = 0, sparse: bool = False, kmax: int = 0,
                  amax: int = 0, by: int = 4, joints=(),
                  chan_free: Optional[bool] = None,
-                 fold_vel: Optional[bool] = None, spatial_devices: int = 0,
+                 fold_vel: Optional[bool] = None,
                  coupling: Optional[Sequence[int]] = None,
                  body_contacts: bool = True):
         dim = particles.dim
@@ -1093,8 +1311,6 @@ class MpmData:
             raise ValueError("the sparse (unbounded) domain is 3D-only")
         if dim == 2 and by != 4:
             raise ValueError("2D blocks are 8 x 8: by must be 4")
-        if spatial_devices:
-            raise _unported("spatial multi-device sharding", "queue 1, item 11")
         if elastic_model not in ELASTIC_MODELS:
             raise ValueError(f"unknown elastic model {elastic_model!r}")
         if len(bodies) > 16:
