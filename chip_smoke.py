@@ -29,15 +29,16 @@ Phases (any failure exits non-zero, and no result line is printed):
      particles a cell, group 2048: kernel H's jobs span several of its
      chunks; 2 timed frames); path 7 (examples/sand2.py at SCALE=1:
      490,000 particles, floor and walls, three kinematic stirrers and two
-     dynamic plates, `sand2_scene`) and path 8 (the 3D main path with two
-     dynamic plates on the sand, `full_scene_plates`), one warm and 2
-     timed frames each: the same checks, exactly one rigid-solve launch a
-     substep, the plates moved, finite body states, and path 7's rigid
-     update of a substep run again under
-     torch.cuda.set_sync_debug_mode("error"); paths 9-11, the mesh
-     colliders (`cut2_scene`, `cut3_scene`, `hf3_scene`: examples/
-     elastic_cut2.py, elastic_cut3.py and heightfield3.py at SCALE=1,
-     490,000, 75,000 and 202,500 particles), one warm and 2 timed frames
+     dynamic plates, `sand2_scene`: the port's runner's `build`) and path
+     8 (the 3D main path with two dynamic plates on the sand,
+     `full_scene_plates`), one warm and 2 timed frames each: the same
+     checks, exactly one rigid-solve launch a substep, the plates moved,
+     finite body states, and path 7's rigid update of a substep run again
+     under torch.cuda.set_sync_debug_mode("error"); paths 9-11, the mesh
+     colliders (`cut2_scene`, `cut3_scene`, `hf3_scene`, the runners'
+     `build`: examples/elastic_cut2.py, elastic_cut3.py and
+     heightfield3.py at SCALE=1, 490,000, 75,000 and 202,500 particles),
+     one warm and 2 timed frames
      each: the same checks, exactly one mesh_cdf launch a substep and a
      mesh pass with finite keys; path 12, the sparse domain at full size
      (bench.py's BENCH_SPARSE=1 run: the main path's lattice, 4^3 blocks,
@@ -50,11 +51,24 @@ Phases (any failure exits non-zero, and no result line is printed):
      and 13b, the main path's scene (its 1,002,001 particles, five static
      walls, the kinematic paddle, 20 substeps) and the 2D column (490,000
      particles, 10 substeps) on the dense transfer (`dense_scene`,
-     `dense_scene_2d`: the row-major grid), and path 14, the main scene on
+     `dense_scene_2d`: the row-major grid), path 13w, path 13 with one
+     material a particle (`wide_scene`: kernel C's [16, M] material
+     table, M past 10^6), and path 14, the main scene on
      the blocked transfer (4^3 blocks, group 256, the automatic job
      table), one warm and 2 timed frames each: finite positions, exactly
      one launch each of dense_pcdf, dense_p2g and dense_g2p a substep,
      steps/s, and on path 14 its live jobs within max_jobs (a host check);
+     path 16, examples/dam_break3.py at SCALE 1.25 (BASELINE config 3:
+     250,000 fluid and 15,625 elastic particles, five static walls, by 8,
+     group 1024, 20 substeps; `dam_break_path`) through the port's user
+     surfaces: the runner's build, a warm frame through MpmPipeline.step,
+     2 timed frames through Testbed.run, no StepDiag fault and a healthy
+     diagnostics.check after every frame, kernels A-E launched, steps/s;
+     a Testbed frame equal to a step_pallas frame from the same state, a
+     checkpoint of the full-size state saved, loaded and stepped bit for
+     bit, prep_instances finite in all six modes, the last frame's PLY
+     (both in a temporary directory), time_passes and one frame under
+     utils/profiling.profile_step (device time, idle share);
      paths 15-15d, multi-device stepping (`parallel_paths`), the ranks
      spawned processes sharing the card through gloo (each buffer staged
      through pinned host memory; again on NCCL, a card a rank, where the
@@ -115,7 +129,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      13b lowered 1.5 cells into its floor (`dense_pcdf`, `dense_p2g`,
      `dense_g2p` and their `*2d` entries: every output bit for bit, P2G's
      grid part beside `index_put_(accumulate=True)` under
-     torch.use_deterministic_algorithms(True)); A, F and H beside the same
+     torch.use_deterministic_algorithms(True)); kernel C on a substep of
+     path 13w lowered onto the paddle (`update_rows_wide`: one material a
+     particle, every row bit for bit); A, F and H beside the same
      call on their (particle, node) pairs (`tile_pairs_library`); every
      kernel of paths 15-15d on the rows of one rank (`record_rank`:
      `*_sharded`, `*_spatial`, `*_spatial2d`, `*_spatial_sparse`; 2D:
@@ -151,7 +167,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      transfers: 10 substeps of the dense sand box and of the dense 2D
      column, 5 of the CPIC oracle scene with its dynamic plate, of the
      dense trimesh ramp and of tests/test_blocked.py's box with bodies on
-     the blocked transfer at max_jobs 8): 36 scenes, equal bit for bit to
+     the blocked transfer at max_jobs 8; 3 substeps each of the
+     256-material lattice (each particle its own lambda) in 2D and on a
+     floor in 3D, dense and blocked): 40 scenes, equal bit for bit to
      the plain path on the card, and within tolerance of the plain path on
      the CPU (affinity
      words exact); then the sand box built sparse and bounded at by 4, 20
@@ -193,12 +211,19 @@ SUBSTEPS_NEO2 = 15
 # placed as on the small column (sand_column_2d(nx=24, ny=48, cell width
 # 0.5): 6 wide) and scaled by the full column's width (140 cells of 0.2).
 STIR_SCALE = NX2 * H2 / (24 * 0.5)
-# Path 7: examples/sand2.py at SCALE=1 (700 x 700 particles).
+# Path 7: examples/sand2.py at SCALE = N_SAND2 / 700 (700 x 700 particles).
 N_SAND2 = 700
-# Path 9: examples/elastic_cut2.py at SCALE=1 (700 x 700 particles); paths
-# 10 and 11 (elastic_cut3, heightfield3) at SCALE=CUT3_SCALE, HF3_SCALE.
+# Path 9: examples/elastic_cut2.py at SCALE = N_CUT2 / 700 (700 x 700
+# particles); paths 10 and 11 (elastic_cut3, heightfield3) at SCALE =
+# CUT3_SCALE, HF3_SCALE.  The port's runners build them.
 N_CUT2, CUT3_SCALE, HF3_SCALE = 700, 1.0, 1.0
+# The small sand2 of phase 6: the runner's smallest lattice (48 x 48).
+SAND2_SMALL = 48 / 700
 SUBSTEPS_CUT2 = 15
+# Path 16: examples/dam_break3.py at SCALE 1.25 (BASELINE config 3, "~256k
+# particles, mixed constitutive models"): 250,000 fluid and 15,625 elastic
+# particles, by 8, group 1024, 20 substeps a frame.
+DAM_SCALE = 1.25
 DEVICE = "cuda:0"
 # The H100 SXM's published peaks (fp32 outside the tensor cores, HBM3).
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -266,6 +291,9 @@ REPLACES = {
     "dense_pcdf2d": "wgsparkl_tpu/collision/cdf.py:166",
     "dense_p2g2d": "wgsparkl_tpu/ops/transfer.py:51",
     "dense_g2p2d": "wgsparkl_tpu/ops/transfer.py:132",
+    # Kernel C on the dense transfer with one material a particle (path
+    # 13w): the material table [16, M] past the pallas path's 128 lanes.
+    "update_rows_wide": "wgsparkl_tpu/ops/update_rows.py:191",
 }
 SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_rows",
           "update_rows2d_neo_hookean": "update_rows", "p2g_cdf_shapes": "p2g_cdf",
@@ -280,7 +308,7 @@ SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_row
           "p2g_cdf_sparse": "p2g_cdf", "g2p_sparse": "g2p",
           "update_rows_sparse": "update_rows", "mesh_cdf_sparse": "mesh_cdf",
           "dense_pcdf2d": "dense_pcdf", "dense_p2g2d": "dense_p2g",
-          "dense_g2p2d": "dense_g2p"}
+          "dense_g2p2d": "dense_g2p", "update_rows_wide": "update_rows"}
 # The rows of the [PCHAN, NPAD] input matrix that kernel C reads (csrc/
 # update_rows.cu, update_kernel and update2d_kernel); it replaces the others
 # with G2P rows, particle-CDF rows or new values.
@@ -586,15 +614,74 @@ def blocked_box(device):
                    body_contacts=False)
 
 
+def wide_scene(dev):
+    """Path 13w: path 13's scene (the main scene on the dense transfer) with
+    one material a particle: each particle's elastic lambda is the sand's
+    times 0.9 + 0.2 k / N (k its index; f32 values 111 apart, past the f32
+    spacing of 64 there), so the material table has N lanes' worth of
+    materials (rounded up to a multiple of 128)."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.pipeline import MpmData
+
+    base = dense_scene(dev, transfer="dense")
+    m = base.state.models
+    n = base.num_particles
+    scale = torch.as_tensor(0.9 + 0.2 * np.arange(n) / n, dtype=torch.float32,
+                            device=m.lam.device)
+    models = dataclasses.replace(m, lam=m.lam * scale, mat_id=None, mat_table=None)
+    return MpmData(base.params, base.state.particles, models, base.bodies_desc,
+                   base.config.grid.cell_width, grid=base.config.grid,
+                   transfer="dense")
+
+
+def many_materials(device, transfer: str, dim: int):
+    """The scene of the port's 128-material fault: 256 particles, each its
+    own lambda (linspace(1e4, 2e4, 256)), mu 1e4, density 1000, radius
+    0.0625, spacing 0.25 from 2 on each axis in [0, 8]^d, cell 0.5, dt 1e-3:
+    in 2D a 16 x 16 lattice with no collider, in 3D 16 x 4 x 4 on a floor
+    cuboid, strained from the start, F = diag(1.2, 0.85[, 1]), so that each
+    particle's stress depends on its own material
+    (tests/test_torch_many_materials.py); group 64 when blocked."""
+    import numpy as np
+
+    from wgsparkl_tpu_torch.collision.shapes import Collider
+    from wgsparkl_tpu_torch.params import SimulationParams
+    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
+    from wgsparkl_tpu_torch.solver import Models, Particles
+
+    counts = (16, 16) if dim == 2 else (16, 4, 4)
+    g = np.meshgrid(*(2.0 + 0.25 * np.arange(c) for c in counts), indexing="ij")
+    pos = np.stack([a.ravel() for a in g], -1).astype(np.float32)
+    bodies = ([] if dim == 2 else
+              [RigidBodyDesc(Collider.cuboid(10.0, 0.5, 10.0), (4.0, 1.0, 4.0))])
+    kw = {} if transfer == "dense" else dict(group=64, job_chunk=8)
+    gravity = [0.0, -9.81] + [0.0] * (dim - 2)
+    data = MpmData(SimulationParams.new(1e-3, gravity, device=device),
+                   Particles.from_arrays(pos, density=1000.0, radius=0.0625,
+                                         device=device),
+                   Models.from_arrays(256, np.linspace(1e4, 2e4, 256), 1e4,
+                                      device=device),
+                   bodies, 0.5, grid_bounds=(np.zeros(dim), np.full(dim, 8.0)),
+                   transfer=transfer, **kw)
+    data.state.particles.def_grad[:] = torch.diag(
+        torch.tensor((1.2, 0.85, 1.0)[:dim], device=device))
+    return data
+
+
 def dense_paths(wt, card, kind, launches, frames=TIMED_FRAMES_SHORT):
-    """Paths 13, 13b and 14 at full size: one warm and `frames` timed frames
-    each, exactly one launch of each dense kernel a substep; path 14's live
-    jobs must fit its table (a check of this script's, on the host)."""
+    """Paths 13, 13w, 13b and 14 at full size: one warm and `frames` timed
+    frames each, exactly one launch of each dense kernel a substep; path
+    13w's material table must hold one material a particle (kernel C's
+    wide table: `update_rows_wide`'s launches); path 14's live jobs must
+    fit its table (a check of this script's, on the host)."""
     from wgsparkl_tpu_torch.pipeline import step_dense
 
     for tag, make, substeps, kernels, what in (
             ("", lambda: dense_scene(DEVICE, transfer="dense"), SUBSTEPS, KERNELS_DENSE,
              "path 13: 3D dense transfer"),
+            ("_wide", lambda: wide_scene(DEVICE), SUBSTEPS, KERNELS_DENSE,
+             "path 13w: 3D dense transfer, one material a particle"),
             ("2d", lambda: dense_scene_2d(DEVICE), SUBSTEPS2, KERNELS_DENSE_2D,
              "path 13b: 2D dense transfer"),
             ("_blocked", lambda: dense_scene(DEVICE, transfer="blocked"), SUBSTEPS,
@@ -603,6 +690,12 @@ def dense_paths(wt, card, kind, launches, frames=TIMED_FRAMES_SHORT):
         cfg = data.config
         if cfg.transfer != ("blocked" if tag == "_blocked" else "dense"):
             fail(f"{what}: built as {cfg}")
+        if tag == "_wide":
+            table = tuple(data.state.models.mat_table.shape)
+            if cfg.n_materials != data.num_particles or table[1] < cfg.n_materials:
+                fail(f"{what}: {cfg.n_materials} materials in a {table} table")
+            print(f"{what}: {cfg.n_materials} materials, material table {table}",
+                  flush=True)
         counts, state = run_frames(wt, data, substeps, kernels, what, card, kind, frames)
         for k in KERNELS_DENSE[:3]:
             if counts[k] != (1 + frames) * substeps:
@@ -617,10 +710,161 @@ def dense_paths(wt, card, kind, launches, frames=TIMED_FRAMES_SHORT):
                   flush=True)
             if need > cfg.max_jobs:
                 fail(f"{what}: the live jobs overflow the job table")
+        elif tag == "_wide":
+            launches["update_rows_wide"] = counts["update_rows"]
         else:
             launches.update((f"{k}{tag}", counts[k]) for k in KERNELS_DENSE[:3])
         del data, state
         torch.cuda.empty_cache()
+
+
+def _same_state(a, b, what):
+    """Every leaf of two states equal bit for bit (utils/checkpoint's
+    leaves: particles, models, bodies)."""
+    from wgsparkl_tpu_torch.utils import checkpoint
+
+    la, lb = checkpoint.named_leaves(a), checkpoint.named_leaves(b)
+    if [n for n, _ in la] != [n for n, _ in lb]:
+        fail(f"{what}: the states hold other leaves")
+    for (name, x), (_, y) in zip(la, lb):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            fail(f"{what}: {name} differs")
+
+
+def dam_break_path(wt, card, kind, frames=TIMED_FRAMES_SHORT):
+    """Path 16: examples/dam_break3.py at SCALE DAM_SCALE (BASELINE config 3)
+    through the port's user surfaces: the runner's build, a warm frame
+    through MpmPipeline.step, `frames` timed frames through Testbed.run (a
+    synchronise at each frame's end), no StepDiag fault and a healthy
+    diagnostics.check after every frame, finite positions, kernels A-E
+    launched; then a Testbed frame against a step_pallas frame from the same
+    state, a checkpoint of the full-size state saved and loaded (in a
+    temporary directory outside the repo) and a frame from each, bit for
+    bit; prep_instances in all six modes and the last frame's PLY;
+    time_passes; `frames` frames of run_frames' loop against the Testbed's;
+    one frame under profile_step (the device's idle share in that frame)."""
+    import os
+    import tempfile
+
+    from wgsparkl_tpu_torch import render
+    from wgsparkl_tpu_torch.examples import dam_break3
+    from wgsparkl_tpu_torch.pipeline import MpmPipeline, step_pallas, step_with_diag
+    from wgsparkl_tpu_torch.testbed import Testbed
+    from wgsparkl_tpu_torch.utils import diagnostics, time_passes
+    from wgsparkl_tpu_torch.utils.profiling import profile_step
+
+    what = "path 16: dam break (config 3)"
+    data = dam_break3.build(DAM_SCALE, DEVICE, transfer="pallas", group=GROUP, by=BY)
+    cfg, n = data.config, data.num_particles
+    nf, ne = dam_break3.counts(DAM_SCALE)
+    if (n != 2 * nf ** 3 + ne ** 3 or (cfg.transfer, cfg.by, cfg.group) != ("pallas", BY, GROUP)
+            or cfg.static_slots != (0, 1, 2, 3, 4) or cfg.n_materials != 2):
+        fail(f"{what}: built as {cfg} with {n} particles")
+    mode = "chan-free" if cfg.chan_free else "gathered hybrid"
+    print(f"{what}: {n} particles ({2 * nf ** 3} fluid + {ne ** 3} elastic), grid "
+          f"{cfg.grid.shape}, max_jobs {cfg.max_jobs}, CDF mode {mode}", flush=True)
+    reports = []
+
+    def health(tb):
+        if tb.diag.any_overflow():
+            fail(f"{what}: step diagnostics of frame {tb.frame}: {tb.diag.summary()}")
+        rep = diagnostics.check(tb.data)
+        if not rep.ok or rep.out_of_grid:
+            fail(f"{what}: health check of frame {tb.frame}: {rep.summary()}")
+        reports.append(rep)
+
+    wt.reset_launch_counts()
+    t0 = time.time()
+    diag = MpmPipeline().step(data, SUBSTEPS)
+    torch.cuda.synchronize()
+    print(f"{what}: warm frame through MpmPipeline.step ({SUBSTEPS} substeps) "
+          f"{time.time() - t0:.2f} s", flush=True)
+    tb = Testbed(data, SUBSTEPS, on_frame=health)
+    tb.diag = diag
+    health(tb)
+    stats = tb.run(frames)
+    counts = wt.launch_counts()
+    pos = tb.data.state.particles.pos
+    if tuple(pos.shape) != (n, 3) or not bool(torch.isfinite(pos).all()) \
+            or not stats["finite"]:
+        fail(f"{what}: non-finite or misshapen positions")
+    if min(counts[k] for k in KERNELS_3D) <= 0:
+        fail(f"{what}: a kernel of the path never launched: {counts}")
+    ms = sum(tb.frame_ms)
+    sps = frames * SUBSTEPS / (ms / 1e3)
+    print(f"{what} on {kind} ({card}): {n} particles, {frames * SUBSTEPS} substeps "
+          f"in {ms / 1e3:.3f} s through Testbed.run -> {sps:.3f} steps/s, "
+          f"{sps * n / 1e6:.2f} M particle-updates/s; frame ms "
+          f"{[round(x, 3) for x in tb.frame_ms]}; StepDiag OK and diagnostics.check "
+          f"healthy after all {len(reports)} frames ({reports[-1].summary()}); "
+          f"launches { {k: counts[k] for k in KERNELS_3D} }", flush=True)
+    # A Testbed frame is a step_pallas frame from the same state.
+    start = tb.data.state
+    ref = step_pallas(start, data.params, cfg, SUBSTEPS)
+    tb.step_frame()
+    _same_state(tb.data.state, ref, f"{what}: Testbed frame against step_pallas")
+    # Checkpoint of the full-size state, and a frame from each side.
+    tmp = tempfile.mkdtemp(prefix="wgsparkl_dam_break_")
+    path = os.path.join(tmp, "state.npz")
+    t0 = time.time()
+    tb.save_checkpoint(path)
+    saved = tb.data.state
+    tb.load_checkpoint(path)
+    _same_state(tb.data.state, saved, f"{what}: checkpoint round trip")
+    _same_state(step_pallas(tb.data.state, data.params, cfg, SUBSTEPS),
+                step_pallas(saved, data.params, cfg, SUBSTEPS),
+                f"{what}: a frame from the loaded state")
+    print(f"{what}: a Testbed frame equals a step_pallas frame from the same state "
+          f"bit for bit; checkpoint ({os.path.getsize(path) / 1e6:.1f} MB) saved and "
+          f"loaded bit for bit in {time.time() - t0:.2f} s, and a frame from the "
+          "loaded state equals one from the saved state", flush=True)
+    for name, m in render.MODES.items():
+        inst = render.prep_instances(tb.data.state.particles, mode=m,
+                                     cell_width=cfg.grid.cell_width)
+        if tuple(inst["color"].shape) != (n, 3) or not bool(
+                torch.isfinite(inst["color"]).all()):
+            fail(f"{what}: prep_instances mode {name} not finite")
+    ply = os.path.join(tmp, f"frame_{tb.frame:05d}.ply")
+    tb.write_frame(ply)
+    with open(ply) as f:
+        head = [next(f) for _ in range(3)]
+    print(f"{what}: prep_instances finite in all {len(render.MODES)} modes; "
+          f"{ply}: {head[2].strip()}, {os.path.getsize(ply) / 1e6:.1f} MB", flush=True)
+    os.remove(path)
+    os.remove(ply)
+    os.rmdir(tmp)
+    ts = time_passes(tb.data.state, data.params, cfg, iters=5)
+    print(f"{what}: time_passes (the dense transfer's passes on this state, CUDA "
+          f"events, ms a call):\n{ts.report()}", flush=True)
+    # Run_frames' loop on the same state: step_with_diag frames, one
+    # synchronise after the last (the Testbed synchronises after each).
+    st = tb.data.state
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        st, _ = step_with_diag(st, data.params, cfg, SUBSTEPS)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / frames
+    print(f"{what}: Testbed.run frames {ms / frames:.3f} ms each against run_frames' "
+          f"loop {loop_ms:.3f} ms a frame ({frames} frames from the state after them): "
+          f"ratio {ms / frames / loop_ms:.4f}", flush=True)
+    del st
+    # One frame under torch.profiler (utils/profiling.py; the Testbed's
+    # frames have warmed it): its kernels', copies' and fills' device time
+    # against the same frame's own wall (the profiler on), and against the
+    # median unprofiled Testbed frame wall (another frame: printed apart).
+    pstats = {}
+    rows = profile_step(tb.data, SUBSTEPS, top=100_000, warmup_frames=0, stats=pstats)
+    dev_ms, pwall = sum(r[0] for r in rows), pstats["wall_ms"]
+    wall = sorted(tb.frame_ms)[len(tb.frame_ms) // 2]
+    print(f"{what}: profiled frame: device time {dev_ms:.3f} ms ({dev_ms / SUBSTEPS:.3f} "
+          f"ms a substep), its own wall {pwall:.3f} ms: idle share "
+          f"{1.0 - dev_ms / pwall:.3f}; the median unprofiled Testbed frame wall "
+          f"{wall:.3f} ms (another frame); the largest (ms a substep, op):", flush=True)
+    for _, per, op, loc, _ in rows[:8]:
+        print(f"  {per:8.4f}  {op}  {loc}", flush=True)
+    del data, tb, start, ref, saved, inst
+    torch.cuda.empty_cache()
 
 
 # ---- paths 15-15d: multi-device stepping (wgsparkl_tpu_torch/parallel) ----
@@ -1241,58 +1485,45 @@ def all_kinematic(device):
                    grid=d.config.grid, by=BY, group=256)
 
 
-def sand2_scene(device, n_side=None, plates=None, shift=None, **mpm_kw):
-    """Path 7: the reference's two-way coupling demo as examples/sand2.py
-    (lines 22-71) builds it at SCALE = n_side / 700: an n_side x n_side
-    Drucker-Prager lattice (density 1000, E = 1e7, nu = 0.2, cell width
-    0.2), a floor and two walls (fixed), a cuboid, a ball and a capsule
-    stirring at +-1 rad/s (kinematic), two dynamic cuboid plates of density
-    500 and 2000, dt (1/60)/10.  plates: ((x, y), (x, y)) in place of the
-    plates' positions; shift moves the lattice; n_side None: N_SAND2."""
-    import numpy as np
+def example_scene(name, device, scale=1.0, shift=None, plates=None, vel=None,
+                  max_stretch=None, **mpm_kw):
+    """examples/<name>.py's scene from the port's runner
+    (`wgsparkl_tpu_torch.examples.<name>.build(scale, device, **mpm_kw)`),
+    with this script's variants applied to the built scene: shift moves the
+    lattice, vel gives it a velocity, plates ((x, y), (x, y)) moves the two
+    dynamic plates (bodies 6 and 7), max_stretch sets every particle's.  A
+    varied scene is configured again from its varied particles, bodies and
+    models, on the built grid (the chan-free heuristic reads positions)."""
+    import importlib
 
-    from wgsparkl_tpu_torch.collision.shapes import Collider
-    from wgsparkl_tpu_torch.models import DruckerPrager, ElasticCoefficients
-    from wgsparkl_tpu_torch.models.drucker_prager import drucker_prager_arrays
-    from wgsparkl_tpu_torch.params import SimulationParams
-    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
-    from wgsparkl_tpu_torch.scenes import _lattice
-    from wgsparkl_tpu_torch.solver import Models, Particles
+    from wgsparkl_tpu_torch.pipeline import MpmData
 
-    n_side = n_side or N_SAND2
-    scale, cw = n_side / 700, 0.2
-    pos = _lattice((n_side, n_side), cw, (0.1, 46.0 * scale + 2.0))
+    d = importlib.import_module(f"wgsparkl_tpu_torch.examples.{name}").build(
+        scale, device, **mpm_kw)
+    if shift is None and plates is None and vel is None and max_stretch is None:
+        return d
+    p, m, bodies = d.state.particles, d.state.models, list(d.bodies_desc)
     if shift is not None:
-        pos = pos + np.asarray(shift, np.float32)
-    n = len(pos)
-    elast = ElasticCoefficients.from_young_modulus(1e7, 0.2)
-    dp = drucker_prager_arrays([DruckerPrager.new(1e7, 0.2)])
-    models = Models.from_arrays(n, elast.lam, elast.mu,
-                                dp={k: np.full(n, v[0]) for k, v in dp.items()},
-                                device=device)
-    e = n_side * cw / 2
-    plates = plates or ((e * 0.4, e * 1.6), (e * 0.9, e * 1.8))
-    bodies = [
-        RigidBodyDesc(Collider.cuboid(e * 4, 1.0), (e / 2, -1.0)),
-        RigidBodyDesc(Collider.cuboid(1.0, e * 4), (-e * 1.2, 0.0)),
-        RigidBodyDesc(Collider.cuboid(1.0, e * 4), (e * 2.2, 0.0)),
-        RigidBodyDesc(Collider.cuboid(e * 0.3, 0.4), (e * 0.5, e * 0.5),
-                      body_type="kinematic", angvel=1.0),
-        RigidBodyDesc(Collider.ball(e * 0.15), (e * 1.0, e * 0.8),
-                      body_type="kinematic", angvel=1.0),
-        RigidBodyDesc(Collider.capsule(e * 0.2, e * 0.08), (e * 0.2, e * 0.9),
-                      body_type="kinematic", angvel=-1.0),
-        RigidBodyDesc(Collider.cuboid(e * 0.15, 0.3), tuple(plates[0]),
-                      body_type="dynamic", density=500.0),
-        RigidBodyDesc(Collider.cuboid(e * 0.15, 0.3), tuple(plates[1]),
-                      body_type="dynamic", density=2000.0),
-    ]
-    return MpmData(SimulationParams.new((1 / 60) / 10, [0.0, -9.81], device=device),
-                   Particles.from_arrays(pos, density=1000.0, radius=cw / 4,
-                                         device=device),
-                   models, bodies, cw,
-                   grid_bounds=(np.array([-e * 1.6, -0.5]),
-                                np.array([e * 2.6, 60.0 * scale + e * 1.5])), **mpm_kw)
+        p = dataclasses.replace(p, pos=p.pos + torch.tensor(shift, device=p.pos.device))
+    if vel is not None:
+        p = dataclasses.replace(p, vel=torch.tensor(vel, device=p.pos.device).expand_as(
+            p.vel).clone())
+    if plates is not None:
+        bodies[6:8] = [dataclasses.replace(b, translation=tuple(x))
+                       for b, x in zip(bodies[6:8], plates)]
+    if max_stretch is not None:
+        m = dataclasses.replace(m, max_stretch=torch.full_like(m.max_stretch,
+                                                               max_stretch))
+    return MpmData(d.params, p, m, bodies, d.config.grid.cell_width, grid=d.config.grid,
+                   **mpm_kw)
+
+
+def sand2_scene(device, scale=1.0, **kw):
+    """Path 7: examples/sand2.py (the two-way coupling demo) at SCALE scale:
+    a max(48, 700 scale)^2 Drucker-Prager lattice, a floor and two walls,
+    three kinematic stirrers, two dynamic plates of density 500 and 2000,
+    dt (1/60)/10 (example_scene's variants)."""
+    return example_scene("sand2", device, scale, **kw)
 
 
 def sand2_pressed(n_side):
@@ -1303,141 +1534,27 @@ def sand2_pressed(n_side):
     return ((e * 0.4, 0.25), (e * 0.4 + 0.2, 0.8))
 
 
-def cut2_scene(device, n_side=None, shift=None, **mpm_kw):
-    """Path 9: examples/elastic_cut2.py (lines 19-60) at SCALE = n_side / 700:
-    an n_side x n_side elastic block (E = 5e6, nu = 0.2, max_stretch 1.4,
-    cell width 0.2) over a 64-vertex sine-wave polyline ground and six
-    polyline blades, gravity x 2, dt (1/60)/15, group 256; shift moves the
-    lattice; n_side None: N_CUT2."""
-    import numpy as np
-
-    from wgsparkl_tpu_torch.collision.shapes import Collider
-    from wgsparkl_tpu_torch.models import ElasticCoefficients
-    from wgsparkl_tpu_torch.params import SimulationParams
-    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
-    from wgsparkl_tpu_torch.scenes import _lattice
-    from wgsparkl_tpu_torch.solver import Models, Particles
-
-    n_side = n_side or N_CUT2
-    scale, cw = n_side / 700, 0.2
-    pos = _lattice((n_side, n_side), cw, (0.1, 30.0 * scale))
-    if shift is not None:
-        pos = pos + np.asarray(shift, np.float32)
-    n = len(pos)
-    elast = ElasticCoefficients.from_young_modulus(5e6, 0.2)
-    models = Models.from_arrays(n, elast.lam, elast.mu, phase=1.0, max_stretch=1.4,
-                                device=device)
-    extent = n_side * cw / 2
-    xs = np.linspace(-extent * 1.5, extent * 3.5, 64)
-    ground = np.stack([xs, 0.4 * np.sin(xs * 0.8)], axis=-1)
-    bodies = [RigidBodyDesc(Collider.polyline(ground), (0.0, -0.5))]
-    for k in range(6):
-        cx, top = extent * 0.2 + k * extent * 0.3, 30.0 * scale * 0.6
-        blade = np.array([[cx, top], [cx + 0.15, top - extent * 0.5]], np.float32)
-        bodies.append(RigidBodyDesc(Collider.polyline(blade), (0.0, 0.0)))
-    return MpmData(SimulationParams.new((1 / 60) / 15, [0.0, -9.81 * 2], device=device),
-                   Particles.from_arrays(pos, density=1000.0, radius=cw / 4,
-                                         device=device),
-                   models, bodies, cw,
-                   grid_bounds=(np.array([-extent * 1.5, -2.0]),
-                                np.array([extent * 3.5, 40.0 * scale + extent])),
-                   **{"group": 256, **mpm_kw})
+def cut2_scene(device, scale=1.0, **kw):
+    """Path 9: examples/elastic_cut2.py at SCALE scale: a max(48, 700
+    scale)^2 elastic block with fracture over a sine-wave polyline ground
+    and six polyline blades, gravity x 2, dt (1/60)/15, group 256."""
+    return example_scene("elastic_cut2", device, scale, **kw)
 
 
-def cut3_blade(cx, angle, half_len, height=6.0):
-    """examples/elastic_cut3.py's blade (lines 36-48): a quad rotated about y."""
-    import numpy as np
-
-    from wgsparkl_tpu_torch.collision.shapes import Collider
-
-    v = np.array([[-half_len, 0, 0], [half_len, 0, 0], [half_len, height, 0],
-                  [-half_len, height, 0]], np.float32)
-    c, s = np.cos(angle), np.sin(angle)
-    rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
-    v = v @ rot.T + np.array([cx, 2.0, 0.0], np.float32)
-    return Collider.trimesh(v, np.array([[0, 1, 2], [0, 2, 3]], np.int32))
+def cut3_scene(device, scale=1.0, **kw):
+    """Path 10: examples/elastic_cut3.py at SCALE scale: a 50 x 30 x 50
+    elastic block at SCALE 1 (75,000 particles) falling onto a cuboid floor
+    and three thin trimesh blades, gravity x 4, dt (1/60)/20, group 256, by
+    4."""
+    return example_scene("elastic_cut3", device, scale, **kw)
 
 
-def cut3_scene(device, scale=1.0, shift=None, max_stretch=1.3, vel=None, **mpm_kw):
-    """Path 10: examples/elastic_cut3.py (lines 20-62) at SCALE = scale: a
-    50 x 30 x 50 elastic block at SCALE = 1 (75,000 particles, E = 1e7,
-    nu = 0.2, cell width 1) falling onto a cuboid floor and three thin
-    trimesh blades, gravity x 4, dt (1/60)/20, group 256, by 4; shift moves
-    the lattice, vel gives it a velocity."""
-    import numpy as np
-
-    from wgsparkl_tpu_torch.collision.shapes import Collider
-    from wgsparkl_tpu_torch.models import ElasticCoefficients
-    from wgsparkl_tpu_torch.params import SimulationParams
-    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
-    from wgsparkl_tpu_torch.scenes import _lattice
-    from wgsparkl_tpu_torch.solver import Models, Particles
-
-    cw = 1.0
-    nx, nyz = max(10, int(50 * scale)), max(6, int(30 * scale))
-    pos = _lattice((nx, nyz, nx), cw, (-nx * cw / 4, 14.0, -nx * cw / 4))
-    if shift is not None:
-        pos = pos + np.asarray(shift, np.float32)
-    n = len(pos)
-    particles = Particles.from_arrays(pos, density=1000.0, radius=cw / 4, device=device)
-    if vel is not None:
-        particles.vel[:] = torch.tensor(vel, dtype=torch.float32, device=device)
-    elast = ElasticCoefficients.from_young_modulus(1e7, 0.2)
-    models = Models.from_arrays(n, elast.lam, elast.mu, phase=1.0,
-                                max_stretch=max_stretch, device=device)
-    extent = nx * cw
-    bodies = [RigidBodyDesc(Collider.cuboid(extent * 3, 1.0, extent * 3), (0, -1.0, 0)),
-              RigidBodyDesc(cut3_blade(-extent / 4, 0.4, extent), (0.0, 0.0, 0.0)),
-              RigidBodyDesc(cut3_blade(0.0, -0.3, extent), (0.0, 0.0, 0.0)),
-              RigidBodyDesc(cut3_blade(extent / 4, 0.1, extent), (0.0, 0.0, 0.0))]
-    return MpmData(SimulationParams.new((1 / 60) / 20, [0.0, -9.81 * 4.0, 0.0],
-                                        device=device),
-                   particles, models, bodies, cw,
-                   grid_bounds=(np.array([-extent, -2.0, -extent]),
-                                np.array([extent, 25.0, extent])),
-                   **{"group": 256, **mpm_kw})
-
-
-def hf3_scene(device, scale=1.0, shift=None, **mpm_kw):
-    """Path 11: examples/heightfield3.py (lines 19-50) at SCALE = scale: a
-    45 x 100 x 45 Drucker-Prager sand lattice at SCALE = 1 (202,500
-    particles, density 2700, E = 2e9, nu = 0.2, cell width 1) dropped on a
-    48 x 48 random rolling heightfield (4,418 triangles, numpy
-    default_rng(0)), dt (1/60)/20, group 256; shift moves the lattice."""
-    import numpy as np
-
-    from wgsparkl_tpu_torch.collision.shapes import Collider
-    from wgsparkl_tpu_torch.models import DruckerPrager, ElasticCoefficients
-    from wgsparkl_tpu_torch.models.drucker_prager import drucker_prager_arrays
-    from wgsparkl_tpu_torch.params import SimulationParams
-    from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc
-    from wgsparkl_tpu_torch.scenes import _lattice
-    from wgsparkl_tpu_torch.solver import Models, Particles
-
-    cw = 1.0
-    nxz, ny = max(8, int(45 * scale)), max(12, int(100 * scale))
-    pos = _lattice((nxz, ny, nxz), cw, (-nxz * cw / 4, 16.0, -nxz * cw / 4))
-    if shift is not None:
-        pos = pos + np.asarray(shift, np.float32)
-    n = len(pos)
-    elast = ElasticCoefficients.from_young_modulus(2e9, 0.2)
-    dp = drucker_prager_arrays([DruckerPrager.new(2e9, 0.2)])
-    models = Models.from_arrays(n, elast.lam, elast.mu,
-                                dp={k: np.full(n, v[0]) for k, v in dp.items()},
-                                device=device)
-    rng = np.random.default_rng(0)
-    res = max(16, int(48 * scale))
-    extent = nxz * cw * 1.5
-    heights = 0.15 * np.sin(np.linspace(0, 6, res))[:, None] * np.cos(
-        np.linspace(0, 6, res))[None, :] + 0.04 * rng.standard_normal((res, res))
-    field = Collider.heightfield(heights, (2 * extent, 8.0, 2 * extent))
-    return MpmData(SimulationParams.new((1 / 60) / 20, [0.0, -9.81, 0.0], device=device),
-                   Particles.from_arrays(pos, density=2700.0, radius=cw / 4,
-                                         device=device),
-                   models, [RigidBodyDesc(field, (0.0, 0.0, 0.0))], cw,
-                   grid_bounds=(np.array([-extent, -6.0, -extent]),
-                                np.array([extent, 30.0, extent])),
-                   **{"group": 256, **mpm_kw})
+def hf3_scene(device, scale=1.0, **kw):
+    """Path 11: examples/heightfield3.py at SCALE scale: a 45 x 100 x 45
+    Drucker-Prager lattice at SCALE 1 (202,500 particles) dropped on a 48 x
+    48 random rolling heightfield (numpy default_rng(0)), dt (1/60)/20,
+    group 256."""
+    return example_scene("heightfield3", device, scale, **kw)
 
 
 def ramp_scene(device, by=4, **mpm_kw):
@@ -1854,7 +1971,8 @@ def mesh_paths(wt, card, kind, launches, frames=TIMED_FRAMES_SHORT):
     from wgsparkl_tpu_torch.ops import rigid_cdf
 
     for tag, make, substeps, kernels, what in (
-            ("mesh_cdf2d", lambda: cut2_scene(DEVICE), SUBSTEPS_CUT2, KERNELS_9,
+            ("mesh_cdf2d", lambda: cut2_scene(DEVICE, N_CUT2 / 700), SUBSTEPS_CUT2,
+             KERNELS_9,
              "path 9: elastic_cut2"),
             ("mesh_cdf", lambda: cut3_scene(DEVICE, CUT3_SCALE), SUBSTEPS, KERNELS_10,
              "path 10: elastic_cut3"),
@@ -1916,6 +2034,11 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}",
           flush=True)
 
+    def mark(what):
+        """Where the run's time goes: seconds since the start at each
+        section."""
+        print(f"-- {what} from {time.time() - t_start:.1f} s", flush=True)
+
     # ---- 1. build ----
     t0 = time.time()
     ptxas = ptxas_reports(_cuda, {"pcdf2d": "pcdf2d_kernel", "g2p2d": "g2p2d_kernel",
@@ -1931,6 +2054,7 @@ def main() -> None:
     # Launches per kernel entry of the result line: each from the run of
     # the path that drives it.
     launches = {}
+    mark("paths 2-4")
     # ---- 2. the 3D main path at full size ----
     counts, _ = run_frames(wt, full_scene(dev), SUBSTEPS, KERNELS_3D,
                            "3D main path", card, kind, gates=True)
@@ -1995,6 +2119,7 @@ def main() -> None:
                            TIMED_FRAMES_SHORT)
     launches["p2g2d_chunks"] = counts["p2g2d"]
     torch.cuda.empty_cache()
+    mark("path 5")
     # ---- 5. path 5: the 3D analytic shapes at full size, both CDF modes ----
     data = full_scene_shapes(dev)
     if data.config.chan_free:
@@ -2011,10 +2136,12 @@ def main() -> None:
         del data
         torch.cuda.empty_cache()
 
+    mark("paths 7-8")
     # ---- path 7: examples/sand2.py at SCALE=1 (dynamic plates, 2D) ----
     # ---- path 8: the 3D main path with two dynamic plates ----
     for tag, make, substeps, kernels, what, plates in (
-            ("rigid_solve", lambda: sand2_scene(dev, group=GROUP2), SUBSTEPS2, KERNELS_7,
+            ("rigid_solve", lambda: sand2_scene(dev, N_SAND2 / 700, group=GROUP2),
+             SUBSTEPS2, KERNELS_7,
              "path 7: sand2 with dynamic plates", (6, 7)),
             ("rigid_solve_3d", lambda: full_scene_plates(dev), SUBSTEPS, KERNELS_8,
              "path 8: 3D main path with dynamic plates", (6, 7))):
@@ -2058,8 +2185,10 @@ def main() -> None:
                   "torch.cuda.set_sync_debug_mode('error') with no host sync", flush=True)
         del data, state
         torch.cuda.empty_cache()
+    mark("paths 9-11")
     # ---- paths 9-11: mesh colliders at full size ----
     mesh_paths(wt, card, kind, launches)
+    mark("paths 12-12b")
     # ---- path 12: the 3D main path in the sparse domain ----
     data = full_scene_sparse(dev)
     cfg = data.config
@@ -2089,8 +2218,13 @@ def main() -> None:
     launches["mesh_cdf_sparse"] = counts["mesh_cdf_sparse"]
     del data, state
     torch.cuda.empty_cache()
-    # ---- paths 13, 13b, 14: the dense and blocked transfers ----
+    mark("paths 13-14")
+    # ---- paths 13, 13w, 13b, 14: the dense and blocked transfers ----
     dense_paths(wt, card, kind, launches)
+    mark("path 16")
+    # ---- path 16: the config-3 dam break through the host surfaces ----
+    dam_break_path(wt, card, kind)
+    mark("paths 15-15d")
     # ---- paths 15-15d: multi-device stepping, ranks sharing the card ----
     records = {}
     parallel_paths(wt, card, kind, launches, records)
@@ -2227,6 +2361,7 @@ def main() -> None:
         return (int(rec["covered_end"]), int(ln[live & (jb > 0)].sum()),
                 int(live.sum()), int((live & (jb > 0)).sum()))
 
+    mark("phase 5")
     # ---- 5a. 3D kernels vs plain versions at full size, under contact load ----
     # The 3D scene with its lattice lowered 3 cells onto the paddle: the
     # main path's shapes, with gated jobs whose CPIC impulses are nonzero.
@@ -2584,13 +2719,15 @@ def main() -> None:
     del rec, args_hc, data, state
     torch.cuda.empty_cache()
 
+    mark("phase 5g-5j")
     # ---- 5g. the rigid solve on substeps of paths 7 and 8 with the plates
     # pressed into the floor and into each other, and on the joint scenes ----
     from wgsparkl_tpu_torch.rigid import body as body_mod
     from wgsparkl_tpu_torch.rigid import solve
 
     for name, make in (
-            ("rigid_solve", lambda: sand2_scene(dev, plates=sand2_pressed(N_SAND2),
+            ("rigid_solve", lambda: sand2_scene(dev, N_SAND2 / 700,
+                                                plates=sand2_pressed(N_SAND2),
                                                 group=GROUP2)),
             ("rigid_solve_3d", lambda: full_scene_plates(dev, PLATES_3D_PRESSED))):
         data = make()
@@ -2691,7 +2828,8 @@ def main() -> None:
     for name, make in (
             ("mesh_cdf", lambda: cut3_scene(dev, CUT3_SCALE, shift=(0.0, -7.0, 0.0))),
             ("mesh_cdf_heightfield", lambda: hf3_scene(dev, HF3_SCALE)),
-            ("mesh_cdf2d", lambda: cut2_scene(dev, shift=(0.0, -13.0 * N_CUT2 / 700)))):
+            ("mesh_cdf2d", lambda: cut2_scene(dev, N_CUT2 / 700,
+                                              shift=(0.0, -13.0 * N_CUT2 / 700)))):
         data = make()
         cfg = data.config
         state, diag = step_with_diag(data.state, data.params, cfg, 2)
@@ -2859,6 +2997,7 @@ def main() -> None:
     del data, state, rec, args_m, sw, vw
     torch.cuda.empty_cache()
 
+    mark("phase 5d-5f")
     # ---- 5d. kernel F on a substep of the collider-free path ----
     r = rec_f
     args_f = (r["pdata"], r["ntiles"], r["btable"], r["jobs"], r["bcells"],
@@ -2926,6 +3065,7 @@ def main() -> None:
     del inputs
     torch.cuda.empty_cache()
 
+    mark("phase 5b (dense)")
     # ---- 5b. the dense transfer's kernels at full size ----
     # A substep of path 13 with its lattice lowered onto the paddle and of
     # path 13b lowered 1.5 cells into its floor, so that the CPIC impulses
@@ -3000,6 +3140,39 @@ def main() -> None:
         del data, state, rec, rows, args_1, args_2, args_3
         torch.cuda.empty_cache()
 
+    # ---- 5b'''. kernel C with the wide material table (path 13w lowered) ----
+    # A substep of path 13w (one material a particle) lowered onto the
+    # paddle: kernel C reads each lane's 11 constants at its own lane of the
+    # [16, M] table; every row bit for bit.  Cost: c_cost's rows, plus the
+    # 11 table rows read once.
+    data = wide_scene(dev)
+    cfg = data.config
+    data.state.particles.pos += torch.tensor((0.0, -3.0, 0.0), device=dev)
+    state = step_dense(data.state, data.params, cfg, 2)
+    rec = {}
+    step_dense(state, data.params, cfg, 1, record=rec)
+    torch.cuda.synchronize()
+    n, npad, mtab = state.particles.count, rec["rows"].shape[1], rec["mtable"]
+    args_w = (rec["rows"], rec["krows"], rec["pcdf"],
+              torch.zeros(npad, dtype=torch.int32, device=dev),
+              torch.full((1,), n, dtype=torch.int32, device=dev), rec["btable"], mtab,
+              data.params.dt, cfg.grid.cell_width, cfg.num_colliders, rec["n_mat"], 1)
+    print(f"update_rows_wide inputs: {n} particles, {rec['n_mat']} materials in a "
+          f"{tuple(mtab.shape)} table", flush=True)
+    check("update_rows_wide",
+          lambda: update_rows.update_rows(*args_w, centered=True),
+          lambda: update_rows.update_plain(*args_w, centered=True),
+          lambda k, p: [],
+          lambda k, p: [(f"row {r}", k[r], p[r]) for r in range(k.shape[0])],
+          lambda p: (None if rec["n_mat"] > 128 and mtab.shape[1] >= rec["n_mat"]
+                     else "the table is not wide"),
+          cost=(c_cost(C_ROWS_READ_3D, 12, 6, rec["rows"].shape[0], npad, n, 6000)[0]
+                + 4 * 11 * rec["n_mat"],
+                c_cost(C_ROWS_READ_3D, 12, 6, rec["rows"].shape[0], npad, n, 6000)[1]))
+    del data, state, rec, args_w, mtab
+    torch.cuda.empty_cache()
+
+    mark("phase 5k")
     # ---- 5k. paths 15-15d: each kernel on the rows of one rank ----
     # The recording rank's substep after a path's frame (a middle rank,
     # receiving migrants from both sides on the spatial paths): the same
@@ -3100,6 +3273,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     del records
 
+    mark("phase 6")
     # ---- 6. kernel path vs plain path on small scenes ----
     def agree(sk, sp, what):
         ik = torch.argsort(sk.particles.ids.cpu())
@@ -3243,7 +3417,8 @@ def main() -> None:
         "2D sand column in its floor (chan-free, fold_vel)": lambda device:
             small_column_2d(device, (0.0, -0.75), chan_free=True, fold_vel=True),
         "2D sand2 with dynamic plates pressed into the floor and each other":
-            lambda device: sand2_scene(device, 32, sand2_pressed(32), (0.0, -3.5),
+            lambda device: sand2_scene(device, SAND2_SMALL, plates=sand2_pressed(48),
+                                       shift=(0.0, -4.55),
                                        group=128, chan_free=False),
         "3D dynamic plate on a ball joint": plate_joint_3d,
         "3D four materials with fracture": lambda device: four_materials(
@@ -3333,14 +3508,38 @@ def main() -> None:
         "3D dense trimesh ramp and cuboid floor (mesh)": (5, lambda device: ramp_scene(
             device, transfer="dense")),
         "3D blocked box with bodies at max_jobs 8": (5, blocked_box),
+        # More than 128 materials (each particle its own lambda): the wide
+        # material table on both transfers.
+        "2D 256-material lattice (dense)": (3, lambda device: many_materials(
+            device, "dense", 2)),
+        "2D 256-material lattice (blocked)": (3, lambda device: many_materials(
+            device, "blocked", 2)),
+        "3D 256-material lattice on a floor (dense)": (3, lambda device: many_materials(
+            device, "dense", 3)),
+        "3D 256-material lattice on a floor (blocked)": (3, lambda device: many_materials(
+            device, "blocked", 3)),
     }
     for what, (steps, make) in small_dense.items():
         dk, dp = make(dev), make("cpu")
         wt.reset_launch_counts()
         sk = step_dense(dk.state, dk.params, dk.config, steps)
         counts = wt.launch_counts()
-        if min(counts[k] for k in KERNELS_DENSE[:3]) != steps:
+        # A collider-free scene takes no particle CDF (dense_pcdf).
+        need = KERNELS_DENSE[:3] if dk.config.num_colliders else KERNELS_DENSE[1:3]
+        if min(counts[k] for k in need) != steps:
             fail(f"{what}: not one launch of each dense kernel a substep: {counts}")
+        if "256-material" in what:
+            if dk.config.n_materials != 256 or dk.state.models.mat_table.shape[1] != 256:
+                fail(f"{what}: {dk.config.n_materials} materials")
+            # Each particle's own material matters: with the ids reversed
+            # (particle k reads material 255 - k) the velocities move off.
+            m = dk.state.models
+            rev = dataclasses.replace(dk.state, models=dataclasses.replace(
+                m, mat_id=m.mat_id.flip(0)))
+            gap = float((step_dense(rev, dk.params, dk.config, steps).particles.vel
+                         - sk.particles.vel).abs().max())
+            if not gap > 1e-4:
+                fail(f"{what}: reversed material ids move the velocities by {gap} only")
         if dk.config.mesh_cids and counts["mesh_cdf"] != steps:
             fail(f"{what}: {counts['mesh_cdf']} mesh_cdf launches in {steps} substeps")
         if "max_jobs" in what:
@@ -3359,6 +3558,7 @@ def main() -> None:
     print("small dense and blocked scenes (" + "; ".join(small_dense) + "): kernel "
           "path equals the plain path on the card and agrees with it on the CPU "
           "substep by substep", flush=True)
+    mark("phase 6 (2-rank scenes)")
     parallel_small_scenes(dev)
     for c in checks:
         c["launches"] = launches[c["name"]]

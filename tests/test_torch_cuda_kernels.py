@@ -553,7 +553,8 @@ def test_rigid_solve_kernel_matches_plain(scene):
     import chip_smoke
     from wgsparkl_tpu_torch.rigid import solve
 
-    d = (chip_smoke.sand2_scene("cuda", 32, chip_smoke.sand2_pressed(32), (0.0, -3.5),
+    d = (chip_smoke.sand2_scene("cuda", chip_smoke.SAND2_SMALL,
+                                plates=chip_smoke.sand2_pressed(48), shift=(0.0, -4.55),
                                 group=128)
          if scene == "sand2_pressed" else chip_smoke.plate_joint_3d("cuda"))
     with chip_smoke.captured_rigid_solve() as calls:

@@ -4,8 +4,9 @@ the CPU (plain versions of every kernel, the rigid solve's included).
 Two small scenes, 10 substeps each, every substep started in both
 packages from the JAX package's state (the scenes start in contact, which
 amplifies roundoff from substep to substep):
-  * examples/sand2.py at n_side 32 (chip_smoke.sand2_scene, held here
-    against the example's own recipe in the JAX package): the light plate
+  * examples/sand2.py at n_side 48, the runner's smallest (chip_smoke's
+    sand2_scene through the port's runner, held here against the example's
+    own recipe in the JAX package): the light plate
     sunk 5 slops into the floor, the heavy one sunk 5 slops into it, and
     the lattice lowered onto them and the stirrers (CPIC impulses on the
     plates, plate-floor and plate-plate contacts);
@@ -38,8 +39,8 @@ from wgsparkl_tpu_torch.pipeline import step_pallas
 torch.set_num_threads(2)
 
 _j_step = jax.jit(j_step, static_argnums=(2, 3))
-N_SIDE = 32
-SHIFT_2D = (0.0, -3.5)
+N_SIDE = 48
+SHIFT_2D = (0.0, -4.55)
 
 
 def _jax_sand2(n_side, plates, shift):
@@ -124,7 +125,8 @@ def test_sand2_small_matches_jax():
     plates = chip_smoke.sand2_pressed(N_SIDE)
     jdata = _jax_sand2(N_SIDE, plates, SHIFT_2D)
     # chip_smoke's path-7 scene is the example's at this size.
-    pdata = chip_smoke.sand2_scene("cpu", N_SIDE, plates, SHIFT_2D, group=H.GROUP_2D)
+    pdata = chip_smoke.sand2_scene("cpu", N_SIDE / 700, plates=plates, shift=SHIFT_2D,
+                                   group=H.GROUP_2D)
     np.testing.assert_array_equal(pdata.state.particles.pos.numpy(),
                                   np.asarray(jdata.state.particles.pos))
     assert pdata.config == interop.config_from_reference(jdata.config)

@@ -31,6 +31,10 @@
 // corotated stress; a second SVD runs only on lanes whose F the return map
 // replaced, and none on neo-Hookean lanes with plasticity disabled and no
 // fracture check, where no output reads it.
+// The material table is [16, mstride]: 128 lanes on the pallas path, a
+// multiple of 128 sized from the material count on the dense and blocked
+// transfers (one material a particle is allowed there); the constant of
+// row r for material id m is mtable[r * mstride + m].
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -195,7 +199,8 @@ __global__ void __launch_bounds__(UPDATE_THREADS, 4) update_kernel(
     const float* __restrict__ pcdf, const int* __restrict__ sids,
     const int* __restrict__ ce, const float* __restrict__ btable,
     const float* __restrict__ mtable, long long npad, long long kstride,
-    long long pstride, int nc, int n_mat, int live_below, int model, int centered,
+    long long pstride, long long mstride, int nc, int n_mat, int live_below,
+    int model, int centered,
     float dt, float h, float invd, float limit, float pen_thresh, float corr_min,
     float* __restrict__ out) {
   long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -240,7 +245,7 @@ __global__ void __launch_bounds__(UPDATE_THREADS, 4) update_kernel(
   }
   int mid = (int)row(R_MID);
   mid = mid < 0 ? 0 : (mid > n_mat - 1 ? n_mat - 1 : mid);
-  auto mval = [&](int r) { return mtable[r * 128 + mid]; };
+  auto mval = [&](int r) { return mtable[r * mstride + mid]; };
   float mass = row(6);
 
   // Contact projection, clamp, advection, penalty.
@@ -454,7 +459,8 @@ __global__ void update2d_kernel(
     const float* __restrict__ pcdf, const int* __restrict__ sids,
     const int* __restrict__ ce, const float* __restrict__ btable,
     const float* __restrict__ mtable, long long npad, long long kstride,
-    long long pstride, int nc, int n_mat, int live_below, int model, int centered,
+    long long pstride, long long mstride, int nc, int n_mat, int live_below,
+    int model, int centered,
     float dt, float h, float invd, float limit, float pen_thresh, float corr_min,
     float* __restrict__ out) {
   long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -494,7 +500,7 @@ __global__ void update2d_kernel(
   }
   int mid = (int)row(R2_MID);
   mid = mid < 0 ? 0 : (mid > n_mat - 1 ? n_mat - 1 : mid);
-  auto mval = [&](int r) { return mtable[r * 128 + mid]; };
+  auto mval = [&](int r) { return mtable[r * mstride + mid]; };
   float mass = row(4);
 
   // Contact projection, clamp, advection, penalty.
@@ -638,7 +644,8 @@ __global__ void update2d_kernel(
 extern "C" int update_rows2d_cuda(
     const float* rows, const float* krows, const float* pcdf, const int* sids,
     const int* ce, const float* btable, const float* mtable, long long npad,
-    long long kstride, long long pstride, long long nc, long long n_mat,
+    long long kstride, long long pstride, long long mstride, long long nc,
+    long long n_mat,
     long long live_below, long long model, long long centered, float dt, float h,
     float invd,
     float limit, float pen_thresh, float corr_min, float* out,
@@ -646,7 +653,7 @@ extern "C" int update_rows2d_cuda(
   unsigned blocks = (unsigned)((npad + 127) / 128);
   update2d_kernel<<<blocks, 128, 0, stream>>>(
       rows, krows, pcdf, sids, ce, btable, mtable, npad, kstride, pstride,
-      (int)nc, (int)n_mat, (int)live_below, (int)model, (int)centered, dt, h, invd,
+      mstride, (int)nc, (int)n_mat, (int)live_below, (int)model, (int)centered, dt, h, invd,
       limit,
       pen_thresh, corr_min, out);
   return (int)cudaGetLastError();
@@ -655,7 +662,8 @@ extern "C" int update_rows2d_cuda(
 extern "C" int update_rows_cuda(
     const float* rows, const float* krows, const float* pcdf, const int* sids,
     const int* ce, const float* btable, const float* mtable, long long npad,
-    long long kstride, long long pstride, long long nc, long long n_mat,
+    long long kstride, long long pstride, long long mstride, long long nc,
+    long long n_mat,
     long long live_below, long long model, long long centered, float dt, float h,
     float invd,
     float limit, float pen_thresh, float corr_min, float* out,
@@ -663,7 +671,7 @@ extern "C" int update_rows_cuda(
   unsigned blocks = (unsigned)((npad + UPDATE_THREADS - 1) / UPDATE_THREADS);
   update_kernel<<<blocks, UPDATE_THREADS, 0, stream>>>(
       rows, krows, pcdf, sids, ce, btable, mtable, npad, kstride, pstride,
-      (int)nc, (int)n_mat, (int)live_below, (int)model, (int)centered, dt, h, invd,
+      mstride, (int)nc, (int)n_mat, (int)live_below, (int)model, (int)centered, dt, h, invd,
       limit,
       pen_thresh, corr_min, out);
   return (int)cudaGetLastError();

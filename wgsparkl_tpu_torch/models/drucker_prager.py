@@ -1,6 +1,8 @@
-"""Drucker-Prager plastic return map, channel form (port of
-wgsparkl_tpu/models/drucker_prager.py: DruckerPrager,
-drucker_prager_arrays, drucker_prager_project_ch and _ch2).
+"""Drucker-Prager plastic return map (port of
+wgsparkl_tpu/models/drucker_prager.py: DruckerPrager, DruckerPragerState,
+drucker_prager_arrays, the channel forms drucker_prager_project_ch and
+_ch2, and the matrix form drucker_prager_project on [..., d, d] tensors,
+which goes through them).
 
 Disabled plasticity: lambda <= 0 is the "no plasticity" sentinel (the
 reference encodes it as lambda = -1), exactly as in the JAX package.
@@ -14,7 +16,7 @@ import torch
 
 from wgsparkl_tpu_torch.math import div
 from wgsparkl_tpu_torch.math.svd import svd2x2_ch, svd3x3_ch
-from wgsparkl_tpu_torch.models.elasticity import lame_lambda_mu
+from wgsparkl_tpu_torch.models.elasticity import channels, lame_lambda_mu, matrix
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +35,20 @@ class DruckerPrager:
         else:
             lam, mu = -1.0, -1.0
         return DruckerPrager(lam=float(lam), mu=float(mu))
+
+    @staticmethod
+    def disabled() -> "DruckerPrager":
+        return DruckerPrager()
+
+
+@dataclasses.dataclass(frozen=True)
+class DruckerPragerState:
+    """Initial per-particle plastic state (det 1, hardening 1, volume gain
+    0)."""
+
+    det: float = 1.0
+    hardening: float = 1.0
+    log_vol_gain: float = 0.0
 
 
 def drucker_prager_arrays(plasticities):
@@ -122,3 +138,13 @@ def _project(params, state, fc, svd):
                 proj = proj + uc[m][i] * new_sig[m] * vc[m][j]
             new_fc[(i, j)] = torch.where(apply, proj, fc[(i, j)])
     return out_state, new_fc
+
+
+def drucker_prager_project(params, state, def_grad):
+    """Plastic projection of [..., d, d] deformation gradients (d = 2 or 3).
+    params: dict of [...] tensors h0..h3, lam, mu; state: dict of [...]
+    tensors det, hardening, log_vol_gain.  Returns (new state, new F)."""
+    d = def_grad.shape[-1]
+    project = drucker_prager_project_ch if d == 3 else drucker_prager_project_ch2
+    out_state, fc = project(params, state, channels(def_grad))
+    return out_state, matrix(fc, d)

@@ -1,12 +1,15 @@
-"""Corotated and neo-Hookean elastic stress, channel form (port of
+"""Corotated and neo-Hookean elastic stress (port of
 wgsparkl_tpu/models/elasticity.py: lame_lambda_mu, ElasticCoefficients,
-kirchoff_stress_corotated_ch / _ch2 and kirchoff_stress_neo_hookean_ch /
-_ch2)."""
+elastic_arrays, the channel forms kirchoff_stress_corotated_ch / _ch2 and
+kirchoff_stress_neo_hookean_ch / _ch2, and the matrix forms
+kirchoff_stress_corotated / kirchoff_stress_neo_hookean on [..., d, d]
+tensors, which go through the channel forms)."""
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from wgsparkl_tpu_torch.math.svd import det3_ch, svd2x2_ch, svd3x3_ch
@@ -83,3 +86,38 @@ def kirchoff_stress_neo_hookean_ch2(lam, mu, fc):
     """2D twin of kirchoff_stress_neo_hookean_ch."""
     return _neo_hookean(lam, mu, fc, 2,
                         fc[(0, 0)] * fc[(1, 1)] - fc[(0, 1)] * fc[(1, 0)])
+
+
+def channels(m):
+    """[..., d, d] tensor -> dict (i, j) -> [...] channel of its entries."""
+    d = m.shape[-1]
+    return {(i, j): m[..., i, j] for i in range(d) for j in range(d)}
+
+
+def matrix(fc, d: int):
+    """dict (i, j) -> [...] channels -> [..., d, d] tensor."""
+    return torch.stack([torch.stack([fc[(i, j)] for j in range(d)], -1)
+                        for i in range(d)], -2)
+
+
+def kirchoff_stress_corotated(lam, mu, def_grad):
+    """Corotated Kirchhoff stress of [..., d, d] deformation gradients
+    (d = 2 or 3; lam, mu [...]): 2 mu U diag(S - 1) V^T F^T + lam J (J - 1) I."""
+    d = def_grad.shape[-1]
+    ch = kirchoff_stress_corotated_ch if d == 3 else kirchoff_stress_corotated_ch2
+    return matrix(ch(lam, mu, channels(def_grad)), d)
+
+
+def kirchoff_stress_neo_hookean(lam, mu, def_grad):
+    """Neo-Hookean Kirchhoff stress of [..., d, d] deformation gradients:
+    mu F F^T + (lam log J - mu) I, J = det F clamped below at 1e-10."""
+    d = def_grad.shape[-1]
+    ch = kirchoff_stress_neo_hookean_ch if d == 3 else kirchoff_stress_neo_hookean_ch2
+    return matrix(ch(lam, mu, channels(def_grad)), d)
+
+
+def elastic_arrays(models):
+    """(lam, mu) f32 arrays of a list of ElasticCoefficients."""
+    lam = np.asarray([m.lam for m in models], dtype=np.float32)
+    mu = np.asarray([m.mu for m in models], dtype=np.float32)
+    return lam, mu

@@ -4,9 +4,11 @@ kernel C, csrc/update_rows.cu, one entry point per dimension).
 
 From the sorted rows, the G2P rows, the particle-CDF rows and the sorted
 block ids it computes the next substep's [PCHAN, NPAD] row matrix: the rigid
-contact velocity from the body table, the material constants by id, and
-particle_update_channels with the corotated or the neo-Hookean stress
-(`elastic_model`; the kernel takes its index in ELASTIC_MODELS).  Lanes
+contact velocity from the body table, the material constants by id (from
+the [16, M] material table: M = 128 on the pallas path, a multiple of 128
+on the dense and blocked transfers), and particle_update_channels with
+the corotated or the neo-Hookean stress (`elastic_model`; the kernel takes
+its index in ELASTIC_MODELS).  Lanes
 are live iff id < live_below and rank < covered_end; dead lanes keep their
 position and get zero velocity inputs.  The G2P rows hold the velocity and
 the moments sum_k w_k v_i x_k, from which the gradient is D^-1 (S - v p^T);
@@ -137,16 +139,19 @@ def _launch(symbol, pchan, nkrows, rows_all, krows, pcdf, sorted_ids,
         raise ValueError("G2P / particle-CDF rows narrower than NPAD")
     if sorted_ids.dtype != torch.int32 or sorted_ids.shape != (npad,):
         raise TypeError("sorted_ids must be int32 [NPAD]")
-    if not 0 <= nc <= 16 or not 1 <= n_mat <= 128:
-        raise ValueError("at most 16 colliders and 128 materials")
+    if mtable.dim() != 2 or mtable.shape[0] != 16:
+        raise ValueError("the material table is [16, M]")
+    if not 0 <= nc <= 16 or not 1 <= n_mat <= mtable.shape[1]:
+        raise ValueError("at most 16 colliders, and 1 to M materials in a "
+                         f"[16, {mtable.shape[1]}] material table")
     ce = torch.as_tensor(covered_end, dtype=torch.int32,
                          device=rows_all.device).reshape(1)
     R.check_kernel_args(rows_all, krows, pcdf, sorted_ids, ce, btable, mtable)
     out = torch.empty_like(rows_all)
     _cuda.launch(
-        "update_rows", symbol, "pppppppiiiiiiiiffffffp",
+        "update_rows", symbol, "pppppppiiiiiiiiiffffffp",
         rows_all, krows, pcdf, sorted_ids, ce, btable, mtable,
-        npad, krows.shape[1], pcdf.shape[1], nc, n_mat, live_below,
+        npad, krows.shape[1], pcdf.shape[1], mtable.shape[1], nc, n_mat, live_below,
         ELASTIC_MODELS.index(elastic_model), int(centered), *kernel_scalars(dt, h),
         out)
     return out

@@ -1,9 +1,9 @@
 """The MPM step on the bounded block grid, the sparse 3D domain and the dense
-grid (port of wgsparkl_tpu/pipeline.py: MpmConfig, MpmData, RigidBodyDesc,
-build_rigid_world, StepDiag, step / step_pallas / step_with_diag, the
-bounded and sparse branches of `_substep_pallas_rows`, `_sparse_chan_grid`,
-the bounded branch of `_substep_pallas_rows_2d`, and the dense and blocked
-transfers' `substep` and `substep_blocked`).
+grid (port of wgsparkl_tpu/pipeline.py: MpmConfig, MpmData, MpmPipeline,
+RigidBodyDesc, build_rigid_world, StepDiag, step / step_pallas /
+step_with_diag, the bounded and sparse branches of `_substep_pallas_rows`,
+`_sparse_chan_grid`, the bounded branch of `_substep_pallas_rows_2d`, and
+the dense and blocked transfers' `substep` and `substep_blocked`).
 
 `transfer` picks the path.  "pallas" (the port's default) is the kernel
 path below; "dense" (the JAX package's default) and "blocked" run the
@@ -1166,7 +1166,7 @@ def step_dense(state: SimState, params: SimulationParams, cfg: MpmConfig,
     L = R if dim == 3 else R2
     models, n_mat = state.models, max(cfg.n_materials, 1)
     if models.mat_table is None:
-        models, n_mat = attach_material_table(state.particles, models)
+        models, n_mat = attach_material_table(state.particles, models, limit=None)
     n = state.particles.count
     npad = pallas_npad(n, cfg.group)
     rows = L.pack_rows_padded(state.particles, models, npad)
@@ -1284,6 +1284,10 @@ class MpmData:
     kmax occupied blocks (default max_jobs) and amax active slots (default
     4 kmax, rounded up to a multiple of 8) a substep.  coupling:
     COUPLING_ONE_WAY / COUPLING_TWO_WAY a body (None: all two-way);
+    materials: the pallas path holds at most 128 distinct ones (its
+    [16, 128] material table; more raise ValueError, as in the JAX package),
+    the dense and blocked transfers any number (a [16, M] table, M = 128
+    ceil(count / 128));
     body_contacts: resolve the dynamic bodies' contacts (with
     False they keep their mass but pass through other colliders); joints:
     see _normalize_joints."""
@@ -1367,7 +1371,8 @@ class MpmData:
                 grid, by, adesc, world, particles.pos.cpu().numpy(),
                 params.gravity.cpu().numpy())
         chan_free = bool(chan_free)
-        models, n_mat = attach_material_table(particles, models)
+        models, n_mat = attach_material_table(
+            particles, models, limit=128 if transfer == "pallas" else None)
         self.params = params
         self.bodies_desc = tuple(bodies)
         dynamic_slots = tuple(i for i, b in enumerate(bodies)
@@ -1390,3 +1395,22 @@ class MpmData:
     @property
     def num_particles(self) -> int:
         return self.state.particles.count
+
+
+class MpmPipeline:
+    """Stateless stepper (port of wgsparkl_tpu.pipeline.MpmPipeline).  The
+    port runs eagerly: step_fn returns `step` bound to a configuration and a
+    substep count, compiled by nothing."""
+
+    def step(self, data: MpmData, num_substeps: int = 1,
+             params: Optional[SimulationParams] = None) -> StepDiag:
+        """num_substeps substeps of data's scene, in place on data.state,
+        with data.params or `params`; returns the frame's StepDiag (zero on
+        the dense and blocked transfers)."""
+        params = data.params if params is None else params
+        data.state, diag = step_with_diag(data.state, params, data.config, num_substeps)
+        return diag
+
+    def step_fn(self, cfg: MpmConfig, num_substeps: int):
+        """(state, params) -> state after num_substeps substeps under cfg."""
+        return functools.partial(step, cfg=cfg, num_substeps=num_substeps)
