@@ -69,6 +69,16 @@ Phases (any failure exits non-zero, and no result line is printed):
      bit, prep_instances finite in all six modes, the last frame's PLY
      (both in a temporary directory), time_passes and one frame under
      utils/profiling.profile_step (device time, idle share);
+     path 17 (`substep_paths`), the one-substep entry points at full
+     size: from the state of a warm frame, 20 calls of substep_pallas on
+     the main path's scene, of substep on path 13's and of substep_blocked
+     on path 14's, each against one frame of 20 substeps (step_pallas,
+     step_dense) from the same state: ids and affinity words equal,
+     floats within compare_states' tolerances (the largest differences
+     and whether every leaf is bit-equal printed), each kernel of the
+     path launched once a call, and the wall of a call against the
+     frame's over 20; then time_passes on path 13's state (the struct-form
+     node_cdf, p2g, g2p and particle_update, 11 launches each);
      paths 15-15d, multi-device stepping (`parallel_paths`), the ranks
      spawned processes sharing the card through gloo (each buffer staged
      through pinned host memory; again on NCCL, a card a rank, where the
@@ -131,7 +141,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      grid part beside `index_put_(accumulate=True)` under
      torch.use_deterministic_algorithms(True)); kernel C on a substep of
      path 13w lowered onto the paddle (`update_rows_wide`: one material a
-     particle, every row bit for bit); A, F and H beside the same
+     particle, every row bit for bit); the struct forms on path 13
+     lowered (`p2g_struct`, `g2p_struct`: ops/transfer.p2g and g2p over
+     dense_p2g and dense_g2p; `particle_update_struct`: kernel C reading
+     the rigid velocity from the rows, on g2p's outputs), each against the
+     same function with its kernel swapped for the plain version, every
+     output bit for bit; A, F and H beside the same
      call on their (particle, node) pairs (`tile_pairs_library`); every
      kernel of paths 15-15d on the rows of one rank (`record_rank`:
      `*_sharded`, `*_spatial`, `*_spatial2d`, `*_spatial_sparse`; 2D:
@@ -294,6 +309,12 @@ REPLACES = {
     # Kernel C on the dense transfer with one material a particle (path
     # 13w): the material table [16, M] past the pallas path's 128 lanes.
     "update_rows_wide": "wgsparkl_tpu/ops/update_rows.py:191",
+    # The JAX package's struct forms (plain XLA) over the port's kernels:
+    # ops/transfer.p2g and g2p (dense_p2g, dense_g2p) and
+    # ops/particle_update.particle_update (kernel C, `rv_rows`).
+    "p2g_struct": "wgsparkl_tpu/ops/transfer.py:52",
+    "g2p_struct": "wgsparkl_tpu/ops/transfer.py:128",
+    "particle_update_struct": "wgsparkl_tpu/ops/particle_update.py:28",
 }
 SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_rows",
           "update_rows2d_neo_hookean": "update_rows", "p2g_cdf_shapes": "p2g_cdf",
@@ -308,7 +329,9 @@ SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_row
           "p2g_cdf_sparse": "p2g_cdf", "g2p_sparse": "g2p",
           "update_rows_sparse": "update_rows", "mesh_cdf_sparse": "mesh_cdf",
           "dense_pcdf2d": "dense_pcdf", "dense_p2g2d": "dense_p2g",
-          "dense_g2p2d": "dense_g2p", "update_rows_wide": "update_rows"}
+          "dense_g2p2d": "dense_g2p", "update_rows_wide": "update_rows",
+          "p2g_struct": "dense_p2g", "g2p_struct": "dense_g2p",
+          "particle_update_struct": "update_rows"}
 # The rows of the [PCHAN, NPAD] input matrix that kernel C reads (csrc/
 # update_rows.cu, update_kernel and update2d_kernel); it replaces the others
 # with G2P rows, particle-CDF rows or new values.
@@ -716,6 +739,213 @@ def dense_paths(wt, card, kind, launches, frames=TIMED_FRAMES_SHORT):
             launches.update((f"{k}{tag}", counts[k]) for k in KERNELS_DENSE[:3])
         del data, state
         torch.cuda.empty_cache()
+
+
+def _state_gaps(a, b, what):
+    """Two states of the same particles: ids and affinity words equal,
+    positions within 1e-5, velocities and F within 1e-4, bodies within
+    1e-6 (tests/torch_port_helpers.compare_states' tolerances); prints the
+    largest differences and whether every leaf is equal bit for bit.
+    Particles are matched by id."""
+    from wgsparkl_tpu_torch.utils import checkpoint
+
+    ia = torch.argsort(a.particles.ids)
+    ib = torch.argsort(b.particles.ids)
+    pa, pb = a.particles, b.particles
+    if not torch.equal(pa.ids[ia], pb.ids[ib]):
+        fail(f"{what}: the particle ids differ")
+    if not torch.equal(pa.cdf_affinity[ia], pb.cdf_affinity[ib]):
+        fail(f"{what}: affinity words differ")
+    gaps = {}
+    for f, tol in (("pos", 1e-5), ("vel", 1e-4), ("def_grad", 1e-4)):
+        gaps[f] = float((getattr(pa, f)[ia] - getattr(pb, f)[ib]).abs().max())
+        if not gaps[f] <= tol:
+            fail(f"{what}: {f} differs by {gaps[f]:.3e} > {tol}")
+    for f in ("pos", "rot", "linvel", "angvel"):
+        gaps[f"bodies.{f}"] = float((getattr(a.bodies, f)
+                                     - getattr(b.bodies, f)).abs().max())
+        if not gaps[f"bodies.{f}"] <= 1e-6:
+            fail(f"{what}: bodies.{f} differs by {gaps[f'bodies.{f}']:.3e}")
+    la, lb = checkpoint.named_leaves(a), checkpoint.named_leaves(b)
+    same = all(x.dtype == y.dtype and torch.equal(x, y)
+               for (_, x), (_, y) in zip(la, lb))
+    print(f"{what}: largest differences "
+          f"{ {k: float(f'{v:.3e}') for k, v in gaps.items()} }; every leaf "
+          f"bit-equal: {same}", flush=True)
+
+
+def substep_paths(wt, card, kind, launches):
+    """Path 17: the one-substep entry points at full size.  From the state of
+    one warm frame, SUBSTEPS calls of substep_pallas on the main path's
+    scene (1,002,001 particles, by 8, group 1024), of substep on path 13's
+    and of substep_blocked on path 14's, each set against one frame of
+    SUBSTEPS substeps (step_pallas, step_dense) from the same state: ids
+    and affinity words equal, floats within compare_states' tolerances
+    (bit-equality expected), and each kernel of the path launched once a
+    call (A-E; dense_pcdf, dense_p2g, dense_g2p, C; blocked also D, E).
+    Prints the wall of a call against the frame's wall over SUBSTEPS (the
+    difference is the per-call pack and unpack, and for substep_pallas the
+    static colliders' node CDF that the frame hoists).  Then time_passes
+    on path 13's state, whose passes are the struct-form node_cdf, p2g,
+    g2p and particle_update (their entries' launches)."""
+    from wgsparkl_tpu_torch.pipeline import (step_dense, step_pallas, substep,
+                                             substep_blocked, substep_pallas)
+    from wgsparkl_tpu_torch.utils.timing import time_passes
+
+    for make, call, frame, kernels, what in (
+            (lambda: full_scene(torch.device(DEVICE)), substep_pallas, step_pallas,
+             KERNELS_3D, "path 17: substep_pallas (3D main path)"),
+            (lambda: dense_scene(DEVICE, transfer="dense"), substep, step_dense,
+             KERNELS_DENSE, "path 17: substep (path 13's scene)"),
+            (lambda: dense_scene(DEVICE, transfer="blocked"), substep_blocked,
+             step_dense, KERNELS_BLOCKED, "path 17: substep_blocked (path 14's scene)")):
+        data = make()
+        cfg, params = data.config, data.params
+        state0 = frame(data.state, params, cfg, SUBSTEPS)
+        torch.cuda.synchronize()
+        wt.reset_launch_counts()
+        t0 = time.time()
+        state = state0
+        for _ in range(SUBSTEPS):
+            state = call(state, params, cfg)
+        torch.cuda.synchronize()
+        call_ms = (time.time() - t0) * 1e3 / SUBSTEPS
+        counts = wt.launch_counts()
+        bad = {k: counts[k] for k in kernels if counts[k] != SUBSTEPS}
+        if bad:
+            fail(f"{what}: launches {bad}, not one a call ({SUBSTEPS} calls)")
+        t0 = time.time()
+        ref = frame(state0, params, cfg, SUBSTEPS)
+        torch.cuda.synchronize()
+        frame_ms = (time.time() - t0) * 1e3
+        pos = state.particles.pos
+        if not bool(torch.isfinite(pos).all()):
+            fail(f"{what}: non-finite positions")
+        _state_gaps(state, ref, what)
+        print(f"{what} on {kind} ({card}): {data.num_particles} particles; a call "
+              f"{call_ms:.3f} ms, the frame {frame_ms:.3f} ms / {SUBSTEPS} = "
+              f"{frame_ms / SUBSTEPS:.3f} ms a substep; launches "
+              f"{ {k: counts[k] for k in kernels} }", flush=True)
+        if call is substep:
+            wt.reset_launch_counts()
+            passes = time_passes(state, params, cfg)
+            counts = wt.launch_counts()
+            for k, name in (("dense_p2g", "p2g_struct"), ("dense_g2p", "g2p_struct"),
+                            ("update_rows", "particle_update_struct")):
+                if counts[k] != 11:
+                    fail(f"{what}: time_passes launched {k} {counts[k]} times, not 11")
+                launches[name] = counts[k]
+            print(f"{what}: time_passes (struct-form passes, ms a call, CUDA events) "
+                  f"{ {k: round(v, 4) for k, v in passes.passes.items()} }", flush=True)
+        del data, state0, state, ref
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def swapped(module, name, fn):
+    """module.name is fn for the duration of the block."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def struct_checks(state, data, rec, check):
+    """Phase 5b's struct-form entries on path 13's lowered state (`rec`: its
+    last substep): ops/transfer.p2g and g2p and
+    ops/particle_update.particle_update, the kernel route (dense_p2g,
+    dense_g2p, kernel C with `rv_rows`) against the same function with the
+    kernel swapped for its plain version, every output bit for bit.  The
+    particle update takes g2p's outputs, as the JAX package's substep
+    does, with the signed distances lowered by 0.1 cell.  Costs (4 bytes a value read or written once): p2g reads 20
+    values a particle (position, velocity, mass, affine, affinity, normal)
+    and the node affinity and closest body, writes the grid, ~50
+    operations a pair and ~60 more an impulse pair; g2p reads 3d + 2 values
+    a particle and the grid velocity, node affinity and closest body,
+    writes 3d + d^2 a particle, ~(4 + 3 d^2) operations a stencil node;
+    particle_update is kernel C's c_cost with the rigid-velocity rows read."""
+    from wgsparkl_tpu_torch.ops import rows as R
+    from wgsparkl_tpu_torch.ops import transfer as dtr
+    from wgsparkl_tpu_torch.ops import update_rows as upd
+    from wgsparkl_tpu_torch.ops.particle_update import particle_update
+    from wgsparkl_tpu_torch.rigid import body as body_mod
+
+    cfg, params = data.config, data.params
+    grid, nc = cfg.grid, cfg.num_colliders
+    d, m, n = grid.dim, grid.num_nodes, state.particles.count
+    bodies = body_mod.update_world_mass_properties(state.bodies)
+    p, models = state.particles, state.models
+    node_aff, node_closest = rec["node_aff"], rec["node_closest"]
+    node, vals = dtr.p2g_pairs(dtr.particle_rows(p.pos, p.vel, p.mass, p.affine),
+                               dtr.particle_cdf_rows(p.cdf_affinity, p.cdf_normal,
+                                                     p.cdf_signed_distance),
+                               n, None, node_aff, node_closest, R.body_table(bodies),
+                               grid, nc)
+    npairs, nimp = node.shape[0], int((vals[:, d + 1:] != 0).any(1).sum())
+    mmv = vals[:, :d + 1].contiguous()
+    del vals
+    lib_out = torch.zeros((m, d + 1), dtype=torch.float32, device=p.pos.device)
+
+    def library():
+        torch.use_deterministic_algorithms(True)
+        try:
+            lib_out.zero_()
+            lib_out.index_put_((node,), mmv, accumulate=True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    def plain(module, name, fn, run):
+        """run() with module.name swapped for its plain version fn."""
+        def go():
+            with swapped(module, name, fn):
+                return run()
+        return go
+
+    args_p = (p, models, bodies, node_aff, node_closest, grid, nc)
+    run_p = lambda: dtr.p2g(*args_p)  # noqa: E731
+    check("p2g_struct", run_p, plain(dtr, "dense_p2g", dtr.p2g_plain, run_p),
+          lambda k, q: [],
+          lambda k, q: [(lbl, a, b) for lbl, a, b in zip(
+              ("grid momentum", "grid mass", "linear impulses", "angular impulses"), k, q)],
+          lambda q: None if float(q[2].abs().max()) > 0.0 else "no CPIC impulse",
+          cost=(4 * (20 * n + 2 * m + (d + 1) * m), npairs * 50 + nimp * 60),
+          library=library)
+    del node, mmv, lib_out
+    args_g = (p, bodies, rec["grid_vel"], node_aff, node_closest, grid, nc)
+    run_g = lambda: dtr.g2p(*args_g)  # noqa: E731
+    check("g2p_struct", run_g, plain(dtr, "dense_g2p", dtr.g2p_plain, run_g),
+          lambda k, q: [],
+          lambda k, q: [(lbl, a, b) for lbl, a, b in zip(
+              ("velocity", "velocity gradient", "rigid velocity"), k, q)],
+          lambda q: None if float(q[2].abs().max()) > 0.0 else "no rigid velocity",
+          cost=(4 * ((3 * d + 2) * n + (d + 2) * m + (3 * d + d * d) * n),
+                n * 3 ** d * (4 + 3 * d * d)))
+    new_vel, grad, rv = run_g()
+    # The particle CDF keeps a particle's distance on its own side of a
+    # collider (>= 0 but where it crossed), so few lanes penetrate: the
+    # distances lowered by 0.1 cell make the lanes near a collider take
+    # kernel C's contact projection, which reads the rigid velocity.
+    pu = dataclasses.replace(p, vel=new_vel, affine=grad, cdf_rigid_vel=rv,
+                             cdf_signed_distance=p.cdf_signed_distance
+                             - 0.1 * grid.cell_width)
+
+    def run_u():
+        q, mo = particle_update(pu, models, params, grid, cfg.elastic_model)
+        return (q.pos, q.vel, q.affine, q.def_grad, mo.phase,
+                *(mo.dp_state[k] for k in sorted(mo.dp_state)))
+
+    pen = (pu.cdf_signed_distance < -0.05 * grid.cell_width) & (rv.abs().sum(1) > 0)
+    check("particle_update_struct", run_u,
+          plain(upd, "update_rows", upd.update_plain, run_u), lambda k, q: [],
+          lambda k, q: [(f"output {i}", a, b) for i, (a, b) in enumerate(zip(k, q))],
+          lambda q: (None if int(pen.sum()) > 0
+                     else "no penetrating lane reads a rigid velocity"),
+          cost=c_cost(C_ROWS_READ_3D + (41, 42, 43), 12, 6, R.PCHAN, n, n, 6000))
+    print(f"struct-form entries on path 13 lowered: {n} particles, {npairs} P2G pairs "
+          f"({nimp} impulse pairs), {int(pen.sum())} penetrating lanes with a rigid "
+          "velocity", flush=True)
 
 
 def _same_state(a, b, what):
@@ -2221,6 +2451,8 @@ def main() -> None:
     mark("paths 13-14")
     # ---- paths 13, 13w, 13b, 14: the dense and blocked transfers ----
     dense_paths(wt, card, kind, launches)
+    mark("path 17")
+    substep_paths(wt, card, kind, launches)
     mark("path 16")
     # ---- path 16: the config-3 dam break through the host surfaces ----
     dam_break_path(wt, card, kind)
@@ -3137,6 +3369,8 @@ def main() -> None:
               lambda k, p: [("G2P rows", k, p)],
               cost=(4 * ((3 * d + 2) * n + rec["krows"].shape[0] * npad + (d + 2) * m),
                     n * kk * (4 + 3 * d * d)))
+        if not tag:
+            struct_checks(state, data, rec, check)
         del data, state, rec, rows, args_1, args_2, args_3
         torch.cuda.empty_cache()
 

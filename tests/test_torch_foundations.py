@@ -20,7 +20,8 @@ from wgsparkl_tpu.rigid import body as jbody
 from wgsparkl_tpu.solver import attach_material_table as j_attach
 from wgsparkl_tpu_torch import interop, scenes
 from wgsparkl_tpu_torch.collision import cdf_channel as cch
-from wgsparkl_tpu_torch.math import probe, svd
+from wgsparkl_tpu_torch.math import probe
+from wgsparkl_tpu_torch.math.svd import eig33_sigma_ch, svd3x3_ch
 from wgsparkl_tpu_torch.models import drucker_prager as dp
 from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.parallel import spatial_config
@@ -51,13 +52,13 @@ def _ch(f, lib):
 def test_svd3x3_ch_matches_jax(seed):
     f = _fs(seed)
     uj, sj, vj = j_svd3(_ch(f, jnp.asarray))
-    ut, st, vt = svd.svd3x3_ch(_ch(f, torch.as_tensor))
+    ut, st, vt = svd3x3_ch(_ch(f, torch.as_tensor))
     for a, b in zip(sj, st):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=2e-5)
     rec = sum(torch.stack(ut[m])[:, None, :] * st[m] * torch.stack(vt[m])[None]
               for m in range(3))                  # [3, 3, n]: U S V^T
     np.testing.assert_allclose(rec.permute(2, 0, 1).numpy(), f, atol=1e-4)
-    sig = svd.eig33_sigma_ch(_ch(f, torch.as_tensor))
+    sig = eig33_sigma_ch(_ch(f, torch.as_tensor))
     sig_j = j_eig33(_ch(f, jnp.asarray))
     for a, b in zip(sig_j, sig):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=2e-5)

@@ -3,6 +3,7 @@
     python3 tools/rehearse_chip_smoke.py            # every phase, ~2 min
     REHEARSE_ONLY=mesh python3 tools/rehearse_chip_smoke.py   # paths 9-11
     REHEARSE_ONLY=dense python3 tools/rehearse_chip_smoke.py  # paths 13-14
+    REHEARSE_ONLY=substep python3 tools/rehearse_chip_smoke.py  # path 17
     REHEARSE_ONLY=parallel python3 tools/rehearse_chip_smoke.py  # paths 15-15d
 
 Paths 15-15d and phase 6's multi-device scenes run their ranks as spawned
@@ -59,8 +60,10 @@ subprocess.run = _run
 
 import chip_smoke as cs  # noqa: E402
 from wgsparkl_tpu_torch import _cuda, pipeline  # noqa: E402
+from wgsparkl_tpu_torch.collision import cdf  # noqa: E402
 from wgsparkl_tpu_torch.math import probe  # noqa: E402
-from wgsparkl_tpu_torch.ops import ablation, compact, rigid_cdf  # noqa: E402
+from wgsparkl_tpu_torch.ops import ablation, compact, rigid_cdf, transfer  # noqa: E402
+from wgsparkl_tpu_torch.ops import update_rows as upd  # noqa: E402
 
 _cuda.build = lambda names: None
 _cuda.load = lambda name: None
@@ -79,10 +82,16 @@ def counted(mod, name):
     setattr(mod, name, w)
 
 
-for n in ("p2g_cdf_tiles", "g2p_rows", "update_rows", "permute_lanes", "pcdf_rows2d",
-          "p2g_tiles2d", "g2p_rows2d", "update_rows2d", "p2g_tiles", "rigid_solve",
-          "dense_pcdf", "dense_p2g", "dense_g2p"):
+for n in ("p2g_cdf_tiles", "g2p_rows", "permute_lanes", "pcdf_rows2d",
+          "p2g_tiles2d", "g2p_rows2d", "update_rows2d", "p2g_tiles", "rigid_solve"):
     counted(pipeline, n)
+# Kernels the struct forms (ops/transfer.p2g, g2p, particle_update,
+# utils/timing) call from their own modules: one wrapper each, which the
+# pipeline calls too.
+for m, n in ((cdf, "dense_pcdf"), (transfer, "dense_p2g"), (transfer, "dense_g2p"),
+             (upd, "update_rows")):
+    counted(m, n)
+    setattr(pipeline, n, getattr(m, n))
 counted(compact, "compact_flagged")
 counted(rigid_cdf, "mesh_node_cdf")
 counted(rigid_cdf, "mesh_node_cdf_sparse")
@@ -112,6 +121,8 @@ if __name__ == "__main__":
         cs.mesh_paths(wt, "CPU rehearsal", "CPU rehearsal", {}, 1)
     elif only == "dense":
         cs.dense_paths(wt, "CPU rehearsal", "CPU rehearsal", {}, 1)
+    elif only == "substep":
+        cs.substep_paths(wt, "CPU rehearsal", "CPU rehearsal", {})
     elif only == "parallel":
         cs.parallel_paths(wt, "CPU rehearsal", "CPU rehearsal", {}, {})
         cs.parallel_small_scenes("cpu")

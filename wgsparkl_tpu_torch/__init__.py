@@ -28,6 +28,10 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
+# The JAX package's top-level exports (no kernel is built on import).
+from wgsparkl_tpu_torch import models, solver  # noqa: E402,F401
+from wgsparkl_tpu_torch.params import SimulationParams  # noqa: E402,F401
+
 
 def kernel_wrappers():
     """{name: wrapper} of the hand-written kernels: the 3D path's five

@@ -1,6 +1,6 @@
-"""CPIC particle CDF on the dense grid (port of wgsparkl_tpu/collision/cdf.py:
-the affinity-word helpers, the explicit small solves and
-`particle_cdf_update`; kernel dense_pcdf, csrc/dense_pcdf.cu, computes the
+"""CPIC node and particle CDF on the dense grid (port of
+wgsparkl_tpu/collision/cdf.py: the affinity-word helpers, `node_cdf`, the
+explicit small solves and `particle_cdf_update`; kernel dense_pcdf, csrc/dense_pcdf.cu, computes the
 update on the card).
 
 The affinity word holds 16 affinity bits and, above them, 16 sign bits;
@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from wgsparkl_tpu_torch import _cuda
+from wgsparkl_tpu_torch.collision import cdf_channel as cch
 from wgsparkl_tpu_torch.math import div
 from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.ops import rows2d as R2
@@ -40,6 +41,22 @@ def affinity_bit(i: int, aff):
 
 def sign_bit(i: int, aff):
     return ((aff >> SIGN_SHIFT) & (1 << i)) != 0
+
+
+def node_cdf(collider_types, shape_params, rot, trans, points, cell_width,
+             only=None):
+    """Analytic node CDF at the points: (unsigned distance f32 [M], affinity
+    word int32 [M], closest collider int32 [M], -1 for none).  points: [M,
+    d] positions or d channels [M]; shape_params [B, 8], rot and trans the
+    bodies' poses; mesh slots are skipped (they reach the node CDF through
+    the mesh pass, ops/rigid_cdf.py), and with `only` (a set of slots) so
+    is every other slot.  A collider within 1.5 cells of a node (or
+    holding it) sets its affinity bit, and its sign bit where it holds the
+    node; the strictly closest such collider is the node's closest, the
+    lower slot on ties."""
+    pos = list(points.unbind(-1)) if isinstance(points, torch.Tensor) else list(points)
+    return cch.node_cdf_channels(collider_types, shape_params, rot, trans, pos,
+                                 cell_width, only=only)
 
 
 def _apply(adj, b, det):

@@ -2,9 +2,10 @@
 wgsparkl_tpu/collision/shapes.py: the analytic cuboid, ball, capsule and
 halfspace, with the JAX package's shape-type ids and parameter layout, and
 the mesh shapes polyline, trimesh and heightfield, which carry vertices and
-indices) and the analytic shapes' boundary projection,
-`project_on_boundary`.  Mesh shapes reach the node CDF through their surface
-samples (rigid/sampling.py, ops/rigid_cdf.py)."""
+indices), the analytic shapes' boundary projection,
+`project_on_boundary`, and the mesh utilities `closest_point_on_triangles`
+and `closest_point_on_segments`.  Mesh shapes reach the node CDF through
+their surface samples (rigid/sampling.py, ops/rigid_cdf.py)."""
 
 from __future__ import annotations
 
@@ -112,3 +113,49 @@ def project_on_boundary(shape_type: int, params, rot, trans, points):
     dpt, inside = project_on_boundary_ch(shape_type, params, rot.unbind(0),
                                          trans.unbind(0), points.unbind(-1))
     return torch.stack(dpt, -1), inside
+
+
+def _dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def _safe(x):
+    """x where |x| > 1e-30, else 1e-30 (a divisor)."""
+    return torch.where(torch.abs(x) > 1e-30, x, 1e-30)
+
+
+def closest_point_on_triangles(p, a, b, c):
+    """The closest point of each triangle (a, b, c) to each point p, all
+    [..., 3] (Ericson, Real-Time Collision Detection 5.1.5: the vertex,
+    edge or face region, branch-free)."""
+    ab, ac, ap = b - a, c - a, p - a
+    d1, d2 = _dot(ab, ap), _dot(ac, ap)
+    bp = p - b
+    d3, d4 = _dot(ab, bp), _dot(ac, bp)
+    cp = p - c
+    d5, d6 = _dot(ab, cp), _dot(ac, cp)
+    va = d3 * d6 - d5 * d4
+    vb = d5 * d2 - d1 * d6
+    vc = d1 * d4 - d3 * d2
+    denom = _safe(va + vb + vc)
+    pt = a + ab * (vb / denom)[..., None] + ac * (vc / denom)[..., None]
+    t_ab = torch.clamp(d1 / _safe(d1 - d3), 0.0, 1.0)
+    t_ac = torch.clamp(d2 / _safe(d2 - d6), 0.0, 1.0)
+    t_bc = torch.clamp((d4 - d3) / _safe((d4 - d3) + (d5 - d6)), 0.0, 1.0)
+    for region, q in (
+            ((va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0), b + (c - b) * t_bc[..., None]),
+            ((vb <= 0) & (d2 >= 0) & (d6 <= 0), a + ac * t_ac[..., None]),
+            ((vc <= 0) & (d1 >= 0) & (d3 <= 0), a + ab * t_ab[..., None]),
+            ((d6 >= 0) & (d5 <= d6), c),
+            ((d3 >= 0) & (d4 <= d3), b),
+            ((d1 <= 0) & (d2 <= 0), a)):
+        pt = torch.where(region[..., None], q, pt)
+    return pt
+
+
+def closest_point_on_segments(p, a, b):
+    """The closest point of each segment (a, b) to each point p, all
+    [..., d]."""
+    ab = b - a
+    t = torch.clamp(_dot(p - a, ab) / torch.clamp(_dot(ab, ab), min=1e-30), 0.0, 1.0)
+    return a + ab * t[..., None]

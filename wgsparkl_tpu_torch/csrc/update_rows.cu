@@ -200,7 +200,7 @@ __global__ void __launch_bounds__(UPDATE_THREADS, 4) update_kernel(
     const int* __restrict__ ce, const float* __restrict__ btable,
     const float* __restrict__ mtable, long long npad, long long kstride,
     long long pstride, long long mstride, int nc, int n_mat, int live_below,
-    int model, int centered,
+    int model, int centered, int rv_rows,
     float dt, float h, float invd, float limit, float pen_thresh, float corr_min,
     float* __restrict__ out) {
   long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -230,8 +230,12 @@ __global__ void __launch_bounds__(UPDATE_THREADS, 4) update_kernel(
   float nrm[3];
   for (int k = 0; k < 3; ++k) nrm[k] = ig ? pcdf[(2 + k) * pstride + l] : 0.0f;
 
+  // With rv_rows the rigid contact velocity is the rows' own (the struct-form
+  // particle update, ops/particle_update.py); else from the body table.
   float rv[3] = {0.f, 0.f, 0.f};
-  for (int b = 0; b < nc; ++b) {
+  if (rv_rows)
+    for (int k = 0; k < 3; ++k) rv[k] = row(R_RV0 + k);
+  for (int b = 0; b < (rv_rows ? 0 : nc); ++b) {
     bool has = (aff >> b) & 1u;
     const float* bt = btable;
     float rel[3];
@@ -460,7 +464,7 @@ __global__ void update2d_kernel(
     const int* __restrict__ ce, const float* __restrict__ btable,
     const float* __restrict__ mtable, long long npad, long long kstride,
     long long pstride, long long mstride, int nc, int n_mat, int live_below,
-    int model, int centered,
+    int model, int centered, int rv_rows,
     float dt, float h, float invd, float limit, float pen_thresh, float corr_min,
     float* __restrict__ out) {
   long long l = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -491,7 +495,9 @@ __global__ void update2d_kernel(
 
   // Rigid contact velocity: 2D body table rows 0-1 COM, 2-3 linvel, 4 angvel.
   float rv[2] = {0.f, 0.f};
-  for (int b = 0; b < nc; ++b) {
+  if (rv_rows)
+    for (int k = 0; k < 2; ++k) rv[k] = row(R2_RV0 + k);
+  for (int b = 0; b < (rv_rows ? 0 : nc); ++b) {
     bool has = (aff >> b) & 1u;
     float rel0 = pos[0] - btable[b], rel1 = pos[1] - btable[128 + b];
     float ang = btable[4 * 128 + b];
@@ -646,14 +652,15 @@ extern "C" int update_rows2d_cuda(
     const int* ce, const float* btable, const float* mtable, long long npad,
     long long kstride, long long pstride, long long mstride, long long nc,
     long long n_mat,
-    long long live_below, long long model, long long centered, float dt, float h,
-    float invd,
+    long long live_below, long long model, long long centered, long long rv_rows,
+    float dt, float h, float invd,
     float limit, float pen_thresh, float corr_min, float* out,
     cudaStream_t stream) {
   unsigned blocks = (unsigned)((npad + 127) / 128);
   update2d_kernel<<<blocks, 128, 0, stream>>>(
       rows, krows, pcdf, sids, ce, btable, mtable, npad, kstride, pstride,
-      mstride, (int)nc, (int)n_mat, (int)live_below, (int)model, (int)centered, dt, h, invd,
+      mstride, (int)nc, (int)n_mat, (int)live_below, (int)model, (int)centered,
+      (int)rv_rows, dt, h, invd,
       limit,
       pen_thresh, corr_min, out);
   return (int)cudaGetLastError();
@@ -664,14 +671,15 @@ extern "C" int update_rows_cuda(
     const int* ce, const float* btable, const float* mtable, long long npad,
     long long kstride, long long pstride, long long mstride, long long nc,
     long long n_mat,
-    long long live_below, long long model, long long centered, float dt, float h,
-    float invd,
+    long long live_below, long long model, long long centered, long long rv_rows,
+    float dt, float h, float invd,
     float limit, float pen_thresh, float corr_min, float* out,
     cudaStream_t stream) {
   unsigned blocks = (unsigned)((npad + UPDATE_THREADS - 1) / UPDATE_THREADS);
   update_kernel<<<blocks, UPDATE_THREADS, 0, stream>>>(
       rows, krows, pcdf, sids, ce, btable, mtable, npad, kstride, pstride,
-      mstride, (int)nc, (int)n_mat, (int)live_below, (int)model, (int)centered, dt, h, invd,
+      mstride, (int)nc, (int)n_mat, (int)live_below, (int)model, (int)centered,
+      (int)rv_rows, dt, h, invd,
       limit,
       pen_thresh, corr_min, out);
   return (int)cudaGetLastError();

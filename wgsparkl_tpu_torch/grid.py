@@ -11,6 +11,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from wgsparkl_tpu_torch.device import resolve
+
 
 @dataclasses.dataclass(frozen=True)
 class GridConfig:
@@ -27,6 +29,11 @@ class GridConfig:
     @property
     def num_nodes(self) -> int:
         return int(np.prod(self.shape))
+
+    def node_positions(self, device=None):
+        """[num_nodes, d] world positions of all nodes, row-major, on `device`
+        (None: the card)."""
+        return torch.stack(self.node_position_channels(resolve(device)), dim=-1)
 
     def node_position_channels(self, device=None):
         """d channels [num_nodes] of the nodes' world coordinates, row-major."""

@@ -13,3 +13,10 @@ def div(a, b):
     if not isinstance(b, torch.Tensor):
         b = torch.full((), b, dtype=t.dtype, device=t.device)
     return torch.div(a, b)
+
+
+# The JAX package's exports (after div, which the modules below may import).
+from wgsparkl_tpu_torch.math.svd import recompose, svd, svd2x2, svd3x3  # noqa: E402
+from wgsparkl_tpu_torch.math import pose  # noqa: E402
+
+__all__ = ["div", "svd2x2", "svd3x3", "svd", "recompose", "pose"]

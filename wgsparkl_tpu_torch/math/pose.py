@@ -7,6 +7,38 @@ sqrt(sum of squares), as jnp.linalg.norm computes them.
 
 import torch
 
+from wgsparkl_tpu_torch.device import resolve
+
+
+def quat_identity(shape=(), dtype=torch.float32, device=None):
+    """Identity quaternions [*shape, 4] on `device` (None: the card)."""
+    q = torch.zeros((*shape, 4), dtype=dtype, device=resolve(device))
+    q[..., 0] = 1.0
+    return q
+
+
+def quat_from_axis_angle(axis, angle):
+    """Quaternions of rotations by angle [...] about axis [..., 3] (normalised
+    here)."""
+    axis = axis / torch.clamp(_norm(axis), min=1e-12)
+    half = 0.5 * angle
+    return torch.cat([torch.cos(half)[..., None], axis * torch.sin(half)[..., None]],
+                     dim=-1)
+
+
+def rot2_identity(shape=(), dtype=torch.float32, device=None):
+    """Identity rotations [*shape, 2] (cos, sin) on `device` (None: the
+    card)."""
+    r = torch.zeros((*shape, 2), dtype=dtype, device=resolve(device))
+    r[..., 0] = 1.0
+    return r
+
+
+def rot_identity(dim, shape=(), dtype=torch.float32, device=None):
+    """Identity rotations of a dim-D pose on `device` (None: the card):
+    quaternions in 3D, unit complex numbers in 2D."""
+    return (quat_identity if dim == 3 else rot2_identity)(shape, dtype, device)
+
 
 def _norm(v):
     return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
@@ -108,3 +140,8 @@ def inv_rotate(rot, v):
 
 def transform_point(rot, trans, p):
     return rotate(rot, p) + trans
+
+
+def inv_transform_point(rot, trans, p):
+    """The inverse pose applied to p: rot^-1 (p - trans)."""
+    return inv_rotate(rot, p - trans)

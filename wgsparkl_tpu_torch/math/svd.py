@@ -1,5 +1,6 @@
-"""Channel-form signed 2x2 and 3x3 SVD (port of wgsparkl_tpu/math/svd.py:
-svd2x2_ch and the 3D part).
+"""Signed 2x2 and 3x3 SVD (port of wgsparkl_tpu/math/svd.py): the channel
+forms svd2x2_ch, svd3x3_ch and eig33_sigma_ch, and the matrix forms svd2x2,
+svd3x3, svd and recompose over them.
 
 3x3: cyclic Jacobi on F^T F with trig-free Givens rotations, 8 sweeps of
 the (0,1), (0,2), (1,2) planes in that order, exactly as the JAX package
@@ -196,3 +197,41 @@ def eig33_sigma_ch(fc, sweeps: int = 8):
         sym, _ = _jacobi_rot(sym, None, 0, 2)
         sym, _ = _jacobi_rot(sym, None, 1, 2)
     return [torch.sqrt(torch.clamp(sym[(k, k)], min=0.0)) for k in range(3)]
+
+
+def _stack_matrix(uc, sig, vc):
+    """(U, S, V^T) as [..., d, d], [..., d], [..., d, d] from the channel
+    forms' columns uc, vc and values sig."""
+    u = torch.stack([torch.stack(col, dim=-1) for col in uc], dim=-1)
+    vt = torch.stack([torch.stack(col, dim=-1) for col in vc], dim=-2)
+    return u, torch.stack(sig, dim=-1), vt
+
+
+def svd2x2(f):
+    """Signed SVD of [..., 2, 2] matrices: (U, S, V^T) with U, V in SO(2),
+    S = [s0, s1], s0 >= |s1| and sign(s1) = sign(det f)."""
+    return _stack_matrix(*svd2x2_ch({(i, j): f[..., i, j]
+                                     for i in range(2) for j in range(2)}))
+
+
+def svd3x3(f, sweeps: int = 8):
+    """Signed SVD of [..., 3, 3] matrices by `sweeps` cyclic Jacobi sweeps
+    on F^T F: (U, S, V^T) with U, V in SO(3), S[..., 0] >= S[..., 1] >=
+    |S[..., 2]| and sign(S[..., 2]) = sign(det f)."""
+    return _stack_matrix(*svd3x3_ch({(i, j): f[..., i, j]
+                                     for i in range(3) for j in range(3)}, sweeps))
+
+
+def svd(f, sweeps: int = 8):
+    """svd2x2 or svd3x3 by the size of the [..., d, d] blocks."""
+    d = f.shape[-1]
+    if d == 2:
+        return svd2x2(f)
+    if d == 3:
+        return svd3x3(f, sweeps=sweeps)
+    raise ValueError(f"svd only supports 2x2 or 3x3 blocks, got d={d}")
+
+
+def recompose(u, s, vt):
+    """U diag(S) V^T."""
+    return torch.einsum("...ik,...k,...kj->...ij", u, s, vt)

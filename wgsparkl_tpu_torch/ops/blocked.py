@@ -1,7 +1,6 @@
-"""Block-grid addressing, sort keys, job tables and window tile moves
-(port of the bounded-grid and sparse-domain subset of
-wgsparkl_tpu/ops/blocked.py; the sparse domain's keys and tables at the
-end).
+"""Block-grid addressing, sort keys, the sort, job tables, window weights
+and window tile moves (port of wgsparkl_tpu/ops/blocked.py; the sparse
+domain's keys and tables at the end).
 
 Blocks are 4 x by x 4 nodes in 3D, 8 x 8 in 2D; flat block ids enumerate
 blocks gravity (y) fastest ((x, z, y) order in 3D, (x, y) in 2D, x
@@ -14,6 +13,7 @@ splits) become a plain indexed gather and an ordered row add (add_rows) here.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Tuple
 
@@ -22,9 +22,22 @@ import torch
 
 from wgsparkl_tpu_torch.grid import GridConfig
 from wgsparkl_tpu_torch.math import div
+from wgsparkl_tpu_torch.ops.kernel import axis_weights
 
 
 BLOCK2D = 8   # nodes per axis of a 2D block
+BLOCK3D = 4   # 3D: 4 x 4 x 4 at by 4
+
+
+def block_size(dim: int) -> int:
+    """Nodes per axis of an isotropic block (4^3 in 3D, 8^2 in 2D)."""
+    return BLOCK3D if dim == 3 else BLOCK2D
+
+
+def window_size(dim: int) -> int:
+    """Nodes per axis of an isotropic block's window (a 2-node halo on the
+    high side)."""
+    return block_size(dim) + 2
 
 
 def block_shape(dim: int, by: int = 4) -> Tuple[int, ...]:
@@ -51,7 +64,7 @@ def num_blocks(cfg: GridConfig, by: int = 4) -> Tuple[int, ...]:
     return tuple(s // b for s, b in zip(cfg.shape, bsh))
 
 
-def particle_sort_keys_ch(pch, cfg: GridConfig, by: int = 4):
+def particle_block_ids_ch(pch, cfg: GridConfig, by: int = 4):
     """Flat home-block id per particle (block of the stencil base cell,
     round(p / h) - 1); out-of-grid lanes get NB (the overflow bucket).
     pch: d position channels [N]."""
@@ -69,13 +82,51 @@ def particle_sort_keys_ch(pch, cfg: GridConfig, by: int = 4):
     return torch.where(ok, flat, int(np.prod(nb))).to(torch.int32)
 
 
-def particle_block_ids(pos, cfg: GridConfig):
-    """Flat home-block id [N] of particles at pos [N, d] (the blocked
-    transfer's 4^3 / 8^2 blocks): the block of the stencil base cell
-    round(p / h) - 1; particles off the grid get NB (the overflow bucket,
-    sorted last).  The sort itself (JAX's sort_by_block) is
-    pipeline.sort_by_block, on the row matrix."""
-    return particle_sort_keys_ch([pos[:, a] for a in range(pos.shape[1])], cfg)
+def particle_sort_keys_ch(pch, cfg: GridConfig, by: int = 4):
+    """The gravity-fastest sort key: the flat block id
+    (particle_block_ids_ch)."""
+    return particle_block_ids_ch(pch, cfg, by)
+
+
+def particle_block_ids(pos, cfg: GridConfig, by: int = 4):
+    """(flat home-block id [N] int32, block coordinates [N, d] int32) of
+    particles at pos [N, d]: the block of the stencil base cell round(p /
+    h) - 1; particles off the grid get id NB (the overflow bucket, sorted
+    last).  sort_by_block sorts a state by the ids; the substeps sort the
+    row matrix (pipeline.sort_rows_by_block)."""
+    d = pos.shape[-1]
+    bsh = torch.tensor(block_shape(d, by), dtype=torch.int32, device=pos.device)
+    origin = torch.tensor(cfg.origin_cell, dtype=torch.int32, device=pos.device)
+    base = torch.round(div(pos, cfg.cell_width)).to(torch.int32) - 1
+    blk = torch.div(base - origin, bsh, rounding_mode="floor").to(torch.int32)
+    return particle_block_ids_ch([pos[:, a] for a in range(d)], cfg, by), blk
+
+
+def _tree_map(fn, tree):
+    """fn on every tensor leaf of nested dataclasses, dicts, tuples and
+    lists; a Models' material table (indexed by material, not particle)
+    and every non-tensor leaf stay."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: (getattr(tree, f.name) if f.name == "mat_table"
+                     else _tree_map(fn, getattr(tree, f.name)))
+            for f in dataclasses.fields(tree) if f.init})
+    return tree
+
+
+def sort_by_block(state_arrays, block_ids):
+    """Sort a tree of [N, ...] tensors (e.g. (particles, models)) stably by
+    block id: (sorted tree, sorted_ids, perm int32) (the reference's
+    finalize_particles_sort, sort.wgsl:117-137)."""
+    sorted_ids, perm = torch.sort(block_ids, stable=True)
+    idx = perm.to(torch.int64)
+    return _tree_map(lambda x: x[idx], state_arrays), sorted_ids, perm.to(torch.int32)
 
 
 def key_to_block(key, nb, dim: int):
@@ -151,6 +202,65 @@ def block_origin_cells(flat, nb, by: int, origin_cell):
     bsh, origin = _cell_tables(block_shape(len(nb), by),
                                tuple(int(o) for o in origin_cell), flat.device)
     return (block_coords_of(flat, nb) * bsh + origin).to(torch.int32)
+
+
+def window_weights(pos, blk_coords, cfg: GridConfig, by: int = 4):
+    """One job's window weight matrix rows: (w_flat [..., prod(WSH)], the
+    base cell within the window base_local [..., d] int32, the fractional
+    offset xfrac [..., d]) of particles at pos [..., d] in their home
+    blocks blk_coords [..., d]; the window's nodes row-major."""
+    d = pos.shape[-1]
+    dev = pos.device
+    bsh = torch.tensor(block_shape(d, by), dtype=torch.int32, device=dev)
+    wsh = window_shape(d, by)
+    u = div(pos, cfg.cell_width)
+    base = torch.round(u).to(torch.int32) - 1
+    xfrac = u - base.to(pos.dtype)
+    origin = torch.tensor(cfg.origin_cell, dtype=torch.int32, device=dev)
+    base_local = torch.minimum(torch.clamp(base - origin - blk_coords * bsh, min=0),
+                               bsh - 1).to(torch.int32)
+    rows = []
+    for a in range(d):
+        wa = axis_weights(xfrac[..., a])
+        rel = (torch.arange(wsh[a], dtype=torch.int32, device=dev)
+               - base_local[..., a, None])
+        row = torch.zeros(rel.shape, dtype=pos.dtype, device=dev)
+        for k in range(3):
+            row = torch.where(rel == k, wa[k][..., None], row)
+        rows.append(row)
+    if d == 2:
+        w = rows[0][..., :, None] * rows[1][..., None, :]
+    else:
+        w = (rows[0][..., :, None, None] * rows[1][..., None, :, None]
+             * rows[2][..., None, None, :])
+    return w.reshape(*pos.shape[:-1], int(np.prod(wsh))), base_local, xfrac
+
+
+@functools.lru_cache(maxsize=None)
+def window_node_offsets(dim: int, by: int = 4) -> np.ndarray:
+    """[prod(WSH), d] int32 offsets of the window nodes from the block's
+    first node, row-major."""
+    grids = np.meshgrid(*[np.arange(w) for w in window_shape(dim, by)], indexing="ij")
+    return np.stack([g.ravel() for g in grids], axis=-1).astype(np.int32)
+
+
+def window_node_positions(blk_coords, cfg: GridConfig, by: int = 4):
+    """[..., prod(WSH), d] world positions of the window nodes of the blocks
+    at blk_coords [..., d]."""
+    d = cfg.dim
+    dev = blk_coords.device
+    bsh = torch.tensor(block_shape(d, by), dtype=torch.int32, device=dev)
+    offs = torch.as_tensor(window_node_offsets(d, by), device=dev)
+    origin = torch.tensor(cfg.origin_cell, dtype=torch.int32, device=dev)
+    cell = blk_coords[..., None, :] * bsh + origin + offs
+    return cell.to(torch.float32) * cfg.cell_width
+
+
+def octant_flat_offsets(nb: Tuple[int, ...]) -> Tuple[int, ...]:
+    """Flat block-id offset of each {0,1}^d neighbour (np.ndindex order)."""
+    st = storage_strides(nb)
+    return tuple(int(sum(e[a] * st[a] for a in range(len(nb))))
+                 for e in np.ndindex(*((2,) * len(nb))))
 
 
 @functools.lru_cache(maxsize=None)
@@ -238,6 +348,42 @@ def scatter_tiles(grid_blocks, tiles, src):
     add_rows(grid_blocks.reshape(-1, c), src.reshape(-1),
              tiles[:, :wvol, :c].reshape(-1, c))
     return grid_blocks
+
+
+@functools.lru_cache(maxsize=None)
+def block_major_index(grid: GridConfig, device):
+    """[M] int64: the block-major index (4^3 / 8^2 blocks, no ghost) of each
+    row-major node: row-major arrays read block-major data through it."""
+    bsh = block_shape(grid.dim, 4)
+    st = storage_strides(num_blocks(grid, 4))
+    cells = torch.stack(torch.meshgrid(*(torch.arange(s, device=device)
+                                         for s in grid.shape), indexing="ij"), -1)
+    cells = cells.reshape(-1, grid.dim)
+    blk = sum((cells[:, a] // bsh[a]) * st[a] for a in range(grid.dim))
+    inner = cells[:, 0] % bsh[0]
+    for a in range(1, grid.dim):
+        inner = inner * bsh[a] + cells[:, a] % bsh[a]
+    return blk * int(np.prod(bsh)) + inner
+
+
+def to_blocks(flat, grid: GridConfig, ghost_value=0):
+    """Row-major node values [M, ...] -> block-major [NB + 1, BS.., ...]
+    (4^3 / 8^2 blocks; the ghost block NB holds ghost_value)."""
+    bs = block_size(grid.dim)
+    nb_total = int(np.prod(num_blocks(grid)))
+    tail = tuple(flat.shape[1:])
+    out = torch.full((nb_total * bs ** grid.dim + bs ** grid.dim, *tail), ghost_value,
+                     dtype=flat.dtype, device=flat.device)
+    out[block_major_index(grid, flat.device)] = flat
+    return out.reshape(nb_total + 1, *((bs,) * grid.dim), *tail)
+
+
+def from_blocks(blocked, grid: GridConfig):
+    """Block-major [NB + 1, BS.., ...] -> row-major [M, ...] (the ghost block
+    dropped)."""
+    tail = tuple(blocked.shape[1 + grid.dim:])
+    flat = blocked.reshape(-1, *tail)
+    return flat[block_major_index(grid, blocked.device)]
 
 
 def block_major_node_positions_ch(cfg: GridConfig, by: int, device):

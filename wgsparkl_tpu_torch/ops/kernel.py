@@ -24,6 +24,12 @@ def axis_weights(xf):
     return 0.5 * (a * a), 0.75 - b * b, 0.5 * (c * c)
 
 
+def eval_all(x):
+    """[..., 3] per-axis B-spline weights at offsets 0, 1, 2 of x = p/h -
+    base in [0.5, 1.5]."""
+    return torch.stack(axis_weights(x), dim=-1)
+
+
 @functools.lru_cache(maxsize=None)
 def stencil_offsets(dim: int) -> np.ndarray:
     """Static [3^dim, dim] int32 stencil offsets in {0,1,2}^dim, the last

@@ -1,11 +1,14 @@
-"""Channel-form fused particle update (port of
-wgsparkl_tpu/ops/particle_update.py:105-306, `particle_update_channels` and
-`particle_update_channels_2d`): contact projection, velocity clamp,
-advection, penalty impulse, F update, fracture check, Drucker-Prager
-projection, corotated or neo-Hookean stress and the APIC affine matrix.
-The plain version of kernel C (ops/update_rows.py)."""
+"""Fused particle update (port of wgsparkl_tpu/ops/particle_update.py):
+contact projection, velocity clamp, advection, penalty impulse, F update,
+fracture check, Drucker-Prager projection, corotated or neo-Hookean stress
+and the APIC affine matrix.  `particle_update_channels` (either dimension)
+and `particle_update_channels_2d` are the channel form, the plain version
+of kernel C (ops/update_rows.py); `particle_update` is the JAX package's
+struct form, which runs kernel C on the row matrix of a Particles state."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -19,8 +22,12 @@ from wgsparkl_tpu_torch.models.elasticity import (
     kirchoff_stress_neo_hookean_ch, kirchoff_stress_neo_hookean_ch2,
 )
 from wgsparkl_tpu_torch.ops.kernel import inv_d
+from wgsparkl_tpu_torch.ops import rows as R
+from wgsparkl_tpu_torch.ops import rows2d as R2
 from wgsparkl_tpu_torch.ops.rows import DEFAULT_FRICTION
+from wgsparkl_tpu_torch.ops.transfer import particle_cdf_rows
 from wgsparkl_tpu_torch.params import velocity_limit
+from wgsparkl_tpu_torch.solver import DPS_KEYS, attach_material_table
 
 PENALTY_COEFF = 1.0e3
 ELASTIC_MODELS = ("corotated", "neo_hookean")   # index = kernel C's model id
@@ -109,3 +116,51 @@ def particle_update_channels(ch, dt: float, h: float,
     affine = {k: gc[k] * ch["mass"] - stress[k] * scale_a for k in new_f}
     return {"pos": new_pos, "vel": new_vel, "F": new_f, "affine": affine,
             "phase": new_phase, "dps": new_dps}
+
+
+def particle_update_channels_2d(ch, params, grid_cfg, elastic_model="corotated"):
+    """particle_update_channels on 2D channels with the JAX package's
+    arguments (the step's params, the grid)."""
+    return particle_update_channels(ch, params.dt, grid_cfg.cell_width, elastic_model)
+
+
+def particle_update(particles, models, params, grid_cfg, elastic_model="corotated"):
+    """One constitutive step of a Particles state (the JAX package's struct
+    form): (particles with new pos, vel, def_grad and affine; models with
+    new phase and dp_state).  particles.affine holds the velocity gradient
+    (g2p's), particles.cdf_rigid_vel the rigid contact velocity.  Kernel C
+    runs on the state's rows: the G2P moments it takes are S = D grad
+    (`centered`, D = h^2 / 4, its gradient D^-1 S), the rigid velocity comes
+    from the rows (`rv_rows`), and every lane is live.  A models without a
+    material table gets one here (kernel C reads the constants by id)."""
+    # ops/update_rows imports this module (the plain version of kernel C).
+    from wgsparkl_tpu_torch.ops.update_rows import update_rows, update_rows2d
+
+    n, d = particles.pos.shape
+    L, update = (R, update_rows) if d == 3 else (R2, update_rows2d)
+    tabled = models
+    if models.mat_table is None:
+        tabled, _ = attach_material_table(particles, models, limit=None)
+    dev = particles.pos.device
+    h = grid_cfg.cell_width
+    rows = L.pack_rows_padded(particles, tabled, n)
+    krows = torch.zeros((16 if d == 3 else 8, n), dtype=torch.float32, device=dev)
+    krows[:d] = particles.vel.T
+    krows[d:d + d * d] = (particles.affine.reshape(n, d * d)
+                          * R.f32(h * h / 4.0)).T
+    pcdf = particle_cdf_rows(particles.cdf_affinity, particles.cdf_normal,
+                             particles.cdf_signed_distance)
+    out = update(rows, krows, pcdf,
+                 torch.zeros(n, dtype=torch.int32, device=dev), n,
+                 torch.zeros((32 if d == 3 else 16, 128), dtype=torch.float32,
+                             device=dev),
+                 tabled.mat_table, params.dt, h, 0, tabled.mat_table.shape[1], 1,
+                 elastic_model, centered=True, rv_rows=True)
+    new_p = dataclasses.replace(
+        particles, pos=out[0:d].T.contiguous(), vel=out[d:2 * d].T.contiguous(),
+        affine=out[L.A0:L.A0 + d * d].T.reshape(n, d, d).contiguous(),
+        def_grad=out[L.R_F0:L.R_F0 + d * d].T.reshape(n, d, d).contiguous())
+    new_m = dataclasses.replace(
+        models, phase=out[L.R_PHASE].clone(),
+        dp_state={k: out[L.R_DPS0 + i].clone() for i, k in enumerate(DPS_KEYS)})
+    return new_p, new_m

@@ -311,6 +311,12 @@ def mesh_pass_sparse(meshes: MeshColliders, bodies, grid: GridConfig, act, amax:
                                 meshes.sample_cid, grid, act, amax)
 
 
+def blocks_to_flat(blocked_arr, cfg: GridConfig):
+    """Block-major [NB + 1, BS.., C] (4^3 / 8^2 blocks) -> row-major [M, C],
+    the ghost block dropped."""
+    return bk.from_blocks(blocked_arr, cfg)
+
+
 def merge_mesh_into_node_cdf(node_dist, node_aff, node_closest, key, word):
     """Merge the mesh pass into an analytic node-CDF triple (dist f32, aff
     int32, closest int32): a mesh key strictly closer than the analytic

@@ -132,6 +132,29 @@ def unpack_state_rows(rows, particles, models, n_mat: int = 1):
     return new_p, new_m
 
 
+def body_table(bodies):
+    """The kernels' body table of a RigidWorld, lanes = slots: [32, 128] in
+    3D (rows 0-2 world COM, 3-5 linvel, 6-8 angvel, 9-12 quaternion, 13-15
+    translation, 16-23 shape params), [16, 128] in 2D (rows 0-1 world COM,
+    2-3 linvel, 4 angvel, 5-6 rotation (cos, sin), 7-8 translation, 9-11
+    shape params); the step's rows (gravity, velocity clamp:
+    pipeline._body_table) zero."""
+    nb, d = bodies.count, bodies.dim
+    bt = torch.zeros((32 if d == 3 else 16, 128), dtype=torch.float32,
+                     device=bodies.pos.device)
+    a = bodies.angvel.shape[1]
+    bt[0:d, :nb] = bodies.world_com.T
+    bt[d:2 * d, :nb] = bodies.linvel.T
+    bt[2 * d:2 * d + a, :nb] = bodies.angvel.T
+    r0 = 2 * d + a
+    bt[r0:r0 + bodies.rot.shape[1], :nb] = bodies.rot.T
+    r0 += bodies.rot.shape[1]
+    bt[r0:r0 + d, :nb] = bodies.pos.T
+    bt[r0 + d:r0 + d + (8 if d == 3 else 3), :nb] = (
+        bodies.shape_params[:, :8 if d == 3 else 3].T)
+    return bt
+
+
 def f32(x) -> float:
     """A Python float rounded to f32, as a kernel argument takes it."""
     return float(torch.tensor(x, dtype=torch.float32))
@@ -237,8 +260,8 @@ def ghost_velocity(vp, bv, nrm, friction=DEFAULT_FRICTION):
 
 # Body-table rows of a collider's pose and shape, by dimension: (first
 # rotation row, rotation rows, first translation row, first shape row).
-# 3D: quaternion 9-12, translation 13-15, shape 16-23 (pipeline._body_table);
-# 2D: (cos, sin) 5-6, translation 7-8, shape 9-11 (_body_table_2d).
+# 3D: quaternion 9-12, translation 13-15, shape 16-23 (body_table);
+# 2D: (cos, sin) 5-6, translation 7-8, shape 9-11.
 _POSE_ROWS = {3: (9, 4, 13, 16), 2: (5, 2, 7, 9)}
 
 

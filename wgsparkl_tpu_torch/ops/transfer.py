@@ -23,6 +23,11 @@ velocity, then the moments S_ij = sum_k (w_k v_i) (x_k - p)_j centred on
 the particle (kernel C's `centered` mode: grad = D^-1 S), zero on lanes
 that take no part.  The rigid contact velocity of every lane
 (rigid_velocity_sum) is kernel C's, from the new affinity word.
+
+`p2g` and `g2p` are the JAX package's struct forms over the same kernels:
+they take Particles and a RigidWorld and return its tensors (grid momentum
+and mass, the impulses; the new velocity, the velocity gradient D^-1 S and
+the rigid contact velocity), with the node affinity words as int32.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from wgsparkl_tpu_torch import _cuda
 from wgsparkl_tpu_torch.collision.cdf import affinities_are_compatible
 from wgsparkl_tpu_torch.math import div
 from wgsparkl_tpu_torch.ops import rows as R
-from wgsparkl_tpu_torch.ops.kernel import stencil_base_and_weights, stencil_offsets
+from wgsparkl_tpu_torch.ops.kernel import inv_d, stencil_base_and_weights, stencil_offsets
 from wgsparkl_tpu_torch.params import velocity_limit
 
 DEFAULT_FRICTION = 20.0
@@ -388,3 +393,65 @@ def rigid_velocity_sum(pos, affinity, btable, num_colliders: int):
         bv = velocity_at_point(btable, torch.full_like(affinity, i), p)
         out = [out[a] + torch.where(has, bv[a], 0.0) for a in range(d)]
     return torch.stack(out, -1)
+
+
+def particle_rows(pos, vel, mass, affine):
+    """The dense kernels' rows of N particles: [2d + 1 + d^2, N] position,
+    velocity, mass and the affine matrix row-major (the first rows of
+    ops/rows.py's and ops/rows2d.py's layouts)."""
+    n, d = pos.shape
+    return torch.cat([pos.T, vel.T, mass[None], affine.reshape(n, d * d).T]).contiguous()
+
+
+def particle_cdf_rows(affinity, normal, signed_distance=None):
+    """[8, N] particle-CDF rows of N particles' affinity words, normals and
+    signed distances (zero when None)."""
+    n, d = normal.shape
+    lo, hi = R.aff_halves(affinity)
+    out = torch.zeros((8, n), dtype=torch.float32, device=normal.device)
+    out[0], out[2 + d] = lo, hi
+    out[2:2 + d] = normal.T
+    if signed_distance is not None:
+        out[1] = signed_distance
+    return out
+
+
+def _struct_rows(particles):
+    return (particle_rows(particles.pos, particles.vel, particles.mass, particles.affine),
+            particle_cdf_rows(particles.cdf_affinity, particles.cdf_normal,
+                              particles.cdf_signed_distance))
+
+
+def p2g(particles, models, bodies, node_aff, node_closest, grid_cfg, num_colliders):
+    """P2G with the CPIC impulses from a Particles state (the JAX package's
+    struct form; models is not read): (grid_mom [M, d], grid_mass [M],
+    lin_imp [B, d], ang_imp [B, 3 or 1]) over the row-major grid.  Pairs
+    with a node whose affinity (node_aff int32 [M]) is incompatible with
+    the particle's own give their impulse to the node's closest body
+    (node_closest int32 [M], -1 for none); bodies: a RigidWorld with fresh
+    world COMs.  Kernel dense_p2g on the card."""
+    d = grid_cfg.dim
+    n = particles.count
+    mm, lin, ang = dense_p2g(*_struct_rows(particles), n, None, node_aff, node_closest,
+                             R.body_table(bodies), grid_cfg, num_colliders,
+                             bodies.count)
+    return mm[:, :d], mm[:, d], lin[:bodies.count], ang[:bodies.count]
+
+
+def g2p(particles, bodies, grid_vel, node_aff, node_closest, grid_cfg, num_colliders):
+    """G2P from the row-major grid velocities grid_vel [M, d] with CPIC ghost
+    velocities at incompatible nodes (the JAX package's struct form):
+    (new_vel [N, d], the velocity gradient [N, d, d], the rigid contact
+    velocity [N, d] of the bodies in each particle's affinity word).
+    Kernel dense_g2p on the card gives the moments S centred on the
+    particle; the gradient is D^-1 S."""
+    d = grid_cfg.dim
+    n = particles.count
+    btable = R.body_table(bodies)
+    krows = dense_g2p(*_struct_rows(particles), n, None, grid_vel.contiguous(),
+                      node_aff, node_closest, btable, grid_cfg, num_colliders)
+    new_vel = krows[:d].T.contiguous()
+    grad = inv_d(grid_cfg.cell_width) * krows[d:d + d * d].T.reshape(n, d, d)
+    return (new_vel, grad.contiguous(),
+            rigid_velocity_sum(particles.pos, particles.cdf_affinity, btable,
+                               num_colliders))

@@ -14,6 +14,9 @@ position and get zero velocity inputs.  The G2P rows hold the velocity and
 the moments sum_k w_k v_i x_k, from which the gradient is D^-1 (S - v p^T);
 with `centered` (the dense transfer's G2P) the moments are already centred
 on the particle, sum_k w_k v_i (x_k - p), and the gradient is D^-1 S.
+With `rv_rows` (the struct-form particle update, ops/particle_update.py)
+the rigid contact velocity is read from the rows' own rigid-velocity rows
+instead of being summed from the body table.
 `update_rows` is the 3D branch, `update_rows2d` the 2D one (rows of
 ops/rows2d.py); each counts its own launches.
 """
@@ -56,7 +59,8 @@ def _rigid_velocity(pos, aff, btable, nc: int):
 
 
 def _update_plain(L, d, rows_all, krows, pcdf, sorted_ids, covered_end, btable,
-                  mtable, dt, h, nc, n_mat, live_below, elastic_model, centered):
+                  mtable, dt, h, nc, n_mat, live_below, elastic_model, centered,
+                  rv_rows):
     npad = rows_all.shape[1]
     lane = torch.arange(npad, device=rows_all.device)
     ig = (sorted_ids < live_below) & (lane < covered_end)
@@ -74,7 +78,8 @@ def _update_plain(L, d, rows_all, krows, pcdf, sorted_ids, covered_end, btable,
     aff_hi = torch.where(ig, row(pcdf, 2 + d), 0.0)
     sd = torch.where(ig, row(pcdf, 1), 0.0)
     nrm = [torch.where(ig, row(pcdf, 2 + k), 0.0) for k in range(d)]
-    rv = _rigid_velocity(pos, R.aff_from_halves(aff_lo, aff_hi), btable, nc)
+    rv = ([row(rows_all, L.R_RV0 + k) for k in range(d)] if rv_rows
+          else _rigid_velocity(pos, R.aff_from_halves(aff_lo, aff_hi), btable, nc))
     mid = row(rows_all, L.R_MID)
     mval = lambda r: R.mtab_lookup(mtable, mid, r, n_mat)  # noqa: E731
     ch = {
@@ -103,19 +108,19 @@ def _update_plain(L, d, rows_all, krows, pcdf, sorted_ids, covered_end, btable,
 def update_plain(rows_all, krows, pcdf, sorted_ids, covered_end, btable,
                  mtable, dt: float, h: float, nc: int, n_mat: int,
                  live_below: int, elastic_model: str = "corotated",
-                 centered: bool = False):
+                 centered: bool = False, rv_rows: bool = False):
     return _update_plain(R, 3, rows_all, krows, pcdf, sorted_ids, covered_end,
                          btable, mtable, dt, h, nc, n_mat, live_below,
-                         elastic_model, centered)
+                         elastic_model, centered, rv_rows)
 
 
 def update2d_plain(rows_all, krows, pcdf, sorted_ids, covered_end, btable,
                    mtable, dt: float, h: float, nc: int, n_mat: int,
                    live_below: int, elastic_model: str = "corotated",
-                   centered: bool = False):
+                   centered: bool = False, rv_rows: bool = False):
     return _update_plain(R2, 2, rows_all, krows, pcdf, sorted_ids, covered_end,
                          btable, mtable, dt, h, nc, n_mat, live_below,
-                         elastic_model, centered)
+                         elastic_model, centered, rv_rows)
 
 
 def kernel_scalars(dt: float, h: float):
@@ -128,7 +133,7 @@ def kernel_scalars(dt: float, h: float):
 
 def _launch(symbol, pchan, nkrows, rows_all, krows, pcdf, sorted_ids,
             covered_end, btable, mtable, dt, h, nc, n_mat, live_below,
-            elastic_model, centered):
+            elastic_model, centered, rv_rows):
     """Check the arguments of one dimension's entry and launch it."""
     npad = rows_all.shape[1]
     if (rows_all.shape[0] != pchan or krows.shape[0] != nkrows
@@ -149,10 +154,11 @@ def _launch(symbol, pchan, nkrows, rows_all, krows, pcdf, sorted_ids,
     R.check_kernel_args(rows_all, krows, pcdf, sorted_ids, ce, btable, mtable)
     out = torch.empty_like(rows_all)
     _cuda.launch(
-        "update_rows", symbol, "pppppppiiiiiiiiiffffffp",
+        "update_rows", symbol, "pppppppiiiiiiiiiiffffffp",
         rows_all, krows, pcdf, sorted_ids, ce, btable, mtable,
         npad, krows.shape[1], pcdf.shape[1], mtable.shape[1], nc, n_mat, live_below,
-        ELASTIC_MODELS.index(elastic_model), int(centered), *kernel_scalars(dt, h),
+        ELASTIC_MODELS.index(elastic_model), int(centered), int(rv_rows),
+        *kernel_scalars(dt, h),
         out)
     return out
 
@@ -160,12 +166,12 @@ def _launch(symbol, pchan, nkrows, rows_all, krows, pcdf, sorted_ids,
 def update_rows(rows_all, krows, pcdf, sorted_ids, covered_end, btable,
                 mtable, dt: float, h: float, nc: int, n_mat: int,
                 live_below: int, elastic_model: str = "corotated",
-                centered: bool = False):
+                centered: bool = False, rv_rows: bool = False):
     """Next-substep rows [PCHAN, NPAD] (see the module docstring).
     krows [16, >=NPAD] and pcdf [8, >=NPAD] are read on their first NPAD
     lanes; covered_end is a 0-d int tensor or an int."""
     args = (rows_all, krows, pcdf, sorted_ids, covered_end, btable, mtable,
-            dt, h, nc, n_mat, live_below, elastic_model, centered)
+            dt, h, nc, n_mat, live_below, elastic_model, centered, rv_rows)
     if rows_all.device.type == "cpu":
         return update_plain(*args)
     out = _launch("update_rows_cuda", R.PCHAN, 16, *args)
@@ -179,12 +185,12 @@ update_rows.launches = 0
 def update_rows2d(rows_all, krows, pcdf, sorted_ids, covered_end, btable,
                   mtable, dt: float, h: float, nc: int, n_mat: int,
                   live_below: int, elastic_model: str = "corotated",
-                  centered: bool = False):
+                  centered: bool = False, rv_rows: bool = False):
     """The dim=2 branch: next-substep 2D rows [32, NPAD] from the rows, the
     2D G2P rows [8, >=NPAD] (velocity, moments), the 2D particle-CDF rows
     [8, >=NPAD] (aff low, sd, normal, aff high) and the 2D body table."""
     args = (rows_all, krows, pcdf, sorted_ids, covered_end, btable, mtable,
-            dt, h, nc, n_mat, live_below, elastic_model, centered)
+            dt, h, nc, n_mat, live_below, elastic_model, centered, rv_rows)
     if rows_all.device.type == "cpu":
         return update2d_plain(*args)
     out = _launch("update_rows2d_cuda", R2.PCHAN, 8, *args)

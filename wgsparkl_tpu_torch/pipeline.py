@@ -1,9 +1,10 @@
 """The MPM step on the bounded block grid, the sparse 3D domain and the dense
 grid (port of wgsparkl_tpu/pipeline.py: MpmConfig, MpmData, MpmPipeline,
 RigidBodyDesc, build_rigid_world, StepDiag, step / step_pallas /
-step_with_diag, the bounded and sparse branches of `_substep_pallas_rows`,
+step_with_diag, the one-substep entry points substep / substep_blocked /
+substep_pallas, the bounded and sparse branches of `_substep_pallas_rows`,
 `_sparse_chan_grid`, the bounded branch of `_substep_pallas_rows_2d`, and
-the dense and blocked transfers' `substep` and `substep_blocked`).
+the dense and blocked transfers).
 
 `transfer` picks the path.  "pallas" (the port's default) is the kernel
 path below; "dense" (the JAX package's default) and "blocked" run the
@@ -91,7 +92,7 @@ import torch
 
 from wgsparkl_tpu_torch.collision import cdf_channel as cch
 from wgsparkl_tpu_torch.collision import shapes as shp
-from wgsparkl_tpu_torch.collision.cdf import dense_pcdf
+from wgsparkl_tpu_torch.collision.cdf import dense_pcdf, node_cdf
 from wgsparkl_tpu_torch.device import resolve
 from wgsparkl_tpu_torch.grid import GridConfig
 from wgsparkl_tpu_torch.math import div
@@ -379,17 +380,9 @@ def pallas_npad(n: int, group: int) -> int:
 
 
 def _body_table(bodies: RigidWorld, params: SimulationParams, grid: GridConfig):
-    """[32, 128] body table, lanes = slots: rows 0-2 world COM, 3-5 linvel,
-    6-8 angvel, 9-12 quaternion, 13-15 translation, 16-23 shape params;
-    row 24 lanes 0-2 gravity * dt, lane 3 the velocity clamp."""
-    nb = bodies.count
-    bt = torch.zeros((32, 128), dtype=torch.float32, device=bodies.pos.device)
-    bt[0:3, :nb] = bodies.world_com.T
-    bt[3:6, :nb] = bodies.linvel.T
-    bt[6:9, :nb] = bodies.angvel.T
-    bt[9:13, :nb] = bodies.rot.T
-    bt[13:16, :nb] = bodies.pos.T
-    bt[16:24, :nb] = bodies.shape_params.T
+    """[32, 128] body table (ops/rows.body_table's rows 0-23); row 24
+    lanes 0-2 gravity * dt, lane 3 the velocity clamp."""
+    bt = R.body_table(bodies)
     bt[24, :3] = params.gravity * params.dt
     bt[24, 3].fill_(velocity_limit(grid.cell_width, params.dt))  # no host copy
     return bt
@@ -397,17 +390,9 @@ def _body_table(bodies: RigidWorld, params: SimulationParams, grid: GridConfig):
 
 def _body_table_2d(bodies: RigidWorld, params: SimulationParams,
                    grid: GridConfig):
-    """[16, 128] 2D body table, lanes = slots: rows 0-1 world COM, 2-3
-    linvel, 4 angvel, 5-6 rotation (cos, sin), 7-8 translation, 9-11 shape
-    params; row 13 lanes 0-1 gravity * dt, lane 2 the velocity clamp."""
-    nb = bodies.count
-    bt = torch.zeros((16, 128), dtype=torch.float32, device=bodies.pos.device)
-    bt[0:2, :nb] = bodies.world_com.T
-    bt[2:4, :nb] = bodies.linvel.T
-    bt[4:5, :nb] = bodies.angvel.T
-    bt[5:7, :nb] = bodies.rot.T
-    bt[7:9, :nb] = bodies.pos.T
-    bt[9:12, :nb] = bodies.shape_params[:, :3].T
+    """[16, 128] 2D body table (ops/rows.body_table's rows 0-11); row 13
+    lanes 0-1 gravity * dt, lane 2 the velocity clamp."""
+    bt = R.body_table(bodies)
     bt[13, :2] = params.gravity * params.dt
     bt[13, 2].fill_(velocity_limit(grid.cell_width, params.dt))
     return bt
@@ -416,9 +401,8 @@ def _body_table_2d(bodies: RigidWorld, params: SimulationParams,
 def _node_cdf_static(bodies: RigidWorld, cfg: MpmConfig):
     """Analytic node CDF of the static slots at block-major node positions."""
     pos = bk.block_major_node_positions_ch(cfg.grid, cfg.by, bodies.pos.device)
-    return cch.node_cdf_channels(cfg.collider_types, bodies.shape_params,
-                                 bodies.rot, bodies.pos, pos, cfg.grid.cell_width,
-                                 only=frozenset(cfg.static_slots))
+    return node_cdf(cfg.collider_types, bodies.shape_params, bodies.rot, bodies.pos,
+                    pos, cfg.grid.cell_width, only=frozenset(cfg.static_slots))
 
 
 def _node_cdf_full(bodies: RigidWorld, cfg: MpmConfig, static_part=None,
@@ -432,9 +416,8 @@ def _node_cdf_full(bodies: RigidWorld, cfg: MpmConfig, static_part=None,
     if static_part is not None:
         only = frozenset(i for i in range(cfg.num_colliders)
                          if i not in cfg.static_slots)
-    tri = cch.node_cdf_channels(cfg.collider_types, bodies.shape_params,
-                                bodies.rot, bodies.pos, pos, cfg.grid.cell_width,
-                                only=only)
+    tri = node_cdf(cfg.collider_types, bodies.shape_params, bodies.rot, bodies.pos,
+                   pos, cfg.grid.cell_width, only=only)
     if static_part is not None:
         tri = cch.merge_node_cdf(static_part, tri)
     if cfg.mesh_cids:
@@ -834,8 +817,8 @@ def _sparse_chan_grid(bodies, meshes, cfg: MpmConfig, act):
     cells = (bk.sparse_key_coords(act)[:, None, :] * 4 + origin + off[None])
     npos = [(cells[..., a].to(torch.float32) * grid.cell_width).reshape(-1)
             for a in range(3)]
-    tri = cch.node_cdf_channels(cfg.collider_types, bodies.shape_params, bodies.rot,
-                                bodies.pos, npos, grid.cell_width)
+    tri = node_cdf(cfg.collider_types, bodies.shape_params, bodies.rot, bodies.pos,
+                   npos, grid.cell_width)
     if cfg.mesh_cids:
         key, word = rigid_cdf.mesh_pass_sparse(meshes, bodies, grid, act, cfg.amax)
         n = act.shape[0] * 64
@@ -1043,22 +1026,6 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     return rows_out, bodies
 
 
-@functools.lru_cache(maxsize=None)
-def _block_major_index(grid: GridConfig, device):
-    """[M] int64: the block-major index (4^3 / 8^2 blocks) of each
-    row-major node, to read the mesh pass on the row-major grid."""
-    bsh = bk.block_shape(grid.dim, 4)
-    st = bk.storage_strides(bk.num_blocks(grid, 4))
-    cells = torch.stack(torch.meshgrid(*(torch.arange(s, device=device)
-                                         for s in grid.shape), indexing="ij"), -1)
-    cells = cells.reshape(-1, grid.dim)
-    blk = sum((cells[:, a] // bsh[a]) * st[a] for a in range(grid.dim))
-    inner = cells[:, 0] % bsh[0]
-    for a in range(1, grid.dim):
-        inner = inner * bsh[a] + cells[:, a] % bsh[a]
-    return blk * int(np.prod(bsh)) + inner
-
-
 def _dense_node_cdf(bodies, cfg: MpmConfig, meshes=None):
     """Node CDF (dist f32, aff int32, closest int32) [M] of every collider
     on the row-major grid: the analytic colliders at the node positions,
@@ -1066,12 +1033,11 @@ def _dense_node_cdf(bodies, cfg: MpmConfig, meshes=None):
     the JAX package) merged in."""
     grid = cfg.grid
     dev = bodies.pos.device
-    tri = cch.node_cdf_channels(cfg.collider_types, bodies.shape_params, bodies.rot,
-                                bodies.pos, grid.node_position_channels(dev),
-                                grid.cell_width)
+    tri = node_cdf(cfg.collider_types, bodies.shape_params, bodies.rot, bodies.pos,
+                   grid.node_position_channels(dev), grid.cell_width)
     if cfg.mesh_cids:
         key, word = rigid_cdf.mesh_pass(meshes, bodies, grid, 4)
-        idx = _block_major_index(grid, dev)
+        idx = bk.block_major_index(grid, dev)
         tri = rigid_cdf.merge_mesh_into_node_cdf(*tri, key[idx], word[idx])
     return tri
 
@@ -1088,11 +1054,10 @@ def _cdf_rows(rows, d: int):
     return pcdf
 
 
-def sort_by_block(rows, block_ids):
+def sort_rows_by_block(rows, block_ids):
     """The [C, NPAD] row matrix, every particle and model field, stably
-    sorted by block id (port of wgsparkl_tpu/ops/blocked.py:734, the
-    reference's finalize_particles_sort, sort.wgsl:117-137; kernel D moves
-    the rows): (sorted rows, sorted ids)."""
+    sorted by block id (ops/blocked.sort_by_block on the row matrix;
+    kernel D moves the rows): (sorted rows, sorted ids)."""
     sorted_ids, perm = torch.sort(block_ids, stable=True)
     return permute_lanes(rows, perm.to(torch.int32)), sorted_ids
 
@@ -1104,9 +1069,9 @@ def _sort_phase(rows, cfg: MpmConfig, n: int):
     grid = cfg.grid
     nb_total = int(np.prod(bk.num_blocks(grid)))
     lane = torch.arange(rows.shape[1], device=rows.device)
-    keys = bk.particle_block_ids(rows[:grid.dim].T, grid)
+    keys = bk.particle_block_ids_ch([rows[a] for a in range(grid.dim)], grid)
     keys = torch.where(lane < n, keys, nb_total + 1).to(torch.int32)
-    rows, sorted_ids = sort_by_block(rows, keys)
+    rows, sorted_ids = sort_rows_by_block(rows, keys)
     return rows, bk.build_jobs(sorted_ids, nb_total, cfg.group, cfg.max_jobs)
 
 
@@ -1154,6 +1119,16 @@ def _substep_dense(rows, bodies, params, cfg: MpmConfig, n: int, n_t, zero_ids,
     return rows_out, bodies
 
 
+def _unpack(rows, state: SimState, models, bodies, n_mat: int) -> SimState:
+    """The state of the first n lanes of a frame's rows (the particles and
+    models of state updated, bodies and meshes given)."""
+    L = R if state.particles.dim == 3 else R2
+    particles, models = L.unpack_state_rows(rows[:, :state.particles.count],
+                                            state.particles, models, n_mat=n_mat)
+    return SimState(particles=particles, models=models, bodies=bodies,
+                    meshes=state.meshes)
+
+
 def step_dense(state: SimState, params: SimulationParams, cfg: MpmConfig,
                num_substeps: int, record: Optional[dict] = None, comm=None):
     """A frame of dense or blocked substeps (cfg.transfer) carrying the
@@ -1162,8 +1137,7 @@ def step_dense(state: SimState, params: SimulationParams, cfg: MpmConfig,
     blocked transfer returns the particles block-sorted.  record: see
     _substep_dense (filled by the frame's last substep); comm: this rank's
     Comm in a particle-sharded run."""
-    dim = cfg.grid.dim
-    L = R if dim == 3 else R2
+    L = R if cfg.grid.dim == 3 else R2
     models, n_mat = state.models, max(cfg.n_materials, 1)
     if models.mat_table is None:
         models, n_mat = attach_material_table(state.particles, models, limit=None)
@@ -1177,23 +1151,42 @@ def step_dense(state: SimState, params: SimulationParams, cfg: MpmConfig,
         rows, bodies = _substep_dense(rows, bodies, params, cfg, n, n_t, zero_ids,
                                       models.mat_table, n_mat, record, state.meshes,
                                       comm)
-    particles, models = L.unpack_state_rows(rows[:, :n], state.particles, models,
-                                            n_mat=n_mat)
-    return SimState(particles=particles, models=models, bodies=bodies,
-                    meshes=state.meshes)
+    return _unpack(rows, state, models, bodies, n_mat)
 
 
-def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
-                num_substeps: int, return_diag: bool = False,
-                record: Optional[dict] = None, comm=None):
-    """A frame of substeps carrying the [PCHAN, NPAD] row matrix; the
-    static colliders' node CDF (as a channel grid in the gathered modes,
-    as a triple in the dense mode) is built once per frame.  record: see
-    _substep (filled by the frame's last substep); comm: this rank's Comm
-    in a multi-device run.  Under the spatial decomposition the rows carry
-    2 migration_cap more lanes of slack (where migrants land), and the live
-    lanes past the shard's n at the frame's end count in
-    StepDiag.live_lost."""
+def _dense_config(cfg: MpmConfig, transfer: str) -> MpmConfig:
+    if cfg.sparse:
+        raise ValueError("the sparse domain runs only on transfer='pallas'")
+    return cfg if cfg.transfer == transfer else dataclasses.replace(cfg,
+                                                                   transfer=transfer)
+
+
+def substep(state: SimState, params: SimulationParams, cfg: MpmConfig,
+            comm=None) -> SimState:
+    """One substep of the dense transfer, whatever cfg.transfer says (it
+    reads cfg.grid, the colliders and the models' options): step_dense of
+    one substep, the rows packed and unpacked in this call.  comm: this
+    rank's Comm in a particle-sharded run (the grid and the impulses are
+    summed over the ranks after P2G)."""
+    return step_dense(state, params, _dense_config(cfg, "dense"), 1, comm=comm)
+
+
+def substep_blocked(state: SimState, params: SimulationParams, cfg: MpmConfig,
+                    comm=None) -> SimState:
+    """One substep of the blocked transfer (4^3 / 8^2 blocks, cfg.group and
+    cfg.max_jobs; the job table is built anew): the particles come out
+    block-sorted, `ids` tracks each one; lanes of jobs past max_jobs take
+    no part.  comm: as for substep."""
+    return step_dense(state, params, _dense_config(cfg, "blocked"), 1, comm=comm)
+
+
+def _frame_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
+                  num_substeps: int, record: Optional[dict], comm, hoist: bool):
+    """num_substeps kernel-path substeps on the row matrix, packed and
+    unpacked once: (state, StepDiag).  hoist: build the static colliders'
+    node CDF once for the frame (step_pallas); without it every substep
+    evaluates every collider (substep_pallas, as the JAX package's passes
+    no static grid to its core)."""
     dim = cfg.grid.dim
     L, substep = (R, _substep) if dim == 3 else (R2, _substep_2d)
     n = state.particles.count
@@ -1201,7 +1194,7 @@ def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
     npad = pallas_npad(n + slack, cfg.group)
     rows = L.pack_rows_padded(state.particles, state.models, npad)
     static_chan = static_cdf = None
-    if cfg.static_slots and not cfg.cdf_chan_free and not cfg.sparse:
+    if hoist and cfg.static_slots and not cfg.cdf_chan_free and not cfg.sparse:
         # The frame hoist of the static colliders (none in the sparse
         # domain, whose nodes change with the active table).
         nb_total = int(np.prod(bk.num_blocks(cfg.grid, cfg.by)))
@@ -1221,12 +1214,32 @@ def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
         # Live lanes sort first: any past n are cut off with the padding.
         live = (rows[L.PM] > 0.0).sum(dtype=torch.int32)
         diag.live_lost = torch.maximum(diag.live_lost, live - n)
-    particles, models = L.unpack_state_rows(rows[:, :n], state.particles,
-                                            state.models,
-                                            n_mat=max(cfg.n_materials, 1))
-    out = SimState(particles=particles, models=models, bodies=bodies,
-                   meshes=state.meshes)
+    return _unpack(rows, state, state.models, bodies, max(cfg.n_materials, 1)), diag
+
+
+def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
+                num_substeps: int, return_diag: bool = False,
+                record: Optional[dict] = None, comm=None):
+    """A frame of substeps carrying the [PCHAN, NPAD] row matrix; the
+    static colliders' node CDF (as a channel grid in the gathered modes,
+    as a triple in the dense mode) is built once per frame.  record: see
+    _substep (filled by the frame's last substep); comm: this rank's Comm
+    in a multi-device run.  Under the spatial decomposition the rows carry
+    2 migration_cap more lanes of slack (where migrants land), and the live
+    lanes past the shard's n at the frame's end count in
+    StepDiag.live_lost."""
+    out, diag = _frame_pallas(state, params, cfg, num_substeps, record, comm, True)
     return (out, diag) if return_diag else out
+
+
+def substep_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
+                   comm=None) -> SimState:
+    """One kernel-path substep (3D or 2D): the rows packed and unpacked in
+    this call.  The static colliders are not hoisted: in the gathered modes
+    every collider's node CDF is evaluated on the grid (the dense CDF
+    mode's tiles), which gives the same triple as the frame's hoist merged
+    with the moving ones.  comm: as for step_pallas."""
+    return _frame_pallas(state, params, cfg, 1, None, comm, False)[0]
 
 
 def step(state, params, cfg: MpmConfig, num_substeps: int):

@@ -1,6 +1,7 @@
 """Rigid-body state and the coupling ops (port of wgsparkl_tpu/rigid/body.py:
-RigidWorld, update_world_mass_properties, apply_impulse,
-integrate_velocity, shape_mass_properties).  Slots <= 16
+BodyCoupling, RigidWorld, make_rigid_world, velocity_at_point,
+update_world_mass_properties, apply_impulse, integrate_velocity,
+shape_mass_properties).  Slots <= 16
 (the CPIC affinity word).  Fixed and kinematic bodies have zero inverse
 mass; dynamic bodies get theirs from shape_mass_properties and are moved by
 the CPIC impulses, gravity, body contacts (rigid/contacts.py) and joints
@@ -17,7 +18,17 @@ import dataclasses
 import numpy as np
 import torch
 
+from wgsparkl_tpu_torch.device import resolve
 from wgsparkl_tpu_torch.math import pose as pose_math
+
+
+@dataclasses.dataclass
+class BodyCoupling:
+    """Per-slot coupling flags: two_way [B] bool, the dynamic bodies that
+    take the CPIC impulses (the steps take the same choice as
+    MpmConfig.coupling)."""
+
+    two_way: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -40,6 +51,35 @@ class RigidWorld:
     @property
     def dim(self) -> int:
         return self.pos.shape[-1]
+
+
+def make_rigid_world(dim: int, count: int, device=None) -> RigidWorld:
+    """An empty world of `count` static slots at the origin on `device`
+    (None: the card)."""
+    device = resolve(device)
+    ang = 3 if dim == 3 else 1
+    z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)  # noqa: E731
+    return RigidWorld(
+        rot=pose_math.rot_identity(dim, (count,), device=device), pos=z(count, dim),
+        linvel=z(count, dim), angvel=z(count, ang), local_com=z(count, dim),
+        world_com=z(count, dim), inv_mass=z(count, dim),
+        inv_inertia_local=z(count, ang, ang), inv_inertia_world=z(count, ang, ang),
+        shape_params=z(count, 8))
+
+
+def velocity_at_point(bodies: RigidWorld, idx, point):
+    """Velocity of the bodies idx [...] (int slots) at world points
+    [..., d]: lin + ang x (point - world COM); in 2D the angular velocity
+    turns the lever by 90 degrees.  (ops/transfer.velocity_at_point is the
+    same on the body table.)"""
+    idx = idx.long()
+    lin = bodies.linvel[idx]
+    ang = bodies.angvel[idx]
+    rel = point - bodies.world_com[idx]
+    if bodies.dim == 3:
+        return lin + pose_math._cross(ang, rel)
+    perp = torch.stack([-rel[..., 1], rel[..., 0]], dim=-1)
+    return lin + ang[..., 0:1] * perp
 
 
 def update_world_mass_properties(bodies: RigidWorld) -> RigidWorld:

@@ -2,11 +2,13 @@
 
 `time_passes` runs each pass of a dense-transfer substep on its own, on the
 state's device, and reports milliseconds a call under the JAX package's
-pass names: grid_update_cdf (every collider's node CDF on the row-major
-grid), g2p_cdf (the particle CDF, kernel dense_pcdf), p2g (kernel
-dense_p2g), grid_update, g2p (kernel dense_g2p), particle_update (kernel
-C) and rigid_impulses (the rigid update).  It times the dense transfer's
-functions whatever cfg.transfer is, as the JAX package does.  On the card a
+pass names: grid_update_cdf (`collision/cdf.node_cdf`, the analytic
+colliders on the row-major grid), g2p_cdf (the particle CDF, kernel
+dense_pcdf), p2g (`ops/transfer.p2g`, kernel dense_p2g), grid_update, g2p
+(`ops/transfer.g2p`, kernel dense_g2p), particle_update
+(`ops/particle_update.particle_update`, kernel C) and rigid_impulses (the
+rigid update).  It times the dense transfer's functions whatever
+cfg.transfer is, as the JAX package does.  On the card a
 pass is timed with CUDA events around `iters` calls after one warm call; on
 the CPU with the host clock.  `profile_trace` writes a torch.profiler
 Chrome trace of one call.
@@ -57,13 +59,16 @@ def _ms_per_call(fn: Callable, iters: int, device: torch.device):
 
 
 def time_passes(state, params, cfg, iters: int = 10) -> Timestamps:
-    """Time each pass of a dense substep on `state` (a SimState) separately."""
+    """Time each pass of a dense substep on `state` (a SimState) separately,
+    through the struct-form functions the JAX package's harness times:
+    collision/cdf.node_cdf, ops/transfer.p2g, grid_update, g2p and
+    ops/particle_update.particle_update, each on the state as given."""
     from wgsparkl_tpu_torch import pipeline as P
-    from wgsparkl_tpu_torch.collision.cdf import dense_pcdf
+    from wgsparkl_tpu_torch.collision.cdf import dense_pcdf, node_cdf
     from wgsparkl_tpu_torch.ops import rows as R
     from wgsparkl_tpu_torch.ops import rows2d as R2
-    from wgsparkl_tpu_torch.ops.transfer import dense_g2p, dense_p2g, grid_update
-    from wgsparkl_tpu_torch.ops.update_rows import update_rows, update_rows2d
+    from wgsparkl_tpu_torch.ops import transfer
+    from wgsparkl_tpu_torch.ops.particle_update import particle_update
     from wgsparkl_tpu_torch.rigid import body as body_mod
     from wgsparkl_tpu_torch.solver import attach_material_table
 
@@ -76,33 +81,29 @@ def time_passes(state, params, cfg, iters: int = 10) -> Timestamps:
         out, results[name] = _ms_per_call(fn, iters, dev)
         return out
 
-    models, n_mat = state.models, max(cfg.n_materials, 1)
+    particles, models = state.particles, state.models
     if models.mat_table is None:
-        models, n_mat = attach_material_table(state.particles, models, limit=None)
-    n = state.particles.count
-    npad = P.pallas_npad(n, cfg.group)
-    rows = (R if d == 3 else R2).pack_rows_padded(state.particles, models, npad)
-    n_t = torch.full((1,), n, dtype=torch.int32, device=dev)
-    zero_ids = torch.zeros(npad, dtype=torch.int32, device=dev)
+        models, _ = attach_material_table(particles, models, limit=None)
     bodies = body_mod.update_world_mass_properties(state.bodies)
-    btable = (P._body_table if d == 3 else P._body_table_2d)(bodies, params, grid)
-    node_aff = node_closest = None
     if nc > 0:
-        node_dist, node_aff, node_closest = bench(
-            "grid_update_cdf", lambda: P._dense_node_cdf(bodies, cfg, state.meshes))
-        pcdf = bench("g2p_cdf", lambda: dense_pcdf(rows, n, node_dist, node_aff, grid,
-                                                   nc))
+        node_pos = grid.node_positions(dev)
+        node_dist, node_aff, node_closest = bench("grid_update_cdf", lambda: node_cdf(
+            cfg.collider_types, bodies.shape_params, bodies.rot, bodies.pos, node_pos,
+            grid.cell_width))
+        rows = (R if d == 3 else R2).pack_rows_padded(particles, models, particles.count)
+        bench("g2p_cdf", lambda: dense_pcdf(rows, particles.count, node_dist, node_aff,
+                                            grid, nc))
     else:
-        pcdf = P._cdf_rows(rows, d)
-    grid_mm, lin_imp, ang_imp = bench("p2g", lambda: dense_p2g(
-        rows, pcdf, n, n_t, node_aff, node_closest, btable, grid, nc, bodies.count))
-    grid_vel = bench("grid_update", lambda: grid_update(grid_mm, params, grid))
-    krows = bench("g2p", lambda: dense_g2p(rows, pcdf, n, n_t, grid_vel, node_aff,
-                                           node_closest, btable, grid, nc))
-    update = update_rows if d == 3 else update_rows2d
-    bench("particle_update", lambda: update(
-        rows, krows, pcdf, zero_ids, n_t, btable, models.mat_table, params.dt,
-        grid.cell_width, nc, n_mat, 1, cfg.elastic_model, centered=True))
+        node_aff = torch.zeros(grid.num_nodes, dtype=torch.int32, device=dev)
+        node_closest = torch.full_like(node_aff, -1)
+    grid_mom, grid_mass, lin_imp, ang_imp = bench("p2g", lambda: transfer.p2g(
+        particles, models, bodies, node_aff, node_closest, grid, nc))
+    grid_mm = torch.cat([grid_mom, grid_mass[:, None]], dim=1)
+    grid_vel = bench("grid_update", lambda: transfer.grid_update(grid_mm, params, grid))
+    bench("g2p", lambda: transfer.g2p(particles, bodies, grid_vel, node_aff,
+                                      node_closest, grid, nc))
+    bench("particle_update", lambda: particle_update(particles, models, params, grid,
+                                                     cfg.elastic_model))
     bench("rigid_impulses", lambda: P.rigid_bodies_update(bodies, lin_imp, ang_imp,
                                                           params, cfg))
     return Timestamps(passes=results)
