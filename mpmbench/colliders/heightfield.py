@@ -1,0 +1,31 @@
+"""Collider kind `heightfield` (3D), the yardstick's part: a fixed regular
+heightfield triangulated as rapier's HeightField::to_trimesh.
+
+  make(spec, rng)               the inputs: heights [nx, nz] =
+                                amplitude sin(x) cos(z) over `waves`
+                                radians on each axis plus noise
+                                N(0, noise) drawn from rng; scale;
+  node_cdf(c, grid, dtype, dev) the reference's node CDF of the collider
+                                (reference/mesh.py: the triangles' and
+                                edges' samples at cell_width / sqrt(2)).
+"""
+
+import numpy as np
+
+from mpmbench.reference import mesh
+
+
+def make(spec: dict, rng) -> dict:
+    nx, nz = spec["resolution"]
+    a = np.sin(np.linspace(0, spec["waves"], nx))[:, None]
+    b = np.cos(np.linspace(0, spec["waves"], nz))[None, :]
+    noise = rng.standard_normal((nx, nz))
+    return {"heights": spec["amplitude"] * a * b + spec["noise"] * noise,
+            "scale": tuple(spec["scale"])}
+
+
+def node_cdf(c, grid, dtype, device):
+    v, tri = mesh.heightfield_trimesh(c.data["heights"], c.data["scale"])
+    v = v.astype(np.float32).astype(np.float64)
+    points, prims = mesh.sample_trimesh(v, tri, grid.h)
+    return mesh.surface_cdf(v, points, prims, c.translation, grid, dtype, device)
