@@ -45,9 +45,9 @@ run their 4 ranks on the one card through gloo (buffers staged through
 pinned host memory: a correctness set-up, not a multi-device speed), every
 rank stepping the frames, and profile rank 0 (sharded) or the middle rank
 1 (spatial); they also print the device and host ms a substep of the
-profiler spans "exchange" (the grid's sum or halo exchange and the
-impulses' sums, staging included) and "migrate_x" (the migration and the
-second sort) and their shares of the rank's device time and frame wall.
+spans "mpm.exchange" (the grid's sum or halo exchange and the
+impulses' sums, staging included) and "mpm.migrate_x" (the migration and
+the second sort) and their shares of the rank's device time and frame wall.
 Fails without a CUDA device, on a 2D path where G did not launch, on
 paths 7 and 8 where the rigid solve did not and on paths 9-11 where the
 mesh pass did not.
@@ -69,24 +69,26 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 
 import chip_smoke  # noqa: E402
+from wgsparkl_tpu_torch.utils import tracing  # noqa: E402
 
 
 ACTS = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
 
-# Profiler spans of the multi-device step (pipeline: record_function).
-SPANS = ("exchange", "migrate_x")
+# Spans of the multi-device step (pipeline, utils/tracing.py).
+SPANS = ("mpm.exchange", "mpm.migrate_x")
 
 
 def device_rows(prof):
     """(device ms, calls, name) of each device-side event (kernels, copies,
     fills), largest first: the CPU operators that launched them carry the
     same device time again, and a span's device-side row (its extent on the
-    device's timeline, idle gaps included) is left out."""
+    device's timeline, idle gaps included; names from tracing.PREFIX) is
+    left out."""
     rows = []
     for e in prof.key_averages():
         if (getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA
-                or e.key in SPANS):
+                or e.key.startswith(tracing.PREFIX)):
             continue
         dt = getattr(e, "self_device_time_total", None)
         if dt is None:

@@ -119,6 +119,7 @@ from wgsparkl_tpu_torch.rigid import solve as rigid_tables
 from wgsparkl_tpu_torch.rigid.body import RigidWorld
 from wgsparkl_tpu_torch.rigid.solve import rigid_solve
 from wgsparkl_tpu_torch.solver import Models, Particles, attach_material_table
+from wgsparkl_tpu_torch.utils import tracing
 
 # Per-body coupling modes (MpmConfig.coupling): a one-way body sees the
 # matter (particle CDF, ghost velocities) but takes no impulse from it.
@@ -421,7 +422,8 @@ def _node_cdf_full(bodies: RigidWorld, cfg: MpmConfig, static_part=None,
     if static_part is not None:
         tri = cch.merge_node_cdf(static_part, tri)
     if cfg.mesh_cids:
-        key, word = rigid_cdf.mesh_pass(meshes, bodies, cfg.grid, cfg.by)
+        with tracing.span("mpm.mesh_pass"):
+            key, word = rigid_cdf.mesh_pass(meshes, bodies, cfg.grid, cfg.by)
         tri = rigid_cdf.merge_mesh_into_node_cdf(*tri, key, word)
     return tri
 
@@ -681,8 +683,8 @@ def _halo_exchange_sparse(grid_mm, act, amax: int, lo_key: int, hi_key: int,
 def _exchange(grid_mm, lin_imp, ang_imp, ph, cfg: MpmConfig, comm, diag):
     """After P2G on a rank of a multi-device run: the grid summed over the
     ranks, or under the spatial decomposition its halo exchanged; the
-    impulses summed (a profiler span, "exchange")."""
-    with torch.profiler.record_function("exchange"):
+    impulses summed (span "mpm.exchange")."""
+    with tracing.span("mpm.exchange"):
         if _spatial(cfg, comm) and cfg.sparse:
             grid_mm = _halo_exchange_sparse(grid_mm, ph["act"], cfg.amax, ph["lo_key"],
                                             ph["hi_key"], cfg.halo_cap, comm, diag)
@@ -736,9 +738,8 @@ def _job_phase(rows_all, cfg: MpmConfig, n: int, diag: StepDiag, comm=None):
     out = {}
     if spatial:
         lo_key, hi_key = _slab_keys(cfg, comm.rank, comm.world, live_below)
-        # A profiler span (tools/torch_profile.py spatial): the moves and
-        # the second sort.
-        with torch.profiler.record_function("migrate_x"):
+        # Span "mpm.migrate_x": the moves and the second sort.
+        with tracing.span("mpm.migrate_x"):
             rows_all, rows, sorted_ids, perm = _migrate_x(
                 rows, sorted_ids, lo_key, hi_key, live_below, cfg.migration_cap,
                 comm, diag, sort_rows, pm)
@@ -771,6 +772,9 @@ def _job_phase(rows_all, cfg: MpmConfig, n: int, diag: StepDiag, comm=None):
         where = {"block": block}
     diag.job_overflow = torch.maximum(diag.job_overflow,
                                       (jobs["needed"] - cfg.max_jobs).to(torch.int32))
+    # The live share of the job slots that the window scatter reads.
+    tracing.count("jobs.live", jobs["needed"], most=cfg.max_jobs)
+    tracing.count("jobs.slots", src.shape[0])
     live = jobs["len"] > 0
     covered_end = torch.max(torch.where(live, jobs["start"] + jobs["len"], 0))
     starts = torch.where(live, torch.clamp(jobs["start"], max=npad - group),
@@ -820,7 +824,8 @@ def _sparse_chan_grid(bodies, meshes, cfg: MpmConfig, act):
     tri = node_cdf(cfg.collider_types, bodies.shape_params, bodies.rot, bodies.pos,
                    npos, grid.cell_width)
     if cfg.mesh_cids:
-        key, word = rigid_cdf.mesh_pass_sparse(meshes, bodies, grid, act, cfg.amax)
+        with tracing.span("mpm.mesh_pass"):
+            key, word = rigid_cdf.mesh_pass_sparse(meshes, bodies, grid, act, cfg.amax)
         n = act.shape[0] * 64
         tri = rigid_cdf.merge_mesh_into_node_cdf(*tri, key[:n], word[:n])
     return _cdf_chan_grid(*tri, cfg.amax, 64)
@@ -856,7 +861,8 @@ def _cdf_phase_3d(bodies, cfg: MpmConfig, static_chan, src, bcells, grid_rows,
         static_chan = _cdf_chan_grid(*_node_cdf_full(bodies, cfg, static_cdf, meshes),
                                      grid_rows, int(np.prod(bk.block_shape(3, cfg.by))))
         static_desc, moving = (), ()
-    ntiles = bk.gather_tiles(static_chan, src, wpad, 4)
+    with tracing.span("mpm.gather_nodes", device=dev.type == "cuda"):
+        ntiles = bk.gather_tiles(static_chan, src, wpad, 4)
     jbody = _jbody_gate(ntiles, wvol, cfg.static_slots)
     if moving:
         # Gathered hybrid: moving colliders possibly in reach force level 2.
@@ -882,8 +888,10 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     wpad = R.window_geom(by)[2]
     npad = rows_all.shape[1]
     dev = rows_all.device
+    cuda = dev.type == "cuda"
     bodies = body_mod.update_world_mass_properties(bodies)
-    ph = _job_phase(rows_all, cfg, n, diag, comm)
+    with tracing.span("mpm.jobs"):
+        ph = _job_phase(rows_all, cfg, n, diag, comm)
     rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
     grid_rows = ph["grid_rows"]
     static_desc, moving = _cdf_mode(cfg)
@@ -893,12 +901,14 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
         # Particle CDF + P2G against the node tiles, colliders evaluated
         # in-kernel where the mode and the gate say so.
         pdata = rows_all[:R.NCHAN].clone()
-        ntiles, jbody, static_desc, moving = _cdf_phase_3d(
-            bodies, cfg, static_chan, src, bcells, grid_rows, static_cdf, meshes,
-            ph.get("act"))
-        mm, imp, pcdf = p2g_cdf_tiles(pdata, ntiles, btable, jobs, bcells, jbody,
-                                      h, by, group, npad, nc, moving,
-                                      static_desc, chan_free)
+        with tracing.span("mpm.cdf"):
+            ntiles, jbody, static_desc, moving = _cdf_phase_3d(
+                bodies, cfg, static_chan, src, bcells, grid_rows, static_cdf, meshes,
+                ph.get("act"))
+        with tracing.span("mpm.p2g"):
+            mm, imp, pcdf = p2g_cdf_tiles(pdata, ntiles, btable, jobs, bcells, jbody,
+                                          h, by, group, npad, nc, moving,
+                                          static_desc, chan_free)
         pdata[R.AFF] = pcdf[0, :npad]
         pdata[R.NX:R.NZ + 1] = pcdf[2:5, :npad]
         pdata[R.AFF_SPARE] = pcdf[5, :npad]
@@ -906,15 +916,17 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
         # No collider: plain APIC P2G (kernel F), no particle CDF.
         pdata = rows_all[:R.NCHAN]
         ntiles, jbody, pcdf = _collider_free_inputs(wpad, jobs, npad, dev)
-        mm, imp = p2g_tiles(pdata, ntiles, btable, jobs, bcells, jbody, h, by,
-                            nc)
+        with tracing.span("mpm.p2g"):
+            mm, imp = p2g_tiles(pdata, ntiles, btable, jobs, bcells, jbody, h, by,
+                                nc)
     grid_mm = torch.zeros((grid_rows + 1, 16 * by, 4), dtype=torch.float32,
                           device=dev)
-    bk.scatter_tiles(grid_mm, mm, src)
-    if cfg.sparse:
-        # The slot scatter drops tiles aimed at the ghost (dead jobs, and
-        # octants missing from an overflowed table): the ghost reads zero.
-        grid_mm[grid_rows].zero_()
+    with tracing.span("mpm.scatter", device=cuda):
+        bk.scatter_tiles(grid_mm, mm, src)
+        if cfg.sparse:
+            # The slot scatter drops tiles aimed at the ghost (dead jobs, and
+            # octants missing from an overflowed table): the ghost reads zero.
+            grid_mm[grid_rows].zero_()
     lin_imp = imp[0, 0:3, :bodies.count].T
     ang_imp = imp[0, 3:6, :bodies.count].T
     if comm is not None:
@@ -924,14 +936,17 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     # Grid velocity (or folded into G2P), G2P, particle update, bodies.
     if not cfg.fold_vel:
         grid_mm[..., :3] = _grid_velocity(grid_mm, params, grid)
-    ftiles = bk.gather_tiles(grid_mm, src, wpad, 4)
-    krows = g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, h, by,
-                     group, npad, nc, moving, static_desc, chan_free,
-                     cfg.fold_vel)
-    rows_out = update_rows(rows_all, krows, pcdf, ph["sorted_ids"],
-                           ph["covered_end"], btable, mtable, params.dt, h, nc,
-                           max(cfg.n_materials, 1), ph["live_below"],
-                           cfg.elastic_model)
+    with tracing.span("mpm.gather_grid", device=cuda):
+        ftiles = bk.gather_tiles(grid_mm, src, wpad, 4)
+    with tracing.span("mpm.g2p"):
+        krows = g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, h, by,
+                         group, npad, nc, moving, static_desc, chan_free,
+                         cfg.fold_vel)
+    with tracing.span("mpm.update"):
+        rows_out = update_rows(rows_all, krows, pcdf, ph["sorted_ids"],
+                               ph["covered_end"], btable, mtable, params.dt, h, nc,
+                               max(cfg.n_materials, 1), ph["live_below"],
+                               cfg.elastic_model)
     if record is not None:
         record.update(ph, jbody=jbody, ntiles=ntiles, btable=btable,
                       moving=moving, static_desc=static_desc,
@@ -939,7 +954,8 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
                       pdata=pdata, mm=mm, imp=imp, pcdf=pcdf, ftiles=ftiles,
                       krows=krows, mtable=mtable, rows_out=rows_out,
                       grid_mm=grid_mm)
-    bodies = rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg)
+    with tracing.span("mpm.rigid"):
+        bodies = rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg)
     return rows_out, bodies
 
 
@@ -963,41 +979,47 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     h = grid.cell_width
     npad = rows_all.shape[1]
     dev = rows_all.device
+    cuda = dev.type == "cuda"
     bodies = body_mod.update_world_mass_properties(bodies)
-    ph = _job_phase(rows_all, cfg, n, diag, comm)
+    with tracing.span("mpm.jobs"):
+        ph = _job_phase(rows_all, cfg, n, diag, comm)
     rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
     nb_total = ph["grid_rows"]
     btable = _body_table_2d(bodies, params, grid)
     chan_free = cfg.cdf_chan_free
     alldesc = tuple(sorted(sum(_cdf_mode(cfg), ()))) if chan_free else ()
     if nc > 0:
-        if chan_free:
-            # No tiles: one gate level where any collider may be in reach.
-            jbody = _moving_reach_gate(bcells, bodies, alldesc, R2.WSH,
-                                       h).to(torch.int32)
-            ntiles = torch.zeros((1, R2.WPAD, 4), dtype=torch.float32, device=dev)
-        else:
-            if static_chan is None:
-                # Dense: a collider moves; G, H and I read the same channels.
-                static_chan = _cdf_chan_grid(
-                    *_node_cdf_full(bodies, cfg, static_cdf, meshes), nb_total, 64)
-            ntiles = bk.gather_tiles(static_chan, src, R2.WPAD, 4)
-            jbody = _jbody_gate(ntiles, R2.WVOL)
-        if record is not None:
-            ph["rows"] = rows_all.clone()   # kernel G's input, for the record
-        # Kernel G patches rows AFF..AFF_SPARE (aff low, normal xy, aff
-        # high) of the fresh sorted rows in place with the particle CDF for
-        # P2G and G2P; kernel C reads none of them from rows_all.
-        pcdf = pcdf_rows2d(rows_all, ntiles, jobs, bcells, jbody, h, group,
-                           npad, nc, btable, alldesc, chan_free)
+        with tracing.span("mpm.cdf"):
+            if chan_free:
+                # No tiles: one gate level where any collider may be in reach.
+                jbody = _moving_reach_gate(bcells, bodies, alldesc, R2.WSH,
+                                           h).to(torch.int32)
+                ntiles = torch.zeros((1, R2.WPAD, 4), dtype=torch.float32, device=dev)
+            else:
+                if static_chan is None:
+                    # Dense: a collider moves; G, H and I read the same channels.
+                    static_chan = _cdf_chan_grid(
+                        *_node_cdf_full(bodies, cfg, static_cdf, meshes), nb_total, 64)
+                with tracing.span("mpm.gather_nodes", device=cuda):
+                    ntiles = bk.gather_tiles(static_chan, src, R2.WPAD, 4)
+                jbody = _jbody_gate(ntiles, R2.WVOL)
+            if record is not None:
+                ph["rows"] = rows_all.clone()   # kernel G's input, for the record
+            # Kernel G patches rows AFF..AFF_SPARE (aff low, normal xy, aff
+            # high) of the fresh sorted rows in place with the particle CDF
+            # for P2G and G2P; kernel C reads none of them from rows_all.
+            pcdf = pcdf_rows2d(rows_all, ntiles, jobs, bcells, jbody, h, group,
+                               npad, nc, btable, alldesc, chan_free)
     else:
         # No collider: no particle CDF (kernel G), H and I at nc = 0.
         ntiles, jbody, pcdf = _collider_free_inputs(R2.WPAD, jobs, npad, dev)
     pdata = rows_all[:R2.NCHAN]
-    mm, imp = p2g_tiles2d(pdata, ntiles, btable, jobs, bcells, jbody, h, nc,
-                          alldesc, chan_free)
+    with tracing.span("mpm.p2g"):
+        mm, imp = p2g_tiles2d(pdata, ntiles, btable, jobs, bcells, jbody, h, nc,
+                              alldesc, chan_free)
     grid_mm = torch.zeros((nb_total + 1, 64, 3), dtype=torch.float32, device=dev)
-    bk.scatter_tiles(grid_mm, mm, src)
+    with tracing.span("mpm.scatter", device=cuda):
+        bk.scatter_tiles(grid_mm, mm, src)
     # The jobs' impulses in one fixed-order reduction (_split_impulses).
     imp_sum = imp.sum(0)
     lin_imp = imp_sum[0:2, :bodies.count].T
@@ -1008,13 +1030,16 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
 
     if not cfg.fold_vel:
         grid_mm[..., :2] = _grid_velocity(grid_mm, params, grid)
-    ftiles = bk.gather_tiles(grid_mm, src, R2.WPAD, 4)
-    krows = g2p_rows2d(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, h,
-                       group, npad, nc, alldesc, chan_free, cfg.fold_vel)
-    rows_out = update_rows2d(rows_all, krows, pcdf, ph["sorted_ids"],
-                             ph["covered_end"], btable, mtable, params.dt, h, nc,
-                             max(cfg.n_materials, 1), nb_total,
-                             cfg.elastic_model)
+    with tracing.span("mpm.gather_grid", device=cuda):
+        ftiles = bk.gather_tiles(grid_mm, src, R2.WPAD, 4)
+    with tracing.span("mpm.g2p"):
+        krows = g2p_rows2d(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, h,
+                           group, npad, nc, alldesc, chan_free, cfg.fold_vel)
+    with tracing.span("mpm.update"):
+        rows_out = update_rows2d(rows_all, krows, pcdf, ph["sorted_ids"],
+                                 ph["covered_end"], btable, mtable, params.dt, h, nc,
+                                 max(cfg.n_materials, 1), nb_total,
+                                 cfg.elastic_model)
     if record is not None:
         record.update(ph, jbody=jbody, ntiles=ntiles, btable=btable,
                       alldesc=alldesc, chan_free=chan_free,
@@ -1022,7 +1047,8 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
                       pcdf=pcdf, ftiles=ftiles,
                       krows=krows, mtable=mtable, rows_out=rows_out,
                       grid_mm=grid_mm)
-    bodies = rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg)
+    with tracing.span("mpm.rigid"):
+        bodies = rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg)
     return rows_out, bodies
 
 
@@ -1143,15 +1169,17 @@ def step_dense(state: SimState, params: SimulationParams, cfg: MpmConfig,
         models, n_mat = attach_material_table(state.particles, models, limit=None)
     n = state.particles.count
     npad = pallas_npad(n, cfg.group)
-    rows = L.pack_rows_padded(state.particles, models, npad)
-    n_t = torch.full((1,), n, dtype=torch.int32, device=rows.device)
-    zero_ids = torch.zeros(npad, dtype=torch.int32, device=rows.device)
-    bodies = state.bodies
-    for _ in range(num_substeps):
-        rows, bodies = _substep_dense(rows, bodies, params, cfg, n, n_t, zero_ids,
-                                      models.mat_table, n_mat, record, state.meshes,
-                                      comm)
-    return _unpack(rows, state, models, bodies, n_mat)
+    with tracing.span(tracing.FRAME):
+        rows = L.pack_rows_padded(state.particles, models, npad)
+        n_t = torch.full((1,), n, dtype=torch.int32, device=rows.device)
+        zero_ids = torch.zeros(npad, dtype=torch.int32, device=rows.device)
+        bodies = state.bodies
+        for _ in range(num_substeps):
+            with tracing.span(tracing.SUBSTEP):
+                rows, bodies = _substep_dense(rows, bodies, params, cfg, n, n_t,
+                                              zero_ids, models.mat_table, n_mat,
+                                              record, state.meshes, comm)
+        return _unpack(rows, state, models, bodies, n_mat)
 
 
 def _dense_config(cfg: MpmConfig, transfer: str) -> MpmConfig:
@@ -1192,29 +1220,34 @@ def _frame_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
     n = state.particles.count
     slack = 2 * cfg.migration_cap if _spatial(cfg, comm) else 0
     npad = pallas_npad(n + slack, cfg.group)
-    rows = L.pack_rows_padded(state.particles, state.models, npad)
-    static_chan = static_cdf = None
-    if hoist and cfg.static_slots and not cfg.cdf_chan_free and not cfg.sparse:
-        # The frame hoist of the static colliders (none in the sparse
-        # domain, whose nodes change with the active table).
-        nb_total = int(np.prod(bk.num_blocks(cfg.grid, cfg.by)))
-        static_cdf = _node_cdf_static(state.bodies, cfg)
-        if not cfg.mesh_cids and (dim == 3
-                                  or len(cfg.static_slots) == cfg.num_colliders):
-            static_chan = _cdf_chan_grid(*static_cdf, nb_total,
-                                         int(np.prod(bk.block_shape(dim, cfg.by))))
-    substep = functools.partial(substep, static_cdf=static_cdf, meshes=state.meshes,
-                                comm=comm)
-    bodies = state.bodies
-    diag = StepDiag.zeros(rows.device)
-    for _ in range(num_substeps):
-        rows, bodies = substep(rows, bodies, params, cfg, n, static_chan,
-                               state.models.mat_table, diag, record)
-    if slack:
-        # Live lanes sort first: any past n are cut off with the padding.
-        live = (rows[L.PM] > 0.0).sum(dtype=torch.int32)
-        diag.live_lost = torch.maximum(diag.live_lost, live - n)
-    return _unpack(rows, state, state.models, bodies, max(cfg.n_materials, 1)), diag
+    with tracing.span(tracing.FRAME):
+        with tracing.span("mpm.pack"):
+            rows = L.pack_rows_padded(state.particles, state.models, npad)
+        static_chan = static_cdf = None
+        if hoist and cfg.static_slots and not cfg.cdf_chan_free and not cfg.sparse:
+            # The frame hoist of the static colliders (none in the sparse
+            # domain, whose nodes change with the active table).
+            nb_total = int(np.prod(bk.num_blocks(cfg.grid, cfg.by)))
+            static_cdf = _node_cdf_static(state.bodies, cfg)
+            if not cfg.mesh_cids and (dim == 3
+                                      or len(cfg.static_slots) == cfg.num_colliders):
+                static_chan = _cdf_chan_grid(*static_cdf, nb_total,
+                                             int(np.prod(bk.block_shape(dim, cfg.by))))
+        substep = functools.partial(substep, static_cdf=static_cdf, meshes=state.meshes,
+                                    comm=comm)
+        bodies = state.bodies
+        diag = StepDiag.zeros(rows.device)
+        for _ in range(num_substeps):
+            with tracing.span(tracing.SUBSTEP):
+                rows, bodies = substep(rows, bodies, params, cfg, n, static_chan,
+                                       state.models.mat_table, diag, record)
+        if slack:
+            # Live lanes sort first: any past n are cut off with the padding.
+            live = (rows[L.PM] > 0.0).sum(dtype=torch.int32)
+            diag.live_lost = torch.maximum(diag.live_lost, live - n)
+        with tracing.span("mpm.unpack"):
+            out = _unpack(rows, state, state.models, bodies, max(cfg.n_materials, 1))
+    return out, diag
 
 
 def step_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,

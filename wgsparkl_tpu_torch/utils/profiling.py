@@ -9,8 +9,10 @@ Each row is (total_ms, ms_per_substep, op, source, code).  On the card the
 ops are the device's kernels, copies and fills by self device time; a
 hand-written kernel's source is its `__global__` line in csrc/.  On the CPU
 the ops are the PyTorch operators by self CPU time, each attributed to the
-innermost function of this package that called it (its def line).  (tools/torch_profile.py
-prints a fuller report of the same trace for chip_smoke.py's paths.)
+innermost function of this package that called it (its def line).  The
+frame loop's spans (utils/tracing.py, names from tracing.PREFIX) are not
+rows.  (tools/torch_profile.py prints a fuller report of the same trace for
+chip_smoke.py's paths.)
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import re
 import time
 
 import torch
+
+from wgsparkl_tpu_torch.utils import tracing
 
 _CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 _ROOT = str(pathlib.Path(__file__).resolve().parent.parent.parent)
@@ -97,7 +101,8 @@ def profile_step(data, num_substeps: int = 20, top: int = 40,
     if on_card:
         kernels = _kernel_sources()
         for e in prof.key_averages():
-            if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            if (getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA
+                    or e.key.startswith(tracing.PREFIX)):
                 continue
             us = getattr(e, "self_device_time_total", None)
             if us is None:
@@ -107,7 +112,8 @@ def profile_step(data, num_substeps: int = 20, top: int = 40,
                 where[e.key] = kernels.get(_symbol(e.key))
     else:
         for e in prof.events():
-            if e.self_cpu_time_total > 0 and not _FRAME.match(e.name):
+            if (e.self_cpu_time_total > 0 and not _FRAME.match(e.name)
+                    and not e.name.startswith(tracing.PREFIX)):
                 src = _own_frame(e)
                 key = (e.name, src)
                 by_op[key] += e.self_cpu_time_total
