@@ -19,7 +19,11 @@ Phases (any failure exits non-zero, and no result line is printed):
   4. the 2D path at full size (sand_column_2d, 490,000 particles, 8 x 8
      blocks, 512 particles per job): one warm frame of 10 substeps, then
      timed frames, with the same checks for its kernels (G, H, I, the dim=2
-     entry of C, and D, E), and again with `fold_vel` (inside kernel I);
+     entry of C, and D, E); a replayed frame of the 3D and of the 2D main
+     path held to CUPTI's record of it (`replay_traced`: each kernel's
+     launches, those the host issued plus those inside the frame graph's
+     replay, as CUPTI counts them, and the same kernels and state as the
+     eager frame); again with `fold_vel` (inside kernel I);
      path 6, the same column stirred at its foot by a kinematic ball and a
      kinematic capsule (`full_scene_stirred_2d`), in the dense CDF mode its
      moving colliders take (the node CDF on all 2.99M nodes every substep)
@@ -199,6 +203,7 @@ The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -360,6 +365,23 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def launches_run(wt) -> dict:
+    """{kernel: its launches since the counts were reset}: those the host
+    issued (wt.launch_counts) and those inside frame-graph replays
+    (wt.replayed_launch_counts: a replay runs what its capture issued,
+    which replay_traced holds to CUPTI's record of a replayed frame)."""
+    host, replayed = wt.launch_counts(), wt.replayed_launch_counts()
+    return {k: host[k] + replayed[k] for k in host}
+
+
+def launches_split(wt, kernels) -> str:
+    """The launches of `kernels` the host issued and those inside replays,
+    labelled, for a report line."""
+    host, replayed = wt.launch_counts(), wt.replayed_launch_counts()
+    return (f"host-issued { {k: host[k] for k in kernels} }, in graph replays "
+            f"{ {k: replayed[k] for k in kernels} }")
+
+
 def ptxas_reports(_cuda, kernels):
     """Start nvcc with `_cuda.NVCC_FLAGS` plus -Xptxas -v on copies of the
     sources named in kernels {source: entry kernel}, into _build/ptxas/ (the
@@ -452,7 +474,8 @@ def compact_edge_cases(compact, dev) -> None:
 @contextlib.contextmanager
 def plain_versions():
     """Route both paths' kernel calls to their plain versions (on any
-    device) for the duration of the block."""
+    device) for the duration of the block, the frame graphs dropped on both
+    sides."""
     from wgsparkl_tpu_torch import pipeline
     from wgsparkl_tpu_torch.collision import cdf
     from wgsparkl_tpu_torch.ops import (
@@ -477,6 +500,7 @@ def plain_versions():
              (pipeline, "g2p_rows2d", transfer2d.g2p_plain),
              (pipeline, "update_rows2d", update_rows.update2d_plain)]
     saved = [getattr(m, a) for m, a, _ in swaps]
+    pipeline.drop_frame_graphs()    # a graph replays what its capture called
     for m, a, f in swaps:
         setattr(m, a, f)
     try:
@@ -484,6 +508,7 @@ def plain_versions():
     finally:
         for (m, a, _), f in zip(swaps, saved):
             setattr(m, a, f)
+        pipeline.drop_frame_graphs()
 
 
 def full_scene(dev, **mpm_kw):
@@ -810,7 +835,7 @@ def substep_paths(wt, card, kind, launches):
             state = call(state, params, cfg)
         torch.cuda.synchronize()
         call_ms = (time.time() - t0) * 1e3 / SUBSTEPS
-        counts = wt.launch_counts()
+        counts, split = launches_run(wt), launches_split(wt, kernels)
         bad = {k: counts[k] for k in kernels if counts[k] != SUBSTEPS}
         if bad:
             fail(f"{what}: launches {bad}, not one a call ({SUBSTEPS} calls)")
@@ -825,11 +850,11 @@ def substep_paths(wt, card, kind, launches):
         print(f"{what} on {kind} ({card}): {data.num_particles} particles; a call "
               f"{call_ms:.3f} ms, the frame {frame_ms:.3f} ms / {SUBSTEPS} = "
               f"{frame_ms / SUBSTEPS:.3f} ms a substep; launches "
-              f"{ {k: counts[k] for k in kernels} }", flush=True)
+              f"{ {k: counts[k] for k in kernels} } ({split})", flush=True)
         if call is substep:
             wt.reset_launch_counts()
             passes = time_passes(state, params, cfg)
-            counts = wt.launch_counts()
+            counts = launches_run(wt)
             for k, name in (("dense_p2g", "p2g_struct"), ("dense_g2p", "g2p_struct"),
                             ("update_rows", "particle_update_struct")):
                 if counts[k] != 11:
@@ -843,13 +868,18 @@ def substep_paths(wt, card, kind, launches):
 
 @contextlib.contextmanager
 def swapped(module, name, fn):
-    """module.name is fn for the duration of the block."""
+    """module.name is fn for the duration of the block, the frame graphs
+    (which replay what their capture called) dropped on both sides."""
+    from wgsparkl_tpu_torch import pipeline
+
     saved = getattr(module, name)
+    pipeline.drop_frame_graphs()
     setattr(module, name, fn)
     try:
         yield
     finally:
         setattr(module, name, saved)
+        pipeline.drop_frame_graphs()
 
 
 def struct_checks(state, data, rec, check):
@@ -1013,7 +1043,7 @@ def dam_break_path(wt, card, kind, frames=TIMED_FRAMES_SHORT):
     tb.diag = diag
     health(tb)
     stats = tb.run(frames)
-    counts = wt.launch_counts()
+    counts = launches_run(wt)
     pos = tb.data.state.particles.pos
     if tuple(pos.shape) != (n, 3) or not bool(torch.isfinite(pos).all()) \
             or not stats["finite"]:
@@ -1027,7 +1057,8 @@ def dam_break_path(wt, card, kind, frames=TIMED_FRAMES_SHORT):
           f"{sps * n / 1e6:.2f} M particle-updates/s; frame ms "
           f"{[round(x, 3) for x in tb.frame_ms]}; StepDiag OK and diagnostics.check "
           f"healthy after all {len(reports)} frames ({reports[-1].summary()}); "
-          f"launches { {k: counts[k] for k in KERNELS_3D} }", flush=True)
+          f"launches { {k: counts[k] for k in KERNELS_3D} } "
+          f"({launches_split(wt, KERNELS_3D)})", flush=True)
     # A Testbed frame is a step_pallas frame from the same state.
     start = tb.data.state
     ref = step_pallas(start, data.params, cfg, SUBSTEPS)
@@ -2065,11 +2096,8 @@ def captured_rigid_solve():
         calls.append(args)
         return real(*args)
 
-    pipeline.rigid_solve = capture
-    try:
+    with swapped(pipeline, "rigid_solve", capture):
         yield calls
-    finally:
-        pipeline.rigid_solve = real
 
 
 def active_pairs(world, tab):
@@ -2155,7 +2183,7 @@ def run_frames(wt, data, substeps, kernels, what, card, kind,
         diags.append(diag)
     torch.cuda.synchronize()
     elapsed = time.time() - t0
-    counts = wt.launch_counts()
+    counts = launches_run(wt)
     pos = state.particles.pos
     if tuple(pos.shape) != (n, cfg.grid.dim) or not bool(torch.isfinite(pos).all()):
         fail(f"{what}: non-finite or misshapen positions")
@@ -2169,7 +2197,8 @@ def run_frames(wt, data, substeps, kernels, what, card, kind,
     print(f"{what} on {kind} ({card}): {n} particles, {steps} substeps in "
           f"{elapsed:.3f} s -> {sps:.3f} steps/s, {sps * n / 1e6:.2f} M "
           f"particle-updates/s; diag of all {len(diags)} frames OK; launches "
-          f"{ {k: counts[k] for k in kernels} }", flush=True)
+          f"{ {k: counts[k] for k in kernels} } ({launches_split(wt, kernels)})",
+          flush=True)
     if cfg.sparse:
         print(f"{what}: at most {max(int(d.sparse_n_occ) for d in diags)} occupied "
               f"blocks (kmax {cfg.kmax}) and {max(int(d.sparse_n_active) for d in diags)} "
@@ -2180,6 +2209,108 @@ def run_frames(wt, data, substeps, kernels, what, card, kind,
         print(f"{what}: live jobs by gate level {gate_histogram(rec)} in a substep "
               "after the timed frames", flush=True)
     return counts, state
+
+
+def csrc_kernels() -> dict:
+    """{__global__ function of a csrc/*.cu file: the file's stem}: what a
+    wrapper's launch runs (the kernels of the .cuh headers left out)."""
+    import re
+
+    from wgsparkl_tpu_torch import _cuda
+
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(")
+    return {fn: name for name in _cuda.sources()
+            for fn in pat.findall((_cuda._SRC / f"{name}.cu").read_text())}
+
+
+def traced_kernels(run, names) -> collections.Counter:
+    """run() and a synchronise under torch.profiler, the device's activity
+    alone: {kernel of `names`: the launches of it CUPTI recorded}."""
+    import os
+    import re
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    pats = {fn: re.compile(rf"(?<![A-Za-z0-9_]){fn}(?![A-Za-z0-9_])") for fn in names}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    out = collections.Counter()
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            out.update(fn for fn, p in pats.items() if p.search(e["name"]))
+    return out
+
+
+def replay_traced(wt, frame, state, what):
+    """A frame-graph replay held to CUPTI's record of it: (the problems
+    found, a report line).  frame(state) -> state steps one kernel-path
+    frame on the card.  Two frames capture the key and replay it; then the
+    next frame runs from one state twice under the profiler: eagerly (a
+    profiler keeps frames eager, pipeline.frame_graph_reason) and as a
+    replay (that reason bound to None for it).  In each, the kernels of
+    every csrc source that CUPTI records equal its wrappers' launches (one
+    kernel a launch): the eager frame's host-issued; the replayed frame's
+    host-issued (the pack, the static hoist, the unpack) plus those its
+    replay adds (wt.replayed_launch_counts).  The two record the same
+    kernels, and their states are bit-equal."""
+    from wgsparkl_tpu_torch import pipeline
+
+    names = csrc_kernels()
+    # CUPTI sees a graph's kernels where it was set up before the capture.
+    from torch.profiler import _utils as profiler_utils
+
+    pipeline.drop_frame_graphs()
+    profiler_utils._init_for_cuda_graphs()
+    state = frame(frame(state))
+    torch.cuda.synchronize()
+    problems, runs = [], {}
+    for how in ("eager", "replayed"):
+        replays = pipeline.frame_graph_stats()["replays"]
+        wt.reset_launch_counts()
+        out, reason = [], pipeline.frame_graph_reason
+        if how == "replayed":
+            pipeline.frame_graph_reason = lambda *a, **k: None
+        try:
+            traced = traced_kernels(lambda: out.append(frame(state)), names)
+        finally:
+            pipeline.frame_graph_reason = reason
+        if pipeline.frame_graph_stats()["replays"] - replays != (how == "replayed"):
+            problems.append(f"{what}: the {how} frame ran "
+                            f"{pipeline.frame_graph_stats()['replays'] - replays} replays")
+        by_source = collections.Counter()
+        for fn, c in traced.items():
+            by_source[names[fn]] += c
+        counted = collections.Counter()
+        for k, c in launches_run(wt).items():
+            counted[SOURCE.get(k, k)] += c
+        counted = +counted
+        if by_source != counted:
+            problems.append(f"{what}: the {how} frame's csrc kernels by source, CUPTI "
+                            f"{dict(by_source)}, the launch counts {dict(counted)}")
+        runs[how] = (out[0], traced, launches_split(wt, sorted(
+            k for k, c in launches_run(wt).items() if c)))
+    if runs["eager"][1] != runs["replayed"][1]:
+        problems.append(f"{what}: CUPTI's kernels eager {dict(runs['eager'][1])}, "
+                        f"replayed {dict(runs['replayed'][1])}")
+    for a, b in zip(*(pipeline._leaves(runs[h][0]) for h in runs)):
+        if a.shape != b.shape or not torch.equal(a, b):
+            problems.append(f"{what}: the replayed frame's state differs from the eager one")
+            break
+    report = (f"{what}: CUPTI trace of a replayed frame: {sum(runs['replayed'][1].values())} "
+              f"csrc kernel launches {dict(runs['replayed'][1])}, as many as the eager "
+              f"frame's; the counts {runs['replayed'][2]}; state bit-equal to the eager "
+              "frame's")
+    return problems, report
 
 
 def mesh_inputs(data, state):
@@ -2314,6 +2445,19 @@ def main() -> None:
                            "2D path", card, kind)
     launches.update((k, counts[k]) for k in KERNELS_2D)
     torch.cuda.empty_cache()
+    # A replayed frame of each main path against CUPTI's record of it.
+    if dev.type == "cuda":
+        for make, substeps, what in ((full_scene, SUBSTEPS, "3D main path"),
+                                     (full_scene_2d, SUBSTEPS2, "2D path")):
+            data = make(dev)
+            problems, report = replay_traced(
+                wt, lambda st: step_pallas(st, data.params, data.config, substeps),
+                data.state, what)
+            if problems:
+                fail("; ".join(problems))
+            print(report, flush=True)
+            del data
+            torch.cuda.empty_cache()
     counts, _ = run_frames(wt, full_scene_2d(dev, fold_vel=True), SUBSTEPS2,
                            KERNELS_2D, "2D path (fold_vel)", card, kind,
                            TIMED_FRAMES_SHORT, gates=True)
@@ -2398,11 +2542,9 @@ def main() -> None:
             from wgsparkl_tpu_torch import pipeline
 
             got, real = [], pipeline.rigid_bodies_update
-            pipeline.rigid_bodies_update = lambda *a: got.append(a) or real(*a)
-            try:
+            with swapped(pipeline, "rigid_bodies_update",
+                         lambda *a: got.append(a) or real(*a)):
                 step_pallas(state, data.params, data.config, 1)
-            finally:
-                pipeline.rigid_bodies_update = real
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
@@ -3202,7 +3344,7 @@ def main() -> None:
     rec = {}
     step_pallas(state, data.params, cfg, 1, record=rec)
     torch.cuda.synchronize()
-    n_mesh = wt.launch_counts()["mesh_cdf_sparse"]
+    n_mesh = launches_run(wt)["mesh_cdf_sparse"]
     if diag.any_overflow() or not cfg.sparse or not cfg.mesh_cids or n_mesh != 3:
         fail(f"path 11 built sparse: {diag.summary()}, {n_mesh} mesh_cdf_sparse "
              f"launches in 3 substeps, built as {cfg}")
@@ -3260,7 +3402,7 @@ def main() -> None:
     px, py = probe.probe_inputs(dev)
     wt.reset_launch_counts()
     probe.math_probe(px, py)
-    launches["math_probe"] = wt.launch_counts()["math_probe"]
+    launches["math_probe"] = launches_run(wt)["math_probe"]
     # Relative error: the kernel's logf, rsqrtf and sqrtf against PyTorch's
     # CUDA calls, 4 ulps at most (the exp(log x / 2) chain's ulp of log x).
     check("math_probe",
@@ -3279,7 +3421,7 @@ def main() -> None:
         lines, _ = ablation.stage_table(inputs)
     except RuntimeError as e:
         fail(str(e))
-    launches["p2g_ablation"] = wt.launch_counts()["p2g_ablation"]
+    launches["p2g_ablation"] = launches_run(wt)["p2g_ablation"]
     for line in lines:
         print(f"p2g ablation: {line}", flush=True)
     lens_a = inputs[2]
@@ -3591,7 +3733,7 @@ def main() -> None:
         dk, dp = make(dev), make("cpu")
         wt.reset_launch_counts()
         sk = step_pallas(dk.state, dk.params, dk.config, 10)
-        counts = wt.launch_counts()
+        counts = launches_run(wt)
         if what == "3D neo-Hookean sand box":
             launches["update_rows_neo_hookean"] = counts["update_rows"]
         if dk.config.num_colliders == 0 and dk.config.grid.dim == 3 and not counts["p2g"]:
@@ -3690,7 +3832,7 @@ def main() -> None:
             fail(f"{what}: built in the wrong CDF mode or fold setting")
         wt.reset_launch_counts()
         sk = step_pallas(dk.state, dk.params, dk.config, 5)
-        counts = wt.launch_counts()
+        counts = launches_run(wt)
         kernels = KERNELS_3D if dk.config.grid.dim == 3 else KERNELS_2D
         if min(counts[k] for k in kernels) <= 0:
             fail(f"{what}: a kernel of the path never launched: {counts}")
@@ -3757,7 +3899,7 @@ def main() -> None:
         dk, dp = make(dev), make("cpu")
         wt.reset_launch_counts()
         sk = step_dense(dk.state, dk.params, dk.config, steps)
-        counts = wt.launch_counts()
+        counts = launches_run(wt)
         # A collider-free scene takes no particle CDF (dense_pcdf).
         need = KERNELS_DENSE[:3] if dk.config.num_colliders else KERNELS_DENSE[1:3]
         if min(counts[k] for k in need) != steps:

@@ -557,8 +557,9 @@ def test_rigid_solve_kernel_matches_plain(scene):
                                 plates=chip_smoke.sand2_pressed(48), shift=(0.0, -4.55),
                                 group=128)
          if scene == "sand2_pressed" else chip_smoke.plate_joint_3d("cuda"))
+    # Eager (record): a frame graph's capture would call the solve again.
     with chip_smoke.captured_rigid_solve() as calls:
-        step_pallas(d.state, d.params, d.config, 1)
+        step_pallas(d.state, d.params, d.config, 1, record={})
     assert len(calls) == 1
     k, p = solve.rigid_solve(*calls[0]), solve.rigid_solve_plain(*calls[0])
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])

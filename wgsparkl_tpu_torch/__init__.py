@@ -14,8 +14,9 @@ of those paths are rewritten as hand-written CUDA C++ kernels for sm_90a
 
 Every kernel wrapper dispatches on the device of its tensors: a CPU tensor
 takes the module's plain PyTorch version, a CUDA tensor launches the kernel
-(built on first use by ``_cuda.load``) or raises.  Each wrapper counts its
-kernel launches in ``wrapper.launches``.
+(built on first use by ``_cuda.load``) or raises.  Each wrapper counts the
+kernel launches the host issues in ``wrapper.launches``; those a frame
+graph's replay runs are counted apart (``replayed_launch_counts``).
 """
 
 __version__ = "0.1.0"
@@ -77,9 +78,24 @@ def kernel_wrappers():
 
 
 def reset_launch_counts():
+    """Set every kernel's launch counts to 0: the host's (launch_counts)
+    and the frame graphs' (replayed_launch_counts)."""
+    from wgsparkl_tpu_torch import pipeline
+
     for w in kernel_wrappers().values():
         w.launches = 0
+    pipeline._replayed_launches.clear()
 
 
 def launch_counts():
+    """{kernel: the launches the host issued}, the wrappers' own counts."""
     return {k: w.launches for k, w in kernel_wrappers().items()}
+
+
+def replayed_launch_counts():
+    """{kernel: its launches inside frame-graph replays}: each replay of a
+    frame's substeps (pipeline._frame_graph) adds the launches that its
+    capture issued, which launch_counts leaves out."""
+    from wgsparkl_tpu_torch import pipeline
+
+    return {k: pipeline._replayed_launches.get(k, 0) for k in kernel_wrappers()}

@@ -18,6 +18,7 @@ PAD = float(2 ** 24)
 TILE = 16384   # lanes a tile of the CUDA kernel (csrc/compact.cu TILE)
 # Zeroed scratch of the CUDA kernel by (device, stream): a ticket, a done
 # counter and one status word a tile.  The kernel leaves it zeroed again.
+# A call under CUDA graph capture takes a scratch of its own instead (_scratch).
 _SCRATCH = {}
 
 
@@ -32,6 +33,10 @@ def compact_plain(vals, flag, cap: int):
 
 
 def _scratch(dev, ntiles: int):
+    if torch.cuda.is_current_stream_capturing():
+        # From the graph's pool, zeroed by a fill the graph replays before the
+        # kernel: a kept one may be a dropped graph's that no replay zeroed.
+        return torch.zeros(2 + ntiles, dtype=torch.int32, device=dev)
     key = (dev, torch.cuda.current_stream(dev).cuda_stream)
     buf = _SCRATCH.get(key)
     if buf is None or buf.shape[0] < 2 + ntiles:

@@ -83,8 +83,10 @@ slab's boundary plane after P2G (`_migrate_x`, `_halo_exchange_x`,
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
+import warnings
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -756,9 +758,8 @@ def _job_phase(rows_all, cfg: MpmConfig, n: int, diag: StepDiag, comm=None):
                                                  n_occ - cfg.kmax)
         diag.sparse_act_overflow = torch.maximum(diag.sparse_act_overflow,
                                                  n_active - cfg.amax)
-        deltas = torch.tensor(bk.sparse_octant_deltas(), dtype=torch.int32, device=dev)
+        deltas, origin, _ = _sparse_tables(grid.origin_cell, dev)
         tgts = bk.sparse_slots(act, jobs["key"][None, :] + deltas[:, None], cfg.amax)
-        origin = torch.tensor(grid.origin_cell, dtype=torch.int32, device=dev)
         bcells = (bk.sparse_key_coords(jobs["key"]) * 4 + origin).to(torch.int32)
         grid_rows, src = cfg.amax, bk.window_sources_slots(tgts)
         out.update(act=act, tgts=tgts)
@@ -784,6 +785,17 @@ def _job_phase(rows_all, cfg: MpmConfig, n: int, diag: StepDiag, comm=None):
                jobs=jobs, bcells=bcells, covered_end=covered_end, src=src,
                grid_rows=grid_rows, live_below=live_below)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sparse_tables(origin_cell: Tuple[int, ...], device: torch.device):
+    """The sparse domain's int32 constants on `device`, copied there once:
+    the packed-key delta of each octant neighbour, the grid's origin cell
+    and the 4^3 cell offsets of a block, row-major."""
+    i32 = dict(dtype=torch.int32, device=device)
+    return (torch.tensor(bk.sparse_octant_deltas(), **i32),
+            torch.tensor(origin_cell, **i32),
+            torch.tensor(list(np.ndindex(4, 4, 4)), **i32))
 
 
 def _collider_free_inputs(wpad: int, jobs, npad: int, dev):
@@ -815,9 +827,7 @@ def _sparse_chan_grid(bodies, meshes, cfg: MpmConfig, act):
     + origin + cell offset, times h, slot by slot, nodes row-major), with
     the mesh pass on the same slots merged in."""
     grid = cfg.grid
-    dev = act.device
-    off = torch.tensor(list(np.ndindex(4, 4, 4)), dtype=torch.int32, device=dev)
-    origin = torch.tensor(grid.origin_cell, dtype=torch.int32, device=dev)
+    _, origin, off = _sparse_tables(grid.origin_cell, act.device)
     cells = (bk.sparse_key_coords(act)[:, None, :] * 4 + origin + off[None])
     npos = [(cells[..., a].to(torch.float32) * grid.cell_width).reshape(-1)
             for a in range(3)]
@@ -1208,15 +1218,176 @@ def substep_blocked(state: SimState, params: SimulationParams, cfg: MpmConfig,
     return step_dense(state, params, _dense_config(cfg, "blocked"), 1, comm=comm)
 
 
+def _substeps(cfg: MpmConfig, n: int, num_substeps: int, dt: float, record, comm,
+              rows, bodies, gravity, mtable, static_chan, static_cdf, meshes):
+    """The substep loop of a kernel-path frame on the packed rows:
+    (rows, bodies, StepDiag).  Its tensors come last, in the order
+    _frame_graph copies them."""
+    substep = _substep if cfg.grid.dim == 3 else _substep_2d
+    params = SimulationParams(dt=dt, gravity=gravity)
+    diag = StepDiag.zeros(rows.device)
+    for _ in range(num_substeps):
+        with tracing.span(tracing.SUBSTEP):
+            rows, bodies = substep(rows, bodies, params, cfg, n, static_chan, mtable,
+                                   diag, record, static_cdf=static_cdf, meshes=meshes,
+                                   comm=comm)
+    return rows, bodies, diag
+
+
+# Why a kernel-path frame runs its substeps eagerly (frame_graph_reason), and
+# "capture_failed": its key's capture raised.
+EAGER_REASONS = ("cpu", "record", "comm", "tracer", "capture_failed")
+# Frame graphs kept, the least recently used dropped first.  A scene steps
+# under one key; a few more come from a testbed that changes its substep
+# count, a restore to another particle count, or substep_pallas (one
+# substep) beside step_pallas.
+_GRAPH_CACHE = 4
+# key -> _FrameGraph, or None where the key's capture raised (its frames run
+# eagerly), least recently used first.
+_graphs = collections.OrderedDict()
+_graph_counts = {"captures": 0, "replays": 0, **{r: 0 for r in EAGER_REASONS}}
+# Kernel name (wgsparkl_tpu_torch.kernel_wrappers) -> its launches inside
+# graph replays: each replay adds what its capture issued.
+_replayed_launches = {}
+
+
+@dataclasses.dataclass
+class _FrameGraph:
+    graph: "torch.cuda.CUDAGraph"
+    inputs: list        # the graph-owned tensors it reads, in _leaves order
+    outputs: tuple      # (rows, bodies, StepDiag), graph-owned
+    launches: dict      # kernel name -> its launches the capture issued
+
+
+def frame_graph_reason(device, record=None, comm=None) -> Optional[str]:
+    """Why a kernel-path frame on `device` runs its substeps eagerly (one of
+    EAGER_REASONS), or None where they replay as a CUDA graph: "cpu" off the
+    card; "record" (the caller reads the kernels' inputs); "comm" (a
+    multi-device run); "tracer" while the tracer is on, which it is under a
+    profiler too (its spans and their device markers need the host code of
+    every operation).  So a profile shows the eager frame, the same kernels
+    on the same inputs, and not the replay that runs unprofiled.
+    No configuration is excluded: on the card no substep reads the device
+    from the host (the rigid update's one read, of the contact depths in
+    rigid/contacts.py, is in the rigid solve's plain version, which runs on
+    CPU tensors only; the card runs the rigid_solve kernel)."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    if record is not None:
+        return "record"
+    if comm is not None:
+        return "comm"
+    if tracing.active():
+        return "tracer"
+    return None
+
+
+def frame_graph_stats() -> dict:
+    """Counts of the kernel-path frames since the process started:
+    "captures" (a key's first frame: run eagerly, then its substeps
+    captured), "replays", and the eager frames by reason (EAGER_REASONS)."""
+    return dict(_graph_counts)
+
+
+def drop_frame_graphs() -> None:
+    """Drop every frame graph: each key's next frame runs eagerly and
+    captures anew.  A graph replays the functions its capture called, so a
+    caller that binds others in a kernel entry's place drops the graphs
+    before and after."""
+    for dev in {key[5] for key, entry in _graphs.items() if entry is not None}:
+        torch.cuda.synchronize(dev)     # no replay of a dropped graph is pending
+    _graphs.clear()
+
+
+def _leaves(tree) -> list:
+    """The tensors of a frame's inputs or outputs, in a fixed order."""
+    out = []
+    bk._tree_map(out.append, tree)
+    return out
+
+
+def _record(loop, static, dev):
+    """loop(*static) captured into a CUDA graph on a side stream of the
+    device, nothing run: (graph, loop's outputs, graph-owned)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.device(dev), torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
+        out = loop(*static)
+    return graph, out
+
+
+def _capture(loop, args, key):
+    """Capture loop(*args') into a CUDA graph, args' graph-owned copies of
+    args (contiguous, whatever the layout of args); nothing runs.  Kept
+    under key, or None where the capture raised (with a warning; that key's
+    frames then run eagerly)."""
+    import wgsparkl_tpu_torch as wt
+
+    dev = args[0].device
+    static = bk._tree_map(lambda t: t.clone(memory_format=torch.contiguous_format), args)
+    torch.cuda.synchronize(dev)     # no replay of a graph dropped below is pending
+    while len(_graphs) >= _GRAPH_CACHE:
+        _graphs.popitem(last=False)
+    # The wrappers count the launches the host issues.  The capture's run
+    # nothing: they are put back, and kept as what a replay runs.  (A check
+    # may have bound a plain version, which counts nothing, in a wrapper's
+    # place.)
+    wrappers = {k: w for k, w in wt.kernel_wrappers().items() if hasattr(w, "launches")}
+    before = {k: w.launches for k, w in wrappers.items()}
+    try:
+        graph, out = _record(loop, static, dev)
+    except Exception as e:   # noqa: BLE001 - any failure falls back, counted
+        torch.cuda.synchronize(dev)
+        _graphs[key] = None
+        cause = f" (after {e.__context__!r})" if e.__context__ is not None else ""
+        warnings.warn(f"frame graph capture failed, the frames of this configuration "
+                      f"and shape run eagerly: {e!r}{cause}", RuntimeWarning)
+        return False
+    finally:
+        launches = {k: w.launches - before[k] for k, w in wrappers.items()
+                    if w.launches != before[k]}
+        for k, w in wrappers.items():
+            w.launches = before[k]
+    _graphs[key] = _FrameGraph(graph, _leaves(static), out, launches)
+    return True
+
+
+def _frame_graph(loop, args, leaves, key):
+    """loop(*args), the substeps of a frame, as a CUDA graph replay:
+    (rows, bodies, StepDiag).  The key's first call runs eagerly and then
+    captures; later calls copy args' tensors (leaves) into the graph's own
+    and replay it.  The rows returned are the graph's (the unpack copies
+    every field of them); the bodies and the StepDiag are fresh copies."""
+    entry = _graphs.get(key, False)
+    if entry is False:
+        out = loop(*args)
+        _graph_counts["captures" if _capture(loop, args, key) else "capture_failed"] += 1
+        return out
+    _graphs.move_to_end(key)
+    if entry is None:
+        _graph_counts["capture_failed"] += 1
+        return loop(*args)
+    for dst, src in zip(entry.inputs, leaves):
+        dst.copy_(src)
+    entry.graph.replay()
+    _graph_counts["replays"] += 1
+    for k, c in entry.launches.items():
+        _replayed_launches[k] = _replayed_launches.get(k, 0) + c
+    rows, bodies, diag = entry.outputs
+    return rows, bk._tree_map(torch.clone, bodies), bk._tree_map(torch.clone, diag)
+
+
 def _frame_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
                   num_substeps: int, record: Optional[dict], comm, hoist: bool):
     """num_substeps kernel-path substeps on the row matrix, packed and
     unpacked once: (state, StepDiag).  hoist: build the static colliders'
     node CDF once for the frame (step_pallas); without it every substep
     evaluates every collider (substep_pallas, as the JAX package's passes
-    no static grid to its core)."""
+    no static grid to its core).  On the card the substep loop replays as
+    a CUDA graph, captured once per configuration and shape, unless
+    frame_graph_reason gives a reason; the pack, the hoist and the unpack
+    run eagerly."""
     dim = cfg.grid.dim
-    L, substep = (R, _substep) if dim == 3 else (R2, _substep_2d)
+    L = R if dim == 3 else R2
     n = state.particles.count
     slack = 2 * cfg.migration_cap if _spatial(cfg, comm) else 0
     npad = pallas_npad(n + slack, cfg.group)
@@ -1233,14 +1404,19 @@ def _frame_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
                                       or len(cfg.static_slots) == cfg.num_colliders):
                 static_chan = _cdf_chan_grid(*static_cdf, nb_total,
                                              int(np.prod(bk.block_shape(dim, cfg.by))))
-        substep = functools.partial(substep, static_cdf=static_cdf, meshes=state.meshes,
-                                    comm=comm)
-        bodies = state.bodies
-        diag = StepDiag.zeros(rows.device)
-        for _ in range(num_substeps):
-            with tracing.span(tracing.SUBSTEP):
-                rows, bodies = substep(rows, bodies, params, cfg, n, static_chan,
-                                       state.models.mat_table, diag, record)
+        loop = functools.partial(_substeps, cfg, n, num_substeps, params.dt, record, comm)
+        args = (rows, state.bodies, params.gravity, state.models.mat_table, static_chan,
+                static_cdf, state.meshes)
+        reason = frame_graph_reason(rows.device, record, comm)
+        if reason is None:
+            leaves = _leaves(args)
+            key = (cfg, num_substeps, n, hoist, params.dt, rows.device,
+                   tuple(a is None for a in args),
+                   tuple((tuple(t.shape), t.dtype) for t in leaves))
+            rows, bodies, diag = _frame_graph(loop, args, leaves, key)
+        else:
+            _graph_counts[reason] += 1
+            rows, bodies, diag = loop(*args)
         if slack:
             # Live lanes sort first: any past n are cut off with the padding.
             live = (rows[L.PM] > 0.0).sum(dtype=torch.int32)
@@ -1445,8 +1621,9 @@ class MpmData:
 
 class MpmPipeline:
     """Stateless stepper (port of wgsparkl_tpu.pipeline.MpmPipeline).  The
-    port runs eagerly: step_fn returns `step` bound to a configuration and a
-    substep count, compiled by nothing."""
+    port compiles nothing: step_fn returns `step` bound to a configuration
+    and a substep count (on the card a kernel-path frame replays its
+    substeps as a CUDA graph, captured on the first call; _frame_pallas)."""
 
     def step(self, data: MpmData, num_substeps: int = 1,
              params: Optional[SimulationParams] = None) -> StepDiag:

@@ -173,6 +173,11 @@ class _Span:
         return False
 
 
+def active() -> bool:
+    """Whether the tracer is on: enable()d, or under a profiler."""
+    return _enabled or _prof._is_profiler_enabled
+
+
 def span(name: str, device: bool = False):
     """A context manager timing its block as `name` while the tracer is on
     (device: also CUDA events around its work on the card; pass False for
