@@ -17,9 +17,12 @@ seed), then the numbers of mpmbench/compare.py for
   unchanged the program's frame returning its state unchanged;
   half      half the particles (odd ids) left as they were before the frame;
   altered   one particle (drawn from the seed) moved by a hundredth of a
-            cell after the frame.
+            cell after the frame;
+  held      (scenes with a kinematic body) every body's state left as it
+            was at the frame's start: the kinematic bodies held.
 
-One JSON line a seed.  The runs' own limits take no part here.
+One JSON line a seed; each reading holds every number of compare.py,
+body_gap among them.  The runs' own limits take no part here.
 """
 
 from __future__ import annotations
@@ -56,6 +59,9 @@ def planted(kind: str, pre: dict, post: dict, h: float, seed: int) -> dict:
         out["pos"] = post["pos"].clone()
         out["pos"][i, 0] += 0.01 * h
         return out
+    if kind == "held":
+        out["bodies"] = dict(pre["bodies"])
+        return out
     raise ValueError(kind)
 
 
@@ -83,17 +89,20 @@ def readings(workload: str, seed: int, control: bool, device: str = "cuda",
     refs = [e[-1] for e in every]
     h, dt = inputs.h, inputs.dt
 
-    def numbers(init, posts, pairs=None):
-        vals = {"start_gap": compare.start_gap(init, ref_init, h)}
-        for (pre, _), post, r in pairs or zip(snaps, posts, refs):
-            vals = compare.worst(vals, compare.frame_gaps(pre, post, r, h, dt))
+    def numbers(init, pairs):
+        vals = {"start_gap": compare.start_gap(init, ref_init, h, dt)}
+        for post, r in pairs:
+            vals = compare.worst(vals, compare.frame_gaps(post, r, h, dt))
         return vals
 
     out = {"workload": workload, "seed": seed, "frames": cmp_at, "failed": failed,
-           "program": numbers(initial, [post for _, post in snaps])}
-    for kind in ("unchanged", "half", "altered"):
-        out[kind] = numbers(initial, [planted(kind, pre, post, h, seed)
-                                      for pre, post in snaps])
+           "program": numbers(initial, zip([post for _, post in snaps], refs))}
+    faults = ("unchanged", "half", "altered")
+    if any(c.kinematic for c in inputs.colliders):
+        faults += ("held",)
+    for kind in faults:
+        out[kind] = numbers(initial, zip([planted(kind, pre, post, h, seed)
+                                          for pre, post in snaps], refs))
     if control:
         low = Reference(inputs, device, torch.bfloat16)
         f64 = lambda st: {k: (v.double() if torch.is_tensor(v) and v.is_floating_point()  # noqa: E731
@@ -101,13 +110,10 @@ def readings(workload: str, seed: int, control: bool, device: str = "cuda",
                                     if isinstance(v, dict) else v))
                           for k, v in st.items()}
         cinit = f64(low.initial())
-        pairs = []
-        for (pre, _), states in zip(snaps, every):
-            for before, after in zip([pre] + states[:-1], states):
-                c = f64(low.substep(before))
-                c["bodies"] = pre["bodies"]
-                pairs.append(((pre, None), c, after))
-        out["control"] = numbers(cinit, None, pairs)
+        pairs = [(f64(low.substep(before)), after)
+                 for (pre, _), states in zip(snaps, every)
+                 for before, after in zip([pre] + states[:-1], states)]
+        out["control"] = numbers(cinit, pairs)
     return out
 
 

@@ -9,7 +9,7 @@ no grain of sand fractures) is left out of that cell's file.
              constant (mass, volume, Lame and Drucker-Prager parameters,
              fracture threshold) and absolute gap of a dynamic field
              (position in cells, velocity, F, affine matrix, phase, plastic
-             state);
+             state, the bodies as body_gap measures them);
   pos_gap    over the compared frames, the largest gap of a particle's
              position after the frame, in cells;
   vel_gap    the same of its velocity, in cells a substep (v dt / h);
@@ -25,9 +25,13 @@ no grain of sand fractures) is left out of that cell's file.
              differs from the reference's;
   aff_flips  the particles whose collider affinity word (bit c: near
              collider c, bit 16 + c: on its negative side) differs;
-  body_gap   the largest change of a body's pose or velocity over a
-             compared frame: the bodies are fixed, so the reference keeps
-             them exactly and the limit is 0.
+  body_gap   over the compared frames, the largest gap between the
+             program's bodies after the frame and the reference's
+             (reference/bodies.gap): position in cells, an entry of the
+             rotation matrix, linear velocity in cells a substep, angular
+             velocity times dt.  A fixed body keeps its state exactly on
+             both sides, so a cell of fixed bodies reads 0 and its limit
+             is 0.
 
 A compared frame starts from the program's own state before it (the
 reference follows the program frame by frame: its F and contact state
@@ -37,6 +41,8 @@ amplify roundoff over longer spans).
 from __future__ import annotations
 
 import torch
+
+from mpmbench.reference import bodies
 
 NUMBERS = ("start_gap", "pos_gap", "vel_gap", "F_gap", "affine_gap", "dps_gap",
            "phase_flips", "aff_flips", "body_gap")
@@ -54,7 +60,7 @@ def _rel(a, b):
     return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max()) if a.numel() else 0.0
 
 
-def start_gap(prog: dict, ref: dict, h: float) -> float:
+def start_gap(prog: dict, ref: dict, h: float, dt: float) -> float:
     """The program's initial state (program.read_state) against the
     reference's (Reference.initial)."""
     g = [_gap(_by_id(prog, "pos"), _by_id(ref, "pos")) / h]
@@ -69,12 +75,13 @@ def start_gap(prog: dict, ref: dict, h: float) -> float:
         for k, v in ref["dp"].items():
             g.append(_rel(prog["dp"][k][torch.argsort(prog["ids"])], v.to(torch.float64)))
     g.append(float((prog["aff"] != 0).sum()))
+    g.append(bodies.gap(prog["bodies"], ref["bodies"], h, dt))
     return max(g)
 
 
-def frame_gaps(pre: dict, post: dict, ref_post: dict, h: float, dt: float) -> dict:
+def frame_gaps(post: dict, ref_post: dict, h: float, dt: float) -> dict:
     """The program's state after a frame (post) against the reference's
-    frame from the program's state before it (pre)."""
+    frame from the program's state before it (ref_post)."""
     d = lambda k: _gap(_by_id(post, k), _by_id(ref_post, k).to(torch.float64))  # noqa: E731
     prog_order, ref_order = torch.argsort(post["ids"]), torch.argsort(ref_post["ids"])
     dps = max(_gap(post["dps"][k][prog_order], ref_post["dps"][k][ref_order].to(torch.float64))
@@ -87,7 +94,7 @@ def frame_gaps(pre: dict, post: dict, ref_post: dict, h: float, dt: float) -> di
     return {"pos_gap": d("pos") / h, "vel_gap": d("vel") * dt / h, "F_gap": d("F"),
             "affine_gap": affine, "dps_gap": dps,
             "phase_flips": flips("phase"), "aff_flips": flips("aff"),
-            "body_gap": _gap(post["bodies"], pre["bodies"])}
+            "body_gap": bodies.gap(post["bodies"], ref_post["bodies"], h, dt)}
 
 
 def worst(values: dict, new: dict) -> dict:

@@ -43,13 +43,15 @@ def build(inputs, device):
     models = Models.from_arrays(n, elast.lam, elast.mu, dp=dp, phase=mat["phase"],
                                 max_stretch=mat["max_stretch"], device=device)
     bodies = [RigidBodyDesc(scene.load_part("program_colliders", c.kind).shape(c),
-                            c.translation)
+                            c.translation, rotation=c.rotation, body_type=c.body_type,
+                            linvel=c.linvel, angvel=c.angvel)
               for c in inputs.colliders]
     params = SimulationParams.new(dt=inputs.dt, gravity=inputs.gravity.tolist(),
                                   device=device)
     return MpmData(params, particles, models, bodies, inputs.h,
                    grid_bounds=(inputs.grid_lo, inputs.grid_hi),
-                   transfer=cfg["transfer"], group=cfg["group"], by=cfg["by"])
+                   transfer=cfg["transfer"], group=cfg["group"], by=cfg["by"],
+                   max_jobs=cfg["max_jobs"] if isinstance(cfg.get("max_jobs"), int) else 0)
 
 
 def _copy(x, device):
@@ -83,8 +85,8 @@ def read_state(state, device=None) -> dict:
         "lam": m.lam.double(), "mu": m.mu.double(),
         "dp": {k: v.double() for k, v in m.dp.items()},
         "stretch": m.max_stretch.double(),
-        "bodies": torch.cat([b.pos.reshape(-1), b.rot.reshape(-1), b.linvel.reshape(-1),
-                             b.angvel.reshape(-1)]).double(),
+        "bodies": {"pos": b.pos.double(), "rot": b.rot.double(),
+                   "linvel": b.linvel.double(), "angvel": b.angvel.double()},
     }
     return out if device is None else _copy(out, device)
 
@@ -93,7 +95,10 @@ def substep_counts(data, state) -> tuple:
     """(the state after one pallas substep from `state`, the counts of that
     substep that the kernels' costs take): the program's record of the
     substep (pipeline.step_pallas with `record`), which equals a substep
-    of a frame when no collider is static."""
+    of a frame when no collider is static.  The counts hold the live jobs
+    at gate level 2 (nj2) and the moving colliders that kernels A and B
+    evaluate at those jobs' windows (n_moving: the gathered-hybrid mode's;
+    none in the dense mode, whose tiles hold them)."""
     from wgsparkl_tpu_torch.pipeline import step_pallas
 
     cfg = data.config
@@ -106,6 +111,7 @@ def substep_counts(data, state) -> tuple:
     counts = {
         "dim": d, "ce": int(rec["covered_end"]), "pg": int(ln[live & (jb > 0)].sum()),
         "nj": int(live.sum()), "njg": int((live & (jb > 0)).sum()),
+        "nj2": int((live & (jb == 2)).sum()), "n_moving": len(rec.get("moving", ())),
         "nc": cfg.num_colliders, "npad": rec["rows"].shape[1],
         "pchan": rec["unsorted"].shape[0], "wv": rec["ntiles"].shape[1],
         "group": cfg.group, "n_first": int((sids[1:] != sids[:-1]).sum()) + 1,

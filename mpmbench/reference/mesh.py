@@ -188,15 +188,15 @@ def node_cdf(samples, prims, slots, verts, nc: int, grid, dtype=torch.float64):
     return dist, closest, aff
 
 
-def surface_cdf(verts, points, prims, translation, grid, dtype, device):
-    """One fixed mesh collider's node CDF from its surface: (dist [M], the
-    nodes it reaches [M] bool, the nodes below it [M] bool).  verts [V, d],
-    points [S, d] and prims [S, d] are in the body's frame; the samples are
-    stored at float32, as the configurations state, and moved by the
-    body's translation."""
-    shift = np.asarray(translation, np.float64)
+def surface_cdf(verts, points, prims, pose, grid, dtype, device):
+    """One mesh collider's node CDF from its surface at a pose: (dist [M],
+    the nodes it reaches [M] bool, the nodes below it [M] bool).  verts [V,
+    d], points [S, d] and prims [S, d] are in the body's frame; the samples
+    are stored at float32, as the configurations state, and placed by the
+    pose (translation [d], rotation matrix [d, d], float64): x R^T + t."""
+    shift, rot = (np.asarray(x, np.float64) for x in pose)
     t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
-    pts = points.astype(np.float32).astype(np.float64) + shift
+    pts = points.astype(np.float32).astype(np.float64) @ rot.T + shift
     dist, _, aff = node_cdf(t(pts).to(dtype), t(prims), t(np.zeros(len(pts), np.int64)),
-                            t(verts + shift).to(dtype), 1, grid, dtype)
+                            t(verts @ rot.T + shift).to(dtype), 1, grid, dtype)
     return dist, (aff & 1) != 0, ((aff >> 16) & 1) != 0

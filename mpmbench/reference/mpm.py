@@ -1,24 +1,27 @@
-"""Plain MLS-MPM with CPIC against fixed mesh colliders: the reference that
-decides `correct`.
+"""Plain MLS-MPM with CPIC against fixed and kinematic colliders: the
+reference that decides `correct`.
 
 One substep, in upstream wgsparkl's order and semantics, on a dense
-row-major node grid: the mesh colliders' node CDF (reference/mesh.py); the
+row-major node grid: the colliders' node CDF at the bodies' poses (each
+kind's part, colliders/<kind>.py; reference/mesh.py for meshes); the
 particle CDF (the union of the stencil nodes' affinity bits, a sign vote
 per collider weighted by w * distance, a collider the particle already had
 keeping its sign, then the signed distance and normal by weighted least
 squares over the nodes sharing affinity; a fit with det <= 1e-8 gives
 nothing); P2G of the compatible pairs (APIC, the affine matrix carrying
 the stress), the incompatible pairs' impulses going to the node's closest
-body (fixed here: they move none, and none is summed); the grid update (gravity, each component clamped to one cell a
-substep); G2P with the ghost velocity at incompatible nodes (the body's
-velocity plus the friction-cone projection of the particle's relative
-velocity on its normal), the particle's own velocity at incompatible
-nodes with no body; the particle update (contact projection of a particle
-deeper than 0.05 h, the speed clamp, advection, the penalty impulse, F
-update, the fracture check on the signed singular values, the
-Drucker-Prager return map of failed or granular particles, corotated
-stress, the new affine matrix).  The bodies are fixed: they keep their
-poses and velocities exactly.
+body (fixed or kinematic here, of infinite mass: they move none, and none
+is summed); the grid update (gravity, each component clamped to one cell a
+substep); G2P with the ghost velocity at incompatible nodes (the closest
+body's velocity at the node plus the friction-cone projection of the
+particle's velocity relative to it, on its normal), the particle's own
+velocity at incompatible nodes with no body; the particle update (contact
+projection, relative to the summed velocity of the bodies in its affinity
+word, of a particle deeper than 0.05 h, the speed clamp, advection, the
+penalty impulse, F update, the fracture check on the signed singular
+values, the Drucker-Prager return map of failed or granular particles,
+corotated stress, the new affine matrix).  The bodies' poses advance
+apart (reference/bodies.py).
 
 Written from tests/oracle_mpm.py and tests/oracle_cpic.py (per-particle
 loops transcribed from upstream's WGSL) as batched torch over particles
@@ -35,6 +38,8 @@ import math
 from typing import Optional
 
 import torch
+
+from mpmbench.reference.bodies import velocity_at
 
 FRICTION = 20.0
 PENALTY = 1.0e3
@@ -95,7 +100,7 @@ class Material:
 
 @dataclasses.dataclass
 class Colliders:
-    """The node CDF of fixed mesh colliders (their poses never change)."""
+    """The colliders' node CDF at one substep's poses."""
 
     dist: torch.Tensor
     closest: torch.Tensor
@@ -232,9 +237,12 @@ def drucker_prager(dp, dps, u, s, vh):
     return f_new, state, apply
 
 
-def substep(st: dict, mat: Material, col: Colliders, grid: Grid, dt: float, gravity):
+def substep(st: dict, mat: Material, col: Colliders, bodies: dict, grid: Grid, dt: float,
+            gravity):
     """One substep of the state dict (pos, vel, F, affine [N, d, d], aff
-    int64, phase, dps {det, hardening, log_vol_gain}): the new state."""
+    int64, phase, dps {det, hardening, log_vol_gain}) against the node CDF
+    col of the bodies (pos, rot, linvel, angvel: reference/bodies.py) at
+    their poses: the new particles' state."""
     pos, vel = st["pos"], st["vel"]
     n, d = pos.shape
     h = grid.h
@@ -257,9 +265,11 @@ def substep(st: dict, mat: Material, col: Colliders, grid: Grid, dt: float, grav
     grid_mm.index_add_(0, flat.reshape(-1), torch.cat(
         [(take[..., None] * mom).reshape(-1, d),
          (take * mat.mass[:, None]).reshape(-1, 1)], 1))
-    # The incompatible pairs' impulses go to fixed bodies, which they do
-    # not move: none is summed.  The ghost velocity (a fixed body's is zero).
-    ghost = _project(vel[:, None, :].expand_as(dpt), normal[:, None, :].expand_as(dpt))
+    # The incompatible pairs' impulses go to bodies of infinite mass, which
+    # they do not move: none is summed.  The ghost velocity: the closest
+    # body's velocity at the node plus the projected relative velocity.
+    bv = velocity_at(bodies, torch.clamp(n_cl, min=0), cells.to(dtp) * h)
+    ghost = bv + _project(vel[:, None, :] - bv, normal[:, None, :].expand_as(dpt))
     # Grid update.
     mass = grid_mm[:, d:]
     limit = float(torch.tensor(h, dtype=torch.float32)) / float(torch.tensor(dt, dtype=torch.float32))
@@ -271,9 +281,14 @@ def substep(st: dict, mat: Material, col: Colliders, grid: Grid, dt: float, grav
                       torch.where((n_cl >= 0)[..., None], ghost, vel[:, None, :]))
     new_v = (w_in[..., None] * eff).sum(1)
     grad = inv_d * torch.einsum("nk,nki,nkj->nij", w_in, eff, dpt)
-    # Particle update: contact projection, clamp, advection, penalty.
+    # Particle update: contact projection relative to the bodies the
+    # particle is affine to, clamp, advection, penalty.
+    rv = torch.zeros_like(new_v)
+    for c in range(col.count):
+        rv = rv + torch.where((((aff >> c) & 1) != 0)[:, None], velocity_at(bodies, c, pos),
+                              torch.zeros_like(rv))
     penetrating = (sd < -0.05 * h)[:, None]
-    new_v = torch.where(penetrating, _project(new_v, normal), new_v)
+    new_v = torch.where(penetrating, rv + _project(new_v - rv, normal), new_v)
     speed = torch.sqrt((new_v * new_v).sum(1, keepdim=True))
     new_v = torch.where(speed > limit, new_v * (limit / torch.clamp(speed, min=1e-30)), new_v)
     new_pos = pos + new_v * dt

@@ -228,10 +228,10 @@ def check(inputs, initial: dict, snaps, device, dtype=torch.float64) -> dict:
     state, then each compared frame from the program's state before it
     (the largest gap over the frames)."""
     ref = Reference(inputs, device, dtype)
-    values = {"start_gap": compare.start_gap(initial, ref.initial(), inputs.h)}
+    values = {"start_gap": compare.start_gap(initial, ref.initial(), inputs.h, inputs.dt)}
     for pre, post in snaps:
-        values = compare.worst(values, compare.frame_gaps(pre, post, ref.frame(pre),
-                                                          inputs.h, inputs.dt))
+        values = compare.worst(values, compare.frame_gaps(post, ref.frame(pre), inputs.h,
+                                                          inputs.dt))
     return values
 
 

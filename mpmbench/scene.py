@@ -6,16 +6,21 @@ take.
 A configuration (configs/<name>.json) states the scene as it is run: the
 dimension, cell width, substeps a frame, the lattice of particles (counts,
 spacing, horizontal origin), the material, the colliders, gravity, the
-grid's bounds, the transfer and the job table's group.  Each collider names its kind;
-the kind's parts are files of their own, found by that name:
-colliders/<kind>.py makes the collider's inputs from its entry and the
-seed and gives the reference its node CDF, and program_colliders/<kind>.py
-gives the program's shape.  A traffic file (traffic/<name>.json) states how
-the window drives it: the entry (entries/<entry>.py) and the substeps of
-one call of it, the frames of the replayed episode, the lattice's height
-(its drop onto the colliders) and the seeded jitter.  The seed draws the
-jitter of every particle, at most `jitter` particle spacings on each axis,
-and what a collider kind draws (a heightfield's noise); it changes no size.
+grid's bounds, the transfer and the job table's group (and, where an
+integer, its max_jobs).  Each collider names its kind; the kind's parts
+are files of their own, found by that name: colliders/<kind>.py makes the
+collider's inputs from its entry and the seed and gives the reference its
+node CDF at a pose, and program_colliders/<kind>.py gives the program's
+shape.  A collider's body is fixed (the default) or kinematic: the
+optional keys `rotation` (a scaled axis in 3D, an angle in 2D),
+`body_type`, `linvel` and `angvel` state its pose and, kinematic, the
+velocities it keeps.  A dynamic body is refused: the reference has no
+rigid solve.  A traffic file (traffic/<name>.json) states how the window
+drives it: the entry (entries/<entry>.py) and the substeps of one call of
+it, the frames of the replayed episode, the lattice's height (its drop
+onto the colliders) and the seeded jitter.  The seed draws the jitter of
+every particle, at most `jitter` particle spacings on each axis, and what
+a collider kind draws (a heightfield's noise); it changes no size.
 """
 
 from __future__ import annotations
@@ -24,20 +29,59 @@ import dataclasses
 import importlib.util
 import json
 import pathlib
+from typing import Optional
 
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
 
+BODY_TYPES = ("fixed", "kinematic")
+
+
 @dataclasses.dataclass
 class Collider:
-    """A fixed collider: its kind, its body's translation, and the inputs
-    that colliders/<kind>.py made (in the body's frame)."""
+    """A collider: its kind, its body's pose (translation; rotation as a
+    scaled axis in 3D, an angle in 2D, None for the identity), its body
+    type and, kinematic, its linear and angular velocity (None: zero), and
+    the inputs that colliders/<kind>.py made (in the body's frame).
+    `cache` holds what a kind's part keeps between calls (a mesh's samples
+    in the body's frame)."""
 
     kind: str
     translation: tuple
     data: dict
+    rotation: object = None
+    body_type: str = "fixed"
+    linvel: Optional[tuple] = None
+    angvel: object = None
+    cache: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def kinematic(self) -> bool:
+        return self.body_type == "kinematic"
+
+
+def collider(entry: dict, rng) -> Collider:
+    """A configuration's collider entry as a Collider, its kind's inputs
+    drawn from rng."""
+    body_type = entry.get("body_type", "fixed")
+    if body_type == "dynamic":
+        raise ValueError("mpmbench: a dynamic body needs a rigid solve in the reference, "
+                         "which it does not have; give the collider body_type 'fixed' "
+                         "or 'kinematic'")
+    if body_type not in BODY_TYPES:
+        raise ValueError(f"mpmbench: body_type {body_type!r} is not one of {BODY_TYPES}")
+    vel = {k: entry.get(k) for k in ("linvel", "angvel")}
+    if body_type == "fixed" and any(v is not None and np.any(v) for v in vel.values()):
+        raise ValueError("mpmbench: a fixed body has no velocity; make it kinematic")
+    tup = lambda v: None if v is None else tuple(np.atleast_1d(v).tolist())  # noqa: E731
+    rot = entry.get("rotation")
+    return Collider(entry["kind"], tuple(entry["translation"]),
+                    load_part("colliders", entry["kind"]).make(entry, rng),
+                    rotation=rot if rot is None or np.ndim(rot) == 0 else tuple(rot),
+                    body_type=body_type, linvel=tup(vel["linvel"]),
+                    angvel=tup(vel["angvel"]))
 
 
 @dataclasses.dataclass
@@ -106,9 +150,7 @@ def make(config: dict, traffic: dict, seed: int) -> Inputs:
     jit = traffic["jitter"] * spacing
     pos = pos + _rng(seed, 1).uniform(-jit, jit, pos.shape)
     # Collider i draws from stream 2 + i of the seed.
-    colliders = [Collider(c["kind"], tuple(c["translation"]),
-                          load_part("colliders", c["kind"]).make(c, _rng(seed, 2 + i)))
-                 for i, c in enumerate(config["colliders"])]
+    colliders = [collider(c, _rng(seed, 2 + i)) for i, c in enumerate(config["colliders"])]
     substeps = config["substeps"]
     dt = float(np.float32(1.0 / config["frame_rate"] / substeps))
     return Inputs(config=config, traffic=traffic, seed=seed, dim=d, h=h, dt=dt,
