@@ -2260,7 +2260,7 @@ def replay_traced(wt, frame, state, what):
     replay (that reason bound to None for it).  In each, the kernels of
     every csrc source that CUPTI records equal its wrappers' launches (one
     kernel a launch): the eager frame's host-issued; the replayed frame's
-    host-issued (the pack, the static hoist, the unpack) plus those its
+    host-issued (the pack, the unpack) plus those its
     replay adds (wt.replayed_launch_counts).  The two record the same
     kernels, and their states are bit-equal."""
     from wgsparkl_tpu_torch import pipeline

@@ -14,7 +14,9 @@ graph, and replayed on every later call with the key.
     plain versions bound in the kernels' place (chip_smoke.plain_versions)
     get graphs of their own; a replay's launches are counted apart from
     the host's.  On small versions of the benchmark's two scenes
-    (mpmbench/tests/bench_small.py).
+    (mpmbench/tests/bench_small.py), and on a shrunk main-path paddle scene,
+    whose frame hoists its fixed walls inside the replay: a replay follows
+    the walls' poses it is given.
   * Card (marked `cuda`; skip without one; run them on a GPU host with
     `python -m pytest --noconftest tests/test_torch_frame_graph.py`): the
     same with real graphs on the two small scenes; under the tracer the frame
@@ -33,7 +35,7 @@ import pytest
 import torch
 
 from mpmbench import program, scene
-from mpmbench.tests.bench_small import small_files
+from mpmbench.tests.bench_small import moving_files, small_files
 from wgsparkl_tpu_torch import pipeline
 from wgsparkl_tpu_torch.ops import blocked as bk
 from wgsparkl_tpu_torch.pipeline import MpmPipeline, SimState, step_pallas
@@ -43,8 +45,8 @@ CELLS = ("cut2.frame15", "hf3.frame20")
 SEED = 2 ** 31 + 4021
 FRAMES = 4
 CPU_SUBSTEPS = 3    # a CPU frame's substeps (the cells': 15 and 20)
-SPANS = {tracing.FRAME, tracing.SUBSTEP, "mpm.pack", "mpm.unpack", "mpm.jobs", "mpm.cdf",
-         "mpm.mesh_pass", "mpm.gather_nodes", "mpm.p2g", "mpm.scatter",
+SPANS = {tracing.FRAME, tracing.SUBSTEP, "mpm.pack", "mpm.hoist", "mpm.unpack", "mpm.jobs",
+         "mpm.cdf", "mpm.mesh_pass", "mpm.gather_nodes", "mpm.p2g", "mpm.scatter",
          "mpm.gather_grid", "mpm.g2p", "mpm.update", "mpm.rigid"}
 
 
@@ -105,7 +107,7 @@ def _card():
 def _data(cell, device):
     """The small cell's scene on device and its substeps a frame (on the
     CPU, CPU_SUBSTEPS)."""
-    _, cfg, traffic, _ = small_files(cell)
+    _, cfg, traffic, _ = moving_files(cell) if cell == "paddle3" else small_files(cell)
     torch.set_num_threads(4)
     inputs = scene.make(cfg, traffic, SEED)
     return (program.build(inputs, device),
@@ -172,9 +174,32 @@ def _new_shapes_capture(data, substeps):
     assert _delta(before) == {"captures": 2, "replays": 2, "record": 4}
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", CELLS + ("paddle3",))
 def test_replays_equal_eager_frames(fake_graphs, cell):
     _replays_equal_eager(*_data(cell, "cpu"))
+
+
+def test_replay_hoists_the_walls_it_is_given(fake_graphs):
+    """The static hoist is part of the replay: the graph copies in no
+    channel grid, and a frame whose fixed walls stand elsewhere replays
+    their node CDF from the poses it is given, as the eager frame does,
+    and differs from the frame at the old poses."""
+    data, substeps = _data("paddle3", "cpu")
+    assert data.config.static_slots
+    _frame(data, data.state, substeps)
+    chan, _ = pipeline._hoist(data.state.bodies, data.config)
+    (entry,) = pipeline._graphs.values()
+    assert not [t for t in entry.inputs if t.shape == chan.shape]
+    bodies = data.state.bodies
+    pos = bodies.pos.clone()
+    pos[list(data.config.static_slots), 1] += 0.5       # every fixed body up half a cell
+    moved = dataclasses.replace(data.state, bodies=dataclasses.replace(bodies, pos=pos))
+    before = pipeline.frame_graph_stats()
+    got = _frame(data, moved, substeps)
+    _same(got, _eager(data, moved, substeps))
+    assert _delta(before) == {"replays": 1, "record": 1}
+    assert not torch.equal(got[0].particles.pos,
+                           _frame(data, data.state, substeps)[0].particles.pos)
 
 
 @pytest.mark.parametrize("cell", CELLS)

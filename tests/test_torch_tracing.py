@@ -1,15 +1,21 @@
 """The frame loop's spans and counters (wgsparkl_tpu_torch/utils/tracing.py)
-on small versions of the benchmark's two scenes (2D: elastic_cut2's block
-on a blade; 3D: heightfield3's sand over a small field; both run the mesh
-pass and the window scatter).
+on small versions of the benchmark's scenes (2D: elastic_cut2's block on a
+blade; 3D: heightfield3's sand over a small field; both run the mesh pass,
+the dense CDF mode and the window scatter; 3D: the main path's sand in five
+walls with the spinning paddle, shrunk, which runs the gathered-hybrid
+mode: the frame's static hoist, the paddle's reach gate, in-kernel moving
+work at gate level 2).
 
   * Off: nothing is recorded and no record_function runs; on without a
     profiler, none runs either; the state after a frame is bit-equal to the
     state after the same frame traced.
-  * On: one `mpm.frame` a call with its substeps' spans under it, each
-    phase's span under its parent and inside its parent's times; the dense
-    transfer's frame holds `mpm.frame` and `mpm.substep` only.
-  * `jobs.live` equals the job table's live slots, `jobs.slots` its size.
+  * On: one `mpm.frame` a call with one `mpm.hoist` and its substeps'
+    spans under it, each phase's span under its parent and inside its
+    parent's times (`mpm.moving_gate` under `mpm.cdf` in the hybrid mode);
+    the dense transfer's frame holds `mpm.frame` and `mpm.substep` only.
+  * `jobs.live` equals the job table's live slots, `jobs.slots` its size;
+    `jobs.moving` the live jobs at gate level 2 in the hybrid mode, and is
+    absent in the dense mode.
   * Under torch.profiler the spans start where their `user_annotation`
     events do (trace `ts` + `baseTimeNanoseconds / 1e3`): nine in ten within
     50 us, the median within 20 us.
@@ -32,16 +38,20 @@ import pytest
 import torch
 
 from mpmbench import program, scene
-from mpmbench.tests.bench_small import small_files
+from mpmbench.tests.bench_small import moving_files, small_files
 from wgsparkl_tpu_torch.pipeline import MpmPipeline, step_pallas
 from wgsparkl_tpu_torch.utils import tracing
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 CELLS = ("cut2.frame15", "hf3.frame20")
+HYBRID = "paddle3"
+SCENES = CELLS + (HYBRID,)
 SEED = 2 ** 31 + 77
 SUBSTEP_CHILDREN = {"mpm.jobs", "mpm.cdf", "mpm.p2g", "mpm.scatter", "mpm.gather_grid",
                     "mpm.g2p", "mpm.update", "mpm.rigid"}
+# The CDF phase's spans: the dense mode's (mesh scenes), the hybrid mode's.
 CDF_CHILDREN = {"mpm.mesh_pass", "mpm.gather_nodes"}
+HYBRID_CDF_CHILDREN = {"mpm.gather_nodes", "mpm.moving_gate"}
 
 
 @pytest.fixture(autouse=True)
@@ -54,7 +64,7 @@ def fresh_tracer():
 
 
 def _data(cell, transfer=None):
-    _, cfg, traffic, _ = small_files(cell)
+    _, cfg, traffic, _ = moving_files(cell) if cell == HYBRID else small_files(cell)
     if transfer is not None:
         cfg = dict(cfg, transfer=transfer)
     inputs = scene.make(cfg, traffic, SEED)
@@ -69,7 +79,7 @@ def _frame(data, substeps, on: bool):
     tracing.disable()
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", SCENES)
 def test_off_records_nothing_and_leaves_the_state_alone(monkeypatch, cell):
     data, substeps = _data(cell)
     initial = program.copy_state(data.state)
@@ -91,13 +101,15 @@ def test_off_records_nothing_and_leaves_the_state_alone(monkeypatch, cell):
     for k, v in dataclasses.asdict(off.models).items():
         if torch.is_tensor(v):
             assert torch.equal(v, getattr(data.state.models, k)), k
+    for f in ("pos", "rot", "linvel", "angvel"):
+        assert torch.equal(getattr(off.bodies, f), getattr(data.state.bodies, f)), f
 
 
 def _children(spans, parent):
     return [s for s in spans if s["parent"] == parent["id"]]
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", SCENES)
 def test_spans_nest_under_the_frame(cell):
     data, substeps = _data(cell)
     _frame(data, substeps, on=True)
@@ -108,13 +120,18 @@ def test_spans_nest_under_the_frame(cell):
     assert frame["parent"] is None and frame["frame"] == 0
     top = _children(spans, frame)
     subs = [s for s in top if s["name"] == "mpm.substep"]
-    assert {s["name"] for s in top} == {"mpm.pack", "mpm.substep", "mpm.unpack"}
+    assert {s["name"] for s in top} == {"mpm.pack", "mpm.hoist", "mpm.substep",
+                                        "mpm.unpack"}
+    # The frame's hoist: once, before the substeps.
+    (hoist,) = [s for s in spans if s["name"] == "mpm.hoist"]
+    assert hoist["parent"] == frame["id"] and hoist["end_us"] <= subs[0]["start_us"]
     assert [s["substep"] for s in subs] == list(range(substeps))
     for sub in subs:
         kids = _children(spans, sub)
         assert sorted(s["name"] for s in kids) == sorted(SUBSTEP_CHILDREN)
         (cdf,) = [s for s in kids if s["name"] == "mpm.cdf"]
-        assert {s["name"] for s in _children(spans, cdf)} == CDF_CHILDREN
+        assert {s["name"] for s in _children(spans, cdf)} == (
+            HYBRID_CDF_CHILDREN if cell == HYBRID else CDF_CHILDREN)
     for s in spans:
         assert s["device_ms"] is None and s["host_ms"] >= s["self_ms"] >= 0
         if s["parent"] is not None:
@@ -134,7 +151,7 @@ def test_dense_frame_holds_frame_and_substeps(cell):
     assert session["counters"] == {}
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", SCENES)
 def test_job_counters(cell):
     data, _ = _data(cell)
     rec = {}
@@ -145,6 +162,14 @@ def test_job_counters(cell):
     assert live == [int((rec["jobs"]["len"] > 0).sum())]
     assert slots == [data.config.max_jobs] == [rec["src"].shape[0]]
     assert 0 < live[0] < slots[0]
+    if cell == HYBRID:
+        # The live jobs at gate level 2: A and B evaluate the paddle there.
+        moving = session["counters"]["jobs.moving"]
+        assert moving == [int(((rec["jbody"] == 2) & (rec["jobs"]["len"] > 0)).sum())]
+        assert 0 < moving[0] <= live[0]
+    else:
+        # The dense mode (mesh scenes) has no in-kernel moving work.
+        assert "jobs.moving" not in session["counters"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -211,3 +236,4 @@ def test_traced_benchmark_run(cell):
     assert 0 < m["glue.live_job_share"] < 100
     assert "glue.scatter_device_ms_per_substep" not in m
     assert "glue.gather_device_ms_per_substep" not in m
+    assert "glue.hoist_device_ms_per_substep" not in m

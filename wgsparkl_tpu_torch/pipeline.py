@@ -876,7 +876,8 @@ def _cdf_phase_3d(bodies, cfg: MpmConfig, static_chan, src, bcells, grid_rows,
     jbody = _jbody_gate(ntiles, wvol, cfg.static_slots)
     if moving:
         # Gathered hybrid: moving colliders possibly in reach force level 2.
-        gate = _moving_reach_gate(bcells, bodies, moving, wsh, h)
+        with tracing.span("mpm.moving_gate"):
+            gate = _moving_reach_gate(bcells, bodies, moving, wsh, h)
         jbody = torch.maximum(jbody, torch.where(gate, 2, 0).to(torch.int32))
     return ntiles, jbody, static_desc, moving
 
@@ -915,6 +916,11 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
             ntiles, jbody, static_desc, moving = _cdf_phase_3d(
                 bodies, cfg, static_chan, src, bcells, grid_rows, static_cdf, meshes,
                 ph.get("act"))
+        if moving and not chan_free and tracing.active():
+            # The gathered-hybrid mode's live jobs at gate level 2, where A
+            # and B evaluate the moving colliders: a fresh 0-d sum, which
+            # keeps no larger tensor alive until the tracer reads it.
+            tracing.count("jobs.moving", ((jbody == 2) & (jobs["len"] > 0)).sum())
         with tracing.span("mpm.p2g"):
             mm, imp, pcdf = p2g_cdf_tiles(pdata, ntiles, btable, jobs, bcells, jbody,
                                           h, by, group, npad, nc, moving,
@@ -1218,11 +1224,30 @@ def substep_blocked(state: SimState, params: SimulationParams, cfg: MpmConfig,
     return step_dense(state, params, _dense_config(cfg, "blocked"), 1, comm=comm)
 
 
+def _hoist(bodies, cfg: MpmConfig):
+    """The frame hoist of the static colliders: (channel grid or None,
+    node CDF triple), from the frame's bodies."""
+    static_cdf = _node_cdf_static(bodies, cfg)
+    dim = cfg.grid.dim
+    if cfg.mesh_cids or (dim == 2 and len(cfg.static_slots) != cfg.num_colliders):
+        return None, static_cdf
+    nb_total = int(np.prod(bk.num_blocks(cfg.grid, cfg.by)))
+    return _cdf_chan_grid(*static_cdf, nb_total,
+                          int(np.prod(bk.block_shape(dim, cfg.by)))), static_cdf
+
+
 def _substeps(cfg: MpmConfig, n: int, num_substeps: int, dt: float, record, comm,
-              rows, bodies, gravity, mtable, static_chan, static_cdf, meshes):
-    """The substep loop of a kernel-path frame on the packed rows:
-    (rows, bodies, StepDiag).  Its tensors come last, in the order
-    _frame_graph copies them."""
+              hoist: bool, rows, bodies, gravity, mtable, meshes):
+    """The hoist and the substep loop of a kernel-path frame on the packed
+    rows: (rows, bodies, StepDiag).  Its tensors come last, in the order
+    _frame_graph copies them; the hoist is part of what a frame graph
+    replays, so a replayed frame issues it with the substeps."""
+    static_chan = static_cdf = None
+    # Span "mpm.hoist" in every frame: empty where nothing is hoisted
+    # (no analytic static collider, substep_pallas, chan-free, sparse).
+    with tracing.span("mpm.hoist", device=rows.device.type == "cuda"):
+        if hoist:
+            static_chan, static_cdf = _hoist(bodies, cfg)
     substep = _substep if cfg.grid.dim == 3 else _substep_2d
     params = SimulationParams(dt=dt, gravity=gravity)
     diag = StepDiag.zeros(rows.device)
@@ -1384,8 +1409,8 @@ def _frame_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
     evaluates every collider (substep_pallas, as the JAX package's passes
     no static grid to its core).  On the card the substep loop replays as
     a CUDA graph, captured once per configuration and shape, unless
-    frame_graph_reason gives a reason; the pack, the hoist and the unpack
-    run eagerly."""
+    frame_graph_reason gives a reason, the hoist with it; the pack and the
+    unpack run eagerly."""
     dim = cfg.grid.dim
     L = R if dim == 3 else R2
     n = state.particles.count
@@ -1394,19 +1419,12 @@ def _frame_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
     with tracing.span(tracing.FRAME):
         with tracing.span("mpm.pack"):
             rows = L.pack_rows_padded(state.particles, state.models, npad)
-        static_chan = static_cdf = None
-        if hoist and cfg.static_slots and not cfg.cdf_chan_free and not cfg.sparse:
-            # The frame hoist of the static colliders (none in the sparse
-            # domain, whose nodes change with the active table).
-            nb_total = int(np.prod(bk.num_blocks(cfg.grid, cfg.by)))
-            static_cdf = _node_cdf_static(state.bodies, cfg)
-            if not cfg.mesh_cids and (dim == 3
-                                      or len(cfg.static_slots) == cfg.num_colliders):
-                static_chan = _cdf_chan_grid(*static_cdf, nb_total,
-                                             int(np.prod(bk.block_shape(dim, cfg.by))))
-        loop = functools.partial(_substeps, cfg, n, num_substeps, params.dt, record, comm)
-        args = (rows, state.bodies, params.gravity, state.models.mat_table, static_chan,
-                static_cdf, state.meshes)
+        # The frame hoist of the static colliders (none in the sparse
+        # domain, whose nodes change with the active table).
+        hoist = bool(hoist and cfg.static_slots and not cfg.cdf_chan_free and not cfg.sparse)
+        loop = functools.partial(_substeps, cfg, n, num_substeps, params.dt, record, comm,
+                                 hoist)
+        args = (rows, state.bodies, params.gravity, state.models.mat_table, state.meshes)
         reason = frame_graph_reason(rows.device, record, comm)
         if reason is None:
             leaves = _leaves(args)
