@@ -151,7 +151,13 @@ Phases (any failure exits non-zero, and no result line is printed):
      the rigid velocity from the rows, on g2p's outputs), each against the
      same function with its kernel swapped for the plain version, every
      output bit for bit; A, F and H beside the same
-     call on their (particle, node) pairs (`tile_pairs_library`); every
+     call on their (particle, node) pairs (`tile_pairs_library`); the
+     window scatter's pull on the recorded substeps of the lowered 3D main
+     path and 2D column (`scatter_pull`, `scatter_pull2d`: every grid row,
+     the ghost's included, bit for bit against the plain version and
+     `add_rows` into zeros, the library yardstick, the mass channel against
+     the substep's own grid;
+     the sparse paths must launch none); every
      kernel of paths 15-15d on the rows of one rank (`record_rank`:
      `*_sharded`, `*_spatial`, `*_spatial2d`, `*_spatial_sparse`; 2D:
      kernel I's premise after the second sort);
@@ -320,6 +326,10 @@ REPLACES = {
     "p2g_struct": "wgsparkl_tpu/ops/transfer.py:52",
     "g2p_struct": "wgsparkl_tpu/ops/transfer.py:128",
     "particle_update_struct": "wgsparkl_tpu/ops/particle_update.py:28",
+    # Port-only: the JAX package's window scatter is plain XLA (one-hot
+    # matmuls, banded or whole, picked by scatter_tiles_auto), no pallas_call.
+    "scatter_pull": "wgsparkl_tpu/pipeline.py:783",
+    "scatter_pull2d": "wgsparkl_tpu/pipeline.py:783",
 }
 SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_rows",
           "update_rows2d_neo_hookean": "update_rows", "p2g_cdf_shapes": "p2g_cdf",
@@ -336,15 +346,19 @@ SOURCE = {"update_rows2d": "update_rows", "update_rows_neo_hookean": "update_row
           "dense_pcdf2d": "dense_pcdf", "dense_p2g2d": "dense_p2g",
           "dense_g2p2d": "dense_g2p", "update_rows_wide": "update_rows",
           "p2g_struct": "dense_p2g", "g2p_struct": "dense_g2p",
-          "particle_update_struct": "update_rows"}
+          "particle_update_struct": "update_rows", "scatter_pull2d": "scatter_pull"}
 # The rows of the [PCHAN, NPAD] input matrix that kernel C reads (csrc/
 # update_rows.cu, update_kernel and update2d_kernel); it replaces the others
 # with G2P rows, particle-CDF rows or new values.
 C_ROWS_READ_3D = (*range(0, 3), 6, *range(21, 40), *range(44, 48))
 C_ROWS_READ_2D = (0, 1, 4, *range(13, 24), *range(27, 32))
-KERNELS_3D = ("p2g_cdf", "g2p", "update_rows", "permute", "compact")
-KERNELS_2D = ("pcdf2d", "p2g2d", "g2p2d", "update_rows2d", "permute", "compact")
-KERNELS_FREE = ("p2g", "g2p", "update_rows", "permute", "compact")
+# The sparse domain's paths keep the slot scatter (add_rows); the bounded
+# ones scatter through kernel scatter_pull.
+KERNELS_SPARSE = ("p2g_cdf", "g2p", "update_rows", "permute", "compact")
+KERNELS_3D = KERNELS_SPARSE + ("scatter_pull",)
+KERNELS_2D = ("pcdf2d", "p2g2d", "g2p2d", "update_rows2d", "permute", "compact",
+              "scatter_pull")
+KERNELS_FREE = ("p2g", "g2p", "update_rows", "permute", "compact", "scatter_pull")
 KERNELS_7 = KERNELS_2D + ("rigid_solve",)
 KERNELS_8 = KERNELS_3D + ("rigid_solve",)
 KERNELS_9 = KERNELS_2D + ("mesh_cdf",)
@@ -479,7 +493,8 @@ def plain_versions():
     from wgsparkl_tpu_torch import pipeline
     from wgsparkl_tpu_torch.collision import cdf
     from wgsparkl_tpu_torch.ops import (
-        compact, g2p, p2g, p2g_cdf, permute, rigid_cdf, transfer, transfer2d, update_rows,
+        blocked, compact, g2p, p2g, p2g_cdf, permute, rigid_cdf, transfer, transfer2d,
+        update_rows,
     )
     from wgsparkl_tpu_torch.rigid import solve
 
@@ -495,6 +510,7 @@ def plain_versions():
              (pipeline, "update_rows", update_rows.update_plain),
              (pipeline, "permute_lanes", permute.permute_plain),
              (compact, "compact_flagged", compact.compact_plain),
+             (blocked, "scatter_tiles_pull", blocked.scatter_tiles_pull_plain),
              (pipeline, "pcdf_rows2d", transfer2d.pcdf_plain),
              (pipeline, "p2g_tiles2d", transfer2d.p2g_plain),
              (pipeline, "g2p_rows2d", transfer2d.g2p_plain),
@@ -1340,7 +1356,7 @@ def parallel_paths(wt, card, kind, launches, records):
              "path 15b: main scene in x slabs"),
             ("spatial2d", path_15c, 2, SUBSTEPS2, KERNELS_2D,
              "path 15c: 2D column in x slabs"),
-            ("spatial_sparse", path_15d, WORLD_15, SUBSTEPS, KERNELS_3D,
+            ("spatial_sparse", path_15d, WORLD_15, SUBSTEPS, KERNELS_SPARSE,
              "path 15d: sparse main scene in x slabs")):
         data, cfg_sp = make()
         base = data.config
@@ -1509,7 +1525,7 @@ def parallel_small_scenes(dev) -> None:
             lambda: spatial_scene(dev, 2), dict(migration_cap=512), 1, KERNELS_2D),
         "sparse 3D lattice in x slabs": (
             lambda: spatial_scene(dev, 3, True), dict(migration_cap=512, halo_cap=256),
-            1, KERNELS_3D),
+            1, KERNELS_SPARSE),
         "particle-sharded 3D dense sand box": (lambda: scenes.sand_box_3d(
             nxz=8, ny=16, device=dev, transfer="dense"), {}, 5, KERNELS_DENSE),
     }
@@ -1567,7 +1583,7 @@ def parallel_small_scenes(dev) -> None:
 # The entries of the kernel line that paths 15-15d add: each kernel on the
 # rows of one rank (record_rank) of a path.
 PARALLEL_KERNELS = {"sharded": KERNELS_3D, "spatial": KERNELS_3D,
-                    "spatial2d": KERNELS_2D, "spatial_sparse": KERNELS_3D}
+                    "spatial2d": KERNELS_2D, "spatial_sparse": KERNELS_SPARSE}
 for _tag, _ks in PARALLEL_KERNELS.items():
     for _k in _ks:
         REPLACES[f"{_k}_{_tag}"] = REPLACES[_k]
@@ -2386,6 +2402,7 @@ def main() -> None:
     from wgsparkl_tpu_torch.ops import (
         ablation, compact, g2p, p2g, p2g_cdf, permute, transfer2d, update_rows,
     )
+    from wgsparkl_tpu_torch.ops import blocked as bk
     from wgsparkl_tpu_torch.ops import rows as R
     from wgsparkl_tpu_torch.ops import rows2d as R2
     from wgsparkl_tpu_torch.pipeline import step_pallas, step_with_diag
@@ -2443,7 +2460,8 @@ def main() -> None:
     # ---- 4. the 2D paths at full size: sand column, neo-Hookean blocks ----
     counts, _ = run_frames(wt, full_scene_2d(dev), SUBSTEPS2, KERNELS_2D,
                            "2D path", card, kind)
-    launches.update((k, counts[k]) for k in KERNELS_2D)
+    launches.update((k, counts[k]) for k in KERNELS_2D if k != "scatter_pull")
+    launches["scatter_pull2d"] = counts["scatter_pull"]
     torch.cuda.empty_cache()
     # A replayed frame of each main path against CUPTI's record of it.
     if dev.type == "cuda":
@@ -2569,9 +2587,12 @@ def main() -> None:
     print(f"path 12: sparse domain, kmax {cfg.kmax}, amax {cfg.amax}, CDF mode "
           f"{'chan-free' if cfg.cdf_chan_free else 'slot channel grid'} (the "
           "construction-time pick)", flush=True)
-    counts, state = run_frames(wt, data, SUBSTEPS, KERNELS_3D,
+    counts, state = run_frames(wt, data, SUBSTEPS, KERNELS_SPARSE,
                                "path 12: sparse 3D main path", card, kind,
                                TIMED_FRAMES_SHORT, gates=True)
+    if counts["scatter_pull"]:
+        fail(f"path 12: {counts['scatter_pull']} scatter_pull launches: the sparse "
+             "domain's slot scatter is add_rows")
     launches.update((f"{k}_sparse", counts[k]) for k in ("p2g_cdf", "g2p", "update_rows"))
     del data, state
     torch.cuda.empty_cache()
@@ -2581,7 +2602,7 @@ def main() -> None:
     cfg = data.config
     if not cfg.sparse or not cfg.mesh_cids or cfg.cdf_chan_free:
         fail(f"path 12b: built as {cfg}")
-    counts, state = run_frames(wt, data, SUBSTEPS, KERNELS_3D,
+    counts, state = run_frames(wt, data, SUBSTEPS, KERNELS_SPARSE,
                                "path 12b: heightfield3 built sparse", card, kind,
                                TIMED_FRAMES_SHORT)
     if counts["mesh_cdf_sparse"] != (1 + TIMED_FRAMES_SHORT) * SUBSTEPS:
@@ -2735,6 +2756,42 @@ def main() -> None:
         return (int(rec["covered_end"]), int(ln[live & (jb > 0)].sum()),
                 int(live.sum()), int((live & (jb > 0)).sum()))
 
+    def check_scatter(name, rec, cfg):
+        """The window scatter's pull on a recorded substep, every grid row
+        (the ghost's included) bit for bit against the plain version and
+        add_rows into zeros (index_put_(accumulate=True), the library
+        yardstick), and its mass channel against the substep's own grid
+        (whose momentum the substep turned into velocity).  Bytes: the live jobs' window rows
+        read once (one 16-byte load a node), the grid written once, cum and
+        the live jobs' blocks read."""
+        d, nb = cfg.grid.dim, bk.num_blocks(cfg.grid, cfg.by)
+        mm, src, shape = rec["mm"], rec["src"], tuple(rec["grid_mm"].shape)
+        nbt, bsd = shape[0] - 1, shape[1]
+        pull = (rec["jobs"]["block"], rec["cum"], nb, cfg.by)
+        live = int((rec["jobs"]["len"] > 0).sum())
+
+        def library():
+            return bk.scatter_tiles(torch.zeros(shape, device=dev), mm, src)
+
+        added = library()
+        print(f"{name} inputs: {live} live jobs of {src.shape[0]}, {nbt} blocks of "
+              f"{bsd} nodes, {int((added[nbt] != 0).any(-1).sum())} ghost nodes "
+              "nonzero", flush=True)
+        bits = lambda t: t.contiguous().view(torch.int32)  # noqa: E731
+        check(name,
+              lambda: bk.scatter_tiles_pull(torch.empty(shape, device=dev), mm, *pull),
+              lambda: bk.scatter_tiles_pull_plain(torch.empty(shape, device=dev), mm,
+                                                  *pull),
+              lambda k, p: [],
+              lambda k, p: [("grid", bits(k), bits(p)),
+                            ("substep's mass", bits(k[..., d]),
+                             bits(rec["grid_mm"][..., d])),
+                            ("add_rows", bits(k), bits(added))],
+              lambda p: None if live else "no live job",
+              cost=(16 * live * src.shape[1] + 4 * (nbt + 1) * bsd * (d + 1)
+                    + 4 * (nbt + live), 0),
+              library=library)
+
     mark("phase 5")
     # ---- 5a. 3D kernels vs plain versions at full size, under contact load ----
     # The 3D scene with its lattice lowered 3 cells onto the paddle: the
@@ -2856,6 +2913,7 @@ def main() -> None:
           lambda k, p: [], lambda k, p: [("values", k[0], p[0]), ("ok", k[1], p[1])],
           cost=(npad + 4 * n_first + 4 * 2 * cap_e, 0))
     compact_edge_cases(compact, dev)
+    check_scatter("scatter_pull", rec, cfg)
     del rec, args_a, args_b, args_c, data, state
     torch.cuda.empty_cache()
 
@@ -2972,6 +3030,7 @@ def main() -> None:
           lambda k, p: [(f"row {r}", k[r], p[r], 1e-4) for r in range(k.shape[0])],
           lambda k, p: [(f"row {r}", k[r], p[r]) for r in (9, 12, 13, 14)],
           cost=c_cost(C_ROWS_READ_2D, 6, 5, rec["rows"].shape[0], npad, ce, 400))
+    check_scatter("scatter_pull2d", rec, cfg)
     del rec, args_g, args_h, args_i, args_c2, data, state
     torch.cuda.empty_cache()
 
@@ -3741,8 +3800,8 @@ def main() -> None:
         if ("fold_vel" in what) != dk.config.fold_vel:
             fail(f"{what}: built with fold_vel={dk.config.fold_vel}")
         if ("sparse" in what) != dk.config.sparse or (dk.config.sparse and min(
-                counts[k] for k in (KERNELS_3D if dk.config.num_colliders
-                                    else KERNELS_FREE)) <= 0):
+                counts[k] for k in (KERNELS_SPARSE if dk.config.num_colliders
+                                    else KERNELS_FREE[:-1])) <= 0):
             fail(f"{what}: built with sparse={dk.config.sparse}, launches {counts}")
         with plain_versions():
             same(sk, step_pallas(dk.state, dk.params, dk.config, 10), what)
@@ -3833,7 +3892,8 @@ def main() -> None:
         wt.reset_launch_counts()
         sk = step_pallas(dk.state, dk.params, dk.config, 5)
         counts = launches_run(wt)
-        kernels = KERNELS_3D if dk.config.grid.dim == 3 else KERNELS_2D
+        kernels = ((KERNELS_SPARSE if dk.config.sparse else KERNELS_3D)
+                   if dk.config.grid.dim == 3 else KERNELS_2D)
         if min(counts[k] for k in kernels) <= 0:
             fail(f"{what}: a kernel of the path never launched: {counts}")
         if dk.config.dynamic_slots and counts["rigid_solve"] != 5:

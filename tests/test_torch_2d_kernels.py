@@ -64,10 +64,17 @@ def test_sort_jobs_and_tiles_match_jax_2d(scene, placement):
     levels = set(np.unique(d["jbody"][d["len"] > 0]).tolist())
     assert levels == ({0, 2} if placement == "as_built" else levels) and 2 in levels
     # Scatter of the P2G tiles and the gather of grid velocity rows.
+    # The card's pull (its plain version) adds in add_rows' order.
     gmm = torch.zeros((nb_total + 1, 64, 3))
     bk.scatter_tiles(gmm, H.to_torch(d["mm"]), src)
     ref = d["grid_mm"].reshape(nb_total + 1, 64, 3)
     np.testing.assert_allclose(gmm.numpy()[..., 2], ref[..., 2], rtol=1e-6,
+                               atol=1e-6 * ref[..., 2].max())
+    pull = bk.scatter_tiles_pull_plain(torch.full_like(gmm, float("nan")),
+                                       H.to_torch(d["mm"]), block, jobs["cum"], nb,
+                                       cfg.by)
+    np.testing.assert_array_equal(pull.numpy(), gmm.numpy())
+    np.testing.assert_allclose(pull.numpy()[..., 2], ref[..., 2], rtol=1e-6,
                                atol=1e-6 * ref[..., 2].max())
     ftiles = bk.gather_tiles(H.to_torch(ref.copy()), src, R2.WPAD, 4)
     np.testing.assert_array_equal(ftiles.numpy(), d["ftiles"])

@@ -20,7 +20,9 @@ graph, and replayed on every later call with the key.
   * Card (marked `cuda`; skip without one; run them on a GPU host with
     `python -m pytest --noconftest tests/test_torch_frame_graph.py`): the
     same with real graphs on the two small scenes; under the tracer the frame
-    runs eagerly with every span; and on a scene of each kind of the kernel
+    runs eagerly with every span; the window scatter's pull kernel gives, on
+    the small scenes and the shrunk paddle scene, replayed or eager, the
+    frames of an accumulating scatter into zeros; and on a scene of each kind of the kernel
     path (body contacts, a joint, the sparse domain, a kinematic paddle in
     the gathered hybrid, the 2D chan-free column, no collider, and the
     one-substep entry) a replay equals an eager frame, and a replayed
@@ -374,6 +376,33 @@ def test_card_tracer_runs_eagerly_with_every_span(cell):
     names = {s["name"] for s in tracing.collect()[-1]["spans"]}
     assert names == SPANS
     _same(_frame(data, state, substeps), _eager(data, state, substeps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", CELLS + ("paddle3",))
+def test_card_pull_frames_equal_add_rows_frames(monkeypatch, cell):
+    """The window scatter's pull kernel, replayed and eager, gives the
+    frames that adding every job slot into a zeroed grid (add_rows, an
+    accumulating index_put_) gives, bit for bit."""
+    import wgsparkl_tpu_torch as wt
+
+    data, substeps = _data(cell, _card())
+    wt.reset_launch_counts()
+    g = e = data.state
+    for _ in range(FRAMES):
+        g, gd = _frame(data, g, substeps)
+        e, ed = _eager(data, e, substeps)
+    pulls = wt.launch_counts()["scatter_pull"] + wt.replayed_launch_counts()["scatter_pull"]
+    assert pulls == 2 * FRAMES * substeps
+    def add_rows_into_zeros(grid, tiles, block, cum, nb, by):
+        return bk.scatter_tiles(grid.zero_(), tiles, bk.window_sources(block, nb, by))
+
+    monkeypatch.setattr(bk, "scatter_tiles_pull", add_rows_into_zeros)
+    a = data.state
+    for _ in range(FRAMES):
+        a, ad = _eager(data, a, substeps)
+    _same((g, gd), (a, ad))
+    _same((e, ed), (a, ad))
 
 
 def _kinds():

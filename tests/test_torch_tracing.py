@@ -16,6 +16,9 @@ work at gate level 2).
   * `jobs.live` equals the job table's live slots, `jobs.slots` its size;
     `jobs.moving` the live jobs at gate level 2 in the hybrid mode, and is
     absent in the dense mode.
+  * `scatter.pull` reads 0 on each CPU substep, bounded or sparse; on the
+    card 1 on each bounded substep and 0 on a sparse one (marked `cuda`),
+    each `mpm.scatter` under its `mpm.substep`.
   * Under torch.profiler the spans start where their `user_annotation`
     events do (trace `ts` + `baseTimeNanoseconds / 1e3`): nine in ten within
     50 us, the median within 20 us.
@@ -170,6 +173,55 @@ def test_job_counters(cell):
     else:
         # The dense mode (mesh scenes) has no in-kernel moving work.
         assert "jobs.moving" not in session["counters"]
+
+
+def _scatter_session(data, substeps):
+    """A traced frame's session; every `mpm.scatter` under an `mpm.substep`."""
+    _frame(data, substeps, on=True)
+    (session,) = tracing.collect()
+    spans = session["spans"]
+    subs = {s["id"] for s in spans if s["name"] == "mpm.substep"}
+    scatters = [s for s in spans if s["name"] == "mpm.scatter"]
+    assert len(subs) == len(scatters) == substeps
+    assert {s["parent"] for s in scatters} == subs
+    return session, scatters
+
+
+def _sparse_box(device):
+    from wgsparkl_tpu_torch import scenes
+
+    return scenes.sand_box_3d(nxz=6, ny=6, device=device, sparse=True)
+
+
+@pytest.mark.parametrize("cell", SCENES + ("sparse",))
+def test_scatter_pull_counter_off_the_card(cell):
+    """`scatter.pull` reads 0 on each CPU substep (bounded or sparse): the
+    CPU scatter adds into zeros."""
+    if cell == "sparse":
+        data, substeps = _sparse_box("cpu"), 2
+    else:
+        data, substeps = _data(cell)
+    session, _ = _scatter_session(data, substeps)
+    assert session["counters"]["scatter.pull"] == [0] * substeps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", SCENES + ("sparse",))
+def test_card_scatter_pull_counter(cell):
+    """On the card a bounded substep's scatter is the pull kernel (1 each
+    substep, device markers on its span); the sparse slot scatter is not
+    (0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if cell == "sparse":
+        data, substeps = _sparse_box("cuda"), 2
+    else:
+        _, cfg, traffic, _ = moving_files(cell) if cell == HYBRID else small_files(cell)
+        inputs = scene.make(cfg, traffic, SEED)
+        data, substeps = program.build(inputs, "cuda"), inputs.substeps
+    session, scatters = _scatter_session(data, substeps)
+    assert session["counters"]["scatter.pull"] == [int(cell != "sparse")] * substeps
+    assert all(s["device_ms"] is not None for s in scatters)
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -61,11 +61,18 @@ def test_sort_jobs_and_tiles_match_jax(scene):
     jbody = torch.maximum(jbody, torch.where(gate, 2, 0).to(torch.int32))
     np.testing.assert_array_equal(jbody.numpy(), d["jbody"])
 
-    # Scatter of the P2G tiles (index_add_) and the gather of grid rows.
+    # Scatter of the P2G tiles (index_add_) and the gather of grid rows;
+    # the card's pull (its plain version) adds in the same order.
     gmm = torch.zeros((nb_total + 1, 16 * by, 4))
     bk.scatter_tiles(gmm, H.to_torch(d["mm"]), src)
     ref = d["grid_mm"].reshape(nb_total + 1, 16 * by, 4)
     np.testing.assert_allclose(gmm.numpy()[..., 3], ref[..., 3], rtol=1e-6,
+                               atol=1e-3)
+    pull = bk.scatter_tiles_pull_plain(torch.full_like(gmm, float("nan")),
+                                       H.to_torch(d["mm"]), jobs["block"],
+                                       jobs["cum"], nb, by)
+    np.testing.assert_array_equal(pull.numpy(), gmm.numpy())
+    np.testing.assert_allclose(pull.numpy()[..., 3], ref[..., 3], rtol=1e-6,
                                atol=1e-3)
     ftiles = bk.gather_tiles(H.to_torch(ref.copy()), src, wpad, 4)
     np.testing.assert_array_equal(ftiles.numpy(), d["ftiles"])

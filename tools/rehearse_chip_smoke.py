@@ -63,6 +63,7 @@ from wgsparkl_tpu_torch import _cuda, pipeline  # noqa: E402
 from wgsparkl_tpu_torch.collision import cdf  # noqa: E402
 from wgsparkl_tpu_torch.math import probe  # noqa: E402
 from wgsparkl_tpu_torch.ops import ablation, compact, rigid_cdf, transfer  # noqa: E402
+from wgsparkl_tpu_torch.ops import blocked as bk  # noqa: E402
 from wgsparkl_tpu_torch.ops import update_rows as upd  # noqa: E402
 
 _cuda.build = lambda names: None
@@ -93,6 +94,18 @@ for m, n in ((cdf, "dense_pcdf"), (transfer, "dense_p2g"), (transfer, "dense_g2p
     counted(m, n)
     setattr(pipeline, n, getattr(m, n))
 counted(compact, "compact_flagged")
+# The CPU's window scatter stays add_rows; count a scatter_pull launch
+# where the card's bounded grid would run one (not under plain_versions).
+_scatter = pipeline._scatter
+
+
+def _scatter_counted(mm, ph, cfg):
+    if not cfg.sparse and hasattr(bk.scatter_tiles_pull, "launches"):
+        bk.scatter_tiles_pull.launches += 1
+    return _scatter(mm, ph, cfg)
+
+
+pipeline._scatter = _scatter_counted
 counted(rigid_cdf, "mesh_node_cdf")
 counted(rigid_cdf, "mesh_node_cdf_sparse")
 counted(probe, "math_probe")

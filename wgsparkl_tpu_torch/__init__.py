@@ -39,12 +39,13 @@ def kernel_wrappers():
     (A-E), the collider-free P2G (F), the 2D path's three (G-I), the dim=2
     entry of kernel C, the rigid solve (body contacts and joints), the
     mesh node-CDF pass (bounded and sparse entries), the dense transfer's
-    particle CDF, P2G and G2P (either dimension), the in-kernel math probe
-    and the P2G ablation probe."""
+    particle CDF, P2G and G2P (either dimension), the in-kernel math probe,
+    the P2G ablation probe and the window scatter's pull."""
     from wgsparkl_tpu_torch.collision.cdf import dense_pcdf
     from wgsparkl_tpu_torch.math.probe import math_probe
     from wgsparkl_tpu_torch.ops import transfer2d
     from wgsparkl_tpu_torch.ops.ablation import p2g_ablation
+    from wgsparkl_tpu_torch.ops.blocked import scatter_tiles_pull
     from wgsparkl_tpu_torch.ops.compact import compact_flagged
     from wgsparkl_tpu_torch.ops.g2p import g2p_rows
     from wgsparkl_tpu_torch.ops.p2g import p2g_tiles
@@ -74,6 +75,7 @@ def kernel_wrappers():
         "dense_g2p": dense_g2p,
         "math_probe": math_probe,
         "p2g_ablation": p2g_ablation,
+        "scatter_pull": scatter_tiles_pull,
     }
 
 

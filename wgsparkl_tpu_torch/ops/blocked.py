@@ -20,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from wgsparkl_tpu_torch import _cuda
 from wgsparkl_tpu_torch.grid import GridConfig
 from wgsparkl_tpu_torch.math import div
 from wgsparkl_tpu_torch.ops.kernel import axis_weights
@@ -138,7 +139,9 @@ def build_jobs(sorted_ids, nb_total: int, group: int, max_jobs: int):
     """Job table from sorted block ids: dict of [max_jobs] int32 tensors
     block (flat id; NB for dead jobs), start (first sorted rank), len
     (<= group; 0 for dead jobs), plus needed (0-d: jobs the substep asked
-    for; > max_jobs means the tail was dropped)."""
+    for; > max_jobs means the tail was dropped) and cum ([NB] int32, the
+    inclusive sum of jobs per block: block s owns the slots [cum[s - 1],
+    min(cum[s], max_jobs)))."""
     from wgsparkl_tpu_torch.ops.compact import compact_flagged
 
     dev = sorted_ids.device
@@ -179,6 +182,7 @@ def build_jobs(sorted_ids, nb_total: int, group: int, max_jobs: int):
         "start": start.to(torch.int32),
         "len": length.to(torch.int32),
         "needed": total_jobs,
+        "cum": cum_jobs,
     }
 
 
@@ -348,6 +352,103 @@ def scatter_tiles(grid_blocks, tiles, src):
     add_rows(grid_blocks.reshape(-1, c), src.reshape(-1),
              tiles[:, :wvol, :c].reshape(-1, c))
     return grid_blocks
+
+
+def _octant_order(nb: Tuple[int, ...]):
+    """The {0,1}^d octants in ascending source block id of a destination
+    block (descending flat offset); the ties lie off the grid."""
+    st = storage_strides(nb)
+    return sorted(np.ndindex(*((2,) * len(nb))),
+                  key=lambda e: -sum(e[a] * st[a] for a in range(len(nb))))
+
+
+def scatter_tiles_pull_plain(grid_blocks, tiles, block, cum, nb, by: int):
+    """Kernel scatter_pull's plain version: grid_blocks [NB + 1, bsd, C]
+    written row by row from the window tiles [J, wpad, >= C] of the job
+    table's block [J] and cum [NB] (inclusive jobs per block; slots past J
+    dropped), each node's tiles summed from +0.0 in the order an
+    accumulating scatter of every slot (add_rows) adds them.  Grid block
+    B's node c: the octants e of the sources B - e on the grid in ascending
+    source id, each source's jobs in slot order, where e * bsh + c is in
+    the window.  The ghost NB: the live jobs in slot order, each one's
+    octants that leave the grid in octant order; dead slots' tiles (+0.0)
+    change no such sum and are skipped."""
+    nb = tuple(int(n) for n in nb)
+    d, dev, c = len(nb), grid_blocks.device, grid_blocks.shape[-1]
+    bsh, wsh = np.asarray(block_shape(d, by)), np.asarray(window_shape(d, by))
+    nbt, maxj = int(np.prod(nb)), tiles.shape[0]
+    cells = np.asarray(list(np.ndindex(*bsh)))                        # [bsd, d]
+    wst = np.asarray([int(np.prod(wsh[a + 1:])) for a in range(d)])
+
+    def window_rows(e):
+        pos = cells + np.asarray(e) * bsh
+        inwin = (pos < wsh).all(-1)
+        return (torch.as_tensor(np.where(inwin, pos @ wst, 0), device=dev),
+                torch.as_tensor(inwin, device=dev))
+
+    acc = torch.zeros((nbt + 1, cells.shape[0], c), dtype=torch.float32, device=dev)
+    hi_all = torch.clamp(cum.to(torch.int64), max=maxj)
+    lo_all = torch.cat([hi_all.new_zeros(1), hi_all[:-1]])
+    coords = block_coords_of(torch.arange(nbt, device=dev), nb)
+    st = storage_strides(nb)
+    for e in _octant_order(nb):
+        on = (coords >= torch.as_tensor(e, device=dev)).all(-1)
+        s = torch.where(on, torch.arange(nbt, device=dev)
+                        - sum(e[a] * st[a] for a in range(d)), 0)
+        lo = torch.where(on, lo_all[s], 0)
+        hi = torch.where(on, hi_all[s], 0)
+        w, inwin = window_rows(e)
+        for r in range(int((hi - lo).max())):
+            j = lo + r
+            v = tiles[torch.clamp(j, max=maxj - 1)][:, w, :c]
+            keep = (j < hi)[:, None, None] & inwin[None, :, None]
+            acc[:nbt] += torch.where(keep, v, 0.0)
+    nlive = int(hi_all[-1])
+    last = torch.as_tensor(nb, device=dev) - 1
+    top = block_coords_of(block[:nlive].to(torch.int64), nb) == last     # [L, d]
+    octs = list(np.ndindex(*((2,) * d)))
+    leaves = torch.stack([(top & torch.as_tensor(e, device=dev).bool()).any(-1)
+                          for e in octs], -1)                          # [L, 2^d]
+    tabs = [window_rows(e) for e in octs]
+    for j, o in torch.nonzero(leaves).tolist():
+        w, inwin = tabs[o]
+        acc[nbt] += torch.where(inwin[:, None], tiles[j, w, :c], 0.0)
+    grid_blocks.copy_(acc)
+    return grid_blocks
+
+
+def scatter_tiles_pull(grid_blocks, tiles, block, cum, nb, by: int):
+    """The window scatter as a pull (kernel scatter_pull, csrc/
+    scatter_pull.cu): the grid's momentum and mass rows grid_blocks [NB +
+    1, bsd, d + 1] written row by row, bit-equal to add_rows of every slot
+    into zeros; see scatter_tiles_pull_plain, which CPU tensors take.
+    tiles [J, wpad, T] f32 with T a multiple of 4; block [J], cum [NB]
+    int32 (build_jobs'); blocks of at most 128 nodes (by <= 8 in 3D)."""
+    if grid_blocks.device.type == "cpu":
+        return scatter_tiles_pull_plain(grid_blocks, tiles, block, cum, nb, by)
+    from wgsparkl_tpu_torch.ops.rows import check_kernel_args
+
+    nb = tuple(int(n) for n in nb)
+    d = len(nb)
+    bsd = int(np.prod(block_shape(d, by)))
+    nbt = int(np.prod(nb))
+    maxj, wpad, tch = tiles.shape
+    if (grid_blocks.shape != (nbt + 1, bsd, d + 1) or tch % 4
+            or wpad < int(np.prod(window_shape(d, by))) or bsd > 128
+            or block.shape != (maxj,) or cum.shape != (nbt,)
+            or grid_blocks.dtype != torch.float32 or tiles.dtype != torch.float32
+            or block.dtype != torch.int32 or cum.dtype != torch.int32):
+        raise ValueError("scatter_tiles_pull: f32 grid [NB + 1, bsd <= 128, d + 1], "
+                         "f32 tiles [J, >= wvol, 4k], int32 block [J] and cum [NB]")
+    check_kernel_args(grid_blocks, tiles, block, cum)
+    _cuda.launch("scatter_pull", "scatter_pull_cuda", "ppppiiiiiiii", tiles, block,
+                 cum, grid_blocks, d, nb[0], nb[1], nb[2] if d == 3 else 1, by, maxj,
+                 wpad, tch)
+    scatter_tiles_pull.launches += 1
+    return grid_blocks
+
+
+scatter_tiles_pull.launches = 0
 
 
 @functools.lru_cache(maxsize=None)

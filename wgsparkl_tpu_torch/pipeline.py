@@ -769,7 +769,7 @@ def _job_phase(rows_all, cfg: MpmConfig, n: int, diag: StepDiag, comm=None):
         block = bk.key_to_block(jobs["block"], nb, dim)
         bcells = bk.block_origin_cells(block, nb, by, grid.origin_cell)
         grid_rows, src = live_below, bk.window_sources(block, nb, by)
-        out.update(nb_total=live_below)
+        out.update(nb_total=live_below, cum=jobs["cum"])
         where = {"block": block}
     diag.job_overflow = torch.maximum(diag.job_overflow,
                                       (jobs["needed"] - cfg.max_jobs).to(torch.int32))
@@ -882,6 +882,32 @@ def _cdf_phase_3d(bodies, cfg: MpmConfig, static_chan, src, bcells, grid_rows,
     return ntiles, jbody, static_desc, moving
 
 
+def _scatter(mm, ph, cfg: MpmConfig):
+    """The window scatter of the P2G tiles mm into a fresh grid [grid_rows +
+    1, bsd, d + 1] (momentum, mass).  On the card a bounded grid's pull
+    kernel writes every row (no zero fill; counter "scatter.pull" 1); the
+    CPU and the sparse slot scatter add into zeros (add_rows), and the slot
+    scatter's ghost is zeroed after (it drops the tiles aimed there: dead
+    jobs, and octants missing from an overflowed table)."""
+    dev = mm.device
+    cuda = dev.type == "cuda"
+    pull = cuda and not cfg.sparse
+    tracing.count("scatter.pull", int(pull))
+    dim = cfg.grid.dim
+    shape = (ph["grid_rows"] + 1, int(np.prod(bk.block_shape(dim, cfg.by))), dim + 1)
+    grid_mm = (torch.empty if pull else torch.zeros)(shape, dtype=torch.float32,
+                                                     device=dev)
+    with tracing.span("mpm.scatter", device=cuda):
+        if pull:
+            bk.scatter_tiles_pull(grid_mm, mm, ph["jobs"]["block"], ph["cum"],
+                                  bk.num_blocks(cfg.grid, cfg.by), cfg.by)
+        else:
+            bk.scatter_tiles(grid_mm, mm, ph["src"])
+        if cfg.sparse:
+            grid_mm[ph["grid_rows"]].zero_()
+    return grid_mm
+
+
 def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
              mtable, diag: StepDiag, record: Optional[dict] = None,
              static_cdf=None, meshes=None, comm=None):
@@ -935,14 +961,7 @@ def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
         with tracing.span("mpm.p2g"):
             mm, imp = p2g_tiles(pdata, ntiles, btable, jobs, bcells, jbody, h, by,
                                 nc)
-    grid_mm = torch.zeros((grid_rows + 1, 16 * by, 4), dtype=torch.float32,
-                          device=dev)
-    with tracing.span("mpm.scatter", device=cuda):
-        bk.scatter_tiles(grid_mm, mm, src)
-        if cfg.sparse:
-            # The slot scatter drops tiles aimed at the ghost (dead jobs, and
-            # octants missing from an overflowed table): the ghost reads zero.
-            grid_mm[grid_rows].zero_()
+    grid_mm = _scatter(mm, ph, cfg)
     lin_imp = imp[0, 0:3, :bodies.count].T
     ang_imp = imp[0, 3:6, :bodies.count].T
     if comm is not None:
@@ -1033,9 +1052,7 @@ def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
     with tracing.span("mpm.p2g"):
         mm, imp = p2g_tiles2d(pdata, ntiles, btable, jobs, bcells, jbody, h, nc,
                               alldesc, chan_free)
-    grid_mm = torch.zeros((nb_total + 1, 64, 3), dtype=torch.float32, device=dev)
-    with tracing.span("mpm.scatter", device=cuda):
-        bk.scatter_tiles(grid_mm, mm, src)
+    grid_mm = _scatter(mm, ph, cfg)
     # The jobs' impulses in one fixed-order reduction (_split_impulses).
     imp_sum = imp.sum(0)
     lin_imp = imp_sum[0:2, :bodies.count].T
