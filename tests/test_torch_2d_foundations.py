@@ -31,7 +31,6 @@ from wgsparkl_tpu_torch.ops import rows2d as R2
 from wgsparkl_tpu_torch.parallel import spatial_config
 from wgsparkl_tpu_torch.rigid import body as body_mod
 
-torch.set_num_threads(2)
 
 KINDS = ("near_identity", "stretched", "inverted", "rank_deficient")
 

@@ -16,7 +16,6 @@ from wgsparkl_tpu_torch.ops.transfer2d import g2p_rows, p2g_tiles, pcdf_rows
 from wgsparkl_tpu_torch.ops.update_rows import update_rows2d
 from wgsparkl_tpu_torch.pipeline import _jbody_gate
 
-torch.set_num_threads(2)
 
 CASES = [(s, p) for s in H.SCENES_2D for p in H.SHIFTS_2D]
 

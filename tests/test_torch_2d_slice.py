@@ -5,14 +5,12 @@ elastic lattice between tilted walls."""
 
 import jax
 import pytest
-import torch
 
 import torch_port_helpers as H
 from wgsparkl_tpu.pipeline import step_pallas as j_step
 from wgsparkl_tpu_torch import interop
 from wgsparkl_tpu_torch.pipeline import step_with_diag
 
-torch.set_num_threads(2)
 SUBSTEPS = 10
 _j_step = jax.jit(j_step, static_argnums=(2, 3))
 

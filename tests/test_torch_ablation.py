@@ -18,7 +18,6 @@ from wgsparkl_tpu.ops import pallas_transfer as ptf
 from wgsparkl_tpu_torch.ops import ablation
 from wgsparkl_tpu_torch.ops import rows as R
 
-torch.set_num_threads(2)
 
 _TOOL = pathlib.Path(__file__).resolve().parent.parent / "tools" / "ablate_kernels.py"
 

@@ -10,13 +10,11 @@ import functools
 
 import numpy as np
 import pytest
-import torch
 
 import torch_port_helpers as H
 from wgsparkl_tpu_torch.ops.g2p import g2p_rows
 from wgsparkl_tpu_torch.ops.p2g_cdf import p2g_cdf_tiles
 
-torch.set_num_threads(2)
 
 MODES = {"gathered": False, "chan_free": True}
 CASES = [(m, s) for m in sorted(MODES) for s in sorted(H.SHIFTS_SHAPES)]

@@ -14,7 +14,6 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
-import torch
 from test_blocked import _scene_3d
 
 from wgsparkl_tpu import scenes as jscenes
@@ -22,7 +21,6 @@ from wgsparkl_tpu.pipeline import substep_blocked
 from wgsparkl_tpu_torch import interop
 from wgsparkl_tpu_torch.pipeline import step, step_with_diag
 
-torch.set_num_threads(2)
 _substep = jax.jit(substep_blocked, static_argnums=2)
 
 

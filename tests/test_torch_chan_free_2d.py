@@ -26,7 +26,6 @@ from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.ops.transfer2d import g2p_rows, p2g_tiles, pcdf_rows
 from wgsparkl_tpu_torch.pipeline import step_pallas, step_with_diag
 
-torch.set_num_threads(2)
 SUBSTEPS = 5
 _j_step = jax.jit(j_step, static_argnums=(2, 3))
 

@@ -23,8 +23,6 @@ from wgsparkl_tpu_torch.pipeline import (
     build_rigid_world, rigid_bodies_update, step_pallas,
 )
 
-torch.set_num_threads(2)
-
 
 def _jax_p2g(pdata, itiles, btable, start, length, bcells, cfg, jbody):
     mm, imp = ptf.p2g_tiles(

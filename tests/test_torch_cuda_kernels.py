@@ -33,7 +33,6 @@ from wgsparkl_tpu_torch.ops import rows2d as R2
 from wgsparkl_tpu_torch.pipeline import MpmData, step_pallas
 
 pytestmark = pytest.mark.cuda
-torch.set_num_threads(2)
 
 
 @pytest.fixture(scope="module")

@@ -8,7 +8,6 @@ for bit."""
 
 import jax.numpy as jnp
 import numpy as np
-import torch
 
 import torch_port_helpers as H
 from wgsparkl_tpu.collision.shapes import Collider
@@ -17,8 +16,6 @@ from wgsparkl_tpu.params import SimulationParams
 from wgsparkl_tpu.pipeline import MpmData, RigidBodyDesc
 from wgsparkl_tpu.scenes import _lattice
 from wgsparkl_tpu.solver import Models, Particles
-
-torch.set_num_threads(2)
 
 
 def _dam_break(nf=8, ne=6, h=1.0):

@@ -48,10 +48,9 @@ from wgsparkl_tpu_torch.ops.update_rows import _rigid_velocity
 from wgsparkl_tpu_torch.parallel import spatial_config
 from wgsparkl_tpu_torch.params import SimulationParams
 from wgsparkl_tpu_torch.pipeline import (MpmData, RigidBodyDesc, _body_table,
-                                         _body_table_2d, pallas_npad, step)
+                                         pallas_npad, step)
 from wgsparkl_tpu_torch.solver import Models, Particles, attach_material_table
 
-torch.set_num_threads(2)
 _substep = jax.jit(substep, static_argnums=2)
 
 
@@ -320,7 +319,7 @@ def test_particle_cdf_and_transfers_match_jax(dim):
     pcdf = tcdf.dense_pcdf(rows, n, tdist, taff, grid, nc)
     assert torch.equal(R.aff_from_halves(pcdf[0, :n], pcdf[2 + dim, :n]), out["affinity"])
     tparams = interop.params_from_reference(params, "cpu")
-    btable = (_body_table if dim == 3 else _body_table_2d)(st.bodies, tparams, grid)
+    btable = _body_table(st.bodies, tparams, grid)
     mm, tlin, tang = ttr.dense_p2g(rows, pcdf, n, None, taff, tclosest, btable, grid,
                                    nc, st.bodies.count)
     jmm = np.concatenate([np.asarray(gm), np.asarray(gmass)[:, None]], 1)

@@ -21,7 +21,6 @@ update amplifies its roundoff little over 10 substeps)."""
 
 import jax
 import numpy as np
-import torch
 
 import chip_smoke
 import torch_port_helpers as H
@@ -36,7 +35,6 @@ from wgsparkl_tpu.solver import Models, Particles
 from wgsparkl_tpu_torch import interop
 from wgsparkl_tpu_torch.pipeline import step_pallas
 
-torch.set_num_threads(2)
 
 _j_step = jax.jit(j_step, static_argnums=(2, 3))
 N_SIDE = 48

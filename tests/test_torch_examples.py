@@ -23,7 +23,6 @@ import torch
 
 from wgsparkl_tpu_torch import interop
 
-torch.set_num_threads(2)
 
 EXAMPLES = pathlib.Path(__file__).resolve().parent.parent / "examples"
 NAMES = ("sand2", "sand3", "elasticity2", "elastic_cut2", "elastic_cut3",

@@ -26,7 +26,6 @@ from wgsparkl_tpu_torch.ops.g2p import g2p_rows
 from wgsparkl_tpu_torch.ops.transfer2d import g2p_rows as g2p_rows2d
 from wgsparkl_tpu_torch.pipeline import step_pallas, step_with_diag
 
-torch.set_num_threads(2)
 _j_step = jax.jit(j_step, static_argnums=(2, 3))
 
 

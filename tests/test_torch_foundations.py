@@ -30,8 +30,6 @@ from wgsparkl_tpu_torch.pipeline import build_rigid_world
 from wgsparkl_tpu_torch.rigid import body as body_mod
 from wgsparkl_tpu_torch.solver import Models, Particles, attach_material_table
 
-torch.set_num_threads(2)
-
 
 def _fs(seed, n=512):
     """Deformation gradients: near identity, stretched, inverted and

@@ -110,7 +110,6 @@ def _data(cell, device):
     """The small cell's scene on device and its substeps a frame (on the
     CPU, CPU_SUBSTEPS)."""
     _, cfg, traffic, _ = moving_files(cell) if cell == "paddle3" else small_files(cell)
-    torch.set_num_threads(4)
     inputs = scene.make(cfg, traffic, SEED)
     return (program.build(inputs, device),
             inputs.substeps if device != "cpu" else CPU_SUBSTEPS)
@@ -189,7 +188,8 @@ def test_replay_hoists_the_walls_it_is_given(fake_graphs):
     data, substeps = _data("paddle3", "cpu")
     assert data.config.static_slots
     _frame(data, data.state, substeps)
-    chan, _ = pipeline._hoist(data.state.bodies, data.config)
+    chan, _ = pipeline._hoist(data.state.bodies, data.config,
+                              pipeline._cdf_plan(data.config, True))
     (entry,) = pipeline._graphs.values()
     assert not [t for t in entry.inputs if t.shape == chan.shape]
     bodies = data.state.bodies

@@ -26,7 +26,6 @@ from wgsparkl_tpu_torch.ops import blocked as bk
 from wgsparkl_tpu_torch.ops import rows2d as R2
 from wgsparkl_tpu_torch.ops.transfer2d import g2p_plain
 
-torch.set_num_threads(2)
 
 # Scenes with both gate levels among their live jobs.
 CASES = [("sand_column", "in_floor"), ("elastic_blocks", "as_built")]

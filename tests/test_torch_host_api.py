@@ -29,8 +29,6 @@ from wgsparkl_tpu_torch import solver as ts
 from wgsparkl_tpu_torch.models.elasticity import elastic_arrays
 from wgsparkl_tpu_torch.pipeline import MpmPipeline, step
 
-torch.set_num_threads(2)
-
 
 def _host_particles(mod, dim, n=40, seed=0):
     """n Particle objects of `mod` (either package's solver) made from a

@@ -24,7 +24,6 @@ from wgsparkl_tpu_torch.ops.p2g import p2g_plain
 from wgsparkl_tpu_torch.ops.p2g_cdf import p2g_cdf_plain
 from wgsparkl_tpu_torch.ops.particle_update import _fracture_3d
 
-torch.set_num_threads(2)
 
 N = 4000
 

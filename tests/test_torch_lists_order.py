@@ -25,8 +25,6 @@ import torch
 from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.ops import rows2d as R2
 
-torch.set_num_threads(2)
-
 
 def _brute_force_order(lens, chunk, noff):
     """(particle, offset) pairs, row-major indices, in the lists order:

@@ -38,7 +38,6 @@ from wgsparkl_tpu_torch.params import SimulationParams
 from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc, step
 from wgsparkl_tpu_torch.solver import Models, Particles
 
-torch.set_num_threads(2)
 _jstep = jax.jit(jstep, static_argnums=(2, 3))
 SUBSTEPS = 3
 TOL = 1e-6

@@ -22,13 +22,10 @@ The dam break (mixed fluid and elastic models): tests/test_torch_dam_break.py.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 import torch_port_helpers as H
 from wgsparkl_tpu import scenes as jscenes
 from wgsparkl_tpu.pipeline import MpmData
-
-torch.set_num_threads(2)
 
 
 def _by_id(state):

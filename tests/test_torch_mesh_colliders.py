@@ -15,7 +15,6 @@ import types
 
 import numpy as np
 import pytest
-import torch
 
 import torch_mesh_scenes as M
 from wgsparkl_tpu.ops import rigid_cdf as jrc
@@ -27,7 +26,6 @@ from wgsparkl_tpu_torch import pipeline as tp
 from wgsparkl_tpu_torch.ops import rigid_cdf as trc
 from wgsparkl_tpu_torch.rigid import body as tbody
 
-torch.set_num_threads(2)
 
 PASS_SCENES = {
     "3d_by4": M.ramp,

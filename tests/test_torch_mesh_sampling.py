@@ -24,8 +24,6 @@ from wgsparkl_tpu_torch.ops.p2g_cdf import collider_words
 from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc, step_pallas
 from wgsparkl_tpu_torch.rigid import sampling as tsampling
 
-torch.set_num_threads(2)
-
 
 def _heightfield():
     """examples/heightfield3.py's field at its smallest size (16 x 16)."""

@@ -17,11 +17,8 @@ only; the most such particles in a substep is printed (ROADMAP queue
 
 import numpy as np
 import pytest
-import torch
 
 import torch_mesh_scenes as M
-
-torch.set_num_threads(2)
 
 
 @pytest.mark.parametrize("scene,substeps", [("ramp_by4", 12), ("ramp_by8", 12),

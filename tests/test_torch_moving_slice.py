@@ -7,14 +7,12 @@ colliders' every substep).  The 3D scene starts in contact, so each of its
 substeps starts both packages from the JAX state; the 2D one runs free."""
 
 import jax
-import torch
 
 import torch_port_helpers as H
 from wgsparkl_tpu.pipeline import step_pallas as j_step
 from wgsparkl_tpu_torch import interop
 from wgsparkl_tpu_torch.pipeline import step_pallas
 
-torch.set_num_threads(2)
 
 _j_step = jax.jit(j_step, static_argnums=(2, 3))
 

@@ -28,7 +28,6 @@ from wgsparkl_tpu_torch.ops import rows2d as R2
 from wgsparkl_tpu_torch.ops.update_rows import update_plain, update2d_plain
 from wgsparkl_tpu_torch.pipeline import step_with_diag
 
-torch.set_num_threads(2)
 SUBSTEPS = 10
 _j_step = jax.jit(j_step, static_argnums=(2, 3))
 

@@ -16,7 +16,6 @@ from wgsparkl_tpu_torch.params import SimulationParams
 from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc, step_pallas
 from wgsparkl_tpu_torch.solver import Models, Particles
 
-torch.set_num_threads(2)
 
 DT = 1e-3
 STEPS = 12

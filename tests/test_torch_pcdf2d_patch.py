@@ -1,5 +1,5 @@
 """Kernel G's in-place patch of the sorted particle rows (ops/transfer2d.py
-`pcdf_rows` / `pcdf_plain`, and pipeline._substep_2d, which hands G its
+`pcdf_rows` / `pcdf_plain`, and pipeline._substep, which in 2D hands G its
 fresh sorted rows), on the CPU through the plain version, in the
 gathered, dense (moving collider) and chan-free 2D modes:
 
@@ -37,7 +37,6 @@ from wgsparkl_tpu_torch.ops import rows2d as R2
 from wgsparkl_tpu_torch.ops import transfer2d
 from wgsparkl_tpu_torch.pipeline import MpmData, RigidBodyDesc, step_pallas
 
-torch.set_num_threads(2)
 
 MODES = ("gathered", "dense", "chan_free")
 PATCHED = [R2.AFF, R2.NX, R2.NY, R2.AFF_SPARE]

@@ -14,8 +14,6 @@ from wgsparkl_tpu_torch.ops import blocked as bk
 from wgsparkl_tpu_torch.ops.compact import compact_flagged, compact_plain
 from wgsparkl_tpu_torch.ops.permute import permute_lanes
 
-torch.set_num_threads(2)
-
 
 def _perm(rng, npad, kind):
     if kind == "random":

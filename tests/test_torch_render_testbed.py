@@ -23,8 +23,6 @@ from wgsparkl_tpu_torch.pipeline import step
 from wgsparkl_tpu_torch.solver import Particles
 from torch_port_helpers import port_bodies, to_torch
 
-torch.set_num_threads(2)
-
 
 def test_render_modes_and_ply(tmp_path):
     data = scenes.sand_box_3d(nxz=4, ny=8, cell_width=1.0, device="cpu")

@@ -15,7 +15,6 @@ import torch_rigid_scenes as R
 from wgsparkl_tpu_torch.collision.shapes import Collider
 from wgsparkl_tpu_torch.pipeline import COUPLING_ONE_WAY, COUPLING_TWO_WAY, RigidBodyDesc
 
-torch.set_num_threads(1)
 DT, H = 1 / 240, 0.5
 
 

@@ -12,8 +12,6 @@ from wgsparkl_tpu_torch.collision.shapes import Collider
 from wgsparkl_tpu_torch.math import pose
 from wgsparkl_tpu_torch.pipeline import RigidBodyDesc
 
-torch.set_num_threads(1)
-
 
 def test_dynamic_chain_stays_connected():
     run, b, joints = R.rig([R.PORT_ANCHOR,
@@ -29,8 +27,6 @@ def test_dynamic_chain_stays_connected():
     assert float(b.pos[2, 1]) < float(b.pos[1, 1])
 
 
-
-
 def test_fixed_joint_welds():
     run, b, (j,) = R.rig([R.PORT_ANCHOR, RigidBodyDesc(Collider.cuboid(0.1, 1.0, 0.1),
                                                (1.0, 9.0, 0.0), body_type="dynamic")],
@@ -38,8 +34,6 @@ def test_fixed_joint_welds():
     b = run(b, 2000)
     assert abs(float(b.pos[1, 0]) - 1.0) < 0.15
     assert float(b.rot[1, 1:].abs().max()) < 0.1 and R.anchor_gap(b, j) < 0.08
-
-
 
 
 def test_2d_pendulum_chain_and_weld():

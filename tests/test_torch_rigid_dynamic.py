@@ -27,7 +27,6 @@ from wgsparkl_tpu_torch import pipeline as P
 from wgsparkl_tpu_torch.collision import shapes as tshp
 from wgsparkl_tpu_torch.rigid import body as tbody
 
-torch.set_num_threads(2)
 
 D = "dynamic"
 

@@ -19,8 +19,6 @@ import torch_rigid_scenes as R
 from wgsparkl_tpu_torch.collision.shapes import Collider
 from wgsparkl_tpu_torch.pipeline import RigidBodyDesc
 
-torch.set_num_threads(1)
-
 
 @pytest.mark.parametrize("name", R.JOINT_SCENES)
 def test_joint_update_matches_jax(name):

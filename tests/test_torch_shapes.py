@@ -26,7 +26,6 @@ from wgsparkl_tpu_torch.collision import shapes as shp
 from wgsparkl_tpu_torch.pipeline import _moving_reach_gate, step_pallas
 from wgsparkl_tpu_torch.rigid.body import RigidWorld
 
-torch.set_num_threads(2)
 
 SHAPES = {"cuboid": shp.SHAPE_CUBOID, "ball": shp.SHAPE_BALL,
           "capsule": shp.SHAPE_CAPSULE, "halfspace": shp.SHAPE_HALFSPACE}

@@ -3,14 +3,12 @@ the spinning paddle, by=8) against the JAX package's step_pallas, started
 from the same state through interop, over 10 substeps."""
 
 import jax
-import torch
 
 import torch_port_helpers as H
 from wgsparkl_tpu.pipeline import step_pallas as j_step
 from wgsparkl_tpu_torch import interop
 from wgsparkl_tpu_torch.pipeline import step_with_diag
 
-torch.set_num_threads(2)
 
 SUBSTEPS = 10
 _j_step = jax.jit(j_step, static_argnums=(2, 3))

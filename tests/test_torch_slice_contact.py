@@ -7,14 +7,12 @@ substep, 8e-4 after 10 free-running substeps)."""
 
 import jax
 import numpy as np
-import torch
 
 import torch_port_helpers as H
 from wgsparkl_tpu.pipeline import step_pallas as j_step
 from wgsparkl_tpu_torch import interop
 from wgsparkl_tpu_torch.pipeline import step_pallas
 
-torch.set_num_threads(2)
 
 _j_step = jax.jit(j_step, static_argnums=(2, 3))
 

@@ -8,13 +8,10 @@ affinity words exact, body poses 1e-6); the port's own bounded run of the
 scene agrees with its sparse run likewise (the JAX test's comparison)."""
 
 import numpy as np
-import torch
 
 import torch_mesh_scenes as M
 from wgsparkl_tpu_torch import interop
 from wgsparkl_tpu_torch.pipeline import step_pallas
-
-torch.set_num_threads(2)
 
 
 def test_sparse_ramp_matches_jax():

@@ -27,7 +27,6 @@ from wgsparkl_tpu_torch import pipeline as tp
 from wgsparkl_tpu_torch.ops import blocked as bk
 from wgsparkl_tpu_torch.ops import rigid_cdf as trc
 
-torch.set_num_threads(2)
 
 S = bk.SPARSE_SENTINEL
 

@@ -51,8 +51,6 @@ from wgsparkl_tpu_torch.ops import rigid_cdf as trc
 from wgsparkl_tpu_torch.ops import transfer as ttr
 from wgsparkl_tpu_torch.rigid import body as tbody
 
-torch.set_num_threads(2)
-
 
 def t(x):
     """A JAX array as a CPU tensor (uint32 as its int32 bit pattern)."""

@@ -36,7 +36,6 @@ from wgsparkl_tpu_torch.pipeline import (step_dense, step_pallas, substep,
                                          substep_blocked, substep_pallas)
 from wgsparkl_tpu_torch.utils import checkpoint
 
-torch.set_num_threads(2)
 CALLS = 5
 _JAX = {"pallas": jax.jit(j_substep_pallas, static_argnums=2),
         "dense": jax.jit(j_substep, static_argnums=2),

@@ -71,7 +71,6 @@ def _data(cell, transfer=None):
     if transfer is not None:
         cfg = dict(cfg, transfer=transfer)
     inputs = scene.make(cfg, traffic, SEED)
-    torch.set_num_threads(4)
     return program.build(inputs, "cpu"), inputs.substeps
 
 
@@ -261,11 +260,14 @@ def test_span_starts_match_the_profiler_trace(tmp_path, cell):
     assert gaps[len(gaps) // 2] < 20.0 and gaps[9 * len(gaps) // 10] < 50.0, gaps[-5:]
 
 
+# The one test that sets its thread count itself: this script runs in an
+# interpreter of its own, which loads no conftest.py (the repository's sets
+# one thread for every test process, six of which share eight cores).
 RUN = """
 import json, sys, torch
 from mpmbench import run
 from mpmbench.tests.bench_small import small_files
-torch.set_num_threads(4)
+torch.set_num_threads(1)
 run.PROFILED_FRAMES = 1
 cell = sys.argv[1]
 res = run.run_cell(run.load_benchmark(), cell, int(sys.argv[2]), 0.5, True, device="cpu",

@@ -18,8 +18,6 @@ from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.ops.g2p import g2p_rows
 from wgsparkl_tpu_torch.ops.p2g_cdf import p2g_cdf_tiles
 
-torch.set_num_threads(2)
-
 
 def _inputs(scene):
     data, d = H.jax_dump(H.SHIFTS[scene])

@@ -11,8 +11,6 @@ from wgsparkl_tpu_torch.ops import rows as R
 from wgsparkl_tpu_torch.ops.update_rows import update_rows
 from wgsparkl_tpu_torch.pipeline import _jbody_gate, _moving_reach_gate
 
-torch.set_num_threads(2)
-
 
 @pytest.mark.parametrize("scene", ["as_built", "on_paddle"])
 def test_sort_jobs_and_tiles_match_jax(scene):

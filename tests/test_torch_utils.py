@@ -31,8 +31,6 @@ from wgsparkl_tpu_torch.utils import checkpoint, diagnostics, profiling, timing,
 from test_torch_examples import jax_example
 from torch_port_helpers import port_bodies
 
-torch.set_num_threads(2)
-
 
 def _port(jdata, **kw):
     """The port's MpmData of a JAX scene, on its grid, with `kw` (transfer,

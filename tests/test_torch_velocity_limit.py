@@ -21,7 +21,6 @@ from wgsparkl_tpu_torch.ops.update_rows import kernel_scalars
 from wgsparkl_tpu_torch.params import SimulationParams
 from wgsparkl_tpu_torch.solver import DPS_KEYS
 
-torch.set_num_threads(2)
 
 # Speeds around the limit: three above it (one per axis direction) and one
 # below.
@@ -61,9 +60,8 @@ def _port_site(site, h, dt):
     if site in ("body_table_3d", "body_table_2d"):
         dim = grid.dim
         world = pipeline.build_rigid_world([], dim, "cpu")
-        if dim == 3:
-            return float(pipeline._body_table(world, params, grid)[24, 3])
-        return float(pipeline._body_table_2d(world, params, grid)[13, 2])
+        row = (24, 3) if dim == 3 else (13, 2)
+        return float(pipeline._body_table(world, params, grid)[row])
     if site == "grid_velocity":
         mm = torch.tensor([[1.0e9, -1.0e9, 0.0, 1.0]])
         return float(pipeline._grid_velocity(mm, params, grid)[0, 0])

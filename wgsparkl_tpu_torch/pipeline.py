@@ -24,8 +24,9 @@ One 3D substep, in order: block sort keys; stable sort and row permute
 (kernel D); job table (kernel E inside build_jobs); window gather of the
 frame-static node-CDF channels; fused particle CDF + P2G (kernel A);
 scatter to the grid; grid velocity; window gather; G2P (kernel B); fused
-particle update (kernel C); rigid-body update.  A 2D substep has the same
-phases with the particle CDF (kernel G) and P2G (kernel H) apart, G2P
+particle update (kernel C); rigid-body update.  A 2D substep runs the same
+phases in the same body (`_substep`), with the particle CDF (kernel G, in
+the CDF phase) and P2G (kernel H) apart, G2P
 kernel I and the dim=2 branch of kernel C.  A scene with no collider (the
 world then holds one inert body slot) skips every CDF phase: P2G is kernel
 F in 3D and kernel H at nc = 0 in 2D, and the other kernels run with
@@ -41,7 +42,7 @@ CPIC impulses move it (two-way coupling, or one-way per body through
 `coupling`), and the rigid update after the kernels resolves its contacts
 with the other colliders and the joints (`rigid_bodies_update`; on the card
 in one launch of the rigid-solve kernel, rigid/solve.py).  The CDF modes
-are the JAX package's:
+are the JAX package's, decided once a frame (`_cdf_plan`):
   * gathered hybrid (the default): the never-moving colliders' node-CDF
     channel grid is built once per frame and gathered per job window; in
     3D the moving colliders are merged in-kernel at the windows of jobs a
@@ -383,21 +384,14 @@ def pallas_npad(n: int, group: int) -> int:
 
 
 def _body_table(bodies: RigidWorld, params: SimulationParams, grid: GridConfig):
-    """[32, 128] body table (ops/rows.body_table's rows 0-23); row 24
-    lanes 0-2 gravity * dt, lane 3 the velocity clamp."""
+    """Body table (ops/rows.body_table: [32, 128] rows 0-23 in 3D, [16, 128]
+    rows 0-11 in 2D); row 24 in 3D, 13 in 2D: lanes 0 to d - 1 gravity * dt,
+    lane d the velocity clamp."""
+    d = grid.dim
+    row = 24 if d == 3 else 13
     bt = R.body_table(bodies)
-    bt[24, :3] = params.gravity * params.dt
-    bt[24, 3].fill_(velocity_limit(grid.cell_width, params.dt))  # no host copy
-    return bt
-
-
-def _body_table_2d(bodies: RigidWorld, params: SimulationParams,
-                   grid: GridConfig):
-    """[16, 128] 2D body table (ops/rows.body_table's rows 0-11); row 13
-    lanes 0-1 gravity * dt, lane 2 the velocity clamp."""
-    bt = R.body_table(bodies)
-    bt[13, :2] = params.gravity * params.dt
-    bt[13, 2].fill_(velocity_limit(grid.cell_width, params.dt))
+    bt[row, :d] = params.gravity * params.dt
+    bt[row, d].fill_(velocity_limit(grid.cell_width, params.dt))  # no host copy
     return bt
 
 
@@ -808,17 +802,58 @@ def _collider_free_inputs(wpad: int, jobs, npad: int, dev):
             torch.zeros((8, npad), dtype=torch.float32, device=dev))
 
 
-def _cdf_mode(cfg: MpmConfig):
-    """(static_desc, moving): the ((slot, shape), ...) of the never-moving
-    and of the moving analytic colliders, as the kernels take them in the
-    chan-free and gathered-hybrid modes; both empty in a mesh scene, which
-    runs the dense mode, and in the sparse domain outside the chan-free
-    mode, whose slot channel grid holds every collider."""
-    if cfg.mesh_cids or (cfg.sparse and not cfg.cdf_chan_free):
-        return (), ()
+@dataclasses.dataclass(frozen=True)
+class _CdfPlan:
+    """A kernel-path frame's CDF mode (`_cdf_plan`): "none" (no collider),
+    "chan_free", "gathered" (hybrid), "dense" or "sparse" (slot grid); its
+    hoist: "chan" (channel grid and node-CDF triple), "triple" or ""; the
+    kernels' chan_free flag (cfg.cdf_chan_free, also at nc = 0); the
+    ((slot, shape), ...) the kernels evaluate in-kernel, 3D static_desc and
+    moving, 2D alldesc (empty where they read only the tiles)."""
+
+    mode: str
+    hoist: str = ""
+    chan_free: bool = False
+    static_desc: tuple = ()
+    moving: tuple = ()
+    alldesc: tuple = ()
+
+
+def _cdf_plan(cfg: MpmConfig, hoist: bool) -> _CdfPlan:
+    """The CDF plan of cfg's kernel-path frames; hoist: the entry hoists the
+    static colliders (step_pallas; substep_pallas does not, as the JAX
+    package's passes no static grid to its core).  Chan-free and sparse
+    (whose nodes change with the active table) hoist nothing; the gathered
+    hybrid needs a hoist, a never-moving collider, no mesh and in 2D no
+    moving collider (the 2D kernels merge none in-kernel); else dense, the
+    static triple hoisted where there is one."""
+    dim = cfg.grid.dim
+    if not cfg.collider_types:
+        return _CdfPlan("none", chan_free=cfg.cdf_chan_free)
     desc = tuple(enumerate(cfg.collider_types))
-    return (tuple(c for c in desc if c[0] in cfg.static_slots),
-            tuple(c for c in desc if c[0] not in cfg.static_slots))
+    static = tuple(c for c in desc if c[0] in cfg.static_slots)
+    moving = tuple(c for c in desc if c[0] not in cfg.static_slots)
+    if cfg.cdf_chan_free:
+        kernels = (dict(static_desc=static, moving=moving) if dim == 3
+                   else dict(alldesc=desc))
+        return _CdfPlan("chan_free", chan_free=True, **kernels)
+    if cfg.sparse:
+        return _CdfPlan("sparse")
+    hoist = hoist and bool(static)
+    if not hoist or cfg.mesh_cids or (dim == 2 and moving):
+        return _CdfPlan("dense", "triple" if hoist else "")
+    kernels = dict(static_desc=static, moving=moving) if dim == 3 else {}
+    return _CdfPlan("gathered", "chan", **kernels)
+
+
+def _window(cfg: MpmConfig):
+    """(shape, volume, padded volume) of a job's window."""
+    return R.window_geom(cfg.by) if cfg.grid.dim == 3 else (R2.WSH, R2.WVOL, R2.WPAD)
+
+
+def _block_size(cfg: MpmConfig) -> int:
+    """Nodes of a grid block (4 x by x 4 in 3D, 8 x 8 in 2D)."""
+    return int(np.prod(bk.block_shape(cfg.grid.dim, cfg.by)))
 
 
 def _sparse_chan_grid(bodies, meshes, cfg: MpmConfig, act):
@@ -841,45 +876,41 @@ def _sparse_chan_grid(bodies, meshes, cfg: MpmConfig, act):
     return _cdf_chan_grid(*tri, cfg.amax, 64)
 
 
-def _cdf_phase_3d(bodies, cfg: MpmConfig, static_chan, src, bcells, grid_rows,
-                  static_cdf=None, meshes=None, act=None):
-    """Node tiles, per-job gate levels and the never-moving and moving
-    colliders the kernels evaluate in-kernel, for the CDF mode of cfg (see
-    the module docstring); act: the sparse domain's active table."""
-    static_desc, moving = _cdf_mode(cfg)
-    h = cfg.grid.cell_width
-    wsh, wvol, wpad = R.window_geom(cfg.by)
+def _cdf_phase(bodies, cfg: MpmConfig, plan: _CdfPlan, ph, static_chan, static_cdf,
+               meshes):
+    """Node tiles and per-job gate levels in plan's mode (ph: the job
+    phase's tables).  Chan-free: one zero tile, levels from reach tests (3D:
+    1 for a never-moving collider, 2 for a moving one; 2D: 1 for any).
+    Else tiles gathered from the frame's channel grid (gathered hybrid), the
+    active slots' (sparse) or this substep's whole-grid node CDF with
+    static_cdf merged in (dense), levels from the tiles, and in the gathered
+    hybrid level 2 where a moving collider may be in reach."""
+    dim, h = cfg.grid.dim, cfg.grid.cell_width
+    wsh, wvol, wpad = _window(cfg)
+    bcells = ph["bcells"]
     dev = bcells.device
-    if cfg.cdf_chan_free:
-        # No tiles: level 1 where a static collider may be in reach, 2
-        # where a moving one may be.
+    if plan.mode == "chan_free":
         jbody = torch.zeros(bcells.shape[0], dtype=torch.int32, device=dev)
-        if static_desc:
-            hit = _moving_reach_gate(bcells, bodies, static_desc, wsh, h)
-            jbody = torch.where(hit, 1, jbody).to(torch.int32)
-        if moving:
-            hit = _moving_reach_gate(bcells, bodies, moving, wsh, h)
-            jbody = torch.where(hit, 2, jbody).to(torch.int32)
-        return (torch.zeros((1, wpad, 4), dtype=torch.float32, device=dev),
-                jbody, static_desc, moving)
-    if cfg.sparse:
-        # Every collider at the active slots' nodes, every substep.
-        static_chan = _sparse_chan_grid(bodies, meshes, cfg, act)
-    elif static_chan is None:
-        # Dense (no never-moving collider, or a mesh): every collider in the
-        # tiles, the static slots' triple of the frame merged in.
-        static_chan = _cdf_chan_grid(*_node_cdf_full(bodies, cfg, static_cdf, meshes),
-                                     grid_rows, int(np.prod(bk.block_shape(3, cfg.by))))
-        static_desc, moving = (), ()
+        for level, desc in ((1, plan.static_desc), (1, plan.alldesc), (2, plan.moving)):
+            if desc:
+                hit = _moving_reach_gate(bcells, bodies, desc, wsh, h)
+                jbody = torch.where(hit, level, jbody).to(torch.int32)
+        return torch.zeros((1, wpad, 4), dtype=torch.float32, device=dev), jbody
+    if plan.mode == "sparse":
+        chan = _sparse_chan_grid(bodies, meshes, cfg, ph["act"])
+    elif plan.mode == "dense":
+        chan = _cdf_chan_grid(*_node_cdf_full(bodies, cfg, static_cdf, meshes),
+                              ph["grid_rows"], _block_size(cfg))
+    else:
+        chan = static_chan
     with tracing.span("mpm.gather_nodes", device=dev.type == "cuda"):
-        ntiles = bk.gather_tiles(static_chan, src, wpad, 4)
-    jbody = _jbody_gate(ntiles, wvol, cfg.static_slots)
-    if moving:
-        # Gathered hybrid: moving colliders possibly in reach force level 2.
+        ntiles = bk.gather_tiles(chan, ph["src"], wpad, 4)
+    jbody = _jbody_gate(ntiles, wvol, cfg.static_slots if dim == 3 else None)
+    if plan.moving:
         with tracing.span("mpm.moving_gate"):
-            gate = _moving_reach_gate(bcells, bodies, moving, wsh, h)
+            gate = _moving_reach_gate(bcells, bodies, plan.moving, wsh, h)
         jbody = torch.maximum(jbody, torch.where(gate, 2, 0).to(torch.int32))
-    return ntiles, jbody, static_desc, moving
+    return ntiles, jbody
 
 
 def _scatter(mm, ph, cfg: MpmConfig):
@@ -894,7 +925,7 @@ def _scatter(mm, ph, cfg: MpmConfig):
     pull = cuda and not cfg.sparse
     tracing.count("scatter.pull", int(pull))
     dim = cfg.grid.dim
-    shape = (ph["grid_rows"] + 1, int(np.prod(bk.block_shape(dim, cfg.by))), dim + 1)
+    shape = (ph["grid_rows"] + 1, _block_size(cfg), dim + 1)
     grid_mm = (torch.empty if pull else torch.zeros)(shape, dtype=torch.float32,
                                                      device=dev)
     with tracing.span("mpm.scatter", device=cuda):
@@ -908,178 +939,136 @@ def _scatter(mm, ph, cfg: MpmConfig):
     return grid_mm
 
 
-def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
-             mtable, diag: StepDiag, record: Optional[dict] = None,
-             static_cdf=None, meshes=None, comm=None):
-    """One 3D substep on the [PCHAN, NPAD] rows (lanes >= n are padding).
-    static_cdf: the frame's node-CDF triple of the static slots, merged in
-    the dense mode; meshes: the mesh colliders of the state; comm: this
-    rank's Comm in a multi-device run (see the module docstring).
+def _p2g_3d(rows, ntiles, jbody, pcdf, btable, ph, cfg: MpmConfig, plan: _CdfPlan):
+    """3D P2G: kernel A (particle CDF and P2G; its CDF rows copied into a
+    copy of the transfer rows for G2P), or F at nc = 0: (pdata, mm, imp,
+    pcdf)."""
+    jobs, bcells, h, by, nc = (ph["jobs"], ph["bcells"], cfg.grid.cell_width, cfg.by,
+                               cfg.num_colliders)
+    if nc == 0:
+        pdata = rows[:R.NCHAN]
+        with tracing.span("mpm.p2g"):
+            mm, imp = p2g_tiles(pdata, ntiles, btable, jobs, bcells, jbody, h, by, nc)
+        return pdata, mm, imp, pcdf
+    npad = rows.shape[1]
+    pdata = rows[:R.NCHAN].clone()
+    with tracing.span("mpm.p2g"):
+        mm, imp, pcdf = p2g_cdf_tiles(pdata, ntiles, btable, jobs, bcells, jbody, h, by,
+                                      cfg.group, npad, nc, plan.moving, plan.static_desc,
+                                      plan.chan_free)
+    pdata[R.AFF] = pcdf[0, :npad]
+    pdata[R.NX:R.NZ + 1] = pcdf[2:5, :npad]
+    pdata[R.AFF_SPARE] = pcdf[5, :npad]
+    return pdata, mm, imp, pcdf
 
-    record: when a dict is given, the inputs and outputs of the five
-    kernels are stored in it (kernel checks and tests read them); under
-    fold_vel its grid_mm and ftiles hold raw momentum and mass."""
+
+def _p2g_2d(rows, ntiles, jbody, pcdf, btable, ph, cfg: MpmConfig, plan: _CdfPlan):
+    """2D P2G: kernel H on the transfer rows (kernel G patched them in the
+    CDF phase): (pdata, mm, imp, pcdf)."""
+    pdata = rows[:R2.NCHAN]
+    with tracing.span("mpm.p2g"):
+        mm, imp = p2g_tiles2d(pdata, ntiles, btable, ph["jobs"], ph["bcells"], jbody,
+                              cfg.grid.cell_width, cfg.num_colliders, plan.alldesc,
+                              plan.chan_free)
+    return pdata, mm, imp, pcdf
+
+
+def _g2p_3d(pdata, ftiles, ntiles, jbody, btable, ph, cfg: MpmConfig, plan: _CdfPlan):
+    """3D G2P: kernel B."""
+    return g2p_rows(pdata, ftiles, ntiles, btable, ph["jobs"], ph["bcells"], jbody,
+                    cfg.grid.cell_width, cfg.by, cfg.group, pdata.shape[1],
+                    cfg.num_colliders, plan.moving, plan.static_desc, plan.chan_free,
+                    cfg.fold_vel)
+
+
+def _g2p_2d(pdata, ftiles, ntiles, jbody, btable, ph, cfg: MpmConfig, plan: _CdfPlan):
+    """2D G2P: kernel I."""
+    return g2p_rows2d(pdata, ftiles, ntiles, btable, ph["jobs"], ph["bcells"], jbody,
+                      cfg.grid.cell_width, cfg.group, pdata.shape[1], cfg.num_colliders,
+                      plan.alldesc, plan.chan_free, cfg.fold_vel)
+
+
+def _substep(rows_all, bodies, params, cfg: MpmConfig, n: int, plan: _CdfPlan,
+             static_chan, static_cdf, mtable, diag: StepDiag,
+             record: Optional[dict] = None, meshes=None, comm=None):
+    """One kernel-path substep, 3D or 2D, on the [PCHAN, NPAD] rows (lanes >=
+    n are padding) in plan's CDF mode.  static_chan, static_cdf: the frame's
+    hoist (`_hoist`); meshes: the state's mesh colliders; comm: this rank's
+    Comm in a multi-device run (see the module docstring).
+
+    record: when a dict is given, the kernels' inputs and outputs are stored
+    in it (kernel checks and tests read them), with plan's descriptors (3D
+    moving and static_desc, 2D alldesc); in 2D its rows are kernel G's
+    input, cloned before G patched them in place; under fold_vel its
+    grid_mm and ftiles hold raw momentum and mass."""
     grid = cfg.grid
-    by, group, nc = cfg.by, cfg.group, cfg.num_colliders
-    h = grid.cell_width
-    wpad = R.window_geom(by)[2]
+    dim, nc, h = grid.dim, cfg.num_colliders, grid.cell_width
+    # The steps that differ with the dimension, looked up at each call (a
+    # check may bind a plain version in a kernel entry's place).
+    if dim == 3:
+        p2g, g2p, update = _p2g_3d, _g2p_3d, update_rows
+    else:
+        p2g, g2p, update = _p2g_2d, _g2p_2d, update_rows2d
+    wpad = _window(cfg)[2]
     npad = rows_all.shape[1]
     dev = rows_all.device
     cuda = dev.type == "cuda"
     bodies = body_mod.update_world_mass_properties(bodies)
     with tracing.span("mpm.jobs"):
         ph = _job_phase(rows_all, cfg, n, diag, comm)
-    rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
-    grid_rows = ph["grid_rows"]
-    static_desc, moving = _cdf_mode(cfg)
-    chan_free = cfg.cdf_chan_free
+    rows_all, jobs = ph["rows"], ph["jobs"]
     btable = _body_table(bodies, params, grid)
+    pcdf = None
     if nc > 0:
-        # Particle CDF + P2G against the node tiles, colliders evaluated
-        # in-kernel where the mode and the gate say so.
-        pdata = rows_all[:R.NCHAN].clone()
         with tracing.span("mpm.cdf"):
-            ntiles, jbody, static_desc, moving = _cdf_phase_3d(
-                bodies, cfg, static_chan, src, bcells, grid_rows, static_cdf, meshes,
-                ph.get("act"))
-        if moving and not chan_free and tracing.active():
+            ntiles, jbody = _cdf_phase(bodies, cfg, plan, ph, static_chan, static_cdf,
+                                       meshes)
+            if dim == 2:
+                if record is not None:
+                    ph["rows"] = rows_all.clone()   # kernel G's input, for the record
+                # Kernel G patches rows AFF..AFF_SPARE (aff low, normal xy, aff
+                # high) of the fresh sorted rows in place with the particle CDF
+                # for P2G and G2P; kernel C reads none of them from rows_all.
+                pcdf = pcdf_rows2d(rows_all, ntiles, jobs, ph["bcells"], jbody, h,
+                                   cfg.group, npad, nc, btable, plan.alldesc,
+                                   plan.chan_free)
+        if plan.mode == "gathered" and plan.moving and tracing.active():
             # The gathered-hybrid mode's live jobs at gate level 2, where A
             # and B evaluate the moving colliders: a fresh 0-d sum, which
             # keeps no larger tensor alive until the tracer reads it.
             tracing.count("jobs.moving", ((jbody == 2) & (jobs["len"] > 0)).sum())
-        with tracing.span("mpm.p2g"):
-            mm, imp, pcdf = p2g_cdf_tiles(pdata, ntiles, btable, jobs, bcells, jbody,
-                                          h, by, group, npad, nc, moving,
-                                          static_desc, chan_free)
-        pdata[R.AFF] = pcdf[0, :npad]
-        pdata[R.NX:R.NZ + 1] = pcdf[2:5, :npad]
-        pdata[R.AFF_SPARE] = pcdf[5, :npad]
     else:
-        # No collider: plain APIC P2G (kernel F), no particle CDF.
-        pdata = rows_all[:R.NCHAN]
+        # No collider: no particle CDF, the kernels at nc = 0.
         ntiles, jbody, pcdf = _collider_free_inputs(wpad, jobs, npad, dev)
-        with tracing.span("mpm.p2g"):
-            mm, imp = p2g_tiles(pdata, ntiles, btable, jobs, bcells, jbody, h, by,
-                                nc)
+    pdata, mm, imp, pcdf = p2g(rows_all, ntiles, jbody, pcdf, btable, ph, cfg, plan)
     grid_mm = _scatter(mm, ph, cfg)
-    lin_imp = imp[0, 0:3, :bodies.count].T
-    ang_imp = imp[0, 3:6, :bodies.count].T
+    # The impulse rows (linear, then angular): kernel A's or F's one block in
+    # 3D; in 2D the jobs' blocks in one fixed-order reduction (_split_impulses).
+    imp_rows = imp[0] if dim == 3 else imp.sum(0)
+    lin_imp = imp_rows[0:dim, :bodies.count].T
+    ang_imp = imp_rows[dim:dim + (3 if dim == 3 else 1), :bodies.count].T
     if comm is not None:
         grid_mm, lin_imp, ang_imp = _exchange(grid_mm, lin_imp, ang_imp, ph, cfg,
                                               comm, diag)
 
     # Grid velocity (or folded into G2P), G2P, particle update, bodies.
     if not cfg.fold_vel:
-        grid_mm[..., :3] = _grid_velocity(grid_mm, params, grid)
+        grid_mm[..., :dim] = _grid_velocity(grid_mm, params, grid)
     with tracing.span("mpm.gather_grid", device=cuda):
-        ftiles = bk.gather_tiles(grid_mm, src, wpad, 4)
+        ftiles = bk.gather_tiles(grid_mm, ph["src"], wpad, 4)
     with tracing.span("mpm.g2p"):
-        krows = g2p_rows(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, h, by,
-                         group, npad, nc, moving, static_desc, chan_free,
-                         cfg.fold_vel)
+        krows = g2p(pdata, ftiles, ntiles, jbody, btable, ph, cfg, plan)
     with tracing.span("mpm.update"):
-        rows_out = update_rows(rows_all, krows, pcdf, ph["sorted_ids"],
-                               ph["covered_end"], btable, mtable, params.dt, h, nc,
-                               max(cfg.n_materials, 1), ph["live_below"],
-                               cfg.elastic_model)
+        rows_out = update(rows_all, krows, pcdf, ph["sorted_ids"], ph["covered_end"],
+                          btable, mtable, params.dt, h, nc, max(cfg.n_materials, 1),
+                          ph["live_below"], cfg.elastic_model)
     if record is not None:
-        record.update(ph, jbody=jbody, ntiles=ntiles, btable=btable,
-                      moving=moving, static_desc=static_desc,
-                      chan_free=chan_free, fold_vel=cfg.fold_vel,
-                      pdata=pdata, mm=mm, imp=imp, pcdf=pcdf, ftiles=ftiles,
-                      krows=krows, mtable=mtable, rows_out=rows_out,
-                      grid_mm=grid_mm)
-    with tracing.span("mpm.rigid"):
-        bodies = rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg)
-    return rows_out, bodies
-
-
-def _substep_2d(rows_all, bodies, params, cfg: MpmConfig, n: int, static_chan,
-                mtable, diag: StepDiag, record: Optional[dict] = None,
-                static_cdf=None, meshes=None, comm=None):
-    """One 2D substep on the [32, NPAD] rows (the gathered, dense,
-    chan-free and collider-free branches of the JAX package's
-    _substep_pallas_rows_2d): in chan-free mode the kernels evaluate every
-    collider at the windows of the jobs a reach test gates; else
-    static_chan, the frame's channel grid when every collider is static;
-    else the node CDF is evaluated on the whole grid, the moving analytic
-    colliders and the mesh pass of meshes merged with static_cdf (the
-    frame's static part, None when no collider is static).  The kernels
-    take the analytic colliders in the chan-free mode and none in the
-    others, where they read only the tiles.  record: as for _substep (the
-    2D kernels' inputs and outputs; its rows are kernel G's input, cloned
-    before G patched them in place into pdata); comm: as for _substep."""
-    grid = cfg.grid
-    group, nc = cfg.group, cfg.num_colliders
-    h = grid.cell_width
-    npad = rows_all.shape[1]
-    dev = rows_all.device
-    cuda = dev.type == "cuda"
-    bodies = body_mod.update_world_mass_properties(bodies)
-    with tracing.span("mpm.jobs"):
-        ph = _job_phase(rows_all, cfg, n, diag, comm)
-    rows_all, jobs, bcells, src = ph["rows"], ph["jobs"], ph["bcells"], ph["src"]
-    nb_total = ph["grid_rows"]
-    btable = _body_table_2d(bodies, params, grid)
-    chan_free = cfg.cdf_chan_free
-    alldesc = tuple(sorted(sum(_cdf_mode(cfg), ()))) if chan_free else ()
-    if nc > 0:
-        with tracing.span("mpm.cdf"):
-            if chan_free:
-                # No tiles: one gate level where any collider may be in reach.
-                jbody = _moving_reach_gate(bcells, bodies, alldesc, R2.WSH,
-                                           h).to(torch.int32)
-                ntiles = torch.zeros((1, R2.WPAD, 4), dtype=torch.float32, device=dev)
-            else:
-                if static_chan is None:
-                    # Dense: a collider moves; G, H and I read the same channels.
-                    static_chan = _cdf_chan_grid(
-                        *_node_cdf_full(bodies, cfg, static_cdf, meshes), nb_total, 64)
-                with tracing.span("mpm.gather_nodes", device=cuda):
-                    ntiles = bk.gather_tiles(static_chan, src, R2.WPAD, 4)
-                jbody = _jbody_gate(ntiles, R2.WVOL)
-            if record is not None:
-                ph["rows"] = rows_all.clone()   # kernel G's input, for the record
-            # Kernel G patches rows AFF..AFF_SPARE (aff low, normal xy, aff
-            # high) of the fresh sorted rows in place with the particle CDF
-            # for P2G and G2P; kernel C reads none of them from rows_all.
-            pcdf = pcdf_rows2d(rows_all, ntiles, jobs, bcells, jbody, h, group,
-                               npad, nc, btable, alldesc, chan_free)
-    else:
-        # No collider: no particle CDF (kernel G), H and I at nc = 0.
-        ntiles, jbody, pcdf = _collider_free_inputs(R2.WPAD, jobs, npad, dev)
-    pdata = rows_all[:R2.NCHAN]
-    with tracing.span("mpm.p2g"):
-        mm, imp = p2g_tiles2d(pdata, ntiles, btable, jobs, bcells, jbody, h, nc,
-                              alldesc, chan_free)
-    grid_mm = _scatter(mm, ph, cfg)
-    # The jobs' impulses in one fixed-order reduction (_split_impulses).
-    imp_sum = imp.sum(0)
-    lin_imp = imp_sum[0:2, :bodies.count].T
-    ang_imp = imp_sum[2:3, :bodies.count].T
-    if comm is not None:
-        grid_mm, lin_imp, ang_imp = _exchange(grid_mm, lin_imp, ang_imp, ph, cfg,
-                                              comm, diag)
-
-    if not cfg.fold_vel:
-        grid_mm[..., :2] = _grid_velocity(grid_mm, params, grid)
-    with tracing.span("mpm.gather_grid", device=cuda):
-        ftiles = bk.gather_tiles(grid_mm, src, R2.WPAD, 4)
-    with tracing.span("mpm.g2p"):
-        krows = g2p_rows2d(pdata, ftiles, ntiles, btable, jobs, bcells, jbody, h,
-                           group, npad, nc, alldesc, chan_free, cfg.fold_vel)
-    with tracing.span("mpm.update"):
-        rows_out = update_rows2d(rows_all, krows, pcdf, ph["sorted_ids"],
-                                 ph["covered_end"], btable, mtable, params.dt, h, nc,
-                                 max(cfg.n_materials, 1), nb_total,
-                                 cfg.elastic_model)
-    if record is not None:
-        record.update(ph, jbody=jbody, ntiles=ntiles, btable=btable,
-                      alldesc=alldesc, chan_free=chan_free,
-                      fold_vel=cfg.fold_vel, pdata=pdata, mm=mm, imp=imp,
-                      pcdf=pcdf, ftiles=ftiles,
-                      krows=krows, mtable=mtable, rows_out=rows_out,
-                      grid_mm=grid_mm)
+        descs = (dict(moving=plan.moving, static_desc=plan.static_desc) if dim == 3
+                 else dict(alldesc=plan.alldesc))
+        record.update(ph, jbody=jbody, ntiles=ntiles, btable=btable, **descs,
+                      chan_free=plan.chan_free, fold_vel=cfg.fold_vel, pdata=pdata,
+                      mm=mm, imp=imp, pcdf=pcdf, ftiles=ftiles, krows=krows,
+                      mtable=mtable, rows_out=rows_out, grid_mm=grid_mm)
     with tracing.span("mpm.rigid"):
         bodies = rigid_bodies_update(bodies, lin_imp, ang_imp, params, cfg)
     return rows_out, bodies
@@ -1150,7 +1139,7 @@ def _substep_dense(rows, bodies, params, cfg: MpmConfig, n: int, n_t, zero_ids,
     if cfg.transfer == "blocked":
         rows, jobs = _sort_phase(rows, cfg, n)
         live = live_end(jobs)
-    btable = (_body_table if d == 3 else _body_table_2d)(bodies, params, grid)
+    btable = _body_table(bodies, params, grid)
     node_dist = node_aff = node_closest = None
     if nc > 0:
         node_dist, node_aff, node_closest = _dense_node_cdf(bodies, cfg, meshes)
@@ -1241,38 +1230,33 @@ def substep_blocked(state: SimState, params: SimulationParams, cfg: MpmConfig,
     return step_dense(state, params, _dense_config(cfg, "blocked"), 1, comm=comm)
 
 
-def _hoist(bodies, cfg: MpmConfig):
-    """The frame hoist of the static colliders: (channel grid or None,
-    node CDF triple), from the frame's bodies."""
+def _hoist(bodies, cfg: MpmConfig, plan: _CdfPlan):
+    """The frame hoist of the static colliders as plan says, from the
+    frame's bodies: (channel grid or None, node-CDF triple or None)."""
+    if not plan.hoist:
+        return None, None
     static_cdf = _node_cdf_static(bodies, cfg)
-    dim = cfg.grid.dim
-    if cfg.mesh_cids or (dim == 2 and len(cfg.static_slots) != cfg.num_colliders):
+    if plan.hoist == "triple":
         return None, static_cdf
     nb_total = int(np.prod(bk.num_blocks(cfg.grid, cfg.by)))
-    return _cdf_chan_grid(*static_cdf, nb_total,
-                          int(np.prod(bk.block_shape(dim, cfg.by)))), static_cdf
+    return _cdf_chan_grid(*static_cdf, nb_total, _block_size(cfg)), static_cdf
 
 
 def _substeps(cfg: MpmConfig, n: int, num_substeps: int, dt: float, record, comm,
-              hoist: bool, rows, bodies, gravity, mtable, meshes):
+              plan: _CdfPlan, rows, bodies, gravity, mtable, meshes):
     """The hoist and the substep loop of a kernel-path frame on the packed
     rows: (rows, bodies, StepDiag).  Its tensors come last, in the order
     _frame_graph copies them; the hoist is part of what a frame graph
     replays, so a replayed frame issues it with the substeps."""
-    static_chan = static_cdf = None
-    # Span "mpm.hoist" in every frame: empty where nothing is hoisted
-    # (no analytic static collider, substep_pallas, chan-free, sparse).
+    # Span "mpm.hoist" in every frame: empty where plan hoists nothing.
     with tracing.span("mpm.hoist", device=rows.device.type == "cuda"):
-        if hoist:
-            static_chan, static_cdf = _hoist(bodies, cfg)
-    substep = _substep if cfg.grid.dim == 3 else _substep_2d
+        static_chan, static_cdf = _hoist(bodies, cfg, plan)
     params = SimulationParams(dt=dt, gravity=gravity)
     diag = StepDiag.zeros(rows.device)
     for _ in range(num_substeps):
         with tracing.span(tracing.SUBSTEP):
-            rows, bodies = substep(rows, bodies, params, cfg, n, static_chan, mtable,
-                                   diag, record, static_cdf=static_cdf, meshes=meshes,
-                                   comm=comm)
+            rows, bodies = _substep(rows, bodies, params, cfg, n, plan, static_chan,
+                                    static_cdf, mtable, diag, record, meshes, comm)
     return rows, bodies, diag
 
 
@@ -1436,16 +1420,14 @@ def _frame_pallas(state: SimState, params: SimulationParams, cfg: MpmConfig,
     with tracing.span(tracing.FRAME):
         with tracing.span("mpm.pack"):
             rows = L.pack_rows_padded(state.particles, state.models, npad)
-        # The frame hoist of the static colliders (none in the sparse
-        # domain, whose nodes change with the active table).
-        hoist = bool(hoist and cfg.static_slots and not cfg.cdf_chan_free and not cfg.sparse)
+        plan = _cdf_plan(cfg, hoist)
         loop = functools.partial(_substeps, cfg, n, num_substeps, params.dt, record, comm,
-                                 hoist)
+                                 plan)
         args = (rows, state.bodies, params.gravity, state.models.mat_table, state.meshes)
         reason = frame_graph_reason(rows.device, record, comm)
         if reason is None:
             leaves = _leaves(args)
-            key = (cfg, num_substeps, n, hoist, params.dt, rows.device,
+            key = (cfg, num_substeps, n, bool(plan.hoist), params.dt, rows.device,
                    tuple(a is None for a in args),
                    tuple((tuple(t.shape), t.dtype) for t in leaves))
             rows, bodies, diag = _frame_graph(loop, args, leaves, key)
